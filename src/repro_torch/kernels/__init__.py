@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper — the CMSIS-NN vendor-library
+analogue (paper §4.7–4.8).  Importing the package registers the
+``tag="cuda"`` implementations with the port's op registry (``ops.py``);
+``ref.py`` holds the plain PyTorch version every kernel is held against.
+
+Kernels (each: ``<name>.py`` launcher with its ``launches`` count +
+``csrc/<name>.cu``, built with nvcc for sm_90a at first use by
+``_build.py``):
+
+  * quant_matmul     — K1, int8 matmul + requant (the TFLM hot spot)
+  * flash_attention  — K2, causal/GQA/sliding-window prefill attention
+"""
+
+from . import ops  # noqa: F401  (registers the "cuda" tag)

@@ -1,0 +1,132 @@
+"""Kernel wrappers + the ``"cuda"`` vendor-tag registrations (micro path).
+
+This module is the "optimized kernel library" a hardware vendor ships
+(§4.7): importing it registers ``tag="cuda"`` implementations with the
+port's op registry, so a resolver built with ``tags=("cuda",
+"reference")`` swaps them in — the TAGS="cmsis-nn" build mechanism
+(§4.8), no interpreter changes.  The tag is opt-in exactly as the JAX
+package's ``"pallas"`` tag is.
+
+Each wrapper runs its kernel's plain PyTorch version (``ref.py``) only
+for tensors on the CPU; for a CUDA tensor it launches the hand-written
+kernel or raises.  There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import quantize as Q
+from repro_torch.core.micro_ops import Attention, FullyConnected
+from repro_torch.core.op_resolver import register_op
+from repro_torch.core.schema import OpCode
+
+from .flash_attention import flash_attention_cuda
+from .quant_matmul import quant_matmul_cuda
+from .ref import mha_ref, quant_matmul_ref
+
+
+# ---------------------------------------------------------------------------
+# quantized matmul
+# ---------------------------------------------------------------------------
+
+def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+                 bias_q: Optional[torch.Tensor], x_zp: int,
+                 scale: torch.Tensor, out_zp: int,
+                 wsum: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 (M,K) @ (K,N) -> int8 (M,N).  ``wsum`` (Σ_k w_q, int32) may be
+    passed in when the weight is constant."""
+    if x_q.device.type == "cpu":
+        return quant_matmul_ref(x_q, w_q, bias_q, x_zp, scale, out_zp)
+    n = w_q.shape[1]
+    if wsum is None:
+        wsum = w_q.sum(dim=0, dtype=torch.int32)
+    if bias_q is None:
+        bias_q = torch.zeros(n, dtype=torch.int32, device=x_q.device)
+    return quant_matmul_cuda(x_q.contiguous(), w_q,
+                             bias_q.to(torch.int32).contiguous(), wsum,
+                             scale.to(torch.float32).contiguous(),
+                             x_zp=int(x_zp), out_zp=int(out_zp))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,S,D), k/v (B,KH,S,D) -> (B,H,S,D)."""
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# vendor-tag registrations for the micro path (§4.8)
+# ---------------------------------------------------------------------------
+
+def _weight_scales(rs: Q.RequantSpec, nchan: int) -> np.ndarray:
+    """Recover per-channel weight scales from the requant spec: the spec
+    stores M0/shift per channel of s_in*s_w/s_out."""
+    real = (rs.multiplier.astype(np.float64) / (1 << 31)
+            * np.exp2(rs.shift.astype(np.float64)))
+    ws = real * rs.output_scale / rs.input_scale
+    if ws.shape[0] == 1 and nchan > 1:
+        ws = np.repeat(ws, nchan)
+    return ws.astype(np.float32)
+
+
+@register_op(OpCode.FULLY_CONNECTED, tag="cuda")
+class CudaFullyConnected:
+    """FC whose int8 path runs on the quant_matmul kernel (K1); float
+    runs the reference matmul.  The kernel requantizes with an f32 scale
+    where the reference uses gemmlowp's Q31 multiplier, so the two may
+    differ by 1 LSB."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        prep = FullyConnected.prepare(ctx, op)
+        d = prep.op_data
+        if "requant" in d:
+            rs: Q.RequantSpec = d["requant"]
+            nchan = ctx.tensor_spec(op.inputs[1]).shape[0]
+            real_scale = (rs.input_scale * _weight_scales(rs, nchan)
+                          / rs.output_scale)
+            d["scale_t"] = torch.as_tensor(real_scale, dtype=torch.float32,
+                                           device=ctx.device)
+            w = ctx.const_value(op.inputs[1])            # (N, K) or None
+            d["wsum_t"] = None if w is None else torch.as_tensor(
+                w.sum(axis=1, dtype=np.int32), device=ctx.device)
+        return prep
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        x, w = inputs[0], inputs[1]
+        d = ctx.op_data
+        if x.dtype != torch.int8:
+            return FullyConnected.eval(ctx, op, inputs)
+        rs: Q.RequantSpec = d["requant"]
+        bias = inputs[2] if len(inputs) > 2 else None
+        lead, nchan = x.shape[:-1], w.shape[0]
+        out = quant_matmul(x.reshape(-1, x.shape[-1]), w.T, bias,
+                           rs.input_zero_point, d["scale_t"],
+                           rs.output_zero_point, wsum=d["wsum_t"])
+        return [out.clamp(d["qmin"], d["qmax"]).reshape(*lead, nchan)]
+
+
+@register_op(OpCode.ATTENTION, tag="cuda")
+class CudaAttention:
+    """Micro ATTENTION on the flash_attention kernel (K2)."""
+
+    prepare = staticmethod(Attention.prepare)
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        q, k, v = inputs
+        return [flash_attention(q, k, v,
+                                causal=op.params.get("causal", True))]

@@ -1,0 +1,97 @@
+"""K1 — the int8 matmul CUDA kernel (the CMSIS-NN analogue, §4.7–4.8).
+
+Replaces the Pallas TPU kernel ``quant_matmul_pallas``
+(``src/repro/kernels/quant_matmul.py``): int8 (M,K) x int8 (K,N) with
+int32 accumulation, zero-point correction from precomputed column sums
+(``acc - x_zp * wsum + bias``), per-channel float32 scale, round half to
+even, ``+ out_zp``, clamp to int8 — bit for bit.
+
+Bound on the H100: at the interpreter's shapes (M = 1, K and N of a few
+hundred) launch latency; at large shapes
+``max(bytes / 3.35 TB/s, 2MNK / 1979 TOPS)``.  The kernel
+(``csrc/quant_matmul.cu``) is the simple first version — one block per
+64x64 output tile, shared-memory K tiles, plain int32 multiply-adds — and
+masks ragged edges itself, so no padded copies are made; the weight is
+read through its strides, so the FC layer's (N,K) weight goes in as a
+transposed view without a copy.
+
+``launches`` counts the kernel launches of this process; only
+``quant_matmul_cuda`` adds to it.  The plain version is
+``repro_torch.kernels.ref.quant_matmul_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+launches = 0
+
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = _build.load("quant_matmul").quant_matmul_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, dtype, ndim, device, contiguous=True):
+    if t.device != device or t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"quant_matmul: {name} must be a {ndim}-D {dtype} "
+                         f"tensor on {device}, got {t.dim()}-D {t.dtype} "
+                         f"on {t.device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"quant_matmul: {name} must be contiguous")
+
+
+def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
+                      bias_q: torch.Tensor, wsum: torch.Tensor,
+                      scale: torch.Tensor, *, x_zp: int,
+                      out_zp: int) -> torch.Tensor:
+    """x_q (M,K) int8 · w_q (K,N) int8 → int8 (M,N) on the card.
+
+    bias_q and wsum (= Σ_k w_q) are (N,) int32, scale (N,) float32; w_q
+    may be any strided view.  Raises on anything the kernel does not
+    take, and when the launch fails."""
+    global launches
+    if x_q.device.type != "cuda":
+        raise ValueError(f"quant_matmul_cuda needs CUDA tensors, got "
+                         f"{x_q.device}")
+    dev = x_q.device
+    _check("x_q", x_q, torch.int8, 2, dev)
+    _check("w_q", w_q, torch.int8, 2, dev, contiguous=False)
+    m, k = x_q.shape
+    k2, n = w_q.shape
+    if k2 != k:
+        raise ValueError(f"quant_matmul: {tuple(x_q.shape)} @ "
+                         f"{tuple(w_q.shape)}")
+    for name, t, dt in (("bias_q", bias_q, torch.int32),
+                        ("wsum", wsum, torch.int32),
+                        ("scale", scale, torch.float32)):
+        _check(name, t, dt, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"quant_matmul: {name} has {t.shape[0]} "
+                             f"entries for N={n}")
+    out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    if m == 0 or n == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _launcher()(
+            x_q.data_ptr(), w_q.data_ptr(), bias_q.data_ptr(),
+            wsum.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
+            w_q.stride(0), w_q.stride(1), int(x_zp), int(out_zp),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return out

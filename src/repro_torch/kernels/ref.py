@@ -1,0 +1,70 @@
+"""Plain PyTorch versions of the ported kernels.
+
+These are the "reference kernels" in the paper's sense (§4.7: readable,
+portable, correctness-first), the counterparts of ``repro.kernels.ref``.
+Each kernel's wrapper uses the function here for a tensor on the CPU,
+and the checks on the card hold the CUDA kernel against it on the same
+inputs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+# ---------------------------------------------------------------------------
+# quantized matmul (the CMSIS-NN FC/conv-core analogue)
+# ---------------------------------------------------------------------------
+
+def quant_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                     bias_q: Optional[torch.Tensor], x_zp: int,
+                     scale: torch.Tensor, out_zp: int) -> torch.Tensor:
+    """int8 (M,K) @ int8 (K,N) -> int8 (M,N).
+
+    acc = sum_k (x - x_zp) * w + bias;  out = clip(round(acc*scale)+zp).
+    ``scale`` is f32 per output channel (s_x*s_w[n]/s_out).  The integer
+    product is taken in float64 (exact for any K below 2^38 here) because
+    torch has no int32 matmul on the card; round is half-to-even.
+    """
+    acc = torch.matmul(x_q.to(torch.float64) - x_zp, w_q.to(torch.float64))
+    acc = acc.to(torch.int32)
+    if bias_q is not None:
+        acc = acc + bias_q.to(torch.int32)[None, :]
+    out = torch.round(acc.to(torch.float32) * scale[None, :]) + out_zp
+    return out.clamp(-128, 127).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill) — causal, GQA, optional sliding window
+# ---------------------------------------------------------------------------
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, window: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, KH, S, D) with H % KH == 0 (GQA).
+
+    window=W restricts key j to q position i: i - W < j <= i.  Math is
+    f32 and the result has q's dtype.  A row with no valid key outputs 0,
+    as the flash kernels do (a plain softmax would give NaN there).
+    """
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    kx = k.repeat_interleave(group, dim=1).to(torch.float32)
+    vx = v.repeat_interleave(group, dim=1).to(torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kx) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    logits = logits.masked_fill(~mask, -math.inf)
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(mask.any(dim=-1)[:, None], w, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vx).to(q.dtype)

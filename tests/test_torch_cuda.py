@@ -1,0 +1,121 @@
+"""The port's CUDA kernels on the card, each held against its plain
+PyTorch version on the same inputs, and the interpreter on the card held
+against the CPU reference.  Every test here is marked ``cuda`` and skips
+without a card; this module imports no jax, so it also runs where only
+the port is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps.models import (build_fc_stack, build_vww,
+                                     representative_dataset)
+from repro_torch.core import (AllOpsResolver, MicroInterpreter, MicroModel,
+                              export)
+from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quant_matmul as K1
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 256, 2), (1, 64, 32), (1, 16, 10),
+                                   (8, 64, 32), (3, 300, 7), (64, 128, 96),
+                                   (300, 1000, 520)])
+def test_quant_matmul_kernel_equals_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
+    bias = torch.from_numpy(rng.integers(-500, 500, n, dtype=np.int32))
+    scale = torch.from_numpy(rng.uniform(1e-4, 5e-3, n).astype(np.float32))
+    x_zp, out_zp = (int(v) for v in rng.integers(-128, 128, 2))
+    want = ref.quant_matmul_ref(x, w, bias, x_zp, scale, out_zp)
+    before = K1.launches
+    got = ops.quant_matmul(x.to(cuda), w.to(cuda), bias.to(cuda), x_zp,
+                           scale.to(cuda), out_zp)
+    wt = w.t().contiguous().to(cuda).t()            # a strided weight
+    got_t = ops.quant_matmul(x.to(cuda), wt, bias.to(cuda), x_zp,
+                             scale.to(cuda), out_zp)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 2
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(got_t.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
+    (2, 4, 4, 256, 64, True, None), (2, 4, 4, 256, 64, False, None),
+    (1, 8, 2, 256, 64, True, None), (1, 2, 2, 128, 32, True, 32),
+    (1, 2, 1, 128, 16, False, 40), (1, 2, 2, 64, 16, True, 0),
+    (1, 2, 1, 64, 16, False, -3), (1, 2, 1, 100, 128, True, None),
+    (1, 1, 1, 7, 8, False, None)])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kh, s, d, causal,
+                                              window):
+    g = torch.Generator().manual_seed(s + d)
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda) for shape in
+               ((b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+    want = ref.mha_ref(q, k, v, causal=causal, window=window)
+    before = K2.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_flash_attention_kernel_bf16(cuda):
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 4, 256, 64, generator=g).to(cuda,
+                                                          torch.bfloat16)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.mha_ref(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    # both round an f32 result to bfloat16 once: at most one ulp apart
+    torch.testing.assert_close(got.float(), want.float(), atol=2.0 ** -6,
+                               rtol=0)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 16, 256, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    x = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        K1.quant_matmul_cuda(x, x.t(), torch.zeros(4, dtype=torch.int32,
+                                                   device=cuda),
+                             torch.zeros(3, dtype=torch.int32, device=cuda),
+                             torch.zeros(4, device=cuda), x_zp=0, out_zp=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("build", [build_fc_stack, build_vww])
+def test_interpreter_on_card_matches_cpu_reference(cuda, build, int8):
+    gb = build()
+    blob = (export(gb, representative_dataset(gb), quantize_int8=True)
+            if int8 else export(gb))
+    model = MicroModel(blob)
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    size = MicroInterpreter.required_arena_size(model, res)
+    card = MicroInterpreter(model, res, size)
+    cpu = MicroInterpreter(model, AllOpsResolver(), size, device="cpu")
+    rng = np.random.default_rng(0)
+    before = K1.launches
+    for _ in range(3):
+        x = rng.normal(0, 1, card.input_spec(0).shape).astype(np.float32)
+        for it in (card, cpu):
+            it.set_input(0, x)
+            it.invoke()
+        np.testing.assert_allclose(card.output(0), cpu.output(0),
+                                   atol=1.5 / 256 if int8 else 1e-5)
+    assert card.shared.alloc_count == 1
+    fc = sum(op.opcode == 2 for op in model.operators)
+    assert K1.launches - before == (3 * fc if int8 else 0)

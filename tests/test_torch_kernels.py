@@ -1,0 +1,146 @@
+"""The two ported kernels on the CPU: each wrapper runs its plain PyTorch
+version there, which is held against the JAX package's oracle
+(``repro.kernels.ref``) and its Pallas kernel in interpret mode.  The
+CUDA kernels themselves are held against the plain versions in
+test_torch_cuda.py, which needs a card."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+
+from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quant_matmul as K1
+
+# f32 attention: the plain version and the JAX oracle differ only in
+# summation order (softmax then P.V in f32) — 2e-6 on O(1) outputs
+ATTN_TOL = 2e-6
+
+
+def _qmm_case(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (m, k), dtype=np.int8)
+    w = rng.integers(-128, 128, (k, n), dtype=np.int8)
+    bias = rng.integers(-500, 500, (n,), dtype=np.int32)
+    scale = rng.uniform(1e-4, 5e-3, (n,)).astype(np.float32)
+    x_zp, out_zp = int(rng.integers(-10, 10)), int(rng.integers(-10, 10))
+    return x, w, bias, scale, x_zp, out_zp
+
+
+# the interpreter's FC shapes (vww, fc_stack, conv_reference), a bigger
+# block and ragged edges in every dimension
+QMM_SHAPES = [(1, 256, 2), (1, 64, 32), (1, 32, 8), (1, 16, 10),
+              (8, 64, 32), (100, 96, 40), (3, 300, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_quant_matmul_plain_matches_jax_ref_and_pallas(m, k, n):
+    x, w, bias, scale, x_zp, out_zp = _qmm_case(m, k, n, m * 1000 + k + n)
+    got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                           torch.from_numpy(bias), x_zp,
+                           torch.from_numpy(scale), out_zp).numpy()
+    jargs = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), x_zp,
+             jnp.asarray(scale), out_zp)
+    np.testing.assert_array_equal(got, np.asarray(jax_ref.quant_matmul_ref(
+        *jargs)))
+    np.testing.assert_array_equal(got, np.asarray(jax_ops.quant_matmul(
+        *jargs, interpret=True)))
+
+
+def test_quant_matmul_plain_no_bias_and_transposed_weight():
+    x, w, _, scale, x_zp, out_zp = _qmm_case(16, 32, 16, 0)
+    want = np.asarray(jax_ref.quant_matmul_ref(
+        jnp.asarray(x), jnp.asarray(w), None, x_zp, jnp.asarray(scale),
+        out_zp))
+    wt = torch.from_numpy(np.ascontiguousarray(w.T)).T      # strided view
+    got = ops.quant_matmul(torch.from_numpy(x), wt, None, x_zp,
+                           torch.from_numpy(scale), out_zp)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _attn_case(b, h, kh, s, d, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(0, 1, shape).astype(dtype)
+                 for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+
+
+def _valid_rows(s, causal, window):
+    qi, kj = np.arange(s)[:, None], np.arange(s)[None, :]
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    return mask.any(axis=1)
+
+
+# (b, h, kh, s, d, causal, window): causal and not, GQA, sliding
+# windows, and windows that leave rows with no valid key at all
+ATTN_CASES = [
+    (1, 2, 2, 128, 32, True, None),
+    (2, 4, 2, 128, 64, True, None),
+    (1, 4, 1, 64, 16, False, None),
+    (1, 2, 2, 128, 32, True, 32),
+    (1, 2, 1, 128, 16, False, 40),
+    (1, 2, 2, 64, 16, True, 0),           # every row fully masked
+    (1, 2, 1, 64, 16, False, -3),         # the last 4 rows fully masked
+]
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", ATTN_CASES)
+def test_flash_attention_plain_matches_jax(b, h, kh, s, d, causal, window):
+    q, k, v = _attn_case(b, h, kh, s, d, seed=s + d + h)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, window=window).numpy()
+    jq = tuple(map(jnp.asarray, (q, k, v)))
+    pallas = np.asarray(jax_ops.flash_attention(
+        *jq, causal=causal, window=window, interpret=True))
+    oracle = np.asarray(jax_ref.mha_ref(*jq, causal=causal, window=window))
+    rows = _valid_rows(s, causal, window)
+    # rows with no valid key: 0 from the plain version and the Pallas
+    # kernel (the JAX oracle's plain softmax gives NaN there)
+    np.testing.assert_array_equal(got[:, :, ~rows], 0.0)
+    np.testing.assert_allclose(got, pallas, atol=ATTN_TOL, rtol=ATTN_TOL)
+    np.testing.assert_allclose(got[:, :, rows], oracle[:, :, rows],
+                               atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+def test_flash_attention_plain_bf16_keeps_dtype():
+    q, k, v = _attn_case(1, 2, 1, 64, 32, seed=3)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = ops.flash_attention(*t, causal=True)
+    assert got.dtype == torch.bfloat16
+    want = ref.mha_ref(*[a.float() for a in t], causal=True)
+    # one bfloat16 rounding of an f32 result: half an ulp, 2^-8 relative
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=2 ** -8, atol=1e-6)
+
+
+def test_flash_attention_plain_explicit_scale():
+    q, k, v = _attn_case(1, 2, 2, 64, 16, seed=9)
+    jq = tuple(map(jnp.asarray, (q, k, v)))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              scale=0.5 / math.sqrt(16)).numpy()
+    want = np.asarray(jax_ref.mha_ref(*jq, scale=0.5 / math.sqrt(16)))
+    np.testing.assert_allclose(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    """The kernel launchers never run a plain version: a CPU tensor is an
+    error, and no launch is counted."""
+    x, w, bias, scale, x_zp, out_zp = _qmm_case(4, 16, 8, 1)
+    before = (K1.launches, K2.launches)
+    with pytest.raises(ValueError):
+        K1.quant_matmul_cuda(*map(torch.from_numpy, (x, w, bias,
+                                                      bias, scale)),
+                             x_zp=x_zp, out_zp=out_zp)
+    q = torch.zeros(1, 1, 8, 8)
+    with pytest.raises(ValueError):
+        K2.flash_attention_cuda(q, q, q)
+    assert (K1.launches, K2.launches) == before
