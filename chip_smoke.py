@@ -13,9 +13,11 @@ Phases — any failure raises and the script exits non-zero:
      builds every kernel from ``src/repro_torch/kernels/csrc`` (timed).
   2. each kernel against its plain version on the card: K1 quant_matmul
      at the interpreter's FC shapes and two larger ones (outputs equal
-     exactly), K2 flash_attention causal, non-causal, GQA, sliding window
-     (float32 within 1e-5) and bfloat16; kernel, plain and library times
-     from CUDA events, and the card's least possible time (the bound).
+     exactly, with the weight both as a (K, N) tensor and as the
+     transposed view of an (N, K) one that the FC layer passes), K2
+     flash_attention causal, non-causal, GQA, sliding window (float32
+     within 1e-5) and bfloat16; kernel, plain and library times from CUDA
+     events, and the card's least possible time (the bound).
   3. the main path, with every launch count set to 0 just before it:
      ``MicroInterpreter(..., AllOpsResolver(tags=("cuda", "reference")),
      device="cuda")`` answers 8 requests on each of conv_reference,
@@ -135,16 +137,24 @@ def check_quant_matmul(torch, np, dev):
         x_zp, out_zp = (int(v) for v in rng.integers(-128, 128, 2))
         x, w, bias, scale = (t.to(dev) for t in (x, w, bias, scale))
         wsum = w.sum(dim=0, dtype=torch.int32)
-        got = ops.quant_matmul(x, w, bias, x_zp, scale, out_zp)
+        # the FC layer's weight is (N, K); it reaches the kernel as the
+        # transposed view, which takes the kernel's other load branch
+        w_nk_t = w.t().contiguous().t()
         want = ref.quant_matmul_ref(x, w, bias, x_zp, scale, out_zp)
-        torch.cuda.synchronize()
-        err = (got.int() - want.int()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 {m}x{k}x{n}: kernel differs from the "
-                                 f"plain version by up to {err}")
+        err = 0
+        for layout, wl in (("(K,N)", w), ("(N,K).T", w_nk_t)):
+            got = ops.quant_matmul(x, wl, bias, x_zp, scale, out_zp)
+            torch.cuda.synchronize()
+            err = max(err, (got.int() - want.int()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {m}x{k}x{n} weight {layout}: kernel "
+                                     f"differs from the plain version by up "
+                                     f"to {err}")
         row = {"shape": [m, k, n], "max_abs_err": err, "library_ms": None}
         row["ms"], row["call_ms"] = time_ms(torch, lambda: quant_matmul_cuda(
             x, w, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
+        row["ms_weight_nk_t"], _ = time_ms(torch, lambda: quant_matmul_cuda(
+            x, w_nk_t, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
             torch, lambda: ref.quant_matmul_ref(x, w, bias, x_zp, scale,
                                                 out_zp))
@@ -165,7 +175,9 @@ def check_quant_matmul(torch, np, dev):
             row["library_ms"], _ = time_ms(torch, library)
             row["library"] = "torch._int_mm + torch epilogue"
         rows.append(row)
-        log(f"  K1 {m:>4}x{k:<5}x{n:<4} equal; " + _times(row))
+        log(f"  K1 {m:>4}x{k:<5}x{n:<4} equal in both weight layouts; "
+            + _times(row) + f"  (N,K).T weight "
+            f"{row['ms_weight_nk_t'] * 1e3:.2f} us")
     return rows
 
 
@@ -217,15 +229,26 @@ def check_flash_attention(torch, np, dev):
             item * (2 * b * h * s * d + 2 * b * kh * s * d),
             4 * b * h * d * _valid_pairs(s, causal, window),
             H100_F32_OPS_PER_S if dt == torch.float32 else 989e12)
-        if window is None and h == kh:
-            def library():
-                return F.scaled_dot_product_attention(q, k, v,
-                                                      is_causal=causal)
-            lib_err = (library().float() - want.float()).abs().max().item()
-            if lib_err > 10 * tol:
-                raise AssertionError(f"K2 yardstick disagrees by {lib_err}")
-            row["library_ms"], _ = time_ms(torch, library)
-            row["library"] = "torch.nn.functional.scaled_dot_product_attention"
+        # the yardstick: one SDPA call, with GQA through enable_gqa and a
+        # window through a boolean mask made once, outside the timing
+        lib_kw = {"enable_gqa": True} if h != kh else {}
+        if window is None:
+            lib_kw["is_causal"] = causal
+        else:
+            i = torch.arange(s, device=dev)
+            mask = i[None, :] > i[:, None] - window
+            if causal:
+                mask &= i[None, :] <= i[:, None]
+            lib_kw["attn_mask"] = mask
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, **lib_kw)
+        lib_err = (library().float() - want.float()).abs().max().item()
+        if lib_err > 10 * tol:
+            raise AssertionError(f"K2 yardstick disagrees by {lib_err}")
+        row["library_ms"], _ = time_ms(torch, library)
+        row["library"] = ("torch.nn.functional.scaled_dot_product_attention"
+                          + "".join(f" {key}" for key in lib_kw))
         rows.append(row)
         log(f"  K2 {(b, h, kh, s, d)} causal={causal} window={window} "
             f"{row['dtype']}: err {err:.3g}; " + _times(row))
@@ -441,11 +464,15 @@ def main() -> int:
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
+        for r in rows:                       # aliases: kernel_ms, max_err
+            r["kernel_ms"], r["max_err"] = r["ms"], r["max_abs_err"]
+        err = max(r["max_abs_err"] for r in rows
+                  if r.get("dtype", "int8") != "bfloat16")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows
-                                   if r.get("dtype", "int8") != "bfloat16"),
-                "ms": path["ms"], "plain_ms": path["plain_ms"],
+                "max_abs_err": err, "max_err": err,
+                "ms": path["ms"], "kernel_ms": path["ms"],
+                "plain_ms": path["plain_ms"],
                 "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
                 "library_ms": path["library_ms"], "shape": path["shape"],
                 "per_shape": rows}

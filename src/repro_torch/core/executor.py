@@ -175,10 +175,10 @@ class AllocationPlan:
     def build(cls, model: MicroModel, resolver: MicroMutableOpResolver,
               arena: TwoStackArena, planner: Optional[object] = None,
               prefer_offline_plan: bool = True,
-              device="cpu") -> "AllocationPlan":
+              device="cuda") -> "AllocationPlan":
         self = cls()
         self.model, self.resolver, self.arena = model, resolver, arena
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         m = model
 
         # 0. initial specs from the serialized model
@@ -269,7 +269,7 @@ def required_arena_size(model: MicroModel,
     """Probe build on a throwaway oversized arena to size the real one
     (every prepare() runs on the CPU)."""
     probe = TwoStackArena(1 << 30)
-    AllocationPlan.build(model, resolver, probe)
+    AllocationPlan.build(model, resolver, probe, device="cpu")
     return align_up(probe.usage().total + slack)
 
 
@@ -278,11 +278,13 @@ def plan_model(model: MicroModel, resolver: MicroMutableOpResolver,
                planner: Optional[object] = None,
                prefer_offline_plan: bool = True,
                host_arena: Optional[TwoStackArena] = None,
-               device="cpu") -> AllocationPlan:
+               device="cuda") -> AllocationPlan:
     """Build an AllocationPlan in a fresh self-sized arena, or — when
     ``host_arena`` is given — as a tenant of a shared arena (§4.5):
     persistents stack under the host's, the nonpersistent head section
-    is shared (fork, build, absorb)."""
+    is shared (fork, build, absorb).  ``device`` defaults to ``"cuda"``
+    and raises with no card, as ``MicroInterpreter`` does."""
+    device = resolve_device(device)
     if host_arena is not None:
         arena = host_arena.fork_tenant()
     else:
@@ -365,8 +367,8 @@ class ArenaPool:
     ``alloc_count`` stays constant — the malloc-free steady state,
     observable."""
 
-    def __init__(self, device="cpu") -> None:
-        self.device = torch.device(device)
+    def __init__(self, device="cuda") -> None:
+        self.device = resolve_device(device)
         self.nbytes = 0
         self.buf: Optional[torch.Tensor] = None
         self._taken = False

@@ -311,12 +311,12 @@ def test_plan_model_alone_and_as_a_tenant(conv_model, resolver):
     """plan_model sizes its own arena, or stacks a tenant's persistents
     under a host arena's and shares its head section (§4.5)."""
     from repro_torch.core import TwoStackArena, plan_model
-    alone = plan_model(conv_model, resolver)
+    alone = plan_model(conv_model, resolver, device="cpu")
     assert alone.arena.size == MicroInterpreter.required_arena_size(
         conv_model, resolver)
     host = TwoStackArena(1 << 20)
-    first = plan_model(conv_model, resolver, host_arena=host)
-    second = plan_model(conv_model, resolver, host_arena=host)
+    first = plan_model(conv_model, resolver, host_arena=host, device="cpu")
+    second = plan_model(conv_model, resolver, host_arena=host, device="cpu")
     assert first.tensor_offset == second.tensor_offset == alone.tensor_offset
     assert host.usage().persistent == 2 * alone.arena.usage().persistent
     assert host.usage().nonpersistent == alone.arena.usage().nonpersistent
@@ -368,6 +368,28 @@ def test_default_device_is_cuda(conv_model, resolver):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MicroInterpreter(conv_model, resolver, 1 << 20)
+
+
+@pytest.mark.parametrize("entry", ["plan_model", "AllocationPlan.build",
+                                   "ArenaPool"])
+def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
+    """The executor's own entry points default to the card too, and raise
+    without one rather than plan or allocate on the CPU."""
+    from repro_torch.core import (AllocationPlan, ArenaPool, TwoStackArena,
+                                  plan_model)
+    fn, call = {
+        "plan_model": (plan_model, lambda: plan_model(conv_model, resolver)),
+        "AllocationPlan.build": (
+            AllocationPlan.build, lambda: AllocationPlan.build(
+                conv_model, resolver, TwoStackArena(1 << 20))),
+        "ArenaPool": (ArenaPool, lambda: ArenaPool()),
+    }[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_no_source_of_the_port_names_jax_or_repro():

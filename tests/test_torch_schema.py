@@ -88,7 +88,8 @@ def test_arena_size_and_planner_offsets_match(blobs, app, int8):
     assert jax_core.MicroInterpreter.required_arena_size(mj, rj) == \
         torch_core.MicroInterpreter.required_arena_size(mt, rt)
     pj = JaxAllocationPlan.build(mj, rj, jax_core.TwoStackArena(1 << 30))
-    pt = TorchAllocationPlan.build(mt, rt, torch_core.TwoStackArena(1 << 30))
+    pt = TorchAllocationPlan.build(mt, rt, torch_core.TwoStackArena(1 << 30),
+                                   device="cpu")
     assert pj.tensor_offset == pt.tensor_offset
     assert pj.plan.total_bytes == pt.plan.total_bytes
     assert pj.scratch_bytes == pt.scratch_bytes
