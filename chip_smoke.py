@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke for the PyTorch port: the micro interpreter end to end on one
-NVIDIA GPU, with every CUDA kernel of its path held against its plain
-PyTorch version.
+"""Chip smoke for the PyTorch port: its two main paths end to end on one
+NVIDIA GPU — the micro interpreter and dense-LM serving — with every
+CUDA kernel of those paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -10,32 +10,56 @@ Run from the root of a checkout (needs one CUDA card and nvcc):
 Phases — any failure raises and the script exits non-zero:
 
   1. the card's name and power limit, torch and CUDA versions; nvcc
-     builds every kernel from ``src/repro_torch/kernels/csrc`` (timed).
+     builds every kernel from ``src/repro_torch/kernels/csrc`` (timed,
+     one nvcc per source, all at once).
   2. each kernel against its plain version on the card: K1 quant_matmul
      at the interpreter's FC shapes and two larger ones (outputs equal
      exactly, with the weight both as a (K, N) tensor and as the
      transposed view of an (N, K) one that the FC layer passes), K2
      flash_attention causal, non-causal, GQA, sliding window (float32
-     within 1e-5) and bfloat16; kernel, plain and library times from CUDA
-     events, and the card's least possible time (the bound).
-  3. the main path, with every launch count set to 0 just before it:
-     ``MicroInterpreter(..., AllOpsResolver(tags=("cuda", "reference")),
-     device="cuda")`` answers 8 requests on each of conv_reference,
-     hotword and vww (float) and conv_reference, vww and fc_stack (int8),
-     all at full width and exported by the port's own exporter from
-     seeded weights; every output is held against the same blob on a CPU
-     ``("reference",)`` interpreter.
-  4. still on the main path: a one-op ATTENTION graph (q, k, v of
+     within 1e-5) and bfloat16, K3 decode_attention at Yi-6B's and
+     Phi-3-mini's decode shapes with lengths 1, 37, 1500 and 2048 (a
+     full ring), a window, a cache length off the kernel's chunk size
+     (float32 within 1e-5, bfloat16 within ``BF16_ATOL``); kernel, plain
+     and library times from CUDA events, and the card's least possible
+     time (the bound).
+  3. the micro main path, with every launch count set to 0 just before
+     it: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
+     "reference")), device="cuda")`` answers 8 requests on each of
+     conv_reference, hotword and vww (float) and conv_reference, vww and
+     fc_stack (int8), all at full width and exported by the port's own
+     exporter from seeded weights; every output is held against the same
+     blob on a CPU ``("reference",)`` interpreter.
+  4. still on the micro path: a one-op ATTENTION graph (q, k, v of
      (2, 4, 256, 64), causal) through the interpreter on the card.
      The launch counts are read after it and must match the ops served.
   5. after the counts are read: torch.profiler over 3 more invokes per
      model gives the device time by kernel and the device's busy share.
-  6. a JSON line of the models, one listing the kernels, then the last
+  6. Yi-6B at full width in float32 (24.3 GB, TF32 off for matmuls and
+     cuDNN): 4 seeded prompts prefilled, then 16 teacher-forced decode
+     steps through ``lm_decode`` with K3 and with its plain version,
+     both fed the plain run's greedy tokens; logits agree within
+     1e-4 · max |logit| at every step.
+  7. the serving main path, bfloat16, counts set to 0 just before it:
+     ``ServingEngine(get_model(yi-6b), ..., max_slots=4, cache_len=2048,
+     tags=("cuda", "reference"), device="cuda")`` answers 8 seeded
+     requests (prompts of 16–512 tokens, 32 new tokens each).  K3's
+     launches equal 32 layers × the decode steps; the cache keeps its
+     addresses, device memory after every step equals its value after
+     the first, the arena's persistent bytes do not change.  Then
+     torch.profiler over pure decode steps (busy share, top device
+     operations), and an EDF run in which a tight-deadline request
+     displaces a decoding one: both emit exactly their tokens of the
+     uninterrupted run.
+  8. Yi-6B reduced, float32: the engine on the card and on the CPU emit
+     identical greedy tokens.
+  9. a JSON line of the models, one listing the kernels, then the last
      line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -48,6 +72,7 @@ N_REQUESTS = 8
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12       # dense int8 tensor cores
 H100_F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12        # dense bf16 tensor cores
 # float models on the card vs the CPU: float32 sums in another order
 FLOAT_ATOL = 1e-5
 # int8 models: the kernel's f32-scale requant may differ from gemmlowp's
@@ -228,7 +253,8 @@ def check_flash_attention(torch, np, dev):
         row["bound_ms"], row["bound_by"] = bound(
             item * (2 * b * h * s * d + 2 * b * kh * s * d),
             4 * b * h * d * _valid_pairs(s, causal, window),
-            H100_F32_OPS_PER_S if dt == torch.float32 else 989e12)
+            H100_F32_OPS_PER_S if dt == torch.float32
+            else H100_BF16_OPS_PER_S)
         # the yardstick: one SDPA call, with GQA through enable_gqa and a
         # window through a boolean mask made once, outside the timing
         lib_kw = {"enable_gqa": True} if h != kh else {}
@@ -252,6 +278,88 @@ def check_flash_attention(torch, np, dev):
         rows.append(row)
         log(f"  K2 {(b, h, kh, s, d)} causal={causal} window={window} "
             f"{row['dtype']}: err {err:.3g}; " + _times(row))
+    return rows
+
+
+def _decode_valid_rows(lengths, s, window):
+    """Cache positions each row attends: p < length and, with a window,
+    p >= length - window."""
+    rows = 0
+    for n in lengths:
+        lo = 0 if window is None else max(0, n - window)
+        rows += max(0, min(n, s) - lo)
+    return rows
+
+
+def check_decode_attention(torch, np, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    # (b, h, kh, s, d, window, dtype); the first is the serving path's:
+    # Yi-6B's decode step at 4 slots of 2048 positions in bfloat16
+    cases = [(4, 32, 4, 2048, 128, None, torch.bfloat16),
+             (4, 32, 4, 2048, 128, None, torch.float32),
+             (4, 32, 32, 2048, 96, None, torch.float32),
+             (4, 32, 32, 2048, 96, None, torch.bfloat16),
+             (4, 32, 4, 2048, 128, 256, torch.float32),
+             (4, 32, 4, 2000, 128, None, torch.float32)]
+    rows = []
+    for b, h, kh, s, d, window, dt in cases:
+        q = torch.randn(b, h, d, generator=g).to(dev, dt)
+        k = torch.randn(b, kh, s, d, generator=g).to(dev, dt)
+        v = torch.randn(b, kh, s, d, generator=g).to(dev, dt)
+        # one entry, a short row, a long one, and a full (wrapped) ring
+        lens = [1, 37, 1500, s]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = ops.decode_attention(q, k, v, lengths, window=window)
+        want = ref.decode_attention_ref(q, k, v, lengths, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-5 if dt == torch.float32 else BF16_ATOL
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"K3 {(b, h, kh, s, d, window, dt)}: max "
+                                 f"abs err {err} > {tol}")
+        item = q.element_size()
+        valid = _decode_valid_rows(lens, s, window)
+        row = {"shape": [b, h, kh, s, d], "lengths": lens, "window": window,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err}
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: decode_attention_cuda(q, k, v, lengths,
+                                                 window=window))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.decode_attention_ref(q, k, v, lengths,
+                                                    window=window))
+        # bytes: q and out once, the valid K and V rows once, lengths
+        row["bound_ms"], row["bound_by"] = bound(
+            item * (2 * b * h * d + 2 * valid * kh * d) + 4 * b,
+            4 * h * d * valid,
+            H100_F32_OPS_PER_S if dt == torch.float32
+            else H100_BF16_OPS_PER_S)
+        # the yardstick: one SDPA call over the whole cache with a
+        # boolean mask of the valid positions (made once, outside the
+        # timing) and GQA through enable_gqa
+        pos = torch.arange(s, device=dev)[None, :]
+        mask = pos < lengths[:, None]
+        if window is not None:
+            mask &= pos >= lengths[:, None] - window
+        mask = mask[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = (library()[:, :, 0].float() - want.float()).abs().max()
+        if lib_err.item() > 10 * tol:
+            raise AssertionError(f"K3 yardstick disagrees by {lib_err}")
+        row["library_ms"], _ = time_ms(torch, library)
+        row["library"] = ("torch.nn.functional.scaled_dot_product_attention"
+                          " attn_mask enable_gqa")
+        rows.append(row)
+        log(f"  K3 {(b, h, kh, s, d)} window={window} {row['dtype']}: "
+            f"err {err:.3g}; " + _times(row))
     return rows
 
 
@@ -404,6 +512,243 @@ def profile_invokes(torch, rows, cards) -> None:
                 for t in row["top_device"][:3]))
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: dense-LM serving (Yi-6B)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "yi-6b"
+SERVE_SLOTS, SERVE_CACHE = 4, 2048
+N_SERVE, SERVE_NEW = 8, 32
+TF_STEPS = 16
+# float32 teacher-forced logits: K3's online softmax and the plain
+# softmax differ in rounding only; the stated bound is relative to the
+# step's largest logit
+TF_RTOL = 1e-4
+
+
+def teacher_forced(torch, np, dev):
+    """Phase 6: Yi-6B at full width in float32, decode on K3 against its
+    plain version, both fed the plain run's greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import get_model, lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(6)
+    # prefills of 2048 (the first decode step wraps the ring), 36, 299
+    # and 511 tokens
+    prompts = [rng.integers(0, cfg.vocab - 2, n) for n in (2049, 37, 300,
+                                                          512)]
+    caches = [bundle.empty_cache(len(prompts), SERVE_CACHE, torch.float32,
+                                 dev) for _ in range(2)]
+    worst, steps = 0.0, []
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            _, one = lm.lm_prefill(model, cfg,
+                                   torch.as_tensor(p[None, :-1], device=dev),
+                                   SERVE_CACHE, window=cfg.sliding_window)
+            for cache in caches:
+                for name in ("k", "v"):
+                    cache[name][:, i:i + 1].copy_(one[name])
+        lengths = torch.tensor([len(p) - 1 for p in prompts],
+                               dtype=torch.int32, device=dev)
+        cur = torch.tensor([[int(p[-1])] for p in prompts], device=dev)
+        for _ in range(TF_STEPS):
+            want, _ = lm.lm_decode(model, cfg, caches[0], cur, lengths,
+                                   attn_impl=ref.decode_attention_ref)
+            got, _ = lm.lm_decode(model, cfg, caches[1], cur, lengths,
+                                  attn_impl=ops.decode_attention)
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if not (torch.isfinite(got).all() and err <= TF_RTOL * top):
+                raise AssertionError(f"teacher-forced step {len(steps)}: "
+                                     f"max |dlogit| {err} > {TF_RTOL} * "
+                                     f"{top}")
+            worst = max(worst, err / top)
+            steps.append(err)
+            cur = want[:, :cfg.vocab].argmax(dim=-1, keepdim=True)
+            lengths += 1
+    del model, caches
+    torch.cuda.empty_cache()
+    log(f"  {cfg.arch_id} float32, {n_params:,} parameters, {TF_STEPS} "
+        f"steps: max |dlogit| {max(steps):.3g}, at most {worst:.3g} of the "
+        f"step's largest logit (bound {TF_RTOL})")
+    return {"model": f"{cfg.arch_id} float32 teacher-forced K3 vs plain",
+            "parameters": n_params, "steps": TF_STEPS,
+            "max_abs_dlogit": max(steps), "max_rel_dlogit": worst}
+
+
+def serving_workload(np, vocab):
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, vocab - 2, int(n)).astype(np.int32)
+            for n in rng.integers(16, 513, N_SERVE)]
+
+
+def serve_lm(torch, np, dev, eng, prompts):
+    """Phase 7, the counted part: every request through ``eng``; checks
+    what stays in place and returns the run's numbers."""
+    from repro_torch.serving import Request
+
+    ptrs = [t.data_ptr() for t in eng.cache.values()]
+    persistent = eng.arena.usage().persistent
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
+    mem0, decode_steps, step_ms = None, 0, []
+    t_run = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        more = eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if eng.last_step["decoded"]:
+            decode_steps += 1
+            mem = torch.cuda.memory_allocated()
+            mem0 = mem if mem0 is None else mem0
+            if mem != mem0:
+                raise AssertionError(f"device memory {mem} B after decode "
+                                     f"step {decode_steps}, {mem0} B after "
+                                     f"the first")
+            if not eng.last_step["prefill_tokens"]:
+                step_ms.append(dt)
+        if [t.data_ptr() for t in eng.cache.values()] != ptrs:
+            raise AssertionError("the KV cache moved")
+        if not more:
+            break
+    wall = time.perf_counter() - t_run
+    if eng.arena.usage().persistent != persistent:
+        raise AssertionError("the arena's persistent bytes changed")
+    res = eng.results
+    for uid, r in res.items():
+        if not (r.done and 1 <= len(r.output) <= SERVE_NEW and all(
+                0 <= t < eng.cfg.vocab for t in r.output)):
+            raise AssertionError(f"request {uid} did not finish well: "
+                                 f"{r.output}")
+    tokens = sum(len(r.output) for r in res.values())
+    median = statistics.median(step_ms)
+    row = {"model": f"{eng.cfg.arch_id} bfloat16 serving",
+           "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+           "requests": len(res), "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": SERVE_NEW, "tokens": tokens,
+           "decode_steps": decode_steps,
+           "prefill_ms": [res[u].prefill_s * 1e3 for u in sorted(res)],
+           "median_decode_step_ms": median,
+           "decode_step_ms_min_max": [min(step_ms), max(step_ms)],
+           "weight_bound_ms": eng.param_bytes / H100_BYTES_PER_S * 1e3,
+           "param_bytes": eng.param_bytes, "kv_bytes": eng.kv_bytes,
+           "decode_tok_per_s": SERVE_SLOTS / median * 1e3,
+           "wall_s": wall, "wall_tok_per_s": tokens / wall,
+           "device_memory_bytes": mem0}
+    log(f"  {len(res)} requests, {tokens} tokens in {wall:.2f} s "
+        f"({decode_steps} decode steps); prefill ms "
+        + ", ".join(f"{p} tok {ms:.1f}" for p, ms in
+                    zip(row["prompt_lens"], row["prefill_ms"])))
+    log(f"  decode step median {median:.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}; {len(step_ms)} steps without prefill) vs "
+        f"weight-streaming bound {row['weight_bound_ms']:.3f} ms; "
+        f"{row['decode_tok_per_s']:.1f} tok/s at {SERVE_SLOTS} slots")
+    return row, {u: r.output for u, r in res.items()}
+
+
+def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
+    """Phase 7, after the counts are read: device time by operation over
+    pure decode steps, and the share of the median step (measured
+    unprofiled above) during which the device was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(8)
+    for uid in range(SERVE_SLOTS):
+        eng.submit(Request(uid=1000 + uid, tokens=rng.integers(
+            0, eng.cfg.vocab - 2, 64).astype(np.int32),
+            max_new_tokens=n_steps + 4))
+    eng.step()                                  # admission + first step
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / n_steps / 1e3
+    row["device_ms_per_decode_step"] = device_ms
+    row["device_busy_share"] = device_ms / row["median_decode_step_ms"]
+    row["top_device"] = [
+        {"name": e.key[:80], "us_per_step": e.self_device_time_total / n_steps,
+         "count_per_step": e.count / n_steps} for e in events[:8]]
+    log(f"  device {device_ms:.3f} ms per decode step = "
+        f"{100 * row['device_busy_share']:.1f}% of the median step; top: "
+        + "; ".join(f"{t['name'][:48]} {t['us_per_step']:.1f} us x"
+                    f"{t['count_per_step']:.0f}"
+                    for t in row["top_device"][:5]))
+
+
+def check_preemption(eng, prompts, want) -> None:
+    """Phase 7: a tight deadline displaces a decoding request; both (and
+    the others) emit exactly the uninterrupted run's tokens."""
+    from repro_torch.serving import Request
+
+    urgent = SERVE_SLOTS
+    for uid in range(SERVE_SLOTS):
+        eng.submit(Request(uid=uid, tokens=prompts[uid],
+                           max_new_tokens=SERVE_NEW))
+    for _ in range(6):
+        eng.step()
+    eng.submit(Request(uid=urgent, tokens=prompts[urgent],
+                       max_new_tokens=SERVE_NEW, deadline_us=100))
+    res = eng.run()
+    evicted = [u for u, r in res.items() if r.preemptions]
+    if len(evicted) != 1 or res[urgent].preemptions:
+        raise AssertionError(f"expected one eviction, got {evicted}")
+    for uid, r in res.items():
+        if r.output != want[uid]:
+            raise AssertionError(f"request {uid} emitted {r.output} after "
+                                 f"preemption, {want[uid]} uninterrupted")
+    log(f"  EDF displacement: request {evicted[0]} evicted mid-decode "
+        f"for request {urgent}, restored; all {len(res)} requests emit "
+        f"their uninterrupted tokens")
+
+
+def reduced_card_vs_cpu(torch, np, dev):
+    """Phase 8: yi-6b reduced, float32: the engine on the card and on the
+    CPU emit identical greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(LM_ARCH, reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (5, 30, 1, 70, 12, 40)]
+    outs = []
+    for where in ("cpu", dev):
+        eng = ServingEngine(bundle, model.to(where), max_slots=4,
+                            cache_len=64, device=where)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
+        outs.append({u: r.output for u, r in eng.run().items()})
+    if outs[0] != outs[1]:
+        raise AssertionError(f"reduced {LM_ARCH}: card tokens {outs[1]} "
+                             f"!= CPU tokens {outs[0]}")
+    n = sum(len(o) for o in outs[1].values())
+    log(f"  {cfg.arch_id}: {len(prompts)} requests, {n} tokens, card == "
+        f"CPU")
+    return {"model": f"{cfg.arch_id} float32 card vs CPU",
+            "requests": len(prompts), "tokens": n, "tokens_equal": True}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -434,6 +779,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    from repro_torch.kernels import decode_attention as K3
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import quant_matmul as K1
     dev = torch.device("cuda")
@@ -441,9 +787,10 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     k1_rows = check_quant_matmul(torch, np, dev)
     k2_rows = check_flash_attention(torch, np, dev)
+    k3_rows = check_decode_attention(torch, np, dev)
 
     log("phase 3: the interpreter on the card (main path)")
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     model_rows, cards, want_k1 = run_models(np, dev)
     log("phase 4: ATTENTION through the interpreter (main path)")
     row, card = run_attention(np, dev)
@@ -461,6 +808,46 @@ def main() -> int:
                              f"{N_REQUESTS} ATTENTION invokes")
     log("phase 5: where an invoke's time goes (torch.profiler)")
     profile_invokes(torch, model_rows, cards)
+
+    log(f"phase 6: {LM_ARCH} full width, float32, K3 vs its plain version "
+        f"(teacher-forced)")
+    model_rows.append(teacher_forced(torch, np, dev))
+
+    log(f"phase 7: {LM_ARCH} full width, bfloat16, through the "
+        f"ServingEngine (main path)")
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServingEngine
+    bundle = get_model(get_config(LM_ARCH))
+    lm_model = bundle.init(torch.Generator(dev).manual_seed(0))
+    prompts = serving_workload(np, bundle.cfg.vocab)
+
+    def engine(**kw):
+        return ServingEngine(bundle, lm_model, max_slots=SERVE_SLOTS,
+                             cache_len=SERVE_CACHE,
+                             tags=("cuda", "reference"), device=dev, **kw)
+    eng = engine()
+    K1.launches = K2.launches = K3.launches = 0
+    serve_row, served = serve_lm(torch, np, dev, eng, prompts)
+    launches["decode_attention"] = K3.launches
+    n_layers = bundle.cfg.n_layers
+    log(f"  launches on the serving path: K1 {K1.launches}, K2 "
+        f"{K2.launches}, K3 {K3.launches} ({n_layers} layers x "
+        f"{serve_row['decode_steps']} decode steps)")
+    if K3.launches != n_layers * serve_row["decode_steps"]:
+        raise AssertionError(f"decode_attention launched {K3.launches} "
+                             f"times for {serve_row['decode_steps']} decode "
+                             f"steps of {n_layers} layers")
+    profile_decode(torch, np, eng, serve_row)
+    del eng
+    check_preemption(engine(policy="edf", preempt="edf-displace",
+                            clock=lambda: 0), prompts, served)
+    model_rows.append(serve_row)
+    del lm_model
+    torch.cuda.empty_cache()
+
+    log("phase 8: reduced model, the engine on the card vs the CPU")
+    model_rows.append(reduced_card_vs_cpu(torch, np, dev))
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
@@ -483,6 +870,9 @@ def main() -> int:
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:100", k2_rows),
+        entry("decode_attention",
+              "src/repro_torch/kernels/csrc/decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:82", k3_rows),
     ]
     log(json.dumps({"models": model_rows}))
     log(json.dumps({"kernels": kernels}))

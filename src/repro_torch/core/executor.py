@@ -23,6 +23,9 @@ steady-state invoke is pure dispatch — as a pipeline of phases:
 buffer that interpreters sharing an arena (§4.5) recycle between
 non-concurrent invocations.  It allocates during warm-up only, which
 ``alloc_count`` makes observable and testable.
+
+**Length bucketing.**  ``BucketTable`` quantizes ragged sizes to a few
+levels; the serving engine pads prompts to them (bucketed prefill).
 """
 
 from __future__ import annotations
@@ -74,6 +77,9 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "device='cuda' but no CUDA device is available; pass "
             "device='cpu' to run the plain reference path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        # the card tensors land on, so devices compare equal to theirs
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -396,3 +402,91 @@ class ArenaPool:
     def put(self, buf: torch.Tensor) -> None:
         self._taken = False
         self.buf = buf
+
+
+# ---------------------------------------------------------------------------
+# length bucketing (a bounded set of shapes across ragged sizes)
+# ---------------------------------------------------------------------------
+
+class BucketTable:
+    """Size quantization for every surface that must see few distinct
+    shapes across ragged sizes (a copy of the JAX package's table).
+
+    ``bucket(n)`` maps a size to the smallest table *level* that holds
+    it, so the set of distinct shapes is O(#levels) instead of
+    O(#sizes).  The level layout comes from one of two places:
+
+      * **geometric** (the default): levels are ``min_bucket``
+        multiplied by ``granularity`` (default 2 — power-of-two
+        buckets) until ``max_bucket``;
+      * **explicit** (``levels=``): an arbitrary ascending level list,
+        such as a calibration cost model solves for from measured
+        per-bucket costs (the cost model's layout methods come with
+        it, ROADMAP queue 1, slice 7).
+
+    Its consumer in the port is bucketed prefill: ``ServingEngine``
+    pads each prompt to its bucket, so prefill runs at O(#levels)
+    distinct shapes instead of one per prompt length (see
+    docs/SCHEDULING.md for why padded rows cannot leak into decoded
+    tokens).
+
+    ``hits`` counts how many times each bucket was actually chosen by
+    ``bucket()``.  Callers that may still reject the
+    bucket (e.g. it does not fit their cache) probe with ``fit()``
+    first, so a fallback never records a phantom bucket.  A size above
+    ``max_bucket`` raises ``ValueError`` from ``bucket()``: capacity
+    errors stay loud and immediate, like arena overflow.
+    """
+
+    def __init__(self, min_bucket: int = 16, max_bucket: int = 4096,
+                 granularity: int = 2,
+                 levels: Optional[Sequence[int]] = None):
+        if levels is not None:
+            if (min_bucket, max_bucket, granularity) != (16, 4096, 2):
+                raise ValueError(
+                    "pass either explicit levels or the geometric "
+                    "(min_bucket, max_bucket, granularity) "
+                    "parameters, not both — levels fully determine "
+                    "the table")
+            lv = [int(x) for x in levels]
+            if not lv or sorted(set(lv)) != lv or lv[0] < 1:
+                raise ValueError(
+                    f"levels must be a non-empty strictly ascending "
+                    f"sequence of positive ints, got {levels!r}")
+        else:
+            if min_bucket < 1 or max_bucket < min_bucket:
+                raise ValueError((min_bucket, max_bucket))
+            if granularity < 2 or int(granularity) != granularity:
+                raise ValueError(
+                    f"granularity must be an integer >= 2, got "
+                    f"{granularity!r}")
+            lv, b = [], int(min_bucket)
+            while b <= max_bucket:
+                lv.append(b)
+                b *= int(granularity)
+        self.levels: List[int] = lv
+        self.min_bucket = lv[0]
+        self.max_bucket = lv[-1]
+        self.hits: Dict[int, int] = {}
+
+    def __repr__(self) -> str:
+        return f"BucketTable(levels={self.levels})"
+
+    def fit(self, n: int) -> Optional[int]:
+        """Smallest table bucket holding ``n``, or None when ``n``
+        exceeds ``max_bucket`` — records nothing."""
+        if n < 1:
+            raise ValueError(f"size must be >= 1, got {n}")
+        for b in self.levels:
+            if b >= n:
+                return b
+        return None
+
+    def bucket(self, n: int) -> int:
+        """Smallest table bucket holding ``n`` (and count the hit)."""
+        b = self.fit(n)
+        if b is None:
+            raise ValueError(
+                f"size {n} exceeds max_bucket {self.max_bucket}")
+        self.hits[b] = self.hits.get(b, 0) + 1
+        return b

@@ -34,7 +34,7 @@ from .op_resolver import MicroMutableOpResolver, TensorSpec
 from .schema import MicroModel
 
 
-def _setup_device(device: torch.device) -> None:
+def setup_device(device: torch.device) -> None:
     """Float convolutions and matmuls on the card run in true float32:
     cuDNN's default TF32 keeps about three decimal digits and would break
     float parity with the reference, so TF32 is switched off here, for
@@ -72,7 +72,7 @@ class MicroInterpreter:
         if self._shared.device != self.device:
             raise ValueError(f"arena pool on {self._shared.device}, "
                              f"interpreter on {self.device}")
-        _setup_device(self.device)
+        setup_device(self.device)
         self._inputs: Dict[int, torch.Tensor] = {}
         self._outs: List[np.ndarray] = []
 

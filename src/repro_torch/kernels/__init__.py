@@ -9,6 +9,8 @@ Kernels (each: ``<name>.py`` launcher with its ``launches`` count +
 
   * quant_matmul     — K1, int8 matmul + requant (the TFLM hot spot)
   * flash_attention  — K2, causal/GQA/sliding-window prefill attention
+  * decode_attention — K3, one new token per sequence vs a KV cache
+    (the dense serving decode step)
 """
 
 from . import ops  # noqa: F401  (registers the "cuda" tag)

@@ -1,0 +1,112 @@
+"""K3 — the decode-attention CUDA kernel (one new token vs a KV cache).
+
+Replaces the Pallas TPU kernel ``decode_attention_pallas``
+(``src/repro/kernels/decode_attention.py``): q (B,H,D) against contiguous
+caches k, v (B,KH,S,D) with per-sequence ``lengths`` (B,) int32 read on
+the device; position p is valid when ``p < lengths[b]`` (and
+``p >= lengths[b] - window`` with a window).  All H/KH query heads of one
+KV head share each K/V tile; a row with no valid key outputs 0.  float32
+or bfloat16 in, float32 math, q's type out; any S and D <= 128.
+
+Bound on the H100: the bytes of the valid K/V rows, about 16.8 MB per
+call at Yi-6B's (4, 32, 4, 2048, 128) bfloat16 with full rows, about
+5.0 µs at 3.35 TB/s.  B·KH is 16 there, so the kernel
+(``csrc/decode_attention.cu``) splits S into 32-position chunks, one
+block per (chunk, KV head, b), and a second pass combines each row's
+partial (m, l, acc) in chunk order — deterministic, no atomics.  Both
+passes are one launch of the C entry point and count as one launch.
+
+``launches`` counts the calls of this process that launched the kernel;
+only ``decode_attention_cuda`` adds to it.  The plain version is
+``repro_torch.kernels.ref.decode_attention_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+launches = 0
+MAX_D = 128
+
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("decode_attention")
+    lib.decode_attention_launch.argtypes = _ARGTYPES
+    lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_workspace_floats.argtypes = [ctypes.c_int] * 4
+    lib.decode_attention_workspace_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,D), caches (B,KH,S,D), lengths (B,) int32 -> (B,H,D) on the
+    card.  Raises on anything the kernel does not take, and when the
+    launch fails."""
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
+                         f"{q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_attention: dtype {q.dtype} is not "
+                         f"float32 or bfloat16")
+    if q.dim() != 3:
+        raise ValueError(f"decode_attention: q must be (B,H,D), got "
+                         f"{tuple(q.shape)}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device or t.dtype != q.dtype or t.dim() != 4:
+            raise ValueError(f"decode_attention: {name} must be a 4-D "
+                             f"{q.dtype} tensor on {q.device}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be contiguous")
+    b, h, d = q.shape
+    kh, s = k_cache.shape[1], k_cache.shape[2]
+    if (tuple(k_cache.shape) != (b, kh, s, d)
+            or tuple(v_cache.shape) != tuple(k_cache.shape)
+            or kh < 1 or h % kh or s < 1):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)} "
+                         f"do not form (B,H,D), (B,KH,S,D) with H % KH == 0")
+    if lengths.device != q.device or lengths.dtype != torch.int32 \
+            or tuple(lengths.shape) != (b,):
+        raise ValueError(f"decode_attention: lengths must be ({b},) int32 "
+                         f"on {q.device}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"decode_attention: head dim {d} not in 1..{MAX_D}")
+    if window is not None and not -2 ** 31 < window < 2 ** 31:
+        raise ValueError(f"decode_attention: window {window} out of range")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    if b == 0 or h == 0:
+        return out
+    lib = _lib()
+    ws = torch.empty(lib.decode_attention_workspace_floats(b, h, s, d),
+                     dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.decode_attention_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            b, h, kh, s, d, float(scale), int(window is not None),
+            int(window or 0), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return out

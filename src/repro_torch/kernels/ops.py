@@ -1,4 +1,4 @@
-"""Kernel wrappers + the ``"cuda"`` vendor-tag registrations (micro path).
+"""Kernel wrappers + the ``"cuda"`` vendor-tag registrations.
 
 This module is the "optimized kernel library" a hardware vendor ships
 (§4.7): importing it registers ``tag="cuda"`` implementations with the
@@ -21,12 +21,13 @@ import torch
 
 from repro_torch.core import quantize as Q
 from repro_torch.core.micro_ops import Attention, FullyConnected
-from repro_torch.core.op_resolver import register_op
+from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
 
+from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
 from .quant_matmul import quant_matmul_cuda
-from .ref import mha_ref, quant_matmul_ref
+from .ref import decode_attention_ref, mha_ref, quant_matmul_ref
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +65,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return mha_ref(q, k, v, causal=causal, window=window, scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,D), caches (B,KH,S,D), lengths (B,) -> (B,H,D)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lengths,
+                                    window=window, scale=scale)
+    return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
+                                 lengths.to(torch.int32).contiguous(),
+                                 window=window, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -130,3 +144,35 @@ class CudaAttention:
         q, k, v = inputs
         return [flash_attention(q, k, v,
                                 causal=op.params.get("causal", True))]
+
+
+# ---------------------------------------------------------------------------
+# vendor-tag registration for the serving path (§4.8 at pod scale)
+# ---------------------------------------------------------------------------
+
+@register_op(OpCode.SERVING_DECODE, tag="cuda")
+class CudaServingDecode:
+    """Pod-scale decode step whose per-layer attention runs on the
+    decode_attention kernel (K3) for the dense family.  prepare()
+    inspects the family once at engine init and bakes the choice into
+    op_data; any other family falls back to the bundle's reference
+    decode, the per-kernel fallback the tag chain promises."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        use_kernel = ctx.bundle.cfg.family == "dense"
+        return PrepareResult(output_specs=[],
+                             op_data={"use_kernel": use_kernel})
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        params, cache, tokens, lengths = inputs
+        if not ctx.op_data["use_kernel"]:
+            return ctx.bundle.decode(params, cache, tokens, lengths,
+                                     window=op.params.get("window"))
+        from repro_torch.models import lm
+        # no window= here on purpose: the dense reference decode attends
+        # over the whole valid cache, so the kernel must too — the tag
+        # choice may never change semantics
+        return lm.lm_decode(params, ctx.bundle.cfg, cache, tokens, lengths,
+                            attn_impl=decode_attention)

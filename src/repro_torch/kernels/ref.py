@@ -68,3 +68,35 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     w = torch.where(mask.any(dim=-1)[:, None], w, 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", w, vx).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode attention — one new token against a KV cache
+# ---------------------------------------------------------------------------
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, D); caches: (B, KH, S, D) with H % KH == 0 (GQA);
+    lengths: (B,) valid entries.  Returns (B, H, D).
+
+    With window=W only the last W valid positions attend.  Math is f32
+    and the result has q's dtype.  A row with no valid key outputs 0, as
+    the decode kernels do (a plain softmax would give NaN there).
+    """
+    b, h, d = q.shape
+    kh, s = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kh, h // kh, d).to(torch.float32)
+    logits = (qg @ k_cache.to(torch.float32).transpose(-1, -2)) * scale
+    pos = torch.arange(s, device=q.device)[None, :]
+    valid = pos < lengths[:, None]
+    if window is not None:
+        valid &= pos >= lengths[:, None] - window
+    logits = logits.masked_fill(~valid[:, None, None, :], -math.inf)
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(valid.any(dim=-1)[:, None, None, None], w, 0.0)
+    out = w @ v_cache.to(torch.float32)                  # (B, KH, G, D)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,0 +1,399 @@
+"""Decoder-only LM, dense family — the pod-path model.
+
+The port's counterpart of the dense path of ``repro.models.lm``: Yi-6B,
+Phi-3-mini, Phi-4-mini and Qwen3 (``qk_norm``).  Parameters keep the JAX
+package's layouts (``wq`` (D,H,dh), ``wo`` (H,dh,D), ``wi`` (D,F), …) so
+``params_from_jax`` copies them leaf for leaf; they live in one
+``DenseLM`` module holding one ``DenseBlock`` per layer where the JAX
+package stacks a leading ``L`` dim and scans.  The steps are plain
+functions on tensors, as in the JAX package:
+
+  * ``lm_prefill`` — a prompt through every layer, causal (+window)
+    query-chunked attention, emitting last-token logits and a KV cache
+    ``{k, v}`` of (L, B, KH, C, dh) ring-indexed by absolute position;
+  * ``lm_decode`` — one token per sequence against that cache.  The
+    cache is updated IN PLACE (an index write at ring slot
+    ``lengths % C``), which gives exactly the values of the JAX
+    package's one-hot blend (it multiplies by exact 0 and 1) without a
+    copy of the cache per step; ``attn_impl`` is the vendor-kernel hook
+    (§4.8) that replaces only the attention math.
+
+The decode step reads ``lengths`` on the device and takes no branch on
+a device value, so it never waits for the device.  MoE, paged KV and
+chunked prefill come with later slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import (ModelConfig, apply_rope, dense_init, rms_norm,
+                     rope_cos_sin)
+
+Cache = Dict[str, torch.Tensor]
+
+# the JAX package pads the vocab to a multiple of 2048 (16 model shards
+# x 128 lanes); the port keeps the padding so logits have the same shape
+VOCAB_PAD = 2048
+GATED_ACTS = ("silu", "geglu")
+NEG_INF = -1e30
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab // VOCAB_PAD) * VOCAB_PAD
+
+
+# ---------------------------------------------------------------------------
+# the model: parameters only, in the JAX package's layouts
+# ---------------------------------------------------------------------------
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Attention(nn.Module):
+    """wq (D,H,dh), wk/wv (D,KH,dh), wo (H,dh,D); q/k norms for qk_norm."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+        self.wq = _param((d, h, dh), dtype, device)
+        self.wk = _param((d, kh, dh), dtype, device)
+        self.wv = _param((d, kh, dh), dtype, device)
+        self.wo = _param((h, dh, d), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((dh,), dtype, device)
+            self.k_norm = _param((dh,), dtype, device)
+
+
+class MLP(nn.Module):
+    """wi (D,F), wg (D,F) for gated activations, wo (F,D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.wi = _param((d, f), dtype, device)
+        if cfg.act in GATED_ACTS:
+            self.wg = _param((d, f), dtype, device)
+        self.wo = _param((f, d), dtype, device)
+
+
+class DenseBlock(nn.Module):
+    """One pre-norm transformer layer: ln1 → attention, ln2 → MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = _param((cfg.d_model,), dtype, device)
+        self.ln2 = _param((cfg.d_model,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+
+class DenseLM(nn.Module):
+    """The dense LM's parameters: embedding (V_pad, D), one DenseBlock
+    per layer, final norm and (untied) head (D, V_pad).  Built empty
+    on ``device``; ``init_lm`` or ``params_from_jax`` fills it."""
+
+    def __init__(self, cfg: ModelConfig, device="cpu"):
+        super().__init__()
+        if cfg.n_experts or cfg.first_layer_dense_ff:
+            raise ValueError(f"{cfg.arch_id}: DenseLM holds the dense "
+                             f"family only")
+        dtype, vp, d = cfg.torch_dtype(), padded_vocab(cfg), cfg.d_model
+        self.cfg = cfg
+        self.embed = _param((vp, d), dtype, device)
+        self.final_norm = _param((d,), dtype, device)
+        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((d, vp), dtype, device)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> DenseLM:
+    """Seeded random weights on ``gen.device``, following the JAX
+    ``init_lm``'s rules leaf by leaf: ``dense_init``'s 1/sqrt(fan-in)
+    with fan-in = shape[0], and the explicit scales of ``wo`` and the
+    embeddings.  The JAX package applies the rule to leaves stacked as
+    (L, …), so its fan-in there is L and its attention nearly one-hot
+    (ROADMAP queue 3); the port draws each layer's leaf on its own, so
+    its fan-in is the leaf's input width."""
+    dtype = cfg.torch_dtype()
+    model = DenseLM(cfg, gen.device)
+    h, dh, f = cfg.n_heads, cfg.dh, cfg.d_ff
+    with torch.no_grad():
+        model.embed.copy_(dense_init(gen, model.embed.shape, 0.02, dtype))
+        model.final_norm.fill_(1)
+        for blk in model.layers:
+            blk.ln1.fill_(1)
+            blk.ln2.fill_(1)
+            a = blk.attn
+            for w in (a.wq, a.wk, a.wv):
+                w.copy_(dense_init(gen, w.shape, dtype=dtype))
+            a.wo.copy_(dense_init(gen, a.wo.shape, 1.0 / math.sqrt(h * dh),
+                                  dtype))
+            if cfg.qk_norm:
+                a.q_norm.fill_(1)
+                a.k_norm.fill_(1)
+            m = blk.mlp
+            m.wi.copy_(dense_init(gen, m.wi.shape, dtype=dtype))
+            m.wo.copy_(dense_init(gen, m.wo.shape, 1.0 / math.sqrt(f),
+                                  dtype))
+            if cfg.act in GATED_ACTS:
+                m.wg.copy_(dense_init(gen, m.wg.shape, dtype=dtype))
+        if not cfg.tie_embeddings:
+            model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0.02,
+                                           dtype))
+    return model
+
+
+def _from_numpy(a: Any, dtype: torch.dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: widen exactly
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(dtype)      # a writable copy
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cpu") -> DenseLM:
+    """The JAX ``init_lm`` tree (leaves as numpy arrays, per-layer leaves
+    stacked on a leading L dim) as the port's ``DenseLM`` on ``device``,
+    leaf for leaf, so both packages compute with the same weights."""
+    dtype = cfg.torch_dtype()
+    model = DenseLM(cfg, device)
+    blocks = tree["blocks"]
+
+    def put(param: nn.Parameter, value) -> None:
+        value = _from_numpy(value, dtype)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"shape {tuple(value.shape)} != "
+                             f"{tuple(param.shape)}")
+        param.copy_(value)
+
+    with torch.no_grad():
+        put(model.embed, tree["embed"])
+        put(model.final_norm, tree["final_norm"])
+        if not cfg.tie_embeddings:
+            put(model.lm_head, tree["lm_head"])
+        for i, blk in enumerate(model.layers):
+            put(blk.ln1, blocks["ln1"][i])
+            put(blk.ln2, blocks["ln2"][i])
+            for name, param in blk.attn.named_parameters():
+                put(param, blocks["attn"][name][i])
+            for name, param in blk.mlp.named_parameters():
+                put(param, blocks["mlp"][name][i])
+    return model
+
+
+# ---------------------------------------------------------------------------
+# attention — query-chunked causal/windowed (prefill)
+# ---------------------------------------------------------------------------
+
+def _proj_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor):
+    """x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KH,dh) with qk_norm + RoPE."""
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    q = (flat @ p.wq.reshape(d, -1)).view(b, s, *p.wq.shape[1:])
+    k = (flat @ p.wk.reshape(d, -1)).view(b, s, *p.wk.shape[1:])
+    v = (flat @ p.wv.reshape(d, -1)).view(b, s, *p.wv.shape[1:])
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    if cfg.rope_base:
+        cos, sin = rope_cos_sin(positions, cfg.dh, cfg.rope_base)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cfg: ModelConfig, *, window: Optional[int] = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """Causal (+sliding-window) attention, O(S·chunk) logits.
+
+    q (B,S,H,dh); k,v (B,S,KH,dh).  Returns (B,S,H,dh).  Logits are
+    float32, masked to -1e30, and the softmax weights are cast to v's
+    dtype before P·V, as the JAX package does.  S must be a multiple of
+    the chunk (min(chunk, S)), as there."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the "
+                         f"attention chunk {chunk}")
+    scale = 1.0 / math.sqrt(dh)
+    kx = (k.repeat_interleave(g, dim=2) if g > 1 else k).transpose(1, 2)
+    vx = (v.repeat_interleave(g, dim=2) if g > 1 else v).transpose(1, 2)
+    kxf = kx.float()
+    kpos = torch.arange(s, device=q.device)
+    outs = []
+    for start in range(0, s, chunk):
+        qc = q[:, start:start + chunk].transpose(1, 2)     # (B,H,c,dh)
+        logits = (qc.float() @ kxf.transpose(-1, -2)) * scale
+        qpos = start + torch.arange(chunk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        logits = logits.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append((w @ vx).transpose(1, 2))             # (B,c,H,dh)
+    return torch.cat(outs, dim=1)
+
+
+def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """(B,S,H,dh) · wo (H,dh,D) -> (B,S,D)."""
+    b, s = out.shape[:2]
+    return (out.reshape(b * s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+            ).view(b, s, -1)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (one token, ring KV cache)
+# ---------------------------------------------------------------------------
+
+def decode_attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           lengths: torch.Tensor, attn_impl=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """x (B,1,D); cache_k/v (B,KH,C,dh); lengths (B,) = tokens already in
+    context (the new token's absolute position).  Ring-buffer update, in
+    place.  Returns (out (B,1,D), cache_k, cache_v).
+
+    ``attn_impl`` replaces only the attention math — called as
+    ``attn_impl(q (B,H,dh), kc, vc, n_valid) -> (B,H,dh)`` over the
+    already-updated cache; the ring update and output projection stay
+    those of the reference path."""
+    b = x.shape[0]
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    g = h // kh
+    c = cache_k.shape[2]
+    q, k, v = _proj_qkv(p, cfg, x, lengths[:, None])
+    rows = torch.arange(b, device=x.device)
+    slot = lengths % c
+    # the JAX package blends with a one-hot (cache*(1-oh) + k*oh); the
+    # index write stores exactly the same values
+    cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
+    n_valid = torch.clamp(lengths + 1, max=c)
+    if attn_impl is not None:
+        out = attn_impl(q[:, 0], cache_k, cache_v, n_valid)
+    else:
+        qg = q[:, 0].reshape(b, kh, g, dh)
+        scale = 1.0 / math.sqrt(dh)
+        logits = (qg.float() @ cache_k.float().transpose(-1, -2)) * scale
+        valid = (torch.arange(c, device=x.device)[None, None, None, :]
+                 < n_valid[:, None, None, None])
+        logits = logits.masked_fill(~valid, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = w @ cache_v                                  # (B,KH,g,dh)
+    y = _out_proj(p, out.reshape(b, 1, h, dh))
+    return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# FFN — dense (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+def _gate(act: str, g: torch.Tensor) -> torch.Tensor:
+    return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+
+
+def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    hidden = x @ p.wi
+    if cfg.act in GATED_ACTS:
+        hidden = _gate(cfg.act, x @ p.wg) * hidden
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        hidden = F.gelu(hidden, approximate="tanh")
+    return hidden @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# embedding and head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(model: DenseLM, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, model.embed)
+
+
+def lm_logits(model: DenseLM, cfg: ModelConfig,
+              h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, model.final_norm, cfg.norm_eps)
+    head = model.embed.t() if cfg.tie_embeddings else model.lm_head
+    return h @ head
+
+
+# ---------------------------------------------------------------------------
+# public steps
+# ---------------------------------------------------------------------------
+
+def empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype: torch.dtype, device) -> Cache:
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _to_cache(dst: torch.Tensor, k: torch.Tensor) -> None:
+    """Write prefill K or V (B,S,KH,dh) into one layer's cache
+    (B,KH,C,dh): in order when C >= S, else the last C tokens at ring
+    slots pos % C."""
+    s, c = k.shape[1], dst.shape[2]
+    take = min(s, c)
+    src = k[:, s - take:].transpose(1, 2)
+    if c >= s:
+        dst[:, :, :take] = src
+    else:
+        pos = torch.arange(s - take, s, device=k.device) % c
+        dst[:, :, pos] = src
+
+
+def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
+               cache_len: Optional[int] = None, *,
+               window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B,S) -> (last-token logits (B,V_pad), cache dict).
+
+    cache layout: k/v (L, B, KH, C, dh) ring-indexed by absolute pos,
+    C = ``cache_len`` or S."""
+    x = embed_tokens(model, cfg, tokens)
+    b, s = x.shape[:2]
+    cache = empty_cache(cfg, b, cache_len or s, x.dtype, x.device)
+    positions = torch.arange(s, device=x.device)
+    for i, blk in enumerate(model.layers):
+        xin = rms_norm(x, blk.ln1, cfg.norm_eps)
+        q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
+        out = chunked_attention(q, k, v, cfg, window=window)
+        h = x + _out_proj(blk.attn, out)
+        x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+        _to_cache(cache["k"][i], k)
+        _to_cache(cache["v"][i], v)
+    logits = lm_logits(model, cfg, x[:, -1:])[:, 0]
+    return logits, cache
+
+
+def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
+              tokens: torch.Tensor, lengths: torch.Tensor, *,
+              attn_impl=None) -> Tuple[torch.Tensor, Cache]:
+    """One decode step.  tokens (B,1); lengths (B,) absolute positions;
+    cache {k,v}: (L,B,KH,C,dh), updated in place.  Returns (logits
+    (B,V_pad), cache).  ``attn_impl`` plumbs a vendor attention kernel
+    into every layer's decode_attention_block (§4.8)."""
+    x = embed_tokens(model, cfg, tokens)
+    for i, blk in enumerate(model.layers):
+        xin = rms_norm(x, blk.ln1, cfg.norm_eps)
+        att, _, _ = decode_attention_block(blk.attn, cfg, xin,
+                                           cache["k"][i], cache["v"][i],
+                                           lengths, attn_impl=attn_impl)
+        h = x + att
+        x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    return lm_logits(model, cfg, x)[:, 0], cache

@@ -1,0 +1,60 @@
+"""Model registry: one uniform bundle per architecture family.
+
+The port's counterpart of ``repro.models.registry``.  Every ported
+architecture resolves to a ``ModelBundle`` exposing:
+
+  init(generator) -> params (an ``nn.Module`` on the generator's device)
+  prefill(params, batch, cache_len, window) -> (logits, cache)
+  decode(params, cache, tokens, lengths, window) -> (logits, cache)
+  empty_cache(batch, cache_len, dtype, device) -> cache dict
+
+Only the dense family is ported; ``get_model`` raises
+``UnsupportedFamilyError`` for the others, which come with later
+slices (ROADMAP queue 1, slice 5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from . import lm
+from .common import ModelConfig
+
+PORTED_FAMILIES = ("dense",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable
+    prefill: Callable
+    decode: Callable
+    empty_cache: Callable
+
+
+def _dense_bundle(cfg: ModelConfig) -> ModelBundle:
+    def prefill(params, batch, cache_len=None, window=None):
+        return lm.lm_prefill(params, cfg, batch["tokens"], cache_len,
+                             window=window)
+
+    def decode(params, cache, tokens, lengths, window=None):
+        # the dense decode attends over the whole valid cache: the
+        # window is not applied, as in the JAX package
+        return lm.lm_decode(params, cfg, cache, tokens, lengths)
+
+    def empty_cache(batch, cache_len, dtype, device):
+        return lm.empty_cache(cfg, batch, cache_len, dtype, device)
+
+    return ModelBundle(cfg=cfg, init=lambda gen: lm.init_lm(gen, cfg),
+                       prefill=prefill, decode=decode,
+                       empty_cache=empty_cache)
+
+
+def get_model(cfg: ModelConfig) -> ModelBundle:
+    if cfg.family not in PORTED_FAMILIES:
+        # imported here: the serving package imports this module
+        from repro_torch.serving.errors import UnsupportedFamilyError
+        raise UnsupportedFamilyError(cfg.family, "the PyTorch port",
+                                     supported=PORTED_FAMILIES)
+    return _dense_bundle(cfg)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, each held against its plain
-PyTorch version on the same inputs, and the interpreter on the card held
-against the CPU reference.  Every test here is marked ``cuda`` and skips
+PyTorch version on the same inputs, and the interpreter and the serving
+engine on the card held against the CPU reference.  Every test here is marked ``cuda`` and skips
 without a card; this module imports no jax, so it also runs where only
 the port is installed:
 
@@ -15,9 +15,13 @@ from repro_torch.apps.models import (build_fc_stack, build_vww,
                                      representative_dataset)
 from repro_torch.core import (AllOpsResolver, MicroInterpreter, MicroModel,
                               export)
+from repro_torch.configs import get_config
+from repro_torch.kernels import decode_attention as K3
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quant_matmul as K1
+from repro_torch.models import get_model
+from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +123,95 @@ def test_interpreter_on_card_matches_cpu_reference(cuda, build, int8):
     assert card.shared.alloc_count == 1
     fc = sum(op.opcode == 2 for op in model.operators)
     assert K1.launches - before == (3 * fc if int8 else 0)
+
+
+# (b, h, kh, s, d, window, dtype): Yi-6B's GQA 8 at head dim 128,
+# Phi-3-mini's head dim 96, a cache length that is no multiple of the
+# kernel's 32-position chunk, a window, and bfloat16
+@pytest.mark.parametrize("b,h,kh,s,d,window,dtype", [
+    (4, 32, 4, 512, 128, None, torch.float32),
+    (4, 8, 8, 256, 96, None, torch.float32),
+    (3, 8, 2, 300, 64, None, torch.float32),
+    (2, 8, 2, 512, 64, 100, torch.float32),
+    (2, 4, 1, 37, 16, None, torch.float32),
+    (4, 32, 4, 512, 128, None, torch.bfloat16),
+    (4, 8, 8, 256, 96, 64, torch.bfloat16)])
+def test_decode_attention_kernel_matches_plain(cuda, b, h, kh, s, d, window,
+                                               dtype):
+    g = torch.Generator().manual_seed(s + d)
+    q = torch.randn(b, h, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(b, kh, s, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    # one valid entry, a full (wrapped) ring, and lengths in between
+    lengths = torch.tensor([1, s, s // 3, 2 * s // 3][:b],
+                           dtype=torch.int32, device=cuda)
+    want = ref.decode_attention_ref(q, k, v, lengths, window=window)
+    before = K3.launches
+    got = ops.decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    assert got.dtype == dtype
+    # f32: the online softmax and the plain softmax differ in rounding
+    # only; bf16: both round an f32 result once, at most one ulp apart
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    # deterministic: the chunks combine in a fixed order
+    assert torch.equal(ops.decode_attention(q, k, v, lengths, window=window),
+                       got)
+
+
+def test_decode_attention_kernel_empty_rows_are_zero(cuda):
+    q = torch.randn(2, 4, 32, device=cuda)
+    k = torch.randn(2, 2, 64, 32, device=cuda)
+    lengths = torch.tensor([0, 64], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, k, lengths)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(ops.decode_attention(q, k, k, lengths, window=0),
+                       torch.zeros_like(got))
+
+
+def test_decode_attention_kernel_refuses(cuda):
+    q = torch.zeros(2, 4, 32, device=cuda)
+    k = torch.zeros(2, 2, 64, 32, device=cuda)
+    n = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    before = K3.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        K3.decode_attention_cuda(q.cpu(), k.cpu(), k.cpu(), n.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        K3.decode_attention_cuda(q, k, k, n.long())
+    with pytest.raises(ValueError, match="H % KH"):
+        K3.decode_attention_cuda(torch.zeros(2, 3, 32, device=cuda), k, k, n)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(2, 2, 8, 256, device=cuda)
+        K3.decode_attention_cuda(torch.zeros(2, 4, 256, device=cuda), big,
+                                 big, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        K3.decode_attention_cuda(q, k.transpose(2, 3), k, n)
+    assert K3.launches == before
+
+
+def test_reduced_engine_on_card_matches_cpu(cuda):
+    """yi-6b reduced (float32): the engine on the card, its decode
+    attention on K3, emits the CPU engine's greedy tokens, and launches
+    K3 once per layer per decode step."""
+    cfg = get_config("yi-6b", reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (5, 30, 1, 70, 12)]
+    outs, steps = [], 0
+    before = K3.launches
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(bundle, model.to(dev), max_slots=4,
+                            cache_len=64, device=dev)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
+        while True:
+            more = eng.step()
+            steps += eng.last_step["decoded"] and dev != "cpu"
+            if not more:
+                break
+        outs.append({u: r.output for u, r in eng.results.items()})
+    assert outs[0] == outs[1]
+    assert K3.launches - before == cfg.n_layers * steps

@@ -1,4 +1,4 @@
-"""The two ported kernels on the CPU: each wrapper runs its plain PyTorch
+"""The ported kernels on the CPU: each wrapper runs its plain PyTorch
 version there, which is held against the JAX package's oracle
 (``repro.kernels.ref``) and its Pallas kernel in interpret mode.  The
 CUDA kernels themselves are held against the plain versions in
@@ -10,10 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 
+from repro.kernels.decode_attention import decode_attention_pallas
+
+from repro_torch.kernels import decode_attention as K3
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quant_matmul as K1
@@ -143,4 +147,103 @@ def test_cuda_launchers_refuse_cpu_tensors():
     q = torch.zeros(1, 1, 8, 8)
     with pytest.raises(ValueError):
         K2.flash_attention_cuda(q, q, q)
-    assert (K1.launches, K2.launches) == before
+    before3 = K3.launches
+    with pytest.raises(ValueError):
+        K3.decode_attention_cuda(q[:, :, 0], q, q,
+                                 torch.ones(1, dtype=torch.int32))
+    assert (K1.launches, K2.launches, K3.launches) == before + (before3,)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (K3)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pallas_memory_space_alias():
+    """Alias ``pltpu.TPUMemorySpace`` (renamed ``pltpu.MemorySpace`` in
+    newer jax) for this module's Pallas decode-attention calls only, and
+    drop the kernel's jit cache afterwards so no program traced under
+    the alias outlives the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(pltpu, "TPUMemorySpace"):
+            mp.setattr(pltpu, "TPUMemorySpace", pltpu.MemorySpace,
+                       raising=False)
+        yield
+    decode_attention_pallas.clear_cache()
+
+
+# f32 decode attention: one softmax over S and one P·V in f32 on each
+# side, summed in different orders
+DECODE_TOL = 1e-5
+
+# (b, h, kh, s, d, window): tests/test_kernels.py's sweep, then head dim
+# 96 (Phi-3-mini), GQA 8 (Yi-6B), and windows wider than the rows
+DECODE_CASES = [
+    (1, 4, 1, 256, 64, None), (2, 8, 2, 512, 64, None),
+    (4, 4, 4, 128, 32, None), (1, 4, 1, 256, 64, 64),
+    (2, 8, 2, 512, 64, 64), (4, 4, 4, 128, 32, 64),
+    (3, 4, 4, 256, 96, None), (4, 16, 2, 128, 128, None),
+    (2, 8, 1, 128, 64, 1000),
+]
+
+
+def _decode_case(b, h, kh, s, d, window, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (b, h, d)).astype(np.float32)
+    k = rng.normal(0, 1, (b, kh, s, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, kh, s, d)).astype(np.float32)
+    lengths = rng.integers(min(window or 1, s), s + 1, (b,)).astype(
+        np.int32)
+    lengths[-1] = s                     # every row valid (a full ring)
+    lengths[0] = 1                      # a single valid entry
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,window", DECODE_CASES)
+def test_decode_attention_plain_matches_jax(pallas_memory_space_alias, b, h,
+                                            kh, s, d, window):
+    q, k, v, lengths = _decode_case(b, h, kh, s, d, window, b * 10 + h + d)
+    got = ops.decode_attention(*map(torch.from_numpy, (q, k, v, lengths)),
+                               window=window).numpy()
+    jq = tuple(map(jnp.asarray, (q, k, v, lengths)))
+    pallas = np.asarray(jax_ops.decode_attention(*jq, window=window,
+                                                 interpret=True))
+    oracle = np.asarray(jax_ref.decode_attention_ref(*jq, window=window))
+    np.testing.assert_allclose(got, pallas, atol=DECODE_TOL,
+                               rtol=DECODE_TOL)
+    np.testing.assert_allclose(got, oracle, atol=DECODE_TOL,
+                               rtol=DECODE_TOL)
+    # one valid entry: the output is that row of V, exactly
+    np.testing.assert_array_equal(
+        got[0], np.repeat(v[0, :, 0], h // kh, axis=0))
+
+
+def test_decode_attention_plain_empty_rows_are_zero(
+        pallas_memory_space_alias):
+    """A row with no valid key (length 0, or a window of 0) outputs 0, as
+    the Pallas kernel does; the JAX oracle's plain softmax gives NaN."""
+    q, k, v, lengths = _decode_case(3, 4, 2, 128, 32, None, 7)
+    lengths[1] = 0
+    got = ops.decode_attention(*map(torch.from_numpy, (q, k, v, lengths))
+                               ).numpy()
+    jq = tuple(map(jnp.asarray, (q, k, v, lengths)))
+    pallas = np.asarray(jax_ops.decode_attention(*jq, interpret=True))
+    np.testing.assert_array_equal(got[1], 0.0)
+    np.testing.assert_allclose(got, pallas, atol=DECODE_TOL,
+                               rtol=DECODE_TOL)
+    assert np.isnan(np.asarray(jax_ref.decode_attention_ref(*jq))[1]).all()
+    windowed = ops.decode_attention(*map(torch.from_numpy,
+                                         (q, k, v, lengths)), window=0)
+    np.testing.assert_array_equal(windowed.numpy(), 0.0)
+
+
+def test_decode_attention_plain_bf16_keeps_dtype():
+    q, k, v, lengths = _decode_case(2, 8, 2, 256, 64, None, 5)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = ops.decode_attention(*t, torch.from_numpy(lengths))
+    assert got.dtype == torch.bfloat16
+    want = ref.decode_attention_ref(*[a.float() for a in t],
+                                    torch.from_numpy(lengths))
+    # one bfloat16 rounding of an f32 result: half an ulp, 2^-8 relative
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=2 ** -8, atol=1e-6)
