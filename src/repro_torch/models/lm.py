@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.executor import resolve_device
+
 from .common import (ModelConfig, apply_rope, dense_init, rms_norm,
                      rope_cos_sin)
 
@@ -99,13 +101,16 @@ class DenseBlock(nn.Module):
 class DenseLM(nn.Module):
     """The dense LM's parameters: embedding (V_pad, D), one DenseBlock
     per layer, final norm and (untied) head (D, V_pad).  Built empty
-    on ``device``; ``init_lm`` or ``params_from_jax`` fills it."""
+    on ``device`` (the card by default; raises without one — pass
+    ``"cpu"`` for the CPU); ``init_lm`` or ``params_from_jax`` fills
+    it."""
 
-    def __init__(self, cfg: ModelConfig, device="cpu"):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         if cfg.n_experts or cfg.first_layer_dense_ff:
             raise ValueError(f"{cfg.arch_id}: DenseLM holds the dense "
                              f"family only")
+        device = resolve_device(device)
         dtype, vp, d = cfg.torch_dtype(), padded_vocab(cfg), cfg.d_model
         self.cfg = cfg
         self.embed = _param((vp, d), dtype, device)
@@ -161,10 +166,11 @@ def _from_numpy(a: Any, dtype: torch.dtype) -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cpu") -> DenseLM:
+                    device="cuda") -> DenseLM:
     """The JAX ``init_lm`` tree (leaves as numpy arrays, per-layer leaves
-    stacked on a leading L dim) as the port's ``DenseLM`` on ``device``,
-    leaf for leaf, so both packages compute with the same weights."""
+    stacked on a leading L dim) as the port's ``DenseLM`` on ``device``
+    (the card by default, as ``DenseLM``), leaf for leaf, so both
+    packages compute with the same weights."""
     dtype = cfg.torch_dtype()
     model = DenseLM(cfg, device)
     blocks = tree["blocks"]

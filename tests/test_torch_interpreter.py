@@ -371,18 +371,39 @@ def test_default_device_is_cuda(conv_model, resolver):
 
 
 @pytest.mark.parametrize("entry", ["plan_model", "AllocationPlan.build",
-                                   "ArenaPool"])
+                                   "ArenaPool", "DenseLM",
+                                   "params_from_jax"])
 def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
-    """The executor's own entry points default to the card too, and raise
-    without one rather than plan or allocate on the CPU."""
+    """The executor's and the LM's entry points default to the card too,
+    and raise without one rather than plan or allocate on the CPU."""
+    from repro_torch.configs import get_config
     from repro_torch.core import (AllocationPlan, ArenaPool, TwoStackArena,
                                   plan_model)
+    from repro_torch.models import lm
+    cfg = get_config("yi-6b", reduced=True)
+    # the JAX init_lm tree's layout, zeros: only where it lands matters
+    cpu = lm.DenseLM(cfg, device="cpu")
+    tree = {"embed": cpu.embed, "final_norm": cpu.final_norm,
+            "lm_head": cpu.lm_head, "blocks": {
+                "ln1": [b.ln1 for b in cpu.layers],
+                "ln2": [b.ln2 for b in cpu.layers],
+                "attn": {n: [dict(b.attn.named_parameters())[n]
+                             for b in cpu.layers]
+                         for n, _ in cpu.layers[0].attn.named_parameters()},
+                "mlp": {n: [dict(b.mlp.named_parameters())[n]
+                            for b in cpu.layers]
+                        for n, _ in cpu.layers[0].mlp.named_parameters()}}}
+    tree = torch.utils._pytree.tree_map(
+        lambda t: np.zeros(t.shape, np.float32), tree)
     fn, call = {
         "plan_model": (plan_model, lambda: plan_model(conv_model, resolver)),
         "AllocationPlan.build": (
             AllocationPlan.build, lambda: AllocationPlan.build(
                 conv_model, resolver, TwoStackArena(1 << 20))),
         "ArenaPool": (ArenaPool, lambda: ArenaPool()),
+        "DenseLM": (lm.DenseLM, lambda: lm.DenseLM(cfg).embed),
+        "params_from_jax": (lm.params_from_jax,
+                            lambda: lm.params_from_jax(tree, cfg).embed),
     }[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():

@@ -65,7 +65,7 @@ def models():
         params = jax_lm.init_lm(jax.random.PRNGKey(0), jcfg)
         cfg = get_config(arch, reduced=True)
         out[arch] = (jcfg, params, cfg, lm.params_from_jax(
-            jax.tree.map(np.asarray, params), cfg))
+            jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 
 

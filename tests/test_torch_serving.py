@@ -75,7 +75,7 @@ def models():
         params = jbundle.init(jax.random.PRNGKey(0))
         cfg = get_config(arch, reduced=True)
         out[arch] = (jbundle, params, get_model(cfg), lm.params_from_jax(
-            jax.tree.map(np.asarray, params), cfg))
+            jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 
 
