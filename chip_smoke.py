@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Chip smoke for the PyTorch port: its two main paths end to end on one
-NVIDIA GPU — the micro interpreter and dense-LM serving — with every
-CUDA kernel of those paths held against its plain PyTorch version.
+"""Chip smoke for the PyTorch port: its main paths end to end on one
+NVIDIA GPU — the micro interpreter and dense-LM serving, contiguous and
+paged — with every CUDA kernel of those paths held against its plain
+PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -20,9 +21,14 @@ Phases — any failure raises and the script exits non-zero:
      within 1e-5) and bfloat16, K3 decode_attention at Yi-6B's and
      Phi-3-mini's decode shapes with lengths 1, 37, 1500 and 2048 (a
      full ring), a window, a cache length off the kernel's chunk size
-     (float32 within 1e-5, bfloat16 within ``BF16_ATOL``); kernel, plain
-     and library times from CUDA events, and the card's least possible
-     time (the bound).
+     (float32 within 1e-5, bfloat16 within ``BF16_ATOL``), K4
+     paged_decode_attention at Yi-6B's paged decode shape (pool of 513
+     blocks of 16, a permuted table, unmapped tails on block 0, the same
+     lengths) and with float32, a window, blocks of 8 and 64, Phi-3-mini's
+     heads, each also bit-equal to K3 on the equal contiguous cache;
+     kernel, plain and library times from CUDA events (K4: K3's time on
+     the equal cache, and a gather + SDPA as two calls), and the card's
+     least possible time (the bound).
   3. the micro main path, with every launch count set to 0 just before
      it: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
      "reference")), device="cuda")`` answers 8 requests on each of
@@ -52,9 +58,23 @@ Phases — any failure raises and the script exits non-zero:
      displaces a decoding one: both emit exactly their tokens of the
      uninterrupted run.
   8. Yi-6B reduced, float32: the engine on the card and on the CPU emit
-     identical greedy tokens.
-  9. a JSON line of the models, one listing the kernels, then the last
-     line ``{"ok": true, "device": {...}}``.
+     identical greedy tokens, contiguous and with ``kv_block=8,
+     prefill_chunk=8`` (also equal to the contiguous engine's).
+  9. the paged serving main path, counts set to 0 just before it: the
+     phase-7 model and requests through ``ServingEngine(...,
+     kv_block=16)``.  Tokens equal phase 7's request for request; K4's
+     launches equal 32 layers × the decode steps and K3's are 0; the
+     pool and block table keep their addresses, device memory after
+     every step equals its value after the first, every block comes
+     back.  Then the profile (busy share), EDF displacement on the paged
+     engine (the checkpoint carries block ids, the tokens are the
+     uninterrupted run's), a pool of two full-length slots under the
+     admission gate (same tokens), and ``prefill_chunk=128`` on the
+     paged engine: every request finishes, and the longest prompt's K/V
+     rows after chunked prefill agree with one-shot prefill's at layer 0
+     within one bfloat16 ulp of each row's largest entry.
+  A JSON line of the models, one listing the kernels, then the last
+  line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -363,6 +383,118 @@ def check_decode_attention(torch, np, dev):
     return rows
 
 
+def _paged_layout(torch, dev, dt, b, kh, s, bs, d, lens, seed):
+    """A contiguous (B,KH,S,D) cache and the same rows in a pool of
+    B·S/BS + 1 blocks under a permuted table: row i maps the blocks its
+    length reaches, its tail entries stay on block 0; the pool's other
+    blocks hold unrelated values."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    t = s // bs
+    n_blocks = b * t + 1
+    k_pool, v_pool = (torch.randn(n_blocks, kh, bs, d, generator=g)
+                      .to(dev, dt) for _ in range(2))
+    ids = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
+    tables = torch.zeros(b, t, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        for j in range(-(-n // bs)):
+            tables[i, j] = ids.pop()
+    tables = tables.to(dev)
+    idx = tables.long()
+    k = k_pool[idx].transpose(1, 2).reshape(b, kh, s, d).contiguous()
+    v = v_pool[idx].transpose(1, 2).reshape(b, kh, s, d).contiguous()
+    return k_pool, v_pool, tables, k, v
+
+
+def check_paged_decode_attention(torch, np, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    # (b, h, kh, t, bs, d, window, dtype); the first is the paged serving
+    # path's: Yi-6B's decode step at 4 slots of 128 blocks of 16 in bf16
+    cases = [(4, 32, 4, 128, 16, 128, None, torch.bfloat16),
+             (4, 32, 4, 128, 16, 128, None, torch.float32),
+             (4, 32, 4, 128, 16, 128, 256, torch.float32),
+             (4, 32, 4, 256, 8, 128, None, torch.bfloat16),
+             (4, 32, 4, 32, 64, 128, None, torch.bfloat16),
+             (4, 32, 32, 128, 16, 96, None, torch.float32),
+             (4, 32, 32, 128, 16, 96, None, torch.bfloat16)]
+    rows = []
+    for b, h, kh, t, bs, d, window, dt in cases:
+        s = t * bs
+        lens = [1, 37, 1500, s]
+        k_pool, v_pool, tables, k, v = _paged_layout(
+            torch, dev, dt, b, kh, s, bs, d, lens, seed=t + bs + d)
+        q = torch.randn(b, h, d, generator=g).to(dev, dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                         window=window)
+        want = ref.paged_decode_attention_ref(q, k_pool, v_pool, tables,
+                                              lengths, window=window)
+        k3 = decode_attention_cuda(q, k, v, lengths, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-5 if dt == torch.float32 else BF16_ATOL
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"K4 {(b, h, kh, t, bs, d, window, dt)}: "
+                                 f"max abs err {err} > {tol}")
+        if not torch.equal(got, k3):
+            raise AssertionError(f"K4 {(b, h, kh, t, bs, d, window, dt)} "
+                                 f"differs from K3 on the equal cache")
+        item = q.element_size()
+        valid = _decode_valid_rows(lens, s, window)
+        # the table entries the valid rows reach
+        blocks = sum(-(-min(n, s) // bs) for n in lens)
+        row = {"shape": [b, h, kh, t, bs, d], "pool_blocks": b * t + 1,
+               "lengths": lens, "window": window,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "equals_k3": True, "library_ms": None,
+               "library": "none: no single PyTorch call walks a block table"}
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: paged_decode_attention_cuda(
+                q, k_pool, v_pool, tables, lengths, window=window))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.paged_decode_attention_ref(
+                q, k_pool, v_pool, tables, lengths, window=window))
+        row["k3_ms"], _ = time_ms(torch, lambda: decode_attention_cuda(
+            q, k, v, lengths, window=window))
+        # bytes: q and out once, the valid K and V rows once, lengths,
+        # and the table entries those rows need
+        row["bound_ms"], row["bound_by"] = bound(
+            item * (2 * b * h * d + 2 * valid * kh * d) + 4 * b + 4 * blocks,
+            4 * h * d * valid,
+            H100_F32_OPS_PER_S if dt == torch.float32
+            else H100_BF16_OPS_PER_S)
+        # two calls, for scale only: gather the table's blocks, then one
+        # SDPA over the gathered cache (bool mask, GQA through enable_gqa)
+        pos = torch.arange(s, device=dev)[None, :]
+        mask = pos < lengths[:, None]
+        if window is not None:
+            mask &= pos >= lengths[:, None] - window
+        mask = mask[:, None, None, :]
+        idx = tables.long()
+
+        def gather_sdpa():
+            kc = k_pool[idx].transpose(1, 2).reshape(b, kh, s, d)
+            vc = v_pool[idx].transpose(1, 2).reshape(b, kh, s, d)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True)
+        lib_err = (gather_sdpa()[:, :, 0].float() - want.float()).abs().max()
+        if lib_err.item() > 10 * tol:
+            raise AssertionError(f"K4 gather + SDPA disagrees by {lib_err}")
+        row["gather_sdpa_ms"], _ = time_ms(torch, gather_sdpa)
+        rows.append(row)
+        log(f"  K4 {(b, h, kh, t, bs, d)} window={window} {row['dtype']}: "
+            f"err {err:.3g}, equal to K3; " + _times(row)
+            + f"  K3 {row['k3_ms'] * 1e3:.2f} us  gather+SDPA (two calls) "
+            f"{row['gather_sdpa_ms'] * 1e3:.2f} us")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the interpreter on the card against the CPU reference
 # ---------------------------------------------------------------------------
@@ -519,6 +651,7 @@ def profile_invokes(torch, rows, cards) -> None:
 LM_ARCH = "yi-6b"
 SERVE_SLOTS, SERVE_CACHE = 4, 2048
 N_SERVE, SERVE_NEW = 8, 32
+PAGED_BLOCK, CHUNK = 16, 128
 TF_STEPS = 16
 # float32 teacher-forced logits: K3's online softmax and the plain
 # softmax differ in rounding only; the stated bound is relative to the
@@ -589,12 +722,19 @@ def serving_workload(np, vocab):
             for n in rng.integers(16, 513, N_SERVE)]
 
 
+def kv_state(eng):
+    """The engine's device KV state: the rings, or the pool and table."""
+    if eng.paged:
+        return [*eng.kv_pool.values(), eng.block_tables]
+    return list(eng.cache.values())
+
+
 def serve_lm(torch, np, dev, eng, prompts):
-    """Phase 7, the counted part: every request through ``eng``; checks
-    what stays in place and returns the run's numbers."""
+    """Phases 7 and 9, the counted part: every request through ``eng``;
+    checks what stays in place and returns the run's numbers."""
     from repro_torch.serving import Request
 
-    ptrs = [t.data_ptr() for t in eng.cache.values()]
+    ptrs = [t.data_ptr() for t in kv_state(eng)]
     persistent = eng.arena.usage().persistent
     for uid, p in enumerate(prompts):
         eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
@@ -615,8 +755,8 @@ def serve_lm(torch, np, dev, eng, prompts):
                                      f"the first")
             if not eng.last_step["prefill_tokens"]:
                 step_ms.append(dt)
-        if [t.data_ptr() for t in eng.cache.values()] != ptrs:
-            raise AssertionError("the KV cache moved")
+        if [t.data_ptr() for t in kv_state(eng)] != ptrs:
+            raise AssertionError("the KV cache, pool or block table moved")
         if not more:
             break
     wall = time.perf_counter() - t_run
@@ -628,9 +768,13 @@ def serve_lm(torch, np, dev, eng, prompts):
                 0 <= t < eng.cfg.vocab for t in r.output)):
             raise AssertionError(f"request {uid} did not finish well: "
                                  f"{r.output}")
+    if eng.paged and eng.pool.free_blocks() != eng.pool.usable_blocks:
+        raise AssertionError(f"{eng.pool.free_blocks()} of "
+                             f"{eng.pool.usable_blocks} blocks came back")
     tokens = sum(len(r.output) for r in res.values())
     median = statistics.median(step_ms)
-    row = {"model": f"{eng.cfg.arch_id} bfloat16 serving",
+    paged = f", kv_block {eng.kv_block}" if eng.paged else ""
+    row = {"model": f"{eng.cfg.arch_id} bfloat16 serving{paged}",
            "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
            "requests": len(res), "prompt_lens": [len(p) for p in prompts],
            "new_tokens": SERVE_NEW, "tokens": tokens,
@@ -694,8 +838,10 @@ def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
 
 
 def check_preemption(eng, prompts, want) -> None:
-    """Phase 7: a tight deadline displaces a decoding request; both (and
-    the others) emit exactly the uninterrupted run's tokens."""
+    """Phases 7 and 9: a tight deadline displaces a decoding request;
+    both (and the others) emit exactly the uninterrupted run's tokens.
+    On a paged engine the checkpoint carries block ids, no KV, and every
+    block comes back."""
     from repro_torch.serving import Request
 
     urgent = SERVE_SLOTS
@@ -706,7 +852,15 @@ def check_preemption(eng, prompts, want) -> None:
         eng.step()
     eng.submit(Request(uid=urgent, tokens=prompts[urgent],
                        max_new_tokens=SERVE_NEW, deadline_us=100))
+    eng.step()
+    ckpts = list(eng._ckpt.values())
+    if len(ckpts) != 1 or ckpts[0].phase != "decode":
+        raise AssertionError(f"expected one decode checkpoint, got {ckpts}")
+    if eng.paged and (ckpts[0].cache is not None or not ckpts[0].blocks):
+        raise AssertionError("a paged checkpoint must carry blocks, not KV")
     res = eng.run()
+    if eng.paged and eng.pool.free_blocks() != eng.pool.usable_blocks:
+        raise AssertionError("blocks missing after preempt/restore")
     evicted = [u for u, r in res.items() if r.preemptions]
     if len(evicted) != 1 or res[urgent].preemptions:
         raise AssertionError(f"expected one eviction, got {evicted}")
@@ -714,14 +868,121 @@ def check_preemption(eng, prompts, want) -> None:
         if r.output != want[uid]:
             raise AssertionError(f"request {uid} emitted {r.output} after "
                                  f"preemption, {want[uid]} uninterrupted")
+    carried = (f" (checkpoint: {len(ckpts[0].blocks)} block ids, no KV)"
+               if eng.paged else "")
     log(f"  EDF displacement: request {evicted[0]} evicted mid-decode "
-        f"for request {urgent}, restored; all {len(res)} requests emit "
-        f"their uninterrupted tokens")
+        f"for request {urgent}, restored{carried}; all {len(res)} requests "
+        f"emit their uninterrupted tokens")
+
+
+def paged_gated_run(torch, np, eng, prompts, want):
+    """Phase 9: a pool of two full-length slots' blocks (plus the garbage
+    block) serves the phase-7 requests under the admission gate; every
+    request finishes with phase 7's tokens and every block comes back."""
+    from repro_torch.serving import Request
+
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
+    held, peak = 0, 0
+    while True:
+        more = eng.step()
+        # a slot is free and the policy's pick cannot reserve its worst
+        # case: the next admission waits for blocks
+        held += bool(eng.queue) and not eng.active.all() and not \
+            eng._paged_admissible(eng.queue[eng.policy.select(eng.queue)])
+        peak = max(peak, eng.pool.usable_blocks - eng.pool.free_blocks())
+        if not more:
+            break
+    got = {u: r.output for u, r in eng.results.items()}
+    if got != want or not all(r.done for r in eng.results.values()):
+        raise AssertionError(f"gated pool: tokens {got} != {want}")
+    if eng.pool.free_blocks() != eng.pool.usable_blocks:
+        raise AssertionError("gated pool: blocks missing at the end")
+    log(f"  pool of {eng.pool.n_blocks} blocks (two full-length slots): "
+        f"{len(got)} requests finish with phase 7's tokens; at most {peak} "
+        f"blocks promised at once, the gate held a request back at "
+        f"{held} steps")
+    return {"pool_blocks": eng.pool.n_blocks, "peak_blocks_promised": peak,
+            "steps_gate_held": held, "tokens_equal": True}
+
+
+def slot_rows(torch, eng, slot, n):
+    """Positions 0..n-1 of ``slot`` gathered from the pool through its
+    table row: {k, v} of (L, KH, n, dh)."""
+    idx = torch.from_numpy(eng._table_row(slot)).long().to(eng.device)
+    out = {}
+    for name, pool in eng.kv_pool.items():
+        l, _, kh, bs, dh = pool.shape
+        rows = pool[:, idx].transpose(1, 2).reshape(l, kh, -1, dh)
+        out[name] = rows[:, :, :n].float()
+    return out
+
+
+def paged_chunked_run(torch, np, engine, prompts, want):
+    """Phase 9: ``prefill_chunk=CHUNK`` on the paged engine serves every
+    request; then the longest prompt's K/V rows after chunked prefill
+    against those after one-shot prefill: layer 0 within one bfloat16
+    rounding of each row's largest entry, the last layer's difference
+    reported."""
+    from repro_torch.serving import Request
+
+    eng = engine(kv_block=PAGED_BLOCK, prefill_chunk=CHUNK)
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
+    chunks = 0
+    while eng.step():
+        chunks += eng.last_step["chunks"]
+    res = eng.results
+    if not all(r.done and r.output for r in res.values()):
+        raise AssertionError("chunked prefill: a request did not finish")
+    if eng.pool.free_blocks() != eng.pool.usable_blocks:
+        raise AssertionError("chunked prefill: blocks missing at the end")
+    same = sum(res[u].output == want[u] for u in res)
+    del eng
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    m = len(prompts[longest]) - 1
+    rows = []
+    for kw in ({"prefill_chunk": CHUNK}, {}):
+        e = engine(kv_block=PAGED_BLOCK, **kw)
+        e.submit(Request(uid=0, tokens=prompts[longest], max_new_tokens=2))
+        while not e.results[0].output:
+            e.step()
+        rows.append(slot_rows(torch, e, 0, m))
+        e.run()
+    diffs = {}
+    for name in ("k", "v"):
+        chunked, oneshot = rows[0][name], rows[1][name]
+        d = (chunked - oneshot).abs()
+        # one bf16 ulp at each row's largest magnitude: 2^(floor(log2)-7)
+        top = oneshot.abs().amax(dim=-1, keepdim=True).clamp_min(2 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        worst0 = (d[0] / ulp[0]).max().item()
+        if worst0 > 1.0:
+            raise AssertionError(f"chunked vs one-shot prefill, layer 0 "
+                                 f"{name}: {worst0:.3g} ulps of the row max")
+        diffs[name] = {"layer0_max_ulps_of_row_max": worst0,
+                       "layer0_max_abs": d[0].max().item(),
+                       "last_layer_max_abs": d[-1].max().item(),
+                       "last_layer_max_ulps_of_row_max":
+                           (d[-1] / ulp[-1]).max().item()}
+    log(f"  prefill_chunk={CHUNK}: {len(res)} requests finish, {chunks} "
+        f"chunk steps, {same} of {len(res)} emit phase 7's tokens; prompt "
+        f"of {m + 1} tokens, chunked vs one-shot K/V rows: layer 0 within "
+        + ", ".join(f"{n} {v['layer0_max_ulps_of_row_max']:.2f}"
+                    for n, v in diffs.items())
+        + " ulps of the row max, last layer max |d| "
+        + ", ".join(f"{n} {v['last_layer_max_abs']:.3g}"
+                    for n, v in diffs.items()))
+    return {"chunk": CHUNK, "requests": len(res), "chunk_steps": chunks,
+            "requests_with_phase7_tokens": same, "compared_prompt": m + 1,
+            "kv_chunked_vs_oneshot": diffs}
 
 
 def reduced_card_vs_cpu(torch, np, dev):
     """Phase 8: yi-6b reduced, float32: the engine on the card and on the
-    CPU emit identical greedy tokens."""
+    CPU emit identical greedy tokens, contiguous and with
+    ``kv_block=8, prefill_chunk=8`` (which must also equal the contiguous
+    CPU engine's)."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.serving import Request, ServingEngine
@@ -732,21 +993,26 @@ def reduced_card_vs_cpu(torch, np, dev):
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
                for n in (5, 30, 1, 70, 12, 40)]
-    outs = []
-    for where in ("cpu", dev):
+    outs = {}
+    paged = {"kv_block": 8, "prefill_chunk": 8}
+    for where, kw in (("cpu", {}), (dev, {}), ("cpu", paged), (dev, paged)):
         eng = ServingEngine(bundle, model.to(where), max_slots=4,
-                            cache_len=64, device=where)
+                            cache_len=64, device=where, **kw)
         for uid, p in enumerate(prompts):
             eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
-        outs.append({u: r.output for u, r in eng.run().items()})
-    if outs[0] != outs[1]:
-        raise AssertionError(f"reduced {LM_ARCH}: card tokens {outs[1]} "
-                             f"!= CPU tokens {outs[0]}")
-    n = sum(len(o) for o in outs[1].values())
-    log(f"  {cfg.arch_id}: {len(prompts)} requests, {n} tokens, card == "
-        f"CPU")
-    return {"model": f"{cfg.arch_id} float32 card vs CPU",
-            "requests": len(prompts), "tokens": n, "tokens_equal": True}
+        outs[str(where), bool(kw)] = {u: r.output
+                                      for u, r in eng.run().items()}
+    want = outs["cpu", False]
+    for key, got in outs.items():
+        if got != want:
+            raise AssertionError(f"reduced {LM_ARCH} {key}: tokens {got} "
+                                 f"!= contiguous CPU tokens {want}")
+    n = sum(len(o) for o in want.values())
+    log(f"  {cfg.arch_id}: {len(prompts)} requests, {n} tokens; card == CPU "
+        f"contiguous and with kv_block=8, prefill_chunk=8 (== contiguous)")
+    return {"model": f"{cfg.arch_id} float32 card vs CPU, contiguous and "
+                     f"paged+chunked", "requests": len(prompts), "tokens": n,
+            "tokens_equal": True}
 
 
 def main() -> int:
@@ -781,6 +1047,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     from repro_torch.kernels import decode_attention as K3
     from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import paged_decode_attention as K4
     from repro_torch.kernels import quant_matmul as K1
     dev = torch.device("cuda")
 
@@ -788,9 +1055,10 @@ def main() -> int:
     k1_rows = check_quant_matmul(torch, np, dev)
     k2_rows = check_flash_attention(torch, np, dev)
     k3_rows = check_decode_attention(torch, np, dev)
+    k4_rows = check_paged_decode_attention(torch, np, dev)
 
     log("phase 3: the interpreter on the card (main path)")
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
     model_rows, cards, want_k1 = run_models(np, dev)
     log("phase 4: ATTENTION through the interpreter (main path)")
     row, card = run_attention(np, dev)
@@ -827,27 +1095,62 @@ def main() -> int:
                              cache_len=SERVE_CACHE,
                              tags=("cuda", "reference"), device=dev, **kw)
     eng = engine()
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
     serve_row, served = serve_lm(torch, np, dev, eng, prompts)
     launches["decode_attention"] = K3.launches
     n_layers = bundle.cfg.n_layers
     log(f"  launches on the serving path: K1 {K1.launches}, K2 "
-        f"{K2.launches}, K3 {K3.launches} ({n_layers} layers x "
-        f"{serve_row['decode_steps']} decode steps)")
-    if K3.launches != n_layers * serve_row["decode_steps"]:
+        f"{K2.launches}, K3 {K3.launches}, K4 {K4.launches} ({n_layers} "
+        f"layers x {serve_row['decode_steps']} decode steps)")
+    if (K3.launches, K4.launches) != (n_layers * serve_row["decode_steps"],
+                                      0):
         raise AssertionError(f"decode_attention launched {K3.launches} "
-                             f"times for {serve_row['decode_steps']} decode "
-                             f"steps of {n_layers} layers")
+                             f"times (K4 {K4.launches}) for "
+                             f"{serve_row['decode_steps']} decode steps of "
+                             f"{n_layers} layers")
     profile_decode(torch, np, eng, serve_row)
     del eng
     check_preemption(engine(policy="edf", preempt="edf-displace",
                             clock=lambda: 0), prompts, served)
     model_rows.append(serve_row)
-    del lm_model
-    torch.cuda.empty_cache()
 
     log("phase 8: reduced model, the engine on the card vs the CPU")
     model_rows.append(reduced_card_vs_cpu(torch, np, dev))
+
+    log(f"phase 9: {LM_ARCH} full width, bfloat16, paged KV "
+        f"(kv_block={PAGED_BLOCK}) through the ServingEngine (main path)")
+    eng = engine(kv_block=PAGED_BLOCK)
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    paged_row, paged_served = serve_lm(torch, np, dev, eng, prompts)
+    launches["paged_decode_attention"] = K4.launches
+    log(f"  launches on the paged serving path: K3 {K3.launches}, K4 "
+        f"{K4.launches} ({n_layers} layers x {paged_row['decode_steps']} "
+        f"decode steps); pool {eng.pool.n_blocks} blocks of {PAGED_BLOCK}")
+    if (K3.launches, K4.launches) != (0, n_layers
+                                      * paged_row["decode_steps"]):
+        raise AssertionError(f"paged_decode_attention launched "
+                             f"{K4.launches} times (K3 {K3.launches}) for "
+                             f"{paged_row['decode_steps']} decode steps of "
+                             f"{n_layers} layers")
+    if paged_served != served:
+        raise AssertionError(f"paged tokens {paged_served} != phase 7's "
+                             f"contiguous tokens {served}")
+    log("  paged tokens equal phase 7's contiguous tokens, request for "
+        "request; every block came back")
+    profile_decode(torch, np, eng, paged_row)
+    del eng
+    check_preemption(engine(kv_block=PAGED_BLOCK, policy="edf",
+                            preempt="edf-displace", clock=lambda: 0),
+                     prompts, served)
+    paged_row["gated"] = paged_gated_run(
+        torch, np, engine(kv_block=PAGED_BLOCK,
+                          kv_pool_blocks=2 * SERVE_CACHE // PAGED_BLOCK + 1),
+        prompts, served)
+    paged_row["chunked"] = paged_chunked_run(torch, np, engine, prompts,
+                                             served)
+    model_rows.append(paged_row)
+    del lm_model
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
@@ -873,6 +1176,9 @@ def main() -> int:
         entry("decode_attention",
               "src/repro_torch/kernels/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:82", k3_rows),
+        entry("paged_decode_attention",
+              "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+              "src/repro/kernels/decode_attention.py:308", k4_rows),
     ]
     log(json.dumps({"models": model_rows}))
     log(json.dumps({"kernels": kernels}))

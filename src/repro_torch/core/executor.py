@@ -26,6 +26,10 @@ non-concurrent invocations.  It allocates during warm-up only, which
 
 **Length bucketing.**  ``BucketTable`` quantizes ragged sizes to a few
 levels; the serving engine pads prompts to them (bucketed prefill).
+
+**Paged KV accounting.**  ``PagedKVPool`` hands out the physical blocks
+of the serving engine's paged KV pool (reserve at admission, map on
+growth, release at retirement).
 """
 
 from __future__ import annotations
@@ -490,3 +494,110 @@ class BucketTable:
                 f"size {n} exceeds max_bucket {self.max_bucket}")
         self.hits[b] = self.hits.get(b, 0) + 1
         return b
+
+
+# ---------------------------------------------------------------------------
+# paged KV block accounting (host side)
+# ---------------------------------------------------------------------------
+
+class PagedKVPool:
+    """Host-side allocator for a pool of fixed-size physical KV blocks,
+    a copy of the JAX package's (pure Python, no device state).
+
+    The device tensors live elsewhere (the serving engine owns one
+    ``(L, n_blocks, KH, block_size, dh)`` pool per K/V); this class
+    owns only the *accounting*: which physical blocks are free, which
+    are mapped into some slot's block table, and how many are
+    **reserved** for admitted requests that have not grown into them
+    yet.  The two-phase reserve/map split keeps mid-decode growth
+    infallible: admission calls ``reserve(n)`` for the worst case the
+    request can reach (prompt + decode budget, capped at the logical
+    capacity), and every later ``map_block()`` debits that reservation,
+    so once a request is admitted its decode loop can never die of pool
+    exhaustion, and admission control is a single ``can_reserve``
+    check.
+
+    Block 0 is the **garbage sink**: it is never handed out, and every
+    unmapped block-table entry points at it, so the decode step's
+    unconditional ring write for inactive or mid-chunk slots lands in a
+    block nothing reads under a positive weight.  The free list is LIFO.
+    ``alloc_count`` counts map events."""
+
+    GARBAGE_BLOCK = 0
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if n_blocks < 2:
+            raise ValueError(
+                f"need >= 2 physical blocks (one is the garbage "
+                f"sink), got {n_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.n_blocks = int(n_blocks)
+        self.block_size = int(block_size)
+        # LIFO free list, block 0 (garbage) excluded; popping yields
+        # ascending ids first for deterministic layouts in tests
+        self._free: List[int] = list(range(self.n_blocks - 1, 0, -1))
+        self._reserved = 0
+        self.alloc_count = 0
+
+    @property
+    def usable_blocks(self) -> int:
+        """Physical blocks that can ever be mapped (garbage excluded)."""
+        return self.n_blocks - 1
+
+    def free_blocks(self) -> int:
+        """Blocks neither mapped nor promised to a reservation."""
+        return len(self._free) - self._reserved
+
+    def reserved_blocks(self) -> int:
+        """Outstanding (reserved but not yet mapped) block count."""
+        return self._reserved
+
+    def can_reserve(self, n: int) -> bool:
+        """Whether ``n`` more blocks can be promised right now — THE
+        admission-control predicate."""
+        return int(n) <= self.free_blocks()
+
+    def reserve(self, n: int) -> None:
+        """Promise ``n`` blocks to an admitted request.  Raises when
+        the promise cannot be kept — callers gate on ``can_reserve``,
+        so a failure here is an accounting bug, not load."""
+        n = int(n)
+        if n < 0:
+            raise ValueError(f"cannot reserve {n} blocks")
+        if not self.can_reserve(n):
+            raise RuntimeError(
+                f"reserve({n}): only {self.free_blocks()} of "
+                f"{self.usable_blocks} usable blocks are unpromised")
+        self._reserved += n
+
+    def map_block(self) -> int:
+        """Hand out one physical block against an existing reservation
+        (infallible by the reserve/map contract).  Returns its id."""
+        if self._reserved < 1:
+            raise RuntimeError(
+                "map_block() without a reservation — admission must "
+                "reserve() the request's worst-case block count first")
+        self._reserved -= 1
+        self.alloc_count += 1
+        return self._free.pop()
+
+    def release(self, blocks: Sequence[int], *, reserved: int = 0) -> None:
+        """Return mapped ``blocks`` to the free list and cancel
+        ``reserved`` unused promises (a finished request rarely grew
+        into its full worst case)."""
+        reserved = int(reserved)
+        if reserved < 0 or reserved > self._reserved:
+            raise ValueError(
+                f"release: {reserved} reserved vs {self._reserved} "
+                f"outstanding")
+        for b in blocks:
+            b = int(b)
+            if b == self.GARBAGE_BLOCK or not (0 < b < self.n_blocks):
+                raise ValueError(f"release of invalid block id {b}")
+            if b in self._free:
+                raise ValueError(f"double release of block {b}")
+            self._free.append(b)
+        self._reserved -= reserved
+        if len(self._free) > self.usable_blocks:
+            raise RuntimeError("pool accounting corrupted")

@@ -11,6 +11,8 @@ Kernels (each: ``<name>.py`` launcher with its ``launches`` count +
   * flash_attention  — K2, causal/GQA/sliding-window prefill attention
   * decode_attention — K3, one new token per sequence vs a KV cache
     (the dense serving decode step)
+  * paged_decode_attention — K4, K3 through a block table over a shared
+    pool of KV blocks (the paged serving decode step)
 """
 
 from . import ops  # noqa: F401  (registers the "cuda" tag)

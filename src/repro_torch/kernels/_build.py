@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch_kernels/`` at the root of the checkout, then loaded
-with ``ctypes``.  The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library never loads.
+with ``ctypes``.  The library's file name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library never loads.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
 Every C entry point launches on the stream it is given and returns
@@ -24,7 +25,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-KERNELS = ("quant_matmul", "flash_attention", "decode_attention")
+KERNELS = ("quant_matmul", "flash_attention", "decode_attention",
+           "paged_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,7 +46,9 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

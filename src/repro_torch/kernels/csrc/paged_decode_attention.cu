@@ -1,0 +1,64 @@
+// K4 paged_decode_attention: K3 reading its rows through a block table.
+// q (B,H,D), k/v pools (P,KH,BS,D) of q's type, tables (B,T) int32 and
+// lengths (B,) int32, both read on the device.  Logical position p of
+// sequence b lives in physical block tables[b, p / BS] at row p % BS; the
+// sequence has S = T*BS logical positions.  Masking, GQA sharing, empty
+// rows (0) and the arithmetic are K3's (decode_attention.cuh): at the same
+// valid rows K4 gives K3's values bit for bit.  Table entries past a
+// row's valid range are never read, so unmapped entries (block 0, the
+// pool's garbage block) are never weighted.
+//
+// Replaces the Pallas TPU kernel paged_decode_attention_pallas
+// (src/repro/kernels/decode_attention.py), which picks each tile's
+// physical block in its BlockSpec index map (scalar prefetch); here each
+// row's address is computed from the table inside the block.
+//
+// Bound on the H100: the bytes of the valid K/V rows, as for K3 (7.4 MB,
+// 2.2 us at 3.35 TB/s at Yi-6B's path shape with lengths 1/37/1500/2048);
+// the table adds 4 bytes per block.  BS divides the 32-position chunk or
+// is a multiple of it, so a chunk spans whole blocks or lies inside one.
+
+#include "decode_attention.cuh"
+
+namespace {
+
+// row p of (b, kv head) in a (P, KH, BS, D) pool through (B, T) tables
+struct PagedRows {
+  const int* tables;
+  int KH, T, BS;
+  __device__ __forceinline__ long long operator()(int b, int kvh,
+                                                  int p) const {
+    const long long block = tables[(long long)b * T + p / BS];
+    return (block * KH + kvh) * BS + p % BS;
+  }
+};
+
+}  // namespace
+
+extern "C" long long paged_decode_attention_workspace_floats(int B, int H,
+                                                             int S, int D) {
+  return decode_attn::workspace_floats(B, H, S, D);
+}
+
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* tables,
+    const void* lengths, void* out, void* workspace, int B, int H, int KH,
+    int T, int BS, int D, float scale, int has_window, int window,
+    int is_bf16, void* stream) {
+  if (B < 1 || T < 1 || BS < 1 || D < 1 || D > decode_attn::MAX_D ||
+      KH < 1 || H % KH != 0 ||
+      (decode_attn::SPLIT % BS != 0 && BS % decode_attn::SPLIT != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  float* ws = static_cast<float*>(workspace);
+  const PagedRows rows{static_cast<const int*>(tables), KH, T, BS};
+  const int S = T * BS;
+  if (is_bf16)
+    return decode_attn::launch<__nv_bfloat16>(q, k_pool, v_pool, rows, len,
+                                              out, ws, B, H, KH, S, D, scale,
+                                              has_window, window, st);
+  return decode_attn::launch<float>(q, k_pool, v_pool, rows, len, out, ws, B,
+                                    H, KH, S, D, scale, has_window, window,
+                                    st);
+}

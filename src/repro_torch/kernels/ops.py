@@ -26,8 +26,11 @@ from repro_torch.core.schema import OpCode
 
 from .decode_attention import decode_attention_cuda
 from .flash_attention import flash_attention_cuda
+from .paged_decode_attention import (check_block_size,
+                                     paged_decode_attention_cuda)
 from .quant_matmul import quant_matmul_cuda
-from .ref import decode_attention_ref, mha_ref, quant_matmul_ref
+from .ref import (decode_attention_ref, mha_ref, paged_decode_attention_ref,
+                  quant_matmul_ref)
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +81,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
                                  lengths.to(torch.int32).contiguous(),
                                  window=window, scale=scale)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Block-table decode attention: q (B,H,D), pools (P,KH,BS,D), tables
+    (B,T), lengths (B,) -> (B,H,D).  The block size is the pool's; one
+    the kernel does not take is refused on either device."""
+    check_block_size(k_pool.shape[2])
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
+                                          window=window, scale=scale)
+    return paged_decode_attention_cuda(
+        q.contiguous(), k_pool, v_pool, tables.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous(), window=window, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -176,3 +196,32 @@ class CudaServingDecode:
         # choice may never change semantics
         return lm.lm_decode(params, ctx.bundle.cfg, cache, tokens, lengths,
                             attn_impl=decode_attention)
+
+
+@register_op(OpCode.SERVING_DECODE_PAGED, tag="cuda")
+class CudaServingDecodePaged:
+    """Pod-scale paged decode step whose per-layer attention walks each
+    slot's block table on the paged_decode_attention kernel (K4).  Only
+    the dense family is ported; prepare() refuses the others and a block
+    size the kernel does not take, once, at engine init."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        # imported here: the kernels sit beneath the serving package
+        from repro_torch.serving.errors import UnsupportedFamilyError
+        family = ctx.bundle.cfg.family
+        if family != "dense":
+            raise UnsupportedFamilyError(
+                family, "paged KV in the PyTorch port",
+                supported=("dense",))
+        check_block_size(op.params["kv_block"])
+        return PrepareResult(output_specs=[])
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        params, pool, tables, tokens, lengths = inputs
+        from repro_torch.models import lm
+        # no window= here, as in the reference paged decode
+        return lm.lm_decode_paged(params, ctx.bundle.cfg, pool, tables,
+                                  tokens, lengths,
+                                  attn_impl=paged_decode_attention)

@@ -100,3 +100,28 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.where(valid.any(dim=-1)[:, None, None, None], w, 0.0)
     out = w @ v_cache.to(torch.float32)                  # (B, KH, G, D)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, tables: torch.Tensor,
+                               lengths: torch.Tensor,
+                               window: Optional[int] = None,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Paged twin of :func:`decode_attention_ref`.
+
+    q: (B, H, D); pools: (P, KH, BS, D), the shared physical block pool;
+    tables: (B, T) int32 physical block ids in logical order (unmapped
+    tail entries point at the pool's garbage block 0); lengths: (B,)
+    valid entries.  Gathers each row's blocks into a contiguous
+    (B, KH, T*BS, D) cache and delegates to the contiguous version, so a
+    paged cache whose gathered view equals a contiguous one gives
+    bit-identical output.
+    """
+    _, kh, bs, d = k_pool.shape
+    b, t = tables.shape
+    idx = tables.long()
+    kc = k_pool[idx].transpose(1, 2).reshape(b, kh, t * bs, d)
+    vc = v_pool[idx].transpose(1, 2).reshape(b, kh, t * bs, d)
+    return decode_attention_ref(q, kc, vc, lengths, window=window,
+                                scale=scale)

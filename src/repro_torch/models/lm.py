@@ -16,11 +16,16 @@ functions on tensors, as in the JAX package:
     ``lengths % C``), which gives exactly the values of the JAX
     package's one-hot blend (it multiplies by exact 0 and 1) without a
     copy of the cache per step; ``attn_impl`` is the vendor-kernel hook
-    (§4.8) that replaces only the attention math.
+    (§4.8) that replaces only the attention math;
+  * ``lm_decode_paged`` — the same step over a shared pool of KV blocks
+    (L, P, KH, BS, dh) with a block table per slot, written in place;
+  * ``lm_prefill_chunk`` / ``lm_prefill_chunk_paged`` — one prompt
+    chunk at a host start offset into a slot's cache or its blocks,
+    written in place.
 
-The decode step reads ``lengths`` on the device and takes no branch on
-a device value, so it never waits for the device.  MoE, paged KV and
-chunked prefill come with later slices.
+The decode steps read ``lengths`` (and the block tables) on the device
+and take no branch on a device value, so they never wait for the device.
+MoE comes with a later slice.
 """
 
 from __future__ import annotations
@@ -292,16 +297,75 @@ def decode_attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if attn_impl is not None:
         out = attn_impl(q[:, 0], cache_k, cache_v, n_valid)
     else:
-        qg = q[:, 0].reshape(b, kh, g, dh)
-        scale = 1.0 / math.sqrt(dh)
-        logits = (qg.float() @ cache_k.float().transpose(-1, -2)) * scale
-        valid = (torch.arange(c, device=x.device)[None, None, None, :]
-                 < n_valid[:, None, None, None])
-        logits = logits.masked_fill(~valid, NEG_INF)
-        w = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = w @ cache_v                                  # (B,KH,g,dh)
+        out = _decode_attend(q[:, 0], cache_k, cache_v, n_valid)
     y = _out_proj(p, out.reshape(b, 1, h, dh))
     return y, cache_k, cache_v
+
+
+def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   n_valid: torch.Tensor) -> torch.Tensor:
+    """The reference decode attention: q (B,H,dh) over caches (B,KH,C,dh),
+    the first ``n_valid`` positions of each row valid.  Float32 logits
+    masked to -1e30, softmax weights cast to q's dtype before P·V, as
+    the JAX package does.  Returns (B,KH,H/KH,dh)."""
+    b, h, dh = q.shape
+    kh, c = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh)
+    scale = 1.0 / math.sqrt(dh)
+    logits = (qg.float() @ kc.float().transpose(-1, -2)) * scale
+    valid = (torch.arange(c, device=q.device)[None, None, None, :]
+             < n_valid[:, None, None, None])
+    logits = logits.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return w @ vc                                          # (B,KH,g,dh)
+
+
+# ---------------------------------------------------------------------------
+# decode attention — paged KV (block pool + per-slot block table)
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention_block(p: Attention, cfg: ModelConfig,
+                                 x: torch.Tensor, pool_k: torch.Tensor,
+                                 pool_v: torch.Tensor, tables: torch.Tensor,
+                                 lengths: torch.Tensor, attn_impl=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Paged twin of ``decode_attention_block``: the slot's KV rows live
+    scattered across a shared pool of physical blocks.
+
+    x (B,1,D); pool_k/v (P,KH,BS,dh), ONE layer's blocks; tables (B,T)
+    int32 physical block ids in logical order (T·BS = the slot's ring
+    capacity, unmapped tail entries = the garbage block 0); lengths (B,)
+    absolute positions.  The new token's K/V land at ring position
+    ``pos = lengths % (T·BS)``, i.e. at row ``pos % BS`` of block
+    ``tables[b, pos // BS]``, written in place.  Slots that are inactive
+    or mid-chunk keep their table row on block 0, so their writes may
+    collide there (any one wins); nothing reads block 0 under a positive
+    weight.  The reference attention gathers the table back to a
+    contiguous (B,KH,C,dh) view and runs the contiguous block's math, so
+    decoded values are the contiguous path's; ``attn_impl`` (the
+    vendor-kernel hook) instead takes the pool and table:
+    ``attn_impl(q (B,H,dh), pool_k, pool_v, tables, n_valid)``."""
+    b = x.shape[0]
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    bs, t = pool_k.shape[2], tables.shape[1]
+    c = t * bs
+    q, k, v = _proj_qkv(p, cfg, x, lengths[:, None])
+    pos = (lengths % c).long()
+    phys = tables.gather(1, (pos // bs)[:, None])[:, 0].long()
+    off = pos % bs
+    pool_k[phys, :, off] = k[:, 0].to(pool_k.dtype)
+    pool_v[phys, :, off] = v[:, 0].to(pool_v.dtype)
+    n_valid = torch.clamp(lengths + 1, max=c)
+    if attn_impl is not None:
+        out = attn_impl(q[:, 0], pool_k, pool_v, tables, n_valid)
+    else:
+        idx = tables.long()
+        kc = pool_k[idx].transpose(1, 2).reshape(b, kh, c, dh)
+        vc = pool_v[idx].transpose(1, 2).reshape(b, kh, c, dh)
+        out = _decode_attend(q[:, 0], kc, vc, n_valid)
+    y = _out_proj(p, out.reshape(b, 1, h, dh))
+    return y, pool_k, pool_v
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +451,90 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, cache
 
 
+def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
+                     tokens: torch.Tensor, start: int, *,
+                     window: Optional[int] = None) -> Cache:
+    """One prompt CHUNK through the backbone: tokens (B,S) take absolute
+    positions ``start .. start+S`` of a cache {k,v} (L,B,KH,C,dh) that
+    already holds every earlier position.  Each layer writes the chunk's
+    K/V at those positions, in place, then attends the chunk's queries
+    over the whole cache with the mask ``kpos <= position`` (and the
+    window): positions past the chunk weigh exactly 0.  Returns the
+    cache; no logits (the engine hands the last prompt token to decode).
+    ``start`` is a host int; ``start + S <= C`` (no ring wrap)."""
+    x = embed_tokens(model, cfg, tokens)
+    s, c = x.shape[1], cache["k"].shape[3]
+    if not 0 <= start <= c - s:
+        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
+                         f"{c}-position cache without wrapping")
+    positions = start + torch.arange(s, device=x.device)
+    for i, blk in enumerate(model.layers):
+        x, _, _ = _chunk_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
+                               start, positions, window)
+    return cache
+
+
+def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
+                           table_row: torch.Tensor, tokens: torch.Tensor,
+                           start: int, *,
+                           window: Optional[int] = None) -> Cache:
+    """Paged twin of ``lm_prefill_chunk`` for one slot: pool {k,v}
+    (L,P,KH,BS,dh), table_row (T,) its block ids in logical order.  The
+    JAX package gathers the whole slot (all layers) to a contiguous
+    batch=1 cache, runs ``lm_prefill_chunk`` and scatters the whole slot
+    back; here each layer gathers its own (1,KH,T·BS,dh) view, runs the
+    same layer math on it, and writes only the chunk's rows back into
+    the pool, in place.  The values are the JAX function's: the rest of
+    the slot is written back unchanged there."""
+    x = embed_tokens(model, cfg, tokens)
+    s = x.shape[1]
+    bs, t = pool["k"].shape[3], table_row.shape[0]
+    if not 0 <= start <= t * bs - s:
+        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
+                         f"{t * bs}-position slot without wrapping")
+    positions = start + torch.arange(s, device=x.device)
+    idx = table_row.long()
+    phys, off = idx[positions // bs], positions % bs
+    for i, blk in enumerate(model.layers):
+        pk, pv = pool["k"][i], pool["v"][i]
+        kh, dh = pk.shape[1], pk.shape[3]
+        ck = pk[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
+        cv = pv[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
+        x, k, v = _chunk_layer(blk, cfg, x, ck, cv, start, positions, window)
+        pk[phys, :, off] = k[0].to(pk.dtype)
+        pv[phys, :, off] = v[0].to(pv.dtype)
+    return pool
+
+
+def _chunk_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
+                 ck: torch.Tensor, cv: torch.Tensor, start: int,
+                 positions: torch.Tensor, window: Optional[int]):
+    """One layer of a prompt chunk: x (B,S,D) at ``positions``; writes
+    the chunk's K/V into ck/cv (B,KH,C,dh) at ``start`` in place, then
+    attends over the whole of ck/cv, as the JAX ``lm_prefill_chunk``
+    does.  Returns (x after the layer, k, v (B,S,KH,dh))."""
+    s, c = x.shape[1], ck.shape[2]
+    g = cfg.n_heads // cfg.n_kv_heads
+    p = blk.attn
+    q, k, v = _proj_qkv(p, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
+                        positions)
+    ck[:, :, start:start + s] = k.transpose(1, 2).to(ck.dtype)
+    cv[:, :, start:start + s] = v.transpose(1, 2).to(cv.dtype)
+    kx = ck.repeat_interleave(g, dim=1) if g > 1 else ck     # (B,H,C,dh)
+    vx = cv.repeat_interleave(g, dim=1) if g > 1 else cv
+    logits = (q.transpose(1, 2).float()
+              @ kx.float().transpose(-1, -2)) * (1.0 / math.sqrt(cfg.dh))
+    kpos = torch.arange(c, device=x.device)
+    mask = kpos[None, :] <= positions[:, None]
+    if window is not None:
+        mask = mask & (kpos[None, :] > positions[:, None] - window)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(vx.dtype)
+    h = x + _out_proj(p, (w @ vx).transpose(1, 2))
+    x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    return x, k, v
+
+
 def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
               tokens: torch.Tensor, lengths: torch.Tensor, *,
               attn_impl=None) -> Tuple[torch.Tensor, Cache]:
@@ -403,3 +551,23 @@ def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
         h = x + att
         x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
     return lm_logits(model, cfg, x)[:, 0], cache
+
+
+def lm_decode_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
+                    tables: torch.Tensor, tokens: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    attn_impl=None) -> Tuple[torch.Tensor, Cache]:
+    """One decode step over the paged KV pool.  tokens (B,1); lengths
+    (B,); tables (B,T) int32; pool {k,v}: (L,P,KH,BS,dh), updated in
+    place.  Returns (logits (B,V_pad), pool).  The tables and lengths are
+    read on the device, so mapping blocks between steps changes values
+    only, and the step never waits for the device."""
+    x = embed_tokens(model, cfg, tokens)
+    for i, blk in enumerate(model.layers):
+        xin = rms_norm(x, blk.ln1, cfg.norm_eps)
+        att, _, _ = paged_decode_attention_block(
+            blk.attn, cfg, xin, pool["k"][i], pool["v"][i], tables, lengths,
+            attn_impl=attn_impl)
+        h = x + att
+        x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    return lm_logits(model, cfg, x)[:, 0], pool

@@ -3,11 +3,13 @@ invoke loop (paper §4.1), ported to PyTorch with the same allocation
 discipline:
 
   * the KV cache — one contiguous ring of ``cache_len`` positions per
-    decode slot, (L, max_slots, KH, C, dh) for K and for V — and the
-    slot bookkeeping (lengths, current tokens) are allocated on the
-    device at construction.  A decode step writes them in place: the
-    cache tensors keep their addresses for the engine's life, and
-    nothing a step allocates outlives it;
+    decode slot, (L, max_slots, KH, C, dh) for K and for V, or with
+    ``kv_block=`` a shared pool of physical blocks (L, P, KH, BS, dh)
+    plus one block table (max_slots, C/BS) int32 — and the slot
+    bookkeeping (lengths, current tokens) are allocated on the device at
+    construction.  A decode step writes them in place: these tensors
+    keep their addresses for the engine's life, and nothing a step
+    allocates outlives it;
   * cache capacity is budgeted through the SAME ``TwoStackArena`` the
     micro interpreter uses: KV is a persistent (interpreter-lifetime)
     allocation, exactly as the JAX engine accounts it;
@@ -15,9 +17,10 @@ discipline:
     free up, one fused decode step advances every slot;
   * prefill and decode resolve through the op-registry tag chain
     (``("cuda", "reference")`` by default, §4.7–4.8): the ``"cuda"``
-    ``SERVING_DECODE`` runs every layer's attention on the
-    decode_attention kernel, and shadows the reference decode with no
-    engine change — the micro interpreter's ``TAGS=`` mechanism.
+    ``SERVING_DECODE`` and ``SERVING_DECODE_PAGED`` run every layer's
+    attention on the decode_attention and paged_decode_attention
+    kernels, and shadow the reference decode with no engine change —
+    the micro interpreter's ``TAGS=`` mechanism.
 
 The decode step is eager PyTorch that never reads a device value on the
 host and takes no branch on one, so a later change can capture it in a
@@ -43,10 +46,19 @@ docs/PREEMPTION.md):
     checkpointed to host memory in a ``SlotCheckpoint``, the request is
     re-queued, and the urgent one takes the slot.  Restoring later, into
     any slot, continues with exactly the tokens of an uninterrupted run.
+  * **chunked prefill** (``prefill_chunk=``) — a prompt longer than one
+    chunk is integrated one chunk per ``step()``, interleaved with the
+    decode steps of the other slots; a slot mid-prefill can be
+    preempted and resumes where it stopped.
+  * **paged KV** (``kv_block=``, ``kv_pool_blocks=``) — each slot maps
+    blocks of the shared pool on demand (``PagedKVPool``: block 0 is
+    the garbage sink, admission reserves a request's worst case so
+    growth never fails, and a smaller pool gates admission); a
+    preempted slot's checkpoint carries its block ids, not its KV.
 
-Chunked prefill, paged KV, quantized serving, mesh sharding and the
-overlapped decode loop are refused at construction with
-``NotImplementedError`` naming the ROADMAP slice that brings each.
+Quantized serving, mesh sharding and the overlapped decode loop are
+refused at construction with ``NotImplementedError`` naming the ROADMAP
+slice that brings each.
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.arena import TwoStackArena, align_up
-from repro_torch.core.executor import BucketTable, resolve_device
+from repro_torch.core.executor import (BucketTable, PagedKVPool,
+                                       resolve_device)
 from repro_torch.core.interpreter import setup_device
 from repro_torch.core.op_resolver import MicroMutableOpResolver
 from repro_torch.core.schema import OpCode, OpDef
@@ -82,12 +95,6 @@ BUCKETED_FAMILIES = ("dense",)
 
 # engine options of the JAX engine that later slices of the port bring
 _NOT_PORTED = {
-    "prefill_chunk": "chunked prefill (SERVING_PREFILL_CHUNK), ROADMAP "
-                     "queue 1, slice 3, item 9",
-    "kv_block": "paged KV (SERVING_DECODE_PAGED), ROADMAP queue 1, "
-                "slice 3, item 10",
-    "kv_pool_blocks": "paged KV (SERVING_DECODE_PAGED), ROADMAP queue 1, "
-                      "slice 3, item 10",
     "weight_dtype": "quantized serving (SERVING_*_Q), ROADMAP queue 1, "
                     "slice 4, item 11",
     "kv_dtype": "quantized serving (SERVING_*_Q), ROADMAP queue 1, "
@@ -153,16 +160,40 @@ class StreamEvent:
 
 @dataclasses.dataclass
 class SlotCheckpoint:
-    """A preempted request's continuation state, in host memory: the
-    slot's KV rows as a batch=1 cache of CPU tensors, plus the (length,
-    next token, remaining budget) triple the decode step is a pure
-    function of.  Restoring them into any slot continues the run with
-    exactly its uninterrupted tokens."""
+    """A preempted request's continuation state, in host memory.
 
+    ``phase`` records where the request was interrupted: ``"decode"``
+    checkpoints the slot's KV rows plus the (length, next token,
+    remaining budget) triple the decode step is a pure function of;
+    ``"prefill"`` checkpoints a chunked prefill in flight (its batch=1
+    cache and how many prompt tokens it has integrated).  Restoring
+    either into any slot continues the run with exactly its
+    uninterrupted tokens.
+
+    On a paged engine the checkpoint carries no KV: ``cache`` is None
+    and ``blocks`` pins the slot's physical block ids (plus its unspent
+    worst-case ``reserved`` count); the rows stay in the pool, and a
+    restore writes the ids into the new slot's block-table row."""
+
+    phase: str                          # "decode" | "prefill"
     cache: Any                          # batch=1 cache dict (CPU tensors)
-    length: int = 0                     # absolute position
-    cur_token: int = 0                  # next token to feed
-    budget: int = 0                     # remaining new tokens
+    length: int = 0                     # absolute position (decode)
+    cur_token: int = 0                  # next token to feed (decode)
+    budget: int = 0                     # remaining new tokens (decode)
+    done_tokens: int = 0                # prompt tokens integrated (prefill)
+    blocks: Optional[List[int]] = None  # paged: pinned physical block ids
+    reserved: int = 0                   # paged: unspent reservation
+
+
+@dataclasses.dataclass
+class _ChunkState:
+    """A slot mid-chunked-prefill: the request, its private batch=1
+    cache (None on a paged engine: the chunks write the pool), and how
+    many prompt tokens have been integrated so far."""
+
+    req: Request
+    cache1: Any
+    done: int
 
 
 def _cache_bytes(tensors) -> int:
@@ -174,7 +205,14 @@ class ServingEngine:
     (``"cuda"`` by default; raises without a card — pass ``"cpu"`` for
     the plain reference path on the CPU).  ``params`` is the model
     module from ``bundle.init`` or ``lm.params_from_jax``, on that
-    device."""
+    device.
+
+    ``prefill_chunk``: None/False/0 = off, True = the bucket table's
+    smallest bucket (8 without one), an int = that many tokens per
+    chunk.  ``kv_block``: None/0 = contiguous per-slot rings, an int =
+    paged KV with blocks of that many positions (it must divide
+    ``cache_len``); ``kv_pool_blocks`` sizes the pool, by default every
+    slot at full length plus the garbage block."""
 
     def __init__(self, bundle: ModelBundle, params: torch.nn.Module, *,
                  max_slots: int = 4, cache_len: int = 256,
@@ -189,10 +227,7 @@ class ServingEngine:
                  weight_dtype: Any = None, kv_dtype: Any = None,
                  mesh: Any = None, overlap: bool = False,
                  on_token: Any = None, device="cuda"):
-        for name, value in (("prefill_chunk", prefill_chunk),
-                            ("kv_block", kv_block),
-                            ("kv_pool_blocks", kv_pool_blocks),
-                            ("weight_dtype", weight_dtype),
+        for name, value in (("weight_dtype", weight_dtype),
                             ("kv_dtype", kv_dtype), ("mesh", mesh),
                             ("overlap", overlap)):
             if value:
@@ -232,12 +267,44 @@ class ServingEngine:
                     self.cfg.family, "bucketed prefill",
                     supported=BUCKETED_FAMILIES)
             self.bucket_table = prefill_buckets
+        self.chunk_tokens = 0
+        if prefill_chunk:
+            if prefill_chunk is True:
+                self.chunk_tokens = (self.bucket_table.min_bucket
+                                     if self.bucket_table else 8)
+            else:
+                if int(prefill_chunk) < 1:
+                    raise ValueError(
+                        f"prefill_chunk must be >= 1, got {prefill_chunk}")
+                self.chunk_tokens = int(prefill_chunk)
+        self.kv_block = int(kv_block) if kv_block else 0
+        self.paged = bool(self.kv_block)
+        if self.paged:
+            if self.kv_block < 1 or cache_len % self.kv_block:
+                raise ValueError(
+                    f"kv_block must divide cache_len, got "
+                    f"{self.kv_block} vs {cache_len}")
+            self.n_table = cache_len // self.kv_block
         # resident weight bytes and KV bytes: the HBM footprint
         self.param_bytes = _cache_bytes(params.parameters())
 
-        # --- the KV cache: allocated once, interpreter-lifetime --------
-        self.cache = self._empty_cache(max_slots)
-        self.kv_bytes = _cache_bytes(self.cache.values())
+        # --- the KV cache or pool: allocated once, interpreter-lifetime
+        if self.paged:
+            n_blocks = (int(kv_pool_blocks) if kv_pool_blocks
+                        else max_slots * self.n_table + 1)
+            self.pool = PagedKVPool(n_blocks, self.kv_block)
+            self.kv_pool = self._empty_cache(n_blocks, self.kv_block)
+            self.block_tables = torch.zeros(
+                (max_slots, self.n_table), dtype=torch.int32,
+                device=self.device)
+            self._slot_blocks: List[List[int]] = [[] for _ in
+                                                  range(max_slots)]
+            self._slot_reserved: List[int] = [0] * max_slots
+            self.cache = None
+            self.kv_bytes = _cache_bytes(self.kv_pool.values())
+        else:
+            self.cache = self._empty_cache(max_slots, cache_len)
+            self.kv_bytes = _cache_bytes(self.cache.values())
         if arena is None:
             arena = TwoStackArena(arena_bytes or align_up(
                 self.kv_bytes + (64 << 10)) * 2)
@@ -258,31 +325,41 @@ class ServingEngine:
         self.active = np.zeros(max_slots, bool)
         self.queue: List[Request] = []
         self.results: Dict[int, RequestResult] = {}
+        self._chunking: Dict[int, _ChunkState] = {}
         self._ckpt: Dict[int, SlotCheckpoint] = {}
-        # what the last step() did: prefill token counts, decode dispatch
+        # what the last step() did: prefill token counts, chunk
+        # dispatches, decode dispatch
         self.last_step: Dict[str, Any] = {"prefill_tokens": [],
-                                          "decoded": False}
+                                          "chunks": 0, "decoded": False}
 
         # --- steps resolved at init, like interpreter prepare ----------
-        self.resolver = MicroMutableOpResolver(tags).add_many(
-            [OpCode.SERVING_PREFILL, OpCode.SERVING_DECODE])
+        decode_code = (OpCode.SERVING_DECODE_PAGED if self.paged
+                       else OpCode.SERVING_DECODE)
+        chunk_code = (OpCode.SERVING_PREFILL_CHUNK_PAGED if self.paged
+                      else OpCode.SERVING_PREFILL_CHUNK)
+        opcodes = [OpCode.SERVING_PREFILL, decode_code]
+        if self.chunk_tokens:
+            opcodes.append(chunk_code)
+        self.resolver = MicroMutableOpResolver(tags).add_many(opcodes)
         window = self.cfg.sliding_window
-        self._prefill_op = OpDef(OpCode.SERVING_PREFILL, (), (),
-                                 params={"cache_len": cache_len,
-                                         "window": window})
-        self._decode_op = OpDef(OpCode.SERVING_DECODE, (), (),
-                                params={"window": window})
-        prefill_reg = self.resolver.resolve(OpCode.SERVING_PREFILL)
-        decode_reg = self.resolver.resolve(OpCode.SERVING_DECODE)
-        pctx = serving_ops.ServingContext(bundle)
-        prefill_ctx = serving_ops.ServingContext(
-            bundle, prefill_reg.prepare(pctx, self._prefill_op).op_data)
-        decode_ctx = serving_ops.ServingContext(
-            bundle, decode_reg.prepare(pctx, self._decode_op).op_data)
-        self._prefill = functools.partial(prefill_reg.eval, prefill_ctx,
-                                          self._prefill_op)
-        self._decode = functools.partial(decode_reg.eval, decode_ctx,
-                                         self._decode_op)
+        decode_params = {"window": window}
+        if self.paged:
+            decode_params["kv_block"] = self.kv_block
+        self._prefill = self._bind(OpCode.SERVING_PREFILL,
+                                   {"cache_len": cache_len, "window": window})
+        self._decode = self._bind(decode_code, decode_params)
+        self._prefill_chunk = (self._bind(chunk_code, {"window": window})
+                               if self.chunk_tokens else None)
+
+    def _bind(self, code: OpCode, params: Dict[str, Any]):
+        """Resolve ``code`` through the tag chain, run its prepare() once
+        and return its eval bound to the prepared context and the op."""
+        op = OpDef(code, (), (), params=params)
+        reg = self.resolver.resolve(code)
+        ctx = serving_ops.ServingContext(
+            self.bundle, reg.prepare(serving_ops.ServingContext(self.bundle),
+                                     op).op_data)
+        return functools.partial(reg.eval, ctx, op)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -292,8 +369,11 @@ class ServingEngine:
         self.results[req.uid] = RequestResult(uid=req.uid,
                                               prompt_len=len(req.tokens))
 
-    def _empty_cache(self, batch: int) -> Dict[str, torch.Tensor]:
-        return self.bundle.empty_cache(batch, self.cache_len,
+    def _empty_cache(self, batch: int,
+                     length: int) -> Dict[str, torch.Tensor]:
+        """A zeroed {k, v} of (L, batch, KH, length, dh): the slot rings,
+        a batch=1 cache, or (batch = blocks, length = BS) the pool."""
+        return self.bundle.empty_cache(batch, length,
                                        self.cfg.torch_dtype(), self.device)
 
     def insert_slot_state(self, slot: int,
@@ -326,6 +406,74 @@ class ServingEngine:
             return tokens
         return np.concatenate([tokens, np.zeros(padded - s, tokens.dtype)])
 
+    # -- paged KV: block accounting --------------------------------------
+
+    def _blocks_needed(self, req: Request) -> int:
+        """Worst-case blocks for ``req``: prompt + full decode budget (at
+        least the one row activation maps), capped at the ring capacity.
+        Reserved (not mapped) at admission so on-demand growth can never
+        fail mid-decode."""
+        rows = min(len(req.tokens) - 1 + max(req.max_new_tokens, 1),
+                   self.cache_len)
+        return max(1, -(-rows // self.kv_block))
+
+    def _paged_admissible(self, req: Request) -> bool:
+        """Can ``req`` take a slot right now?  A checkpointed request's
+        blocks are already pinned in its checkpoint; a fresh one needs
+        its worst case reservable from the pool."""
+        return (req.uid in self._ckpt
+                or self.pool.can_reserve(self._blocks_needed(req)))
+
+    def _ensure_blocks(self, slot: int, upto_pos: int) -> None:
+        """Map blocks (debiting the slot's reservation) until the slot's
+        table covers cache position ``upto_pos``.  Host bookkeeping only;
+        ``_sync_table_row`` publishes the row to the device table."""
+        blocks = self._slot_blocks[slot]
+        while (len(blocks) * self.kv_block <= upto_pos
+               and len(blocks) < self.n_table):
+            blocks.append(self.pool.map_block())
+            self._slot_reserved[slot] -= 1
+
+    def _table_row(self, slot: int) -> np.ndarray:
+        """The slot's block-table row from host bookkeeping: mapped
+        blocks in logical order, the garbage block for the unmapped
+        tail."""
+        row = np.zeros(self.n_table, np.int32)
+        blocks = self._slot_blocks[slot]
+        row[:len(blocks)] = blocks
+        return row
+
+    def _sync_table_row(self, slot: int) -> None:
+        """Publish the slot's row into the DECODE block table, in place.
+        Only a decoding slot's row may be live there: the decode step
+        ring-writes EVERY slot row, so a slot that is inactive or
+        mid-chunked-prefill keeps its decode row on the garbage block
+        (its chunk dispatches carry ``_table_row`` directly) or stale
+        decode writes would corrupt its blocks."""
+        self.block_tables[slot].copy_(torch.from_numpy(self._table_row(slot)))
+
+    def _scatter_slot_cache(self, slot: int,
+                            cache1: Dict[str, torch.Tensor]) -> None:
+        """Scatter a contiguous batch=1 cache (L,1,KH,C,dh) into the
+        slot's mapped blocks, in place: one-shot prefill lands
+        contiguous, then pages in.  Unmapped table entries point at the
+        garbage block, which absorbs the tail of the scatter."""
+        row = torch.from_numpy(self._table_row(slot)).long().to(self.device)
+        t, bs = self.n_table, self.kv_block
+        for name, pool in self.kv_pool.items():
+            l, _, kh, _, dh = pool.shape
+            src = cache1[name][:, 0].reshape(l, kh, t, bs, dh)
+            pool[:, row] = src.transpose(1, 2).to(pool.dtype)
+
+    def _release_slot_blocks(self, slot: int) -> None:
+        """Return a finished slot's blocks and unspent reservation to the
+        pool and point its table row back at the garbage block."""
+        self.pool.release(self._slot_blocks[slot],
+                          reserved=max(self._slot_reserved[slot], 0))
+        self._slot_blocks[slot] = []
+        self._slot_reserved[slot] = 0
+        self.block_tables[slot].zero_()
+
     def _activate_slot(self, req: Request, slot: int,
                        cache1: Optional[Dict[str, torch.Tensor]] = None, *,
                        length: Optional[int] = None,
@@ -336,8 +484,16 @@ class ServingEngine:
         reads.  The keyword overrides are the restore path."""
         last_pos = len(req.tokens) - 1 if length is None else length
         tok = int(req.tokens[-1]) if cur_token is None else cur_token
+        if self.paged:
+            # cover everything written so far PLUS the position the next
+            # decode step writes, then go live in the decode block table
+            self._ensure_blocks(slot, min(last_pos, self.cache_len - 1))
+            self._sync_table_row(slot)
         if cache1 is not None:
-            self.insert_slot_state(slot, cache1)
+            if self.paged:
+                self._scatter_slot_cache(slot, cache1)
+            else:
+                self.insert_slot_state(slot, cache1)
         self.slot_req[slot] = self.results[req.uid]
         self.slot_meta[slot] = req
         self.slot_budget[slot] = (req.max_new_tokens if budget is None
@@ -363,37 +519,148 @@ class ServingEngine:
             self.last_step["prefill_tokens"].append(len(prompt))
             self.policy.charge(req.tenant, 1.0)
         else:   # single-token prompt: the slot starts from a fresh cache
-            cache1 = self._empty_cache(1)
+            cache1 = self._empty_cache(1, self.cache_len)
         self._activate_slot(req, slot, cache1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)     # time to completion
+        self._settle()
         self.results[req.uid].prefill_s += time.perf_counter() - t0
+
+    def _settle(self) -> None:
+        """Wait for the device, so a prefill's time runs to completion."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- chunked prefill (one chunk per engine step) --------------------
+
+    def _chunk_eligible(self, req: Request) -> bool:
+        """Chunk when chunking is on, the prompt spans more than one
+        chunk, and the padded last chunk still fits the cache without
+        ring wrap (past that, fall back to one-shot exact prefill)."""
+        if not self.chunk_tokens:
+            return False
+        m = len(req.tokens) - 1
+        if m <= self.chunk_tokens:
+            return False
+        return -(-m // self.chunk_tokens) * self.chunk_tokens <= self.cache_len
+
+    def _start_chunked(self, req: Request, slot: int) -> None:
+        """Admit a long prompt into a slot in PREFILLING state: run the
+        FIRST chunk through the ordinary prefill step, keep its batch=1
+        cache (paged: page it into the pool) in a ``_ChunkState``, and
+        let the following ``step()`` calls advance one chunk each."""
+        t0 = time.perf_counter()
+        first = np.asarray(req.tokens[:self.chunk_tokens])
+        batch = {"tokens": torch.as_tensor(first[None].astype(np.int64),
+                                           device=self.device)}
+        _, cache1 = self._prefill((self.params, batch))
+        self.last_step["prefill_tokens"].append(len(first))
+        self.policy.charge(req.tenant, 1.0)
+        if self.paged:
+            # page the first chunk in now; later chunks write the pool
+            # directly through the paged chunk op
+            self._ensure_blocks(slot, min(len(first) - 1,
+                                          self.cache_len - 1))
+            self._scatter_slot_cache(slot, cache1)
+            cache1 = None
+        self._chunking[slot] = _ChunkState(req, cache1, len(first))
+        self._settle()
+        self.results[req.uid].prefill_s += time.perf_counter() - t0
+
+    def _advance_chunk(self, slot: int) -> None:
+        """Advance a PREFILLING slot by ONE chunk at host offset
+        ``start``; the final partial chunk is right-padded (its rows sit
+        past the prompt, so the length-masked decode never attends to
+        them and the first decode steps overwrite them).  When the last
+        prompt token's predecessor lands, the slot turns to decoding."""
+        cs = self._chunking[slot]
+        res = self.results[cs.req.uid]
+        t0 = time.perf_counter()
+        prompt = np.asarray(cs.req.tokens[:-1])
+        tok = prompt[cs.done:cs.done + self.chunk_tokens]
+        real = len(tok)
+        if real < self.chunk_tokens:
+            tok = np.concatenate(
+                [tok, np.zeros(self.chunk_tokens - real, tok.dtype)])
+        tokens = torch.as_tensor(tok[None].astype(np.int64),
+                                 device=self.device)
+        start = cs.done
+        if self.paged:
+            # map the blocks of the chunk's REAL rows only: the padded
+            # tail of a final chunk is not in the reservation, and its
+            # rows past the mapped blocks land on the garbage block (no
+            # real query attends to them)
+            self._ensure_blocks(slot, min(start + real - 1,
+                                          self.cache_len - 1))
+            row = torch.from_numpy(self._table_row(slot)).to(self.device)
+            self.kv_pool = self._prefill_chunk(
+                (self.params, self.kv_pool, row, tokens, start))
+        else:
+            cs.cache1 = self._prefill_chunk(
+                (self.params, cs.cache1, tokens, start))
+        cs.done += real
+        self.last_step["chunks"] += 1
+        self.policy.charge(cs.req.tenant, 1.0)
+        self._settle()
+        res.prefill_s += time.perf_counter() - t0
+        if cs.done >= len(prompt):
+            del self._chunking[slot]
+            self._activate_slot(cs.req, slot, cs.cache1)
 
     # -- preemption: slot checkpoint / evict / restore ------------------
 
     def snapshot_slot(self, slot: int) -> SlotCheckpoint:
-        """Capture a running slot's continuation state host-side: its KV
-        rows + (length, next token, budget).  The slot itself is
-        untouched — pair with ``_evict``."""
+        """Capture a running slot's continuation state host-side: the
+        chunked-prefill cache + progress for a PREFILLING slot, the KV
+        rows + (length, next token, budget) for a DECODING one; on a
+        paged engine the block ids instead of any KV.  The slot itself
+        is untouched — pair with ``_evict``."""
+        if slot in self._chunking:
+            cs = self._chunking[slot]
+            if self.paged:
+                return SlotCheckpoint(
+                    phase="prefill", cache=None, done_tokens=cs.done,
+                    blocks=list(self._slot_blocks[slot]),
+                    reserved=self._slot_reserved[slot])
+            return SlotCheckpoint(
+                phase="prefill", done_tokens=cs.done,
+                cache={name: t.to("cpu", copy=True)
+                       for name, t in cs.cache1.items()})
         if not self.active[slot]:
             raise RuntimeError(f"slot {slot} is not running")
-        return SlotCheckpoint(
-            cache=self.extract_slot_state(slot),
-            length=int(self._len_host[slot]),
+        ckpt = SlotCheckpoint(
+            phase="decode", cache=None, length=int(self._len_host[slot]),
             cur_token=int(self._cur_host[slot, 0]),
             budget=int(self.slot_budget[slot]))
+        if self.paged:
+            # no KV copy: the rows stay in the pool, the checkpoint pins
+            # the block ids
+            ckpt.blocks = list(self._slot_blocks[slot])
+            ckpt.reserved = self._slot_reserved[slot]
+        else:
+            ckpt.cache = self.extract_slot_state(slot)
+        return ckpt
 
     def _evict(self, slot: int) -> Request:
-        """Preempt the request running in ``slot``: checkpoint it, free
-        the slot, and put the request back on the queue (its checkpoint
-        is picked up at re-admission)."""
-        req = self.slot_meta[slot]
-        if req is None:
-            raise RuntimeError(f"slot {slot} has no request")
-        ckpt = self.snapshot_slot(slot)
-        self.active[slot] = False
-        self.slot_req[slot] = None
-        self.slot_meta[slot] = None
+        """Preempt the request running (or prefilling) in ``slot``:
+        checkpoint it, free the slot, and put the request back on the
+        queue (its checkpoint is picked up at re-admission)."""
+        if slot in self._chunking:
+            req = self._chunking[slot].req
+            ckpt = self.snapshot_slot(slot)
+            del self._chunking[slot]
+        else:
+            req = self.slot_meta[slot]
+            if req is None:
+                raise RuntimeError(f"slot {slot} has no request")
+            ckpt = self.snapshot_slot(slot)
+            self.active[slot] = False
+            self.slot_req[slot] = None
+            self.slot_meta[slot] = None
+        if self.paged:
+            # the blocks now belong to the checkpoint: detach the slot
+            # (table row back to the garbage block) without releasing
+            self._slot_blocks[slot] = []
+            self._slot_reserved[slot] = 0
+            self.block_tables[slot].zero_()
         self._ckpt[req.uid] = ckpt
         self.results[req.uid].preemptions += 1
         self.queue.append(req)
@@ -401,18 +668,45 @@ class ServingEngine:
 
     def _restore_slot(self, req: Request, slot: int,
                       ckpt: SlotCheckpoint) -> None:
-        """Re-admit a checkpointed request at exactly the captured
-        state: the decode step is a pure function of (cache, token,
-        length), so the continuation matches the uninterrupted run."""
-        self._activate_slot(req, slot, ckpt.cache, length=ckpt.length,
-                            cur_token=ckpt.cur_token, budget=ckpt.budget)
+        """Re-admit a checkpointed request: a PREFILLING checkpoint
+        resumes its chunk loop, a DECODING one re-enters the decode loop
+        at exactly the captured state — the decode step is a pure
+        function of (cache, token, length), so the continuation matches
+        the uninterrupted run.  On a paged engine the pinned block ids
+        attach to the new slot; the KV rows never moved."""
+        if self.paged:
+            self._slot_blocks[slot] = list(ckpt.blocks or [])
+            self._slot_reserved[slot] = ckpt.reserved
+            cache1 = None
+        elif ckpt.phase == "prefill":
+            cache1 = {name: t.to(self.device)
+                      for name, t in ckpt.cache.items()}
+        else:
+            cache1 = ckpt.cache
+        if ckpt.phase == "prefill":
+            # a resumed chunked prefill keeps its decode row on the
+            # garbage block: chunk dispatches carry the row directly
+            self._chunking[slot] = _ChunkState(req, cache1, ckpt.done_tokens)
+        else:
+            self._activate_slot(req, slot, cache1, length=ckpt.length,
+                                cur_token=ckpt.cur_token, budget=ckpt.budget)
 
     def _admit(self, req: Request, slot: int) -> None:
-        """Route an admission: restore a checkpointed request, or
-        prefill one-shot."""
+        """Route an admission: restore a checkpointed request, start a
+        chunked prefill for a long prompt, or prefill one-shot.  On a
+        paged engine a FRESH admission reserves its worst-case block
+        count up front (the caller checked ``_paged_admissible``), so
+        every later ``map_block`` is infallible."""
         ckpt = self._ckpt.pop(req.uid, None)
         if ckpt is not None:
             self._restore_slot(req, slot, ckpt)
+            return
+        if self.paged:
+            need = self._blocks_needed(req)
+            self.pool.reserve(need)
+            self._slot_reserved[slot] = need
+        if self._chunk_eligible(req):
+            self._start_chunked(req, slot)
         else:
             self._prefill_one(req, slot)
 
@@ -438,15 +732,25 @@ class ServingEngine:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> bool:
-        """One engine tick: admit (policy order, displacing a running
-        victim when the preemption policy says so), then one fused
-        decode step over the slots.  Returns True if work remains."""
-        self.last_step = {"prefill_tokens": [], "decoded": False}
+        """One engine tick: advance chunked prefills by ONE chunk each,
+        admit (policy order, displacing a running victim when the
+        preemption policy says so; on a paged engine only while the
+        pool can reserve the pick's worst case), then one fused decode
+        step over the slots.  Returns True if work remains."""
+        self.last_step = {"prefill_tokens": [], "chunks": 0,
+                          "decoded": False}
+        for slot in list(self._chunking):
+            self._advance_chunk(slot)
         if self.queue:
             now = self.clock()
             for slot in range(self.max_slots):
-                if self.queue and not self.active[slot]:
-                    self._admit(self.policy.pop(self.queue, now), slot)
+                if self.queue and not self.active[slot] \
+                        and slot not in self._chunking:
+                    ci = self.policy.select(self.queue, now)
+                    if self.paged \
+                            and not self._paged_admissible(self.queue[ci]):
+                        break
+                    self._admit(self.queue.pop(ci), slot)
             # displacement: every slot busy, queue still holding work —
             # the preemption policy may evict a running victim for the
             # queue's policy-first candidate (its strict-improvement
@@ -455,9 +759,11 @@ class ServingEngine:
                 for _ in range(self.max_slots):
                     if not self.queue:
                         break
-                    running = [(s, self.slot_meta[s])
-                               for s in range(self.max_slots)
-                               if self.active[s]]
+                    running = ([(s, self._chunking[s].req)
+                                for s in sorted(self._chunking)]
+                               + [(s, self.slot_meta[s])
+                                  for s in range(self.max_slots)
+                                  if self.active[s]])
                     if not running:
                         break
                     ci = self.policy.select(self.queue, now)
@@ -466,15 +772,23 @@ class ServingEngine:
                                              cand, now)
                     if vi is None:
                         break
+                    if self.paged and not self._paged_admissible(cand):
+                        break   # evicting frees no blocks (they pin to
+                        # the checkpoint), so check BEFORE evicting
                     self.queue.pop(ci)
                     slot = running[vi][0]
                     self._evict(slot)
                     self._admit(cand, slot)
         if not self.active.any():
-            return bool(self.queue)
+            return bool(self.queue or self._chunking)
         t0 = time.perf_counter()
-        logits, self.cache = self._decode(
-            (self.params, self.cache, self.cur_tokens, self.lengths))
+        if self.paged:
+            logits, self.kv_pool = self._decode(
+                (self.params, self.kv_pool, self.block_tables,
+                 self.cur_tokens, self.lengths))
+        else:
+            logits, self.cache = self._decode(
+                (self.params, self.cache, self.cur_tokens, self.lengths))
         toks = self._sample(logits)
         dt = time.perf_counter() - t0
         self.last_step["decoded"] = True
@@ -497,8 +811,18 @@ class ServingEngine:
                 self.active[slot] = False
                 self.slot_req[slot] = None
                 self.slot_meta[slot] = None
+                if self.paged:
+                    self._release_slot_blocks(slot)
+            elif self.paged:
+                # grow on demand: map the block the NEXT decode step's
+                # ring write lands in (covered by the reservation)
+                before = len(self._slot_blocks[slot])
+                self._ensure_blocks(
+                    slot, int(self._len_host[slot]) % self.cache_len)
+                if len(self._slot_blocks[slot]) != before:
+                    self._sync_table_row(slot)
         self.cur_tokens.copy_(torch.from_numpy(self._cur_host))
-        return bool(self.active.any() or self.queue)
+        return bool(self.active.any() or self.queue or self._chunking)
 
     def run(self, max_steps: int = 10_000) -> Dict[int, RequestResult]:
         steps = 0

@@ -1,22 +1,28 @@
 """Serving macro-kernels: prefill and decode as registry ops.
 
 The port's counterpart of ``repro.serving.ops``.  It registers the
-*reference* implementations of two macro-ops with the port's op
+*reference* implementations of the serving macro-ops with the port's op
 registry:
 
   * ``OpCode.SERVING_PREFILL`` — one prompt through the model, emitting
     the last-token logits and a populated KV cache;
   * ``OpCode.SERVING_DECODE``  — one fused decode step advancing every
-    slot.
+    slot;
+  * ``OpCode.SERVING_PREFILL_CHUNK`` — one prompt chunk at a host start
+    offset into a slot's contiguous batch=1 cache;
+  * ``OpCode.SERVING_DECODE_PAGED`` / ``SERVING_PREFILL_CHUNK_PAGED`` —
+    the same two steps over the shared pool of KV blocks, each slot's
+    placement given by its block-table row.
 
-Both delegate to the family bundle's ``prefill``/``decode`` — the
-readable plain-PyTorch path, the serving analogue of the paper's
-reference kernels.  The kernel library (``repro_torch.kernels.ops``)
-registers a ``tag="cuda"`` ``SERVING_DECODE`` whose attention runs on
-the decode_attention kernel; ``ServingEngine`` resolves through the tag
-priority chain (``("cuda", "reference")``), so the kernel shadows the
-reference per op — the ``TAGS="cmsis-nn"`` build mechanism at pod
-scale (§4.7–4.8).
+They run the family's plain-PyTorch steps — the readable path, the
+serving analogue of the paper's reference kernels.  The kernel library
+(``repro_torch.kernels.ops``) registers ``tag="cuda"`` ``SERVING_DECODE``
+and ``SERVING_DECODE_PAGED`` whose attention runs on the decode-attention
+kernels; ``ServingEngine`` resolves through the tag priority chain
+(``("cuda", "reference")``), so a kernel shadows the reference per op —
+the ``TAGS="cmsis-nn"`` build mechanism at pod scale (§4.7–4.8).  Only
+the dense family is ported: the chunk and paged ops refuse the others
+(vlm, moe) with ``UnsupportedFamilyError``, as ``get_model`` does.
 
 The contract mirrors the micro C-API: ``prepare(ctx, op)`` runs once at
 engine init (it may inspect the model family and bake decisions into
@@ -29,6 +35,9 @@ from typing import Any
 
 from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
+from repro_torch.models import lm
+
+from .errors import UnsupportedFamilyError
 
 
 class ServingContext:
@@ -72,3 +81,70 @@ class RefServingDecode:
         params, cache, tokens, lengths = inputs
         return ctx.bundle.decode(params, cache, tokens, lengths,
                                  window=op.params.get("window"))
+
+
+def _dense_only(cfg, feature: str) -> None:
+    """The family gate of the chunk and paged ops: the port has the
+    dense family only (the JAX package also chunks vlm and pages vlm and
+    moe, which come with a later slice)."""
+    if cfg.family != "dense":
+        raise UnsupportedFamilyError(cfg.family, feature,
+                                     supported=("dense",))
+
+
+@register_op(OpCode.SERVING_PREFILL_CHUNK, tag="reference")
+class RefServingPrefillChunk:
+    """Reference chunked-prefill macro-kernel: one prompt CHUNK at a host
+    start offset through ``lm_prefill_chunk``, updating the request's
+    batch=1 cache in place (no logits: the engine hands the last prompt
+    token to decode)."""
+
+    @staticmethod
+    def prepare(ctx: ServingContext, op) -> PrepareResult:
+        _dense_only(ctx.bundle.cfg, "chunked prefill (SERVING_PREFILL_CHUNK)")
+        return PrepareResult(output_specs=[])
+
+    @staticmethod
+    def eval(ctx: ServingContext, op, inputs):
+        params, cache, tokens, start = inputs
+        return lm.lm_prefill_chunk(params, ctx.bundle.cfg, cache, tokens,
+                                   start, window=op.params.get("window"))
+
+
+@register_op(OpCode.SERVING_DECODE_PAGED, tag="reference")
+class RefServingDecodePaged:
+    """Reference paged decode macro-kernel: one fused step over the
+    shared block pool through ``lm_decode_paged``, whose attention
+    gathers each slot's blocks back to a contiguous view and runs the
+    contiguous reference math — the oracle for the cuda-tagged twin."""
+
+    @staticmethod
+    def prepare(ctx: ServingContext, op) -> PrepareResult:
+        _dense_only(ctx.bundle.cfg, "paged KV (SERVING_DECODE_PAGED)")
+        return PrepareResult(output_specs=[])
+
+    @staticmethod
+    def eval(ctx: ServingContext, op, inputs):
+        params, pool, tables, tokens, lengths = inputs
+        return lm.lm_decode_paged(params, ctx.bundle.cfg, pool, tables,
+                                  tokens, lengths)
+
+
+@register_op(OpCode.SERVING_PREFILL_CHUNK_PAGED, tag="reference")
+class RefServingPrefillChunkPaged:
+    """Reference paged chunked-prefill macro-kernel: one prompt chunk of
+    ONE slot straight into the pool through ``lm_prefill_chunk_paged``,
+    token-identical to the contiguous chunked path."""
+
+    @staticmethod
+    def prepare(ctx: ServingContext, op) -> PrepareResult:
+        _dense_only(ctx.bundle.cfg,
+                    "paged chunked prefill (SERVING_PREFILL_CHUNK_PAGED)")
+        return PrepareResult(output_specs=[])
+
+    @staticmethod
+    def eval(ctx: ServingContext, op, inputs):
+        params, pool, table_row, tokens, start = inputs
+        return lm.lm_prefill_chunk_paged(params, ctx.bundle.cfg, pool,
+                                         table_row, tokens, start,
+                                         window=op.params.get("window"))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs, and the interpreter and the serving
-engine on the card held against the CPU reference.  Every test here is marked ``cuda`` and skips
+engine (contiguous, paged and chunked) on the card held against the CPU
+reference.  Every test here is marked ``cuda`` and skips
 without a card; this module imports no jax, so it also runs where only
 the port is installed:
 
@@ -18,8 +19,10 @@ from repro_torch.core import (AllOpsResolver, MicroInterpreter, MicroModel,
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as K3
 from repro_torch.kernels import flash_attention as K2
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode_attention as K4
 from repro_torch.kernels import quant_matmul as K1
+from repro_torch.kernels import ref
 from repro_torch.models import get_model
 from repro_torch.serving import Request, ServingEngine
 
@@ -215,3 +218,137 @@ def test_reduced_engine_on_card_matches_cpu(cuda):
         outs.append({u: r.output for u, r in eng.results.items()})
     assert outs[0] == outs[1]
     assert K3.launches - before == cfg.n_layers * steps
+
+
+def _paged_layout(cuda, b, kh, s, bs, d, dtype, mapped, seed):
+    """A contiguous (B,KH,S,D) cache and the same rows in a permuted
+    (P,KH,BS,D) pool; row i maps ``mapped[i]`` blocks, its unmapped
+    tail on block 0 (zeros, as the contiguous rows past it)."""
+    g = torch.Generator().manual_seed(seed)
+    t = s // bs
+    k, v = (torch.randn(b, kh, s, d, generator=g) for _ in range(2))
+    n_blocks = sum(mapped) + 1
+    ids = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
+    tables = torch.zeros(b, t, dtype=torch.int32)
+    k_pool, v_pool = (torch.zeros(n_blocks, kh, bs, d) for _ in range(2))
+    for i in range(b):
+        k[i, :, mapped[i] * bs:] = 0
+        v[i, :, mapped[i] * bs:] = 0
+        for j in range(mapped[i]):
+            tables[i, j] = ids.pop()
+            k_pool[tables[i, j]] = k[i, :, j * bs:(j + 1) * bs]
+            v_pool[tables[i, j]] = v[i, :, j * bs:(j + 1) * bs]
+    return [x.to(cuda, dtype) for x in (k, v, k_pool, v_pool)] + [
+        tables.to(cuda)]
+
+
+# (b, h, kh, s, bs, d, window): Yi-6B's GQA 8 at head dim 128 and block
+# sizes 8 to 64, Phi-3-mini's head dim 96, a window
+PAGED_CASES = [(4, 32, 4, 512, 8, 128, None), (4, 32, 4, 512, 16, 128, None),
+               (4, 32, 4, 512, 32, 128, None), (4, 32, 4, 512, 64, 128, None),
+               (4, 8, 8, 256, 16, 96, None), (3, 8, 2, 256, 16, 64, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,s,bs,d,window", PAGED_CASES)
+def test_paged_decode_attention_kernel_matches_plain_and_k3(
+        cuda, b, h, kh, s, bs, d, window, dtype):
+    """K4 against its plain version on a permuted table with unmapped
+    tails (f32 within 1e-5, bf16 within one ulp, 2^-6), and bit-equal to
+    K3 on the equal contiguous cache; block 0 is never read."""
+    t = s // bs
+    mapped = [t, max(1, t // 3), max(1, 2 * t // 3), t][:b]
+    k, v, k_pool, v_pool, tables = _paged_layout(cuda, b, kh, s, bs, d,
+                                                 dtype, mapped, s + bs + d)
+    q = torch.randn(b, h, d, generator=torch.Generator().manual_seed(d)
+                    ).to(cuda, dtype)
+    lengths = torch.tensor([1, mapped[1] * bs, mapped[2] * bs - 3, s][:b],
+                           dtype=torch.int32, device=cuda)
+    want = ref.paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
+                                          window=window)
+    before3, before4 = K3.launches, K4.launches
+    got = ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                     window=window)
+    contiguous = ops.decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert (K3.launches - before3, K4.launches - before4) == (1, 1)
+    assert got.dtype == dtype
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(got, contiguous)
+    k_pool[0], v_pool[0] = float("nan"), float("nan")
+    assert torch.equal(ops.paged_decode_attention(
+        q, k_pool, v_pool, tables, lengths, window=window), got)
+
+
+def test_paged_decode_attention_kernel_empty_rows_are_zero(cuda):
+    q = torch.randn(2, 4, 32, device=cuda)
+    pool = torch.randn(5, 2, 16, 32, device=cuda)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([0, 32], dtype=torch.int32, device=cuda)
+    got = ops.paged_decode_attention(q, pool, pool, tables, lengths)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(ops.paged_decode_attention(q, pool, pool, tables,
+                                                  lengths, window=0),
+                       torch.zeros_like(got))
+
+
+def test_paged_decode_attention_kernel_refuses(cuda):
+    q = torch.zeros(2, 4, 32, device=cuda)
+    pool = torch.zeros(5, 2, 16, 32, device=cuda)
+    tables = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    n = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    before = K4.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.paged_decode_attention_cuda(q.cpu(), pool.cpu(), pool.cpu(),
+                                       tables.cpu(), n.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        K4.paged_decode_attention_cuda(q, pool, pool, tables.long(), n)
+    with pytest.raises(ValueError, match="tables"):
+        K4.paged_decode_attention_cuda(q, pool, pool, tables[:1], n)
+    with pytest.raises(ValueError, match="H % KH"):
+        K4.paged_decode_attention_cuda(torch.zeros(2, 3, 32, device=cuda),
+                                       pool, pool, tables, n)
+    with pytest.raises(ValueError, match="block size 24"):
+        bad = torch.zeros(5, 2, 24, 32, device=cuda)
+        K4.paged_decode_attention_cuda(q, bad, bad, tables, n)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(5, 2, 16, 256, device=cuda)
+        K4.paged_decode_attention_cuda(torch.zeros(2, 4, 256, device=cuda),
+                                       big, big, tables, n)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.paged_decode_attention_cuda(q, pool.transpose(2, 3), pool,
+                                       tables, n)
+    assert K4.launches == before
+
+
+def test_reduced_paged_chunked_engine_on_card_matches_cpu(cuda):
+    """yi-6b reduced (float32) with kv_block=8 and prefill_chunk=8: the
+    card's tokens equal the paged CPU engine's and the contiguous CPU
+    engine's; K4 runs once per layer per decode step, K3 never."""
+    cfg = get_config("yi-6b", reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (5, 30, 1, 70, 12, 41)]
+    outs, steps = [], 0
+    before3, before4 = K3.launches, K4.launches
+    for dev, kw in (("cpu", {}), ("cpu", {"kv_block": 8,
+                                           "prefill_chunk": 8}),
+                    (cuda, {"kv_block": 8, "prefill_chunk": 8})):
+        eng = ServingEngine(bundle, model.to(dev), max_slots=4,
+                            cache_len=64, device=dev, **kw)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
+        while True:
+            more = eng.step()
+            steps += eng.last_step["decoded"] and dev != "cpu"
+            if not more:
+                break
+        outs.append({u: r.output for u, r in eng.results.items()})
+        if kw:
+            assert eng.pool.free_blocks() == eng.pool.usable_blocks
+    assert outs[0] == outs[1] == outs[2]
+    assert K4.launches - before4 == cfg.n_layers * steps
+    assert K3.launches == before3

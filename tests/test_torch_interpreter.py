@@ -381,20 +381,17 @@ def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
                                   plan_model)
     from repro_torch.models import lm
     cfg = get_config("yi-6b", reduced=True)
-    # the JAX init_lm tree's layout, zeros: only where it lands matters
-    cpu = lm.DenseLM(cfg, device="cpu")
-    tree = {"embed": cpu.embed, "final_norm": cpu.final_norm,
-            "lm_head": cpu.lm_head, "blocks": {
-                "ln1": [b.ln1 for b in cpu.layers],
-                "ln2": [b.ln2 for b in cpu.layers],
-                "attn": {n: [dict(b.attn.named_parameters())[n]
-                             for b in cpu.layers]
-                         for n, _ in cpu.layers[0].attn.named_parameters()},
-                "mlp": {n: [dict(b.mlp.named_parameters())[n]
-                            for b in cpu.layers]
-                        for n, _ in cpu.layers[0].mlp.named_parameters()}}}
-    tree = torch.utils._pytree.tree_map(
-        lambda t: np.zeros(t.shape, np.float32), tree)
+    # a JAX init_lm tree of zeros (per-layer leaves stacked on L): only
+    # where it lands matters
+    blk = lm.DenseLM(cfg, device="cpu").layers[0]
+
+    def zeros(module, lead=()):
+        return {n: np.zeros((*lead, *p.shape), np.float32)
+                for n, p in module.named_parameters() if "." not in n}
+    tree = {**zeros(lm.DenseLM(cfg, device="cpu")),
+            "blocks": {**zeros(blk, (cfg.n_layers,)),
+                       "attn": zeros(blk.attn, (cfg.n_layers,)),
+                       "mlp": zeros(blk.mlp, (cfg.n_layers,))}}
     fn, call = {
         "plan_model": (plan_model, lambda: plan_model(conv_model, resolver)),
         "AllocationPlan.build": (

@@ -199,7 +199,6 @@ def test_on_token_streams_every_token_in_order():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("prefill_chunk", 8), ("kv_block", 16), ("kv_pool_blocks", 9),
     ("weight_dtype", "int8"), ("kv_dtype", "int8"), ("mesh", object()),
     ("overlap", True)])
 def test_unported_options_raise(option, value):
