@@ -36,13 +36,16 @@ ARCHS = ["yi-6b", "phi3-mini-3.8b", "phi4-mini-3.8b", "qwen3-32b"]
 TAG_CHAINS = {("cuda", "reference"): ("pallas", "reference"),
               ("reference",): ("reference",)}
 SLOTS, CACHE_LEN = 4, 64
-# (prompt length, new tokens): prompts of 1..3 chunks, one whose padded
-# chunks would wrap the ring (70: one-shot, exact length), and 30 + 40
-# decoding past the ring
-WORKLOAD = [(5, 8), (12, 8), (30, 40), (1, 8), (9, 8), (70, 8), (7, 5),
+# (prompt length, new tokens): prompts of one to eight chunks, one too
+# long for the ring (70: one-shot, exact length), and 58 + 12, chunked
+# to the end of the ring and then decoding past it
+WORKLOAD = [(5, 8), (12, 8), (58, 12), (1, 8), (9, 8), (70, 8), (7, 5),
             (41, 6)]
-# (prefill_chunk, kv_block)
-CHUNK_CONFIGS = [(8, None), (16, None), (8, 16)]
+# (arch, prefill_chunk, kv_block) of the engine comparisons: chunks of 8
+# and 16, contiguous and paged, one per architecture (keeping the JAX
+# engines' compile time in bounds)
+ENGINE_CASES = [("yi-6b", 8, None), ("phi3-mini-3.8b", 16, None),
+                ("phi4-mini-3.8b", 8, 16), ("qwen3-32b", 16, 8)]
 # float32, relative to the largest cache value (the JAX init's near
 # one-hot attention amplifies summation-order differences, see
 # tests/test_torch_lm.py)
@@ -187,16 +190,13 @@ def _outputs(results):
     return {uid: r.output for uid, r in results.items()}
 
 
-@pytest.mark.parametrize("conf", CHUNK_CONFIGS,
-                         ids=["chunk8", "chunk16", "chunk8-paged16"])
 @pytest.mark.parametrize("tags", list(TAG_CHAINS), ids=["cuda", "reference"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_chunked_engine_tokens_match_jax(models, arch, tags, conf):
+@pytest.mark.parametrize("arch,chunk,bs", ENGINE_CASES)
+def test_chunked_engine_tokens_match_jax(models, arch, chunk, bs, tags):
     """Greedy tokens equal to the JAX engine's with the same
     ``prefill_chunk`` (and ``kv_block``), the same prompt tokens
     integrated chunk by chunk, and the same chunk dispatches."""
     jcfg, params, cfg, model = models[arch]
-    chunk, bs = conf
     jeng = JaxServingEngine(jax_get_model(jcfg), params, max_slots=SLOTS,
                             cache_len=CACHE_LEN, tags=TAG_CHAINS[tags],
                             prefill_chunk=chunk, kv_block=bs)
