@@ -50,6 +50,17 @@ N_REQUESTS = 3
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This module's torch work on one intra-op thread: its tensors are
+    small, and with the suite's parallel workers on a shared CPU every
+    extra OpenMP thread only waits for a core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _jax_x64_alias():
     """Alias ``jax.experimental.enable_x64`` (moved to ``jax.enable_x64``
     in newer jax) for this module's tests only; a no-op where it exists.

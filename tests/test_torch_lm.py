@@ -42,6 +42,17 @@ LOGIT_TOL = 1e-4
 CACHE_RTOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This module's torch work on one intra-op thread: its tensors are
+    small, and with the suite's parallel workers on a shared CPU every
+    extra OpenMP thread only waits for a core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pallas_memory_space_alias():
     """Alias ``pltpu.TPUMemorySpace`` (renamed ``pltpu.MemorySpace`` in
