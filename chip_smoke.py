@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: its main paths end to end on one
-NVIDIA GPU — the micro interpreter and dense-LM serving, contiguous and
-paged — with every CUDA kernel of those paths held against its plain
-PyTorch version.
+NVIDIA GPU — the micro interpreter and dense-LM serving, contiguous,
+paged and quantized — with every CUDA kernel of those paths held against
+its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -25,10 +25,19 @@ Phases — any failure raises and the script exits non-zero:
      paged_decode_attention at Yi-6B's paged decode shape (pool of 513
      blocks of 16, a permuted table, unmapped tails on block 0, the same
      lengths) and with float32, a window, blocks of 8 and 64, Phi-3-mini's
-     heads, each also bit-equal to K3 on the equal contiguous cache;
-     kernel, plain and library times from CUDA events (K4: K3's time on
-     the equal cache, and a gather + SDPA as two calls), and the card's
-     least possible time (the bound).
+     heads, each also bit-equal to K3 on the equal contiguous cache; K5
+     dequant_matmul and K6 dequant_matmul_i4 at Yi-6B's MLP shapes at 4
+     slots and at 1 and at two shapes off the tiles (float32 within
+     1e-5 of the largest output; a row's values independent of the
+     other rows), K7 paged_decode_attention_q at K4's cases on int8
+     pools with row scales (float32 within 1e-5, bfloat16 within
+     ``BF16_ATOL``, and bit-equal to K4 on the float32 pools that hold
+     float(q8) * s); kernel, plain and library times from CUDA events
+     (K4: K3's time on the equal cache, and a gather + SDPA as two
+     calls; K5: ``torch._weight_int8pack_mm`` where it runs, and the
+     bf16 cuBLAS product on the float weight; K7: K4 on the bf16 pool,
+     and a gather + dequant + SDPA chain), and the card's least
+     possible time (the bound).
   3. the micro main path, with every launch count set to 0 just before
      it: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
      "reference")), device="cuda")`` answers 8 requests on each of
@@ -59,7 +68,9 @@ Phases — any failure raises and the script exits non-zero:
      uninterrupted run.
   8. Yi-6B reduced, float32: the engine on the card and on the CPU emit
      identical greedy tokens, contiguous and with ``kv_block=8,
-     prefill_chunk=8`` (also equal to the contiguous engine's).
+     prefill_chunk=8`` (also equal to the contiguous engine's), and
+     quantized: int8 weights and KV contiguous, int4 weights and int8 KV
+     with ``kv_block=8``.
   9. the paged serving main path, counts set to 0 just before it: the
      phase-7 model and requests through ``ServingEngine(...,
      kv_block=16)``.  Tokens equal phase 7's request for request; K4's
@@ -73,8 +84,21 @@ Phases — any failure raises and the script exits non-zero:
      paged engine: every request finishes, and the longest prompt's K/V
      rows after chunked prefill agree with one-shot prefill's at layer 0
      within one bfloat16 ulp of each row's largest entry.
-  A JSON line of the models, one listing the kernels, then the last
-  line ``{"ok": true, "device": {...}}``.
+  10. the quantized serving main path: the phase-7 model quantized on the
+     card by the engine and the phase-7 requests, counts set to 0 just
+     before each run, through (a) ``weight_dtype="int8",
+     kv_dtype="int8"`` contiguous (K5 launched 3 x 32 times a decode
+     step, K3 32 times over the dequantized cache), (b) the same with
+     ``kv_block=16`` (K7 32 times a step, K3 and K4 never; tokens equal
+     (a)'s) and (c) ``weight_dtype="int4"`` paged (K6); each run keeps
+     its cache in place and device memory flat, every block comes back,
+     the resident weights are at least 1.9x (int8) and 3.6x (int4)
+     smaller than bf16 and the KV 1.9x; the profile of each; an EDF
+     displacement on (b) emits (b)'s tokens; and, measured with no
+     limit, the largest |logit| difference from the bf16 engine over
+     16 teacher-forced steps and how many greedy tokens equal phase 7's.
+  A JSON line of the models, one listing the kernels (K1-K7), then the
+  last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -492,6 +516,207 @@ def check_paged_decode_attention(torch, np, dev):
             f"err {err:.3g}, equal to K3; " + _times(row)
             + f"  K3 {row['k3_ms'] * 1e3:.2f} us  gather+SDPA (two calls) "
             f"{row['gather_sdpa_ms'] * 1e3:.2f} us")
+    return rows
+
+
+def check_dequant_matmul(torch, np, dev):
+    """K5 and K6 against their plain versions: Yi-6B's MLP shapes at 4
+    decode slots (wi/wg, then wo) and at one, and two shapes off the
+    tiles (rows of bytes not a multiple of 4, partial column tiles)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dequant_matmul import (dequant_matmul_cuda,
+                                                    dequant_matmul_i4_cuda)
+    from repro_torch.models import lm_quant
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cases = [(4, 4096, 11008), (4, 11008, 4096), (1, 4096, 11008),
+             (1, 11008, 4096), (3, 1000, 522), (5, 777, 1000)]
+    out = {False: [], True: []}
+    int8pack_error = None
+    for int4 in (False, True):
+        name = "K6" if int4 else "K5"
+        plain = ref.dequant_matmul_i4_ref if int4 else ref.dequant_matmul_ref
+        kernel = dequant_matmul_i4_cuda if int4 else dequant_matmul_cuda
+        for m, k, n in cases:
+            w_f = torch.randn(k, n, generator=g).to(dev)
+            leaf = lm_quant._quantize_leaf(w_f, 4 if int4 else 8)
+            del w_f
+            w = leaf.q4 if int4 else leaf.q8
+            scale = leaf.qs.reshape(-1)
+            x = torch.randn(m, k, generator=g).to(dev)
+            got = ops.dequant_matmul(x, leaf)
+            want = plain(x, w, scale)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = 1e-5 * want.abs().max().item()
+            if not (torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"{name} {(m, k, n)}: max abs err {err}"
+                                     f" > {tol}")
+            if not torch.equal(ops.dequant_matmul(x[-1:].clone(), leaf),
+                               got[-1:]):
+                raise AssertionError(f"{name} {(m, k, n)}: a row's values "
+                                     f"depend on the other rows")
+            row = {"shape": [m, k, n], "dtype": "float32",
+                   "weight": "int4" if int4 else "int8", "max_abs_err": err,
+                   "tolerance": tol}
+            row["ms"], row["call_ms"] = time_ms(
+                torch, lambda: kernel(x, w, scale))
+            row["plain_ms"], row["plain_call_ms"] = time_ms(
+                torch, lambda: plain(x, w, scale))
+            # bytes: x, the weight, the scales and the output, each once;
+            # float32 multiply-adds on the CUDA cores
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * m * k + w.numel() + 4 * n + 4 * m * n, 2 * m * k * n,
+                H100_F32_OPS_PER_S)
+            row["library_ms"] = None
+            if int4:
+                row["library"] = ("none: torch._weight_int4pack_mm computes "
+                                  "another function (asymmetric group "
+                                  "scales in a tiled layout)")
+            else:
+                # the yardstick, where this torch has a CUDA kernel for it:
+                # x @ w.T * scale with w as (N, K) int8
+                wt = w.t().contiguous()
+                if int8pack_error is None:
+                    try:
+                        lib = torch._weight_int8pack_mm(x, wt, scale)
+                        torch.cuda.synchronize()
+                    except (RuntimeError, NotImplementedError) as e:
+                        int8pack_error = str(e).splitlines()[0][:120]
+                if int8pack_error is None:
+                    lib_err = (lib.float() - want).abs().max().item()
+                    if lib_err > 1e-3 * want.abs().max().item():
+                        raise AssertionError(f"K5 yardstick disagrees by "
+                                             f"{lib_err}")
+                    row["library_ms"], _ = time_ms(
+                        torch, lambda: torch._weight_int8pack_mm(x, wt,
+                                                                 scale))
+                    row["library"] = "torch._weight_int8pack_mm"
+                else:
+                    row["library"] = (f"none: torch._weight_int8pack_mm "
+                                      f"raises on this card's torch "
+                                      f"({int8pack_error})")
+                del wt
+            # what the unquantized engine pays at this shape: the bf16
+            # cuBLAS product on the float weight (labelled, not a library
+            # call of this function)
+            xb = x.bfloat16()
+            wb = lm_quant.dequant_leaf(leaf, torch.bfloat16)
+            row["bf16_cublas_ms"], _ = time_ms(torch, lambda: xb @ wb)
+            del xb, wb
+            out[int4].append(row)
+            log(f"  {name} {(m, k, n)}: err {err:.3g} (tol {tol:.3g}); "
+                + _times(row) + f"  bf16 cuBLAS on the float weight "
+                f"{row['bf16_cublas_ms'] * 1e3:.2f} us")
+    return out[False], out[True]
+
+
+def check_paged_decode_attention_q(torch, np, dev):
+    """K7 at K4's phase-2 cases on int8 pools with row scales: against
+    its plain version, and bit-equal to K4 on the float32 pools that
+    hold float(q8) * s (q taken in float32, the result rounded once to
+    q's dtype)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quantize import (dequantize_kv_heads,
+                                           quantize_kv_heads)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.paged_decode_attention_q import \
+        paged_decode_attention_q_cuda
+
+    g = torch.Generator(device="cpu").manual_seed(14)
+    # (b, h, kh, t, bs, d, window, dtype); the first is the paged int8-KV
+    # serving path's: Yi-6B at 4 slots of 128 blocks of 16, q bfloat16
+    cases = [(4, 32, 4, 128, 16, 128, None, torch.bfloat16),
+             (4, 32, 4, 128, 16, 128, None, torch.float32),
+             (4, 32, 4, 128, 16, 128, 256, torch.float32),
+             (4, 32, 4, 256, 8, 128, None, torch.bfloat16),
+             (4, 32, 4, 32, 64, 128, None, torch.bfloat16)]
+    rows = []
+    for b, h, kh, t, bs, d, window, dt in cases:
+        s = t * bs
+        lens = [1, 37, 1500, s]
+        k_pool, v_pool, tables, _, _ = _paged_layout(
+            torch, dev, torch.float32, b, kh, s, bs, d, lens, seed=t + bs + d)
+        (kq, ks), (vq, vs) = quantize_kv_heads(k_pool), \
+            quantize_kv_heads(v_pool)
+        kf, vf = dequantize_kv_heads(kq, ks), dequantize_kv_heads(vq, vs)
+        del k_pool, v_pool
+        q = torch.randn(b, h, d, generator=g).to(dev, dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, kq, vq, ks, vs, tables, lengths)
+        got = ops.quant_paged_decode_attention(*args, window=window)
+        want = ref.paged_decode_attention_q_ref(*args, window=window)
+        k4 = paged_decode_attention_cuda(q.float(), kf, vf, tables, lengths,
+                                         window=window).to(dt)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-5 if dt == torch.float32 else BF16_ATOL
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"K7 {(b, h, kh, t, bs, d, window, dt)}: "
+                                 f"max abs err {err} > {tol}")
+        if not torch.equal(got, k4):
+            raise AssertionError(f"K7 {(b, h, kh, t, bs, d, window, dt)} "
+                                 f"differs from K4 on the float32 pool of "
+                                 f"float(q8) * s")
+        item = q.element_size()
+        valid = _decode_valid_rows(lens, s, window)
+        blocks = sum(-(-min(n, s) // bs) for n in lens)
+        row = {"shape": [b, h, kh, t, bs, d], "pool_blocks": b * t + 1,
+               "lengths": lens, "window": window,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "equals_k4_on_dequantized_pool": True, "library_ms": None,
+               "library": "none: no single PyTorch call walks a block table "
+                          "or dequantizes int8 rows"}
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: paged_decode_attention_q_cuda(*args,
+                                                         window=window))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.paged_decode_attention_q_ref(*args,
+                                                            window=window))
+        # K4 as an unquantized engine runs it: on the same rows in q's
+        # dtype
+        kd, vd = kf.to(dt), vf.to(dt)
+        row["k4_ms"], _ = time_ms(torch, lambda: paged_decode_attention_cuda(
+            q, kd, vd, tables, lengths, window=window))
+        del kd, vd
+        # bytes: q and out once, the valid int8 K and V rows and their
+        # float32 scales once, lengths, the table entries those rows need
+        row["bound_ms"], row["bound_by"] = bound(
+            item * 2 * b * h * d + 2 * valid * kh * (d + 4) + 4 * b
+            + 4 * blocks, 4 * h * d * valid,
+            H100_F32_OPS_PER_S if dt == torch.float32
+            else H100_BF16_OPS_PER_S)
+        # the chain of calls, for scale only: gather the table's blocks
+        # and scales, dequantize to q's dtype, one SDPA (bool mask, GQA)
+        pos = torch.arange(s, device=dev)[None, :]
+        mask = pos < lengths[:, None]
+        if window is not None:
+            mask &= pos >= lengths[:, None] - window
+        mask = mask[:, None, None, :]
+        idx = tables.long()
+
+        def chain():
+            def gather(pool, sc):
+                rows_ = pool[idx].transpose(1, 2).reshape(b, kh, s, d)
+                return (rows_.float() * sc[idx].transpose(1, 2).reshape(
+                    b, kh, s)[..., None]).to(dt)
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], gather(kq, ks), gather(vq, vs),
+                attn_mask=mask, enable_gqa=True)
+        lib_err = (chain()[:, :, 0].float() - want.float()).abs().max()
+        if lib_err.item() > 10 * tol:
+            raise AssertionError(f"K7 gather + dequant + SDPA disagrees by "
+                                 f"{lib_err}")
+        row["gather_dequant_sdpa_ms"], _ = time_ms(torch, chain)
+        rows.append(row)
+        log(f"  K7 {(b, h, kh, t, bs, d)} window={window} {row['dtype']}: "
+            f"err {err:.3g}, equal to K4 on the dequantized pool; "
+            + _times(row) + f"  K4 on the {row['dtype']} pool "
+            f"{row['k4_ms'] * 1e3:.2f} us  gather+dequant+SDPA (several "
+            f"calls) {row['gather_dequant_sdpa_ms'] * 1e3:.2f} us")
     return rows
 
 
@@ -982,7 +1207,8 @@ def reduced_card_vs_cpu(torch, np, dev):
     """Phase 8: yi-6b reduced, float32: the engine on the card and on the
     CPU emit identical greedy tokens, contiguous and with
     ``kv_block=8, prefill_chunk=8`` (which must also equal the contiguous
-    CPU engine's)."""
+    CPU engine's), and quantized: int8 weights and KV contiguous, int4
+    weights and int8 KV paged."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.serving import Request, ServingEngine
@@ -994,25 +1220,197 @@ def reduced_card_vs_cpu(torch, np, dev):
     prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
                for n in (5, 30, 1, 70, 12, 40)]
     outs = {}
-    paged = {"kv_block": 8, "prefill_chunk": 8}
-    for where, kw in (("cpu", {}), (dev, {}), ("cpu", paged), (dev, paged)):
-        eng = ServingEngine(bundle, model.to(where), max_slots=4,
-                            cache_len=64, device=where, **kw)
-        for uid, p in enumerate(prompts):
-            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
-        outs[str(where), bool(kw)] = {u: r.output
-                                      for u, r in eng.run().items()}
-    want = outs["cpu", False]
-    for key, got in outs.items():
+    runs = {"float": {},
+            "float paged+chunked": {"kv_block": 8, "prefill_chunk": 8},
+            "int8/int8": {"weight_dtype": "int8", "kv_dtype": "int8"},
+            "int4/int8 paged": {"weight_dtype": "int4", "kv_dtype": "int8",
+                                "kv_block": 8}}
+    for label, kw in runs.items():
+        for where in ("cpu", dev):
+            eng = ServingEngine(bundle, model.to(where), max_slots=4,
+                                cache_len=64, device=where, **kw)
+            for uid, p in enumerate(prompts):
+                eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
+            outs[label, str(where)] = {u: r.output
+                                       for u, r in eng.run().items()}
+    for (label, where), got in outs.items():
+        # the float runs all equal the contiguous CPU engine; each
+        # quantized run equals its own configuration on the CPU
+        want = outs["float" if label.startswith("float") else label, "cpu"]
         if got != want:
-            raise AssertionError(f"reduced {LM_ARCH} {key}: tokens {got} "
-                                 f"!= contiguous CPU tokens {want}")
-    n = sum(len(o) for o in want.values())
+            raise AssertionError(f"reduced {LM_ARCH} {label} on {where}: "
+                                 f"tokens {got} != {want}")
+    n = sum(len(o) for o in outs["float", "cpu"].values())
     log(f"  {cfg.arch_id}: {len(prompts)} requests, {n} tokens; card == CPU "
-        f"contiguous and with kv_block=8, prefill_chunk=8 (== contiguous)")
-    return {"model": f"{cfg.arch_id} float32 card vs CPU, contiguous and "
-                     f"paged+chunked", "requests": len(prompts), "tokens": n,
-            "tokens_equal": True}
+        f"contiguous and with kv_block=8, prefill_chunk=8 (== contiguous), "
+        f"and quantized int8/int8 contiguous and int4/int8 paged")
+    return {"model": f"{cfg.arch_id} float32 card vs CPU, contiguous, "
+                     f"paged+chunked, int8/int8, int4/int8 paged",
+            "requests": len(prompts), "tokens": n, "tokens_equal": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: quantized serving (Yi-6B)
+# ---------------------------------------------------------------------------
+
+LOGIT_STEPS = 16
+# the resident footprint against bfloat16: int8 weights carry their
+# float32 scales, int4 ones too, int8 KV one float32 scale per 128
+WEIGHT_RATIO = {"int8": 1.9, "int4": 3.6}
+KV_RATIO = 1.9
+
+
+def kernel_counts():
+    """The launch counts of every kernel the serving paths run."""
+    from repro_torch.kernels import decode_attention as K3
+    from repro_torch.kernels import dequant_matmul as K56
+    from repro_torch.kernels import paged_decode_attention as K4
+    from repro_torch.kernels import paged_decode_attention_q as K7
+    return {"decode_attention": K3.launches,
+            "paged_decode_attention": K4.launches,
+            "dequant_matmul": K56.launches,
+            "dequant_matmul_i4": K56.launches_i4,
+            "paged_decode_attention_q": K7.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels import decode_attention as K3
+    from repro_torch.kernels import dequant_matmul as K56
+    from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import paged_decode_attention as K4
+    from repro_torch.kernels import paged_decode_attention_q as K7
+    from repro_torch.kernels import quant_matmul as K1
+    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    K56.launches = K56.launches_i4 = K7.launches = 0
+
+
+def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
+    """The largest |logit| difference between the bf16 engine and a
+    quantized one (``kw``) over the prefill and ``LOGIT_STEPS`` decode
+    steps, both fed the bf16 engine's greedy tokens; batch 1."""
+    from repro_torch.serving import ServingEngine
+
+    def engine(**q):
+        return ServingEngine(bundle, model, max_slots=1,
+                             cache_len=SERVE_CACHE, prefill_buckets=False,
+                             device=dev, **q)
+    feng, qeng = engine(), engine(**kw)
+    v = bundle.cfg.vocab
+    batch = {"tokens": torch.as_tensor(prompt[None, :-1].astype(np.int64),
+                                       device=dev)}
+    with torch.no_grad():
+        lf, cf = feng._prefill((feng.params, batch))
+        lq, cq = qeng._prefill((qeng.params, batch))
+        err = (lf[..., :v].float() - lq[..., :v].float()).abs().max().item()
+        top = lf[..., :v].float().abs().max().item()
+        pos, cur = len(prompt) - 1, int(prompt[-1])
+        for _ in range(LOGIT_STEPS):
+            curs = torch.tensor([[cur]], device=dev)
+            lens = torch.tensor([pos], dtype=torch.int32, device=dev)
+            lf, cf = feng._decode((feng.params, cf, curs, lens))
+            lq, cq = qeng._decode((qeng.params, cq, curs, lens))
+            err = max(err, (lf[:, :v].float()
+                            - lq[:, :v].float()).abs().max().item())
+            top = max(top, lf[:, :v].float().abs().max().item())
+            cur = int(lf[0, :v].float().argmax())
+            pos += 1
+    del qeng, cq
+    return err, top
+
+
+def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
+                      served, fp_rows):
+    """Phase 10: the phase-7 model quantized on the card and the phase-7
+    requests through (a) int8 weights and KV, contiguous, (b) the same
+    paged with blocks of 16, (c) int4 weights and int8 KV, paged.  Each
+    run counts its kernels from 0, keeps memory flat and its cache in
+    place (``serve_lm``); (b) emits (a)'s tokens and (b) preempted and
+    restored emits them too.  Returns the runs' rows and each kernel's
+    launches on its run."""
+    n_layers = bundle.cfg.n_layers
+    runs = {"a": {"weight_dtype": "int8", "kv_dtype": "int8"},
+            "b": {"weight_dtype": "int8", "kv_dtype": "int8",
+                  "kv_block": PAGED_BLOCK},
+            "c": {"weight_dtype": "int4", "kv_dtype": "int8",
+                  "kv_block": PAGED_BLOCK}}
+    rows, toks, path_launches = {}, {}, {}
+    for key, kw in runs.items():
+        eng = engine(**kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        zero_counts()
+        row, toks[key] = serve_lm(torch, np, dev, eng, prompts)
+        counts = kernel_counts()
+        steps = row["decode_steps"]
+        mm = "dequant_matmul_i4" if kw["weight_dtype"] == "int4" \
+            else "dequant_matmul"
+        attn = ("paged_decode_attention_q" if kw.get("kv_block")
+                else "decode_attention")
+        want = {name: 0 for name in counts}
+        want[mm] = 3 * n_layers * steps
+        want[attn] = n_layers * steps
+        log(f"  ({key}) {kw}: launches {counts} ({n_layers} layers x "
+            f"{steps} decode steps)")
+        if counts != want:
+            raise AssertionError(f"({key}) launches {counts}, expected "
+                                 f"{want}")
+        # K5 on (a), K7 on (b), K6 on (c); K3's path is phase 7
+        for name in (mm, attn):
+            if name != "decode_attention":
+                path_launches.setdefault(name, counts[name])
+        fp = fp_rows["paged" if kw.get("kv_block") else "contiguous"]
+        row.update(
+            model=f"{bundle.cfg.arch_id} serving, {kw['weight_dtype']} "
+                  f"weights, int8 KV"
+                  + (f", kv_block {PAGED_BLOCK}" if kw.get("kv_block")
+                     else ""),
+            launches=counts,
+            weight_ratio_vs_bf16=fp["param_bytes"] / row["param_bytes"],
+            kv_ratio_vs_bf16=fp["kv_bytes"] / row["kv_bytes"],
+            peak_above_resident_bytes=(torch.cuda.max_memory_allocated()
+                                       - resident),
+            tokens_equal_phase7=sum(a == b for u in served for a, b in
+                                    zip(toks[key][u], served[u])),
+            requests_equal_phase7=sum(toks[key][u] == served[u]
+                                      for u in served),
+            tokens=sum(len(t) for t in toks[key].values()))
+        if row["weight_ratio_vs_bf16"] < WEIGHT_RATIO[kw["weight_dtype"]] \
+                or row["kv_ratio_vs_bf16"] < KV_RATIO:
+            raise AssertionError(f"({key}) resident bytes: weights "
+                                 f"{row['weight_ratio_vs_bf16']:.3f}x, KV "
+                                 f"{row['kv_ratio_vs_bf16']:.3f}x smaller "
+                                 f"than bf16")
+        log(f"  ({key}) weights {row['param_bytes']:,} B "
+            f"({row['weight_ratio_vs_bf16']:.3f}x smaller than bf16), KV "
+            f"{row['kv_bytes']:,} B ({row['kv_ratio_vs_bf16']:.3f}x); peak "
+            f"{row['peak_above_resident_bytes']:,} B above the resident "
+            f"bytes; {row['tokens_equal_phase7']} of {row['tokens']} greedy "
+            f"tokens at phase 7's positions equal phase 7's, "
+            f"{row['requests_equal_phase7']} of {len(served)} requests "
+            f"whole")
+        profile_decode(torch, np, eng, row)
+        del eng
+        torch.cuda.empty_cache()
+        rows[key] = row
+    if toks["b"] != toks["a"]:
+        raise AssertionError(f"paged int8-KV tokens {toks['b']} != "
+                             f"contiguous ones {toks['a']}")
+    log("  (b) paged int8 KV emits (a)'s contiguous tokens, request for "
+        "request; every block came back")
+    check_preemption(engine(policy="edf", preempt="edf-displace",
+                            clock=lambda: 0, **runs["b"]), prompts, toks["b"])
+    longest = max(prompts, key=len)
+    for key in ("a", "c"):
+        err, top = teacher_forced_logits(
+            torch, np, dev, bundle, model, longest,
+            weight_dtype=runs[key]["weight_dtype"], kv_dtype="int8")
+        rows[key]["max_abs_dlogit_vs_bf16"] = err
+        rows[key]["max_abs_logit_bf16"] = top
+        log(f"  ({key}) vs the bf16 engine, prompt of {len(longest)} tokens "
+            f"and {LOGIT_STEPS} teacher-forced steps: max |dlogit| "
+            f"{err:.4g} (largest |logit| {top:.4g})")
+    return list(rows.values()), path_launches
 
 
 def main() -> int:
@@ -1056,9 +1454,11 @@ def main() -> int:
     k2_rows = check_flash_attention(torch, np, dev)
     k3_rows = check_decode_attention(torch, np, dev)
     k4_rows = check_paged_decode_attention(torch, np, dev)
+    k5_rows, k6_rows = check_dequant_matmul(torch, np, dev)
+    k7_rows = check_paged_decode_attention_q(torch, np, dev)
 
     log("phase 3: the interpreter on the card (main path)")
-    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    zero_counts()
     model_rows, cards, want_k1 = run_models(np, dev)
     log("phase 4: ATTENTION through the interpreter (main path)")
     row, card = run_attention(np, dev)
@@ -1095,7 +1495,7 @@ def main() -> int:
                              cache_len=SERVE_CACHE,
                              tags=("cuda", "reference"), device=dev, **kw)
     eng = engine()
-    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    zero_counts()
     serve_row, served = serve_lm(torch, np, dev, eng, prompts)
     launches["decode_attention"] = K3.launches
     n_layers = bundle.cfg.n_layers
@@ -1120,7 +1520,7 @@ def main() -> int:
     log(f"phase 9: {LM_ARCH} full width, bfloat16, paged KV "
         f"(kv_block={PAGED_BLOCK}) through the ServingEngine (main path)")
     eng = engine(kv_block=PAGED_BLOCK)
-    K1.launches = K2.launches = K3.launches = K4.launches = 0
+    zero_counts()
     paged_row, paged_served = serve_lm(torch, np, dev, eng, prompts)
     launches["paged_decode_attention"] = K4.launches
     log(f"  launches on the paged serving path: K3 {K3.launches}, K4 "
@@ -1149,6 +1549,14 @@ def main() -> int:
     paged_row["chunked"] = paged_chunked_run(torch, np, engine, prompts,
                                              served)
     model_rows.append(paged_row)
+
+    log(f"phase 10: {LM_ARCH} full width, bfloat16, quantized serving "
+        f"through the ServingEngine (main path)")
+    q_rows, q_launches = quantized_serving(
+        torch, np, dev, engine, bundle, lm_model, prompts, served,
+        {"contiguous": serve_row, "paged": paged_row})
+    launches.update(q_launches)
+    model_rows.extend(q_rows)
     del lm_model
     torch.cuda.empty_cache()
 
@@ -1179,6 +1587,15 @@ def main() -> int:
         entry("paged_decode_attention",
               "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
               "src/repro/kernels/decode_attention.py:308", k4_rows),
+        entry("dequant_matmul",
+              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+              "src/repro/kernels/dequant_matmul.py:58", k5_rows),
+        entry("dequant_matmul_i4",
+              "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+              "src/repro/kernels/dequant_matmul.py:114", k6_rows),
+        entry("paged_decode_attention_q",
+              "src/repro_torch/kernels/csrc/paged_decode_attention_q.cu",
+              "src/repro/kernels/decode_attention.py:242", k7_rows),
     ]
     log(json.dumps({"models": model_rows}))
     log(json.dumps({"kernels": kernels}))

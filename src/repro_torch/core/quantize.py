@@ -10,8 +10,9 @@ Scheme (Krishnamoorthi 2018, as adopted by TFLite):
   M = M0 * 2^shift with M0 in [0.5, 1) stored as a Q31 int32, applied with
   gemmlowp's SaturatingRoundingDoublingHighMul + rounding right shift.
 
-The micro subset of ``repro.core.quantize``: the numpy twins run at
-export time, and the torch twins run inside invoke on any device.  Torch
+The micro subset of ``repro.core.quantize`` plus its serving half
+(packed int4 weights, the per-head int8 KV cache): the numpy twins run
+at export time, and the torch twins run inside invoke on any device.  Torch
 has int64 everywhere, so the 64-bit product needs no scoped mode; the
 int32 steps are cast explicitly so wrap-around matches the int32 math of
 the reference bit for bit.
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 INT8_MIN, INT8_MAX = -128, 127
+INT4_MIN, INT4_MAX = -8, 7
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
@@ -183,6 +185,72 @@ def requantize(acc: torch.Tensor, multiplier, shift, output_zero_point: int,
     scaled = multiply_by_quantized_multiplier(acc, multiplier, shift)
     out = scaled + output_zero_point          # int32, wraps like the C code
     return out.clamp(qmin, qmax).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Packed int4 (two nibbles per int8 byte, packed along the LAST axis)
+# ---------------------------------------------------------------------------
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack signed int4 values (range [-8, 7], held in int8) two per byte
+    along the LAST axis: ``byte = (hi << 4) | (lo & 0xF)`` with
+    ``lo = q[..., 2i]`` and ``hi = q[..., 2i+1]``.  The last axis must
+    be even."""
+    q = q.to(torch.int8)
+    if q.shape[-1] % 2:
+        raise ValueError(
+            f"pack_int4 needs an even last axis, got {tuple(q.shape)}")
+    return (q[..., 1::2] << 4) | (q[..., 0::2] & 0xF)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: bytes back to signed int4 values (as
+    int8), doubling the last axis.  Sign extension is arithmetic in int8:
+    ``(b << 4) >> 4`` is the low nibble, ``b >> 4`` the high."""
+    b = packed.to(torch.int8)
+    out = torch.stack([(b << 4) >> 4, b >> 4], dim=-1)
+    return out.reshape(*b.shape[:-1], b.shape[-1] * 2)
+
+
+def pack_int4_np(q: np.ndarray) -> np.ndarray:
+    """numpy twin of :func:`pack_int4` (export-time use)."""
+    q = np.asarray(q, np.int8)
+    if q.shape[-1] % 2:
+        raise ValueError(
+            f"pack_int4 needs an even last axis, got {q.shape}")
+    return ((q[..., 1::2] << 4) | (q[..., 0::2] & np.int8(0xF))).astype(
+        np.int8)
+
+
+def unpack_int4_np(packed: np.ndarray) -> np.ndarray:
+    """numpy twin of :func:`unpack_int4`."""
+    b = np.asarray(packed, np.int8)
+    out = np.stack([((b << 4) >> 4).astype(np.int8),
+                    (b >> 4).astype(np.int8)], axis=-1)
+    return out.reshape(*b.shape[:-1], b.shape[-1] * 2)
+
+
+# ---------------------------------------------------------------------------
+# Symmetric per-head KV quantization (the serving KV cache)
+# ---------------------------------------------------------------------------
+
+def quantize_kv_heads(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with one float32 scale per head vector
+    (the LAST axis): ``scale = amax / 127`` (1.0 for an all-zero vector,
+    so it dequantizes exactly), ``q = round(x / scale)`` half to even,
+    all in float32 as the JAX package computes it.  Returns ``(q int8,
+    scales f32)`` with ``scales.shape == x.shape[:-1]``."""
+    x = x.float()
+    amax = x.abs().amax(dim=-1)
+    scales = torch.where(amax > 0, amax / INT8_MAX, 1.0)
+    q = torch.round(x / scales[..., None]).clamp(INT8_MIN, INT8_MAX)
+    return q.to(torch.int8), scales
+
+
+def dequantize_kv_heads(q: torch.Tensor, scales: torch.Tensor
+                        ) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_heads` (up to rounding), float32."""
+    return q.float() * scales[..., None].float()
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,10 @@ Kernels (each: ``<name>.py`` launcher with its ``launches`` count +
     (the dense serving decode step)
   * paged_decode_attention — K4, K3 through a block table over a shared
     pool of KV blocks (the paged serving decode step)
+  * dequant_matmul   — K5 (int8) and K6 (packed int4): float activations
+    times quantized weights, the quantized decode step's MLP
+  * paged_decode_attention_q — K7, K4 over an int8 KV pool with one
+    scale per row (the paged int8-KV decode step)
 """
 
 from . import ops  # noqa: F401  (registers the "cuda" tag)

@@ -45,10 +45,12 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   const int* len = static_cast<const int*>(lengths);
   float* ws = static_cast<float*>(workspace);
   const ContiguousRows rows{KH, S};
+  const decode_attn::NoScale none{};
   if (is_bf16)
-    return decode_attn::launch<__nv_bfloat16>(q, k, v, rows, len, out, ws, B,
-                                              H, KH, S, D, scale, has_window,
-                                              window, st);
-  return decode_attn::launch<float>(q, k, v, rows, len, out, ws, B, H, KH, S,
-                                    D, scale, has_window, window, st);
+    return decode_attn::launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, none, rows, len, out, ws, B, H, KH, S, D, scale, has_window,
+        window, st);
+  return decode_attn::launch<float, float>(q, k, v, none, rows, len, out, ws,
+                                           B, H, KH, S, D, scale, has_window,
+                                           window, st);
 }

@@ -1,17 +1,24 @@
-// Device code shared by K3 (decode_attention.cu, a contiguous KV cache)
-// and K4 (paged_decode_attention.cu, a pool of KV blocks walked through a
-// block table): one query token per sequence against the rows of its
-// cache.  The two differ only in where row p of sequence b and KV head kh
-// lives, which the kernels take as a Rows functor, row(b, kh, p) -> the
-// index of that row (in units of D elements); everything else is one
-// code, so at the same valid rows K4 computes K3's values step for step.
+// Device code shared by K3 (decode_attention.cu, a contiguous KV cache),
+// K4 (paged_decode_attention.cu, a pool of KV blocks walked through a
+// block table) and K7 (paged_decode_attention_q.cu, K4 over int8 pools
+// with one float32 scale per row): one query token per sequence against
+// the rows of its cache.  They differ only in where row p of sequence b
+// and KV head kh lives, which the kernels take as a Rows functor,
+// row(b, kh, p) -> the index of that row (in units of D elements), and in
+// how a cache element becomes a float, a Scale policy: NoScale for K3 and
+// K4, whose cache holds the values, RowScale for K7, which multiplies the
+// int8 element by its row's scale (float(q8) * s, one float32 rounding).
+// Everything else is one code, so at the same valid rows K4 computes K3's
+// values step for step, and K7 on int8 rows computes K4's values on the
+// float32 rows that hold float(q8) * s.
 //
 // q (B,H,D), lengths (B,) int32 read on the device.  Position p of
 // sequence b is valid when p < lengths[b] and, with a window W,
 // p >= lengths[b] - W.  All H/KH query heads of one KV head share each
 // K/V tile (GQA; K/V are never repeated in memory).  A row with no valid
-// key outputs 0.  Inputs are float32 or bfloat16; all math is float32
-// (expf, no TF32), the output has q's type.
+// key outputs 0.  q is float32 or bfloat16, the cache float32, bfloat16
+// or (K7) int8; all math is float32 (expf, no TF32), the output has q's
+// type.
 //
 // B*KH is small at decode (16 for Yi-6B at 4 slots), so one block per
 // (b, kv head) would leave most of the 132 SMs idle: pass 1 splits the S
@@ -33,6 +40,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace decode_attn {
 
@@ -50,10 +58,49 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+
+// K3, K4: the cache holds the values themselves
+struct NoScale {
+  struct Row {};
+  __device__ __forceinline__ Row row(long long) const { return {}; }
+  __device__ __forceinline__ float key(Row, float x) const { return x; }
+  __device__ __forceinline__ float value(Row, float x) const { return x; }
+};
+
+// K7: one float32 scale per cache row (index r in units of D elements),
+// read once per row; an element dequantizes as float(q8) * s
+struct RowScale {
+  const float* k_scale;
+  const float* v_scale;
+  struct Row { float k, v; };
+  __device__ __forceinline__ Row row(long long r) const {
+    return {__ldg(k_scale + r), __ldg(v_scale + r)};
+  }
+  __device__ __forceinline__ float key(Row s, float x) const {
+    return x * s.k;
+  }
+  __device__ __forceinline__ float value(Row s, float x) const {
+    return x * s.v;
+  }
+};
+
+// row p of (b, kv head) in a (P, KH, BS, D) pool through (B, T) tables
+struct PagedRows {
+  const int* tables;
+  int KH, T, BS;
+  __device__ __forceinline__ long long operator()(int b, int kvh,
+                                                  int p) const {
+    const long long block = tables[(long long)b * T + p / BS];
+    return (block * KH + kvh) * BS + p % BS;
+  }
+};
 
 inline int n_splits(int S) { return (S + SPLIT - 1) / SPLIT; }
 
@@ -72,10 +119,10 @@ inline size_t smem_bytes(int G, int D) {
           3 * static_cast<size_t>(G));
 }
 
-template <typename T, typename Rows>
+template <typename TQ, typename TKV, typename Scale, typename Rows>
 __global__ void __launch_bounds__(THREADS)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, Rows rows,
+decode_partial_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                      const TKV* __restrict__ v, Scale scl, Rows rows,
                       const int* __restrict__ lengths,
                       float* __restrict__ part_m, float* __restrict__ part_l,
                       float* __restrict__ part_acc, int H, int KH, int S,
@@ -137,13 +184,15 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < TILE / WARPS; ++i) {
       const int r = warp + i * WARPS;
       const bool rin = r < nt;
-      const long long row = rin ? row_at[t0 + r - c0] * D : 0;
+      const long long at = rin ? row_at[t0 + r - c0] : 0;
+      const long long row = at * D;
+      const typename Scale::Row sr = scl.row(at);
 #pragma unroll
       for (int j = 0; j < COLS; ++j) {
         const int c = lane + 32 * j;
         const bool in = rin && c < D;
-        kreg[i][j] = in ? to_f32(k[row + c]) : 0.f;
-        vreg[i][j] = in ? to_f32(v[row + c]) : 0.f;
+        kreg[i][j] = in ? scl.key(sr, to_f32(k[row + c])) : 0.f;
+        vreg[i][j] = in ? scl.value(sr, to_f32(v[row + c])) : 0.f;
       }
     }
 #pragma unroll
@@ -257,9 +306,10 @@ decode_combine_kernel(const float* __restrict__ part_m,
 }
 
 // Both passes on ``stream``; returns cudaGetLastError() of the launches.
-// S is the number of logical positions each sequence has.
-template <typename T, typename Rows>
-int launch(const void* q, const void* k, const void* v, Rows rows,
+// S is the number of logical positions each sequence has; q and the
+// output are TQ, the cache TKV.
+template <typename TQ, typename TKV, typename Scale, typename Rows>
+int launch(const void* q, const void* k, const void* v, Scale scl, Rows rows,
            const int* lengths, void* out, float* ws, int B, int H, int KH,
            int S, int D, float scale, int has_window, int window,
            cudaStream_t stream) {
@@ -274,7 +324,7 @@ int launch(const void* q, const void* k, const void* v, Rows rows,
   const size_t smem = smem_bytes(H / KH, D);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > smem_opted_in[device]) {
-    err = cudaFuncSetAttribute(decode_partial_kernel<T, Rows>,
+    err = cudaFuncSetAttribute(decode_partial_kernel<TQ, TKV, Scale, Rows>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -286,14 +336,15 @@ int launch(const void* q, const void* k, const void* v, Rows rows,
   float* part_l = ws + nrows;
   float* part_acc = ws + 2 * nrows;
   const dim3 grid(nsplit, KH, B);
-  decode_partial_kernel<T, Rows><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), rows, lengths, part_m, part_l, part_acc, H,
-      KH, S, D, scale, has_window, window);
+  decode_partial_kernel<TQ, TKV, Scale, Rows><<<grid, THREADS, smem,
+                                                 stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), scl, rows, lengths, part_m, part_l,
+      part_acc, H, KH, S, D, scale, has_window, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<B * H, MAX_D, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), nsplit, D);
+  decode_combine_kernel<TQ><<<B * H, MAX_D, 0, stream>>>(
+      part_m, part_l, part_acc, static_cast<TQ*>(out), nsplit, D);
   return static_cast<int>(cudaGetLastError());
 }
 

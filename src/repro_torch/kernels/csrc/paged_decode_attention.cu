@@ -20,21 +20,6 @@
 
 #include "decode_attention.cuh"
 
-namespace {
-
-// row p of (b, kv head) in a (P, KH, BS, D) pool through (B, T) tables
-struct PagedRows {
-  const int* tables;
-  int KH, T, BS;
-  __device__ __forceinline__ long long operator()(int b, int kvh,
-                                                  int p) const {
-    const long long block = tables[(long long)b * T + p / BS];
-    return (block * KH + kvh) * BS + p % BS;
-  }
-};
-
-}  // namespace
-
 extern "C" long long paged_decode_attention_workspace_floats(int B, int H,
                                                              int S, int D) {
   return decode_attn::workspace_floats(B, H, S, D);
@@ -52,13 +37,15 @@ extern "C" int paged_decode_attention_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* ws = static_cast<float*>(workspace);
-  const PagedRows rows{static_cast<const int*>(tables), KH, T, BS};
+  const decode_attn::PagedRows rows{static_cast<const int*>(tables), KH, T,
+                                    BS};
+  const decode_attn::NoScale none{};
   const int S = T * BS;
   if (is_bf16)
-    return decode_attn::launch<__nv_bfloat16>(q, k_pool, v_pool, rows, len,
-                                              out, ws, B, H, KH, S, D, scale,
-                                              has_window, window, st);
-  return decode_attn::launch<float>(q, k_pool, v_pool, rows, len, out, ws, B,
-                                    H, KH, S, D, scale, has_window, window,
-                                    st);
+    return decode_attn::launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, none, rows, len, out, ws, B, H, KH, S, D, scale,
+        has_window, window, st);
+  return decode_attn::launch<float, float>(q, k_pool, v_pool, none, rows,
+                                           len, out, ws, B, H, KH, S, D,
+                                           scale, has_window, window, st);
 }

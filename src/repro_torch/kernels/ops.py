@@ -25,12 +25,15 @@ from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
 
 from .decode_attention import decode_attention_cuda
+from .dequant_matmul import dequant_matmul_cuda, dequant_matmul_i4_cuda
 from .flash_attention import flash_attention_cuda
 from .paged_decode_attention import (check_block_size,
                                      paged_decode_attention_cuda)
+from .paged_decode_attention_q import paged_decode_attention_q_cuda
 from .quant_matmul import quant_matmul_cuda
-from .ref import (decode_attention_ref, mha_ref, paged_decode_attention_ref,
-                  quant_matmul_ref)
+from .ref import (decode_attention_ref, dequant_matmul_i4_ref,
+                  dequant_matmul_ref, mha_ref, paged_decode_attention_q_ref,
+                  paged_decode_attention_ref, quant_matmul_ref)
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +57,22 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                              bias_q.to(torch.int32).contiguous(), wsum,
                              scale.to(torch.float32).contiguous(),
                              x_zp=int(x_zp), out_zp=int(out_zp))
+
+
+def dequant_matmul(x: torch.Tensor, wleaf) -> torch.Tensor:
+    """float (M,K) @ a quantized weight (K,N) -> float32 (M,N).
+
+    ``wleaf`` is a ``models.lm_quant.QWeight`` of int8 ``q8`` or packed
+    int4 ``q4`` with per-output-channel scales ``qs``; x is taken in
+    float32.  K5 runs the int8 weight, K6 the int4 one."""
+    x = x.float()
+    w = wleaf.q4 if wleaf.int4 else wleaf.q8
+    scale = wleaf.qs.reshape(-1)
+    if x.device.type == "cpu":
+        plain = dequant_matmul_i4_ref if wleaf.int4 else dequant_matmul_ref
+        return plain(x, w, scale)
+    kernel = dequant_matmul_i4_cuda if wleaf.int4 else dequant_matmul_cuda
+    return kernel(x.contiguous(), w, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +117,40 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return paged_decode_attention_cuda(
         q.contiguous(), k_pool, v_pool, tables.to(torch.int32).contiguous(),
         lengths.to(torch.int32).contiguous(), window=window, scale=scale)
+
+
+def quant_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, k_scales: torch.Tensor,
+                                 v_scales: torch.Tensor, tables: torch.Tensor,
+                                 lengths: torch.Tensor, *,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Int8-KV block-table decode attention: q (B,H,D), int8 pools
+    (P,KH,BS,D) with float32 row scales (P,KH,BS), tables (B,T), lengths
+    (B,) -> (B,H,D) in q's dtype; the rows dequantize inside the kernel
+    (K7).  A block size the kernel does not take is refused on either
+    device."""
+    check_block_size(k_pool.shape[2])
+    if q.device.type == "cpu":
+        return paged_decode_attention_q_ref(q, k_pool, v_pool, k_scales,
+                                            v_scales, tables, lengths,
+                                            window=window, scale=scale)
+    return paged_decode_attention_q_cuda(
+        q.contiguous(), k_pool, v_pool, k_scales.float(), v_scales.float(),
+        tables.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous(), window=window, scale=scale)
+
+
+def decode_attention_f32_cache(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """K3 over a float32 cache (the dequantized int8 cache) for a query of
+    any float dtype: q in float32, the float32 result rounded once to q's
+    dtype, which is what the Pallas kernel computes for a bfloat16 q
+    over a float32 cache."""
+    return decode_attention(q.float(), k_cache, v_cache,
+                            lengths).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -225,3 +278,45 @@ class CudaServingDecodePaged:
         return lm.lm_decode_paged(params, ctx.bundle.cfg, pool, tables,
                                   tokens, lengths,
                                   attn_impl=paged_decode_attention)
+
+
+@register_op(OpCode.SERVING_DECODE_Q, tag="cuda")
+class CudaServingDecodeQ:
+    """Quantized decode step on the kernels, dense family only: with
+    quantized weights the MLP's three matmuls run on K5 (int8) or K6
+    (int4), and attention runs on K7 (paged, int8 KV), K4 (paged, float
+    KV) or K3 (contiguous, over the dequantized float32 cache when the
+    KV is int8).  prepare() refuses the other families and a block size
+    the paged kernels do not take, once, at engine init.  There is no
+    ``"cuda"`` SERVING_PREFILL_Q, as the JAX package has no Pallas one:
+    prefill is bound by operations, and the reference quantized prefill
+    is the choice there."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        # imported here: the kernels sit beneath the serving package
+        from repro_torch.serving.ops import _quant_family_gate
+        od = _quant_family_gate(ctx.bundle.cfg, op)
+        if od["paged"]:
+            check_block_size(op.params["kv_block"])
+        # an int8-KV-only engine keeps float weights: nothing to dequantize
+        od["use_mm"] = od["weight_dtype"] in ("int8", "int4")
+        return PrepareResult(output_specs=[], op_data=od)
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        from repro_torch.models import lm_quant
+        cfg, od = ctx.bundle.cfg, ctx.op_data
+        mm = dequant_matmul if od["use_mm"] else None
+        if od["paged"]:
+            params, pool, tables, tokens, lengths = inputs
+            attn = (quant_paged_decode_attention if od["kv_q"]
+                    else paged_decode_attention)
+            return lm_quant.lm_decode_paged_q(
+                params, cfg, pool, tables, tokens, lengths, kv_q=od["kv_q"],
+                attn_impl=attn, mlp_impl=mm)
+        params, cache, tokens, lengths = inputs
+        attn = decode_attention_f32_cache if od["kv_q"] else decode_attention
+        return lm_quant.lm_decode_q(params, cfg, cache, tokens, lengths,
+                                    kv_q=od["kv_q"], attn_impl=attn,
+                                    mlp_impl=mm)

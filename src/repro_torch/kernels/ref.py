@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quantize import unpack_int4
+
 
 # ---------------------------------------------------------------------------
 # quantized matmul (the CMSIS-NN FC/conv-core analogue)
@@ -35,6 +37,28 @@ def quant_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
         acc = acc + bias_q.to(torch.int32)[None, :]
     out = torch.round(acc.to(torch.float32) * scale[None, :]) + out_zp
     return out.clamp(-128, 127).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# weight-dequant matmul (quantized serving's MLP)
+# ---------------------------------------------------------------------------
+
+def dequant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """float32 (M,K) · int8 (K,N), per-output-channel float32 ``scale``
+    (N or (1,N)) -> float32 (M,N).  The weight is cast to float32, the
+    product accumulates in float32 and the scale multiplies each output
+    once after the sum over K (symmetric per-channel scales commute with
+    it)."""
+    acc = x.float() @ w_q.float()
+    return acc * scale.reshape(1, -1).float()
+
+
+def dequant_matmul_i4_ref(x: torch.Tensor, w_p: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """:func:`dequant_matmul_ref` over packed int4 (K, N/2) bytes: column
+    2j is byte j's low nibble, column 2j+1 its high nibble."""
+    return dequant_matmul_ref(x, unpack_int4(w_p), scale)
 
 
 # ---------------------------------------------------------------------------
@@ -125,3 +149,29 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     vc = v_pool[idx].transpose(1, 2).reshape(b, kh, t * bs, d)
     return decode_attention_ref(q, kc, vc, lengths, window=window,
                                 scale=scale)
+
+
+def paged_decode_attention_q_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, k_scales: torch.Tensor,
+                                 v_scales: torch.Tensor, tables: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Int8-KV twin of :func:`paged_decode_attention_ref`: pools (P, KH,
+    BS, D) int8 with one float32 scale per row (P, KH, BS).  Gathers each
+    row's blocks, dequantizes them as ``float(q8) · s`` and runs the
+    float math of the contiguous version, so it equals
+    :func:`paged_decode_attention_ref` on the dequantized pools bit for
+    bit; q's dtype out."""
+    _, kh, bs, d = k_pool.shape
+    b, t = tables.shape
+    idx = tables.long()
+
+    def gather(pool, scales):
+        rows = pool[idx].transpose(1, 2).reshape(b, kh, t * bs, d)
+        s = scales[idx].transpose(1, 2).reshape(b, kh, t * bs)
+        return rows.float() * s[..., None].float()
+    return decode_attention_ref(q, gather(k_pool, k_scales),
+                                gather(v_pool, v_scales), lengths,
+                                window=window, scale=scale)

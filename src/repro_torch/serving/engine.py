@@ -55,10 +55,16 @@ docs/PREEMPTION.md):
     the garbage sink, admission reserves a request's worst case so
     growth never fails, and a smaller pool gates admission); a
     preempted slot's checkpoint carries its block ids, not its KV.
+  * **quantized serving** (``weight_dtype=``, ``kv_dtype=``) — int8 or
+    packed-int4 weights, quantized once at construction (the resident
+    model is the quantized one), and/or an int8 KV cache with one
+    float32 scale per head vector, contiguous or paged; prefill and
+    decode resolve ``SERVING_PREFILL_Q`` / ``SERVING_DECODE_Q``.  Not
+    with ``prefill_chunk`` (the chunk steps write float KV rows).
 
-Quantized serving, mesh sharding and the overlapped decode loop are
-refused at construction with ``NotImplementedError`` naming the ROADMAP
-slice that brings each.
+Mesh sharding and the overlapped decode loop are refused at
+construction with ``NotImplementedError`` naming the ROADMAP slice that
+brings each.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ from repro_torch.core.interpreter import setup_device
 from repro_torch.core.op_resolver import MicroMutableOpResolver
 from repro_torch.core.schema import OpCode, OpDef
 from repro_torch.kernels import ops as _vendor_kernels  # noqa: F401 (tag "cuda")
+from repro_torch.models import lm_quant
 from repro_torch.models.registry import ModelBundle
 
 from . import ops as serving_ops  # registers tag="reference" serving ops
@@ -95,10 +102,6 @@ BUCKETED_FAMILIES = ("dense",)
 
 # engine options of the JAX engine that later slices of the port bring
 _NOT_PORTED = {
-    "weight_dtype": "quantized serving (SERVING_*_Q), ROADMAP queue 1, "
-                    "slice 4, item 11",
-    "kv_dtype": "quantized serving (SERVING_*_Q), ROADMAP queue 1, "
-                "slice 4, item 11",
     "mesh": "mesh-sharded serving, ROADMAP queue 1, slice 8, item 15",
     "overlap": "overlapped decode, ROADMAP queue 1, slice 6, item 13",
 }
@@ -200,6 +203,13 @@ def _cache_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _model_tensors(model: torch.nn.Module):
+    """(name, tensor) of a model's parameters and buffers: a quantized
+    model keeps its weights in buffers."""
+    yield from model.named_parameters()
+    yield from model.named_buffers()
+
+
 class ServingEngine:
     """One model, ``max_slots`` concurrent sequences, on ``device``
     (``"cuda"`` by default; raises without a card — pass ``"cpu"`` for
@@ -212,7 +222,10 @@ class ServingEngine:
     chunk.  ``kv_block``: None/0 = contiguous per-slot rings, an int =
     paged KV with blocks of that many positions (it must divide
     ``cache_len``); ``kv_pool_blocks`` sizes the pool, by default every
-    slot at full length plus the garbage block."""
+    slot at full length plus the garbage block.  ``weight_dtype``:
+    None, ``"int8"`` or ``"int4"`` (the model is quantized once, here;
+    ``params`` itself is left as it was); ``kv_dtype``: None or
+    ``"int8"``."""
 
     def __init__(self, bundle: ModelBundle, params: torch.nn.Module, *,
                  max_slots: int = 4, cache_len: int = 256,
@@ -227,9 +240,7 @@ class ServingEngine:
                  weight_dtype: Any = None, kv_dtype: Any = None,
                  mesh: Any = None, overlap: bool = False,
                  on_token: Any = None, device="cuda"):
-        for name, value in (("weight_dtype", weight_dtype),
-                            ("kv_dtype", kv_dtype), ("mesh", mesh),
-                            ("overlap", overlap)):
+        for name, value in (("mesh", mesh), ("overlap", overlap)):
             if value:
                 raise NotImplementedError(
                     f"{name}={value!r}: {_NOT_PORTED[name]} is not in "
@@ -239,10 +250,10 @@ class ServingEngine:
         self.bundle = bundle
         self.cfg = bundle.cfg
         self.params = params
-        for name, p in params.named_parameters():
-            if p.device != self.device:
-                raise ValueError(f"parameter {name} is on {p.device}, the "
-                                 f"engine on {self.device}")
+        for name, t in _model_tensors(params):
+            if t.device != self.device:
+                raise ValueError(f"model tensor {name} is on {t.device}, "
+                                 f"the engine on {self.device}")
         self.max_slots = max_slots
         self.cache_len = cache_len
         self.policy: SchedulingPolicy = get_policy(policy)
@@ -277,6 +288,26 @@ class ServingEngine:
                     raise ValueError(
                         f"prefill_chunk must be >= 1, got {prefill_chunk}")
                 self.chunk_tokens = int(prefill_chunk)
+        self.weight_dtype = weight_dtype
+        self.kv_dtype = kv_dtype
+        self.quantized = bool(weight_dtype or kv_dtype)
+        if self.quantized:
+            if weight_dtype is not None \
+                    and weight_dtype not in lm_quant.WEIGHT_DTYPES:
+                raise ValueError(
+                    f"weight_dtype must be one of {lm_quant.WEIGHT_DTYPES} "
+                    f"or None, got {weight_dtype!r}")
+            if kv_dtype is not None and kv_dtype not in lm_quant.KV_DTYPES:
+                raise ValueError(
+                    f"kv_dtype must be one of {lm_quant.KV_DTYPES} or None, "
+                    f"got {kv_dtype!r}")
+            if self.chunk_tokens:
+                raise ValueError(
+                    "prefill_chunk does not compose with quantized "
+                    "serving (the chunk ops write float KV rows)")
+            if weight_dtype:
+                self.params = params = lm_quant.quantize_lm_params(
+                    params, self.cfg, weight_dtype)
         self.kv_block = int(kv_block) if kv_block else 0
         self.paged = bool(self.kv_block)
         if self.paged:
@@ -285,8 +316,9 @@ class ServingEngine:
                     f"kv_block must divide cache_len, got "
                     f"{self.kv_block} vs {cache_len}")
             self.n_table = cache_len // self.kv_block
-        # resident weight bytes and KV bytes: the HBM footprint
-        self.param_bytes = _cache_bytes(params.parameters())
+        # resident weight bytes (a quantized model's payload and scales)
+        # and KV bytes: the HBM footprint
+        self.param_bytes = _cache_bytes(t for _, t in _model_tensors(params))
 
         # --- the KV cache or pool: allocated once, interpreter-lifetime
         if self.paged:
@@ -333,20 +365,30 @@ class ServingEngine:
                                           "chunks": 0, "decoded": False}
 
         # --- steps resolved at init, like interpreter prepare ----------
+        prefill_code = OpCode.SERVING_PREFILL
         decode_code = (OpCode.SERVING_DECODE_PAGED if self.paged
                        else OpCode.SERVING_DECODE)
+        qparams: Dict[str, Any] = {}
+        if self.quantized:
+            # two opcodes cover the quantized matrix: paged-ness, KV quant
+            # and the weight dtype ride the op params
+            prefill_code = OpCode.SERVING_PREFILL_Q
+            decode_code = OpCode.SERVING_DECODE_Q
+            qparams = {"paged": self.paged, "kv_q": bool(kv_dtype),
+                       "weight_dtype": weight_dtype}
         chunk_code = (OpCode.SERVING_PREFILL_CHUNK_PAGED if self.paged
                       else OpCode.SERVING_PREFILL_CHUNK)
-        opcodes = [OpCode.SERVING_PREFILL, decode_code]
+        opcodes = [prefill_code, decode_code]
         if self.chunk_tokens:
             opcodes.append(chunk_code)
         self.resolver = MicroMutableOpResolver(tags).add_many(opcodes)
         window = self.cfg.sliding_window
-        decode_params = {"window": window}
+        decode_params = {"window": window, **qparams}
         if self.paged:
             decode_params["kv_block"] = self.kv_block
-        self._prefill = self._bind(OpCode.SERVING_PREFILL,
-                                   {"cache_len": cache_len, "window": window})
+        self._prefill = self._bind(prefill_code,
+                                   {"cache_len": cache_len, "window": window,
+                                    **qparams})
         self._decode = self._bind(decode_code, decode_params)
         self._prefill_chunk = (self._bind(chunk_code, {"window": window})
                                if self.chunk_tokens else None)
@@ -372,9 +414,14 @@ class ServingEngine:
     def _empty_cache(self, batch: int,
                      length: int) -> Dict[str, torch.Tensor]:
         """A zeroed {k, v} of (L, batch, KH, length, dh): the slot rings,
-        a batch=1 cache, or (batch = blocks, length = BS) the pool."""
-        return self.bundle.empty_cache(batch, length,
-                                       self.cfg.torch_dtype(), self.device)
+        a batch=1 cache, or (batch = blocks, length = BS) the pool; with
+        an int8 KV cache the quantized {k, v, k_scale, v_scale} layout
+        (int8 zeros, scales 1.0)."""
+        cache = self.bundle.empty_cache(batch, length,
+                                        self.cfg.torch_dtype(), self.device)
+        if self.kv_dtype:
+            cache = lm_quant.quantize_cache(cache)
+        return cache
 
     def insert_slot_state(self, slot: int,
                           new_cache: Dict[str, torch.Tensor]) -> None:
@@ -454,15 +501,16 @@ class ServingEngine:
 
     def _scatter_slot_cache(self, slot: int,
                             cache1: Dict[str, torch.Tensor]) -> None:
-        """Scatter a contiguous batch=1 cache (L,1,KH,C,dh) into the
-        slot's mapped blocks, in place: one-shot prefill lands
-        contiguous, then pages in.  Unmapped table entries point at the
-        garbage block, which absorbs the tail of the scatter."""
+        """Scatter a contiguous batch=1 cache (L,1,KH,C,dh) — and, with an
+        int8 KV cache, its scales (L,1,KH,C) — into the slot's mapped
+        blocks, in place: one-shot prefill lands contiguous, then pages
+        in.  Unmapped table entries point at the garbage block, which
+        absorbs the tail of the scatter."""
         row = torch.from_numpy(self._table_row(slot)).long().to(self.device)
         t, bs = self.n_table, self.kv_block
         for name, pool in self.kv_pool.items():
-            l, _, kh, _, dh = pool.shape
-            src = cache1[name][:, 0].reshape(l, kh, t, bs, dh)
+            l, _, kh = pool.shape[:3]
+            src = cache1[name][:, 0].reshape(l, kh, t, bs, *pool.shape[4:])
             pool[:, row] = src.transpose(1, 2).to(pool.dtype)
 
     def _release_slot_blocks(self, slot: int) -> None:

@@ -12,13 +12,17 @@ registry:
     offset into a slot's contiguous batch=1 cache;
   * ``OpCode.SERVING_DECODE_PAGED`` / ``SERVING_PREFILL_CHUNK_PAGED`` —
     the same two steps over the shared pool of KV blocks, each slot's
-    placement given by its block-table row.
+    placement given by its block-table row;
+  * ``OpCode.SERVING_PREFILL_Q`` / ``SERVING_DECODE_Q`` — quantized
+    serving: int8 or packed-int4 weights and/or an int8 KV cache, the
+    layout (paged or not, KV quantized or not, weight dtype) riding the
+    op's params.
 
 They run the family's plain-PyTorch steps — the readable path, the
 serving analogue of the paper's reference kernels.  The kernel library
-(``repro_torch.kernels.ops``) registers ``tag="cuda"`` ``SERVING_DECODE``
-and ``SERVING_DECODE_PAGED`` whose attention runs on the decode-attention
-kernels; ``ServingEngine`` resolves through the tag priority chain
+(``repro_torch.kernels.ops``) registers ``tag="cuda"`` ``SERVING_DECODE``,
+``SERVING_DECODE_PAGED`` and ``SERVING_DECODE_Q`` whose attention (and
+quantized MLP) run on the kernels; ``ServingEngine`` resolves through the tag priority chain
 (``("cuda", "reference")``), so a kernel shadows the reference per op —
 the ``TAGS="cmsis-nn"`` build mechanism at pod scale (§4.7–4.8).  Only
 the dense family is ported: the chunk and paged ops refuse the others
@@ -35,7 +39,7 @@ from typing import Any
 
 from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
-from repro_torch.models import lm
+from repro_torch.models import lm, lm_quant
 
 from .errors import UnsupportedFamilyError
 
@@ -148,3 +152,67 @@ class RefServingPrefillChunkPaged:
         return lm.lm_prefill_chunk_paged(params, ctx.bundle.cfg, pool,
                                          table_row, tokens, start,
                                          window=op.params.get("window"))
+
+
+# ---------------------------------------------------------------------------
+# quantized serving macro-ops
+# ---------------------------------------------------------------------------
+
+def _quant_family_gate(cfg, op) -> dict:
+    """The prepare() gate of the quantized serving ops: refuses the
+    families the port does not quantize (all but dense; the JAX package
+    also quantizes moe, vlm, ssm and hybrid) and bakes the layout into
+    op_data."""
+    _dense_only(cfg, "quantized serving (SERVING_*_Q)")
+    return {"kv_q": bool(op.params.get("kv_q")),
+            "paged": bool(op.params.get("paged")),
+            "weight_dtype": op.params.get("weight_dtype")}
+
+
+@register_op(OpCode.SERVING_PREFILL_Q, tag="reference")
+class RefServingPrefillQ:
+    """Reference quantized prefill: the float prefill over the quantized
+    weights read through ``lm_quant.dequant_params`` (one layer's float
+    weights at a time, the values of dequantizing the whole tree), then,
+    for an int8 KV cache, ``quantize_cache`` on the way out — the same
+    ``quantize_kv_heads`` the decode step applies to each new token."""
+
+    @staticmethod
+    def prepare(ctx: ServingContext, op) -> PrepareResult:
+        return PrepareResult(output_specs=[],
+                             op_data=_quant_family_gate(ctx.bundle.cfg, op))
+
+    @staticmethod
+    def eval(ctx: ServingContext, op, inputs):
+        params, batch = inputs
+        fp = lm_quant.dequant_params(params, ctx.bundle.cfg.torch_dtype())
+        logits, cache = ctx.bundle.prefill(fp, batch,
+                                           cache_len=op.params["cache_len"],
+                                           window=op.params.get("window"))
+        if ctx.op_data["kv_q"]:
+            cache = lm_quant.quantize_cache(cache)
+        return logits, cache
+
+
+@register_op(OpCode.SERVING_DECODE_Q, tag="reference")
+class RefServingDecodeQ:
+    """Reference quantized decode: one step over the quantized model
+    through ``lm_decode_q`` or, paged, ``lm_decode_paged_q`` (each
+    layer's weights dequantized inside the loop), contiguous or paged
+    and with or without the int8 KV cache as op_data says."""
+
+    @staticmethod
+    def prepare(ctx: ServingContext, op) -> PrepareResult:
+        return PrepareResult(output_specs=[],
+                             op_data=_quant_family_gate(ctx.bundle.cfg, op))
+
+    @staticmethod
+    def eval(ctx: ServingContext, op, inputs):
+        cfg, kv_q = ctx.bundle.cfg, ctx.op_data["kv_q"]
+        if ctx.op_data["paged"]:
+            params, pool, tables, tokens, lengths = inputs
+            return lm_quant.lm_decode_paged_q(params, cfg, pool, tables,
+                                              tokens, lengths, kv_q=kv_q)
+        params, cache, tokens, lengths = inputs
+        return lm_quant.lm_decode_q(params, cfg, cache, tokens, lengths,
+                                    kv_q=kv_q)

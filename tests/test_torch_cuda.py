@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs, and the interpreter and the serving
-engine (contiguous, paged and chunked) on the card held against the CPU
-reference.  Every test here is marked ``cuda`` and skips
+engine (contiguous, paged, chunked and quantized) on the card held
+against the CPU reference.  Every test here is marked ``cuda`` and skips
 without a card; this module imports no jax, so it also runs where only
 the port is installed:
 
@@ -17,13 +17,16 @@ from repro_torch.apps.models import (build_fc_stack, build_vww,
 from repro_torch.core import (AllOpsResolver, MicroInterpreter, MicroModel,
                               export)
 from repro_torch.configs import get_config
+from repro_torch.core.quantize import dequantize_kv_heads, quantize_kv_heads
 from repro_torch.kernels import decode_attention as K3
+from repro_torch.kernels import dequant_matmul as K56
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as K4
+from repro_torch.kernels import paged_decode_attention_q as K7
 from repro_torch.kernels import quant_matmul as K1
 from repro_torch.kernels import ref
-from repro_torch.models import get_model
+from repro_torch.models import get_model, lm_quant
 from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -352,3 +355,157 @@ def test_reduced_paged_chunked_engine_on_card_matches_cpu(cuda):
     assert outs[0] == outs[1] == outs[2]
     assert K4.launches - before4 == cfg.n_layers * steps
     assert K3.launches == before3
+
+
+# (m, k, n): a decode batch at Yi-6B's MLP widths, one row, and shapes
+# off the kernels' tiles (rows of bytes not a multiple of 4 read byte by
+# byte)
+MM_CASES = [(4, 4096, 11008), (1, 11008, 4096), (3, 1000, 522),
+            (5, 300, 96), (9, 17, 6), (1, 64, 130)]
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("m,k,n", MM_CASES)
+def test_dequant_matmul_kernels_match_plain(cuda, m, k, n, int4):
+    """K5 (int8) and K6 (int4) against their plain versions on the same
+    quantized weight: within 1e-5 of the largest output (another float32
+    summation order); a row's values do not depend on the other rows."""
+    g = torch.Generator().manual_seed(m + k + n)
+    leaf = lm_quant._quantize_leaf(torch.randn(k, n, generator=g).to(cuda),
+                                   4 if int4 else 8)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    w = leaf.q4 if int4 else leaf.q8
+    plain = ref.dequant_matmul_i4_ref if int4 else ref.dequant_matmul_ref
+    want = plain(x, w, leaf.qs)
+    before = (K56.launches, K56.launches_i4)
+    got = ops.dequant_matmul(x, leaf)
+    torch.cuda.synchronize()
+    assert (K56.launches - before[0], K56.launches_i4 - before[1]) == \
+        ((0, 1) if int4 else (1, 0))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(ops.dequant_matmul(x[-1:], leaf), got[-1:])
+
+
+def test_dequant_matmul_kernels_refuse(cuda):
+    x = torch.zeros(2, 8, device=cuda)
+    w = torch.zeros(8, 4, dtype=torch.int8, device=cuda)
+    s = torch.ones(4, device=cuda)
+    before = (K56.launches, K56.launches_i4)
+    with pytest.raises(ValueError, match="float32"):
+        K56.dequant_matmul_cuda(x.half(), w, s)
+    with pytest.raises(ValueError, match="int8"):
+        K56.dequant_matmul_cuda(x, w.float(), s)
+    with pytest.raises(ValueError, match="contract"):
+        K56.dequant_matmul_cuda(x, w[:6], s)
+    with pytest.raises(ValueError, match="scale"):
+        K56.dequant_matmul_i4_cuda(x, w, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        K56.dequant_matmul_cuda(x, w.t().contiguous().t(), s)
+    assert (K56.launches, K56.launches_i4) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,s,bs,d,window", PAGED_CASES)
+def test_paged_decode_attention_q_kernel_matches_plain_and_k4(
+        cuda, b, h, kh, s, bs, d, window, dtype):
+    """K7 on int8 pools with row scales against its plain version (f32
+    within 1e-5, bf16 within one ulp, 2^-6), and bit-equal to K4 on the
+    float32 pools that hold float(q8) * s (with q in float32, rounded to
+    q's dtype after)."""
+    t = s // bs
+    mapped = [t, max(1, t // 3), max(1, 2 * t // 3), t][:b]
+    _, _, k_pool, v_pool, tables = _paged_layout(cuda, b, kh, s, bs, d,
+                                                 torch.float32, mapped,
+                                                 s + bs + d)
+    (kq, ks), (vq, vs) = quantize_kv_heads(k_pool), quantize_kv_heads(v_pool)
+    q = torch.randn(b, h, d, generator=torch.Generator().manual_seed(d)
+                    ).to(cuda, dtype)
+    lengths = torch.tensor([1, mapped[1] * bs, mapped[2] * bs - 3, s][:b],
+                           dtype=torch.int32, device=cuda)
+    want = ref.paged_decode_attention_q_ref(q, kq, vq, ks, vs, tables,
+                                            lengths, window=window)
+    before = K7.launches
+    got = ops.quant_paged_decode_attention(q, kq, vq, ks, vs, tables,
+                                           lengths, window=window)
+    k4 = ops.paged_decode_attention(q.float(), dequantize_kv_heads(kq, ks),
+                                    dequantize_kv_heads(vq, vs), tables,
+                                    lengths, window=window).to(dtype)
+    torch.cuda.synchronize()
+    assert K7.launches == before + 1
+    assert got.dtype == dtype
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(got, k4)
+
+
+def test_paged_decode_attention_q_kernel_refuses(cuda):
+    q = torch.zeros(2, 4, 32, device=cuda)
+    pool = torch.zeros(5, 2, 16, 32, dtype=torch.int8, device=cuda)
+    sc = torch.ones(5, 2, 16, device=cuda)
+    tables = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    n = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    before = K7.launches
+    with pytest.raises(ValueError, match="int8"):
+        K7.paged_decode_attention_q_cuda(q, pool.float(), pool, sc, sc,
+                                         tables, n)
+    with pytest.raises(ValueError, match="float32"):
+        K7.paged_decode_attention_q_cuda(q, pool, pool, sc.half(), sc,
+                                         tables, n)
+    with pytest.raises(ValueError, match="do not form"):
+        K7.paged_decode_attention_q_cuda(q, pool, pool,
+                                         sc[:, :, :8].contiguous(), sc,
+                                         tables, n)
+    with pytest.raises(ValueError, match="block size 24"):
+        bad = torch.zeros(5, 2, 24, 32, dtype=torch.int8, device=cuda)
+        K7.paged_decode_attention_q_cuda(q, bad, bad,
+                                         torch.ones(5, 2, 24, device=cuda),
+                                         torch.ones(5, 2, 24, device=cuda),
+                                         tables, n)
+    assert K7.launches == before
+
+
+@pytest.mark.parametrize("wd,kd,bs", [("int8", "int8", None),
+                                      ("int4", "int8", 8),
+                                      ("int8", None, 16),
+                                      (None, "int8", None)])
+def test_reduced_quantized_engine_on_card_matches_cpu(cuda, wd, kd, bs):
+    """yi-6b reduced (float32), quantized: the card's greedy tokens equal
+    the CPU engine's, and each kernel of the path runs where it should —
+    K5 or K6 three times per layer per decode step with quantized
+    weights, K7 once per layer with a paged int8 KV, K4 with a paged
+    float KV, K3 (over the dequantized cache) contiguous."""
+    cfg = get_config("yi-6b", reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (5, 30, 1, 70, 12)]
+    kw = {"weight_dtype": wd, "kv_dtype": kd, "kv_block": bs}
+    outs = []
+    for dev in ("cpu", cuda):
+        counts = [K3.launches, K4.launches, K7.launches, K56.launches,
+                  K56.launches_i4]
+        eng = ServingEngine(bundle, model.to(dev), max_slots=4,
+                            cache_len=64, device=dev, **kw)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=40))
+        steps = 0
+        while True:
+            more = eng.step()
+            steps += eng.last_step["decoded"]
+            if not more:
+                break
+        outs.append({u: r.output for u, r in eng.results.items()})
+        counts = [now - was for now, was in zip(
+            [K3.launches, K4.launches, K7.launches, K56.launches,
+             K56.launches_i4], counts)]
+    per = cfg.n_layers * steps
+    attn = [0, 0, 0]
+    attn[2 if (bs and kd) else 1 if bs else 0] = per
+    mlp = [0, 0]
+    if wd:
+        mlp[wd == "int4"] = 3 * per
+    assert counts == attn + mlp
+    assert outs[0] == outs[1]

@@ -210,8 +210,7 @@ def test_on_token_streams_every_token_in_order():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("weight_dtype", "int8"), ("kv_dtype", "int8"), ("mesh", object()),
-    ("overlap", True)])
+    ("mesh", object()), ("overlap", True)])
 def test_unported_options_raise(option, value):
     cfg = get_config("yi-6b", reduced=True)
     bundle = get_model(cfg)
