@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: its main paths end to end on one
-NVIDIA GPU — the micro interpreter and dense-LM serving, contiguous,
-paged and quantized — with every CUDA kernel of those paths held against
-its plain PyTorch version.
+NVIDIA GPU — the micro interpreter, dense-LM serving (contiguous, paged
+and quantized) and recurrent-state serving (Mamba-2, Zamba2) — with
+every CUDA kernel of those paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -37,7 +37,13 @@ Phases — any failure raises and the script exits non-zero:
      calls; K5: ``torch._weight_int8pack_mm`` where it runs, and the
      bf16 cuBLAS product on the float weight; K7: K4 on the bf16 pool,
      and a gather + dequant + SDPA chain), and the card's least
-     possible time (the bound).
+     possible time (the bound).  K8 ssd_scan at Mamba2-780m's prefill
+     shapes (512 and 128 tokens, bf16, without and with an initial
+     state), Zamba2-1.2B's heads and N 64, float32, groups of 2 with D,
+     192 tokens with the wrapper's chunk of 64, and a padded tail of dt =
+     0 rows (an exact no-op on the state), against ``ssd_scan_ref``
+     within atol 5e-4 / rtol 1e-3 (bf16 y: one bf16 ulp besides); no
+     single library call computes the scan.
   3. the micro main path, with every launch count set to 0 just before
      it: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
      "reference")), device="cuda")`` answers 8 requests on each of
@@ -70,7 +76,9 @@ Phases — any failure raises and the script exits non-zero:
      identical greedy tokens, contiguous and with ``kv_block=8,
      prefill_chunk=8`` (also equal to the contiguous engine's), and
      quantized: int8 weights and KV contiguous, int4 weights and int8 KV
-     with ``kv_block=8``.
+     with ``kv_block=8``; Mamba2-780m and Zamba2-1.2B reduced, float32:
+     card (K8) and CPU (plain scan) tokens identical, exact and with
+     ``prefill_chunk=8``.
   9. the paged serving main path, counts set to 0 just before it: the
      phase-7 model and requests through ``ServingEngine(...,
      kv_block=16)``.  Tokens equal phase 7's request for request; K4's
@@ -97,7 +105,24 @@ Phases — any failure raises and the script exits non-zero:
      displacement on (b) emits (b)'s tokens; and, measured with no
      limit, the largest |logit| difference from the bf16 engine over
      16 teacher-forced steps and how many greedy tokens equal phase 7's.
-  A JSON line of the models, one listing the kernels (K1-K7), then the
+  11. Mamba2-780m at full width in float32 (3.1 GB): 4 seeded prompts
+     (512, 128, 77 and 384 tokens) through ``ssm_prefill`` with the scan
+     on K8 and on the plain ``ssd_chunked``: conv windows, SSD states and
+     logits within 1e-4 of the largest entry; 16 teacher-forced decode
+     steps from each state, the same bound; the chunked prefill (chunks
+     of 128 from an empty cache, K8 with the carried state as h0, a
+     padded final chunk) gives the one-shot cache within it.
+  12. the recurrent serving main path, bfloat16, counts set to 0 just
+     before each run: ``ServingEngine(get_model(mamba2-780m), ...,
+     max_slots=4, cache_len=2048, device="cuda")`` serves (a) 8 seeded
+     requests one-shot (prompts less one of 64-128, 256, 384 or 512
+     tokens) and (b) 8 with ``prefill_chunk=128`` (100-600 tokens), 32
+     new tokens each: K8 launched 48 x (one-shot prefills + chunk steps)
+     and nothing else, the cache in place, memory flat; torch.profiler
+     over decode steps and over a 512-token prefill; an EDF displacement
+     on (a) emits the uninterrupted tokens.  Then Zamba2-1.2B the same
+     way with 4 requests a run (K8 38 x per prefill or chunk).
+  A JSON line of the models, one listing the kernels (K1-K8), then the
   last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -720,6 +745,105 @@ def check_paged_decode_attention_q(torch, np, dev):
     return rows
 
 
+# the SSD scan against its plain version: tests/test_kernels.py's bound
+SSD_ATOL, SSD_RTOL = 5e-4, 1e-3
+
+
+def ssd_bound(b, s, h, p, g, n, chunk, item, h0, d):
+    """(least ms, what bounds it) of one SSD scan: the bytes of x, y, dt,
+    B, C, A (and D, h0) once and the float32 state out; the least
+    operations — C·Bᵀ once per group and chunk and only its causal half,
+    the causal half of the (L, L)·(L, P) product, C·stateᵀ and the state
+    update per head and chunk — on the CUDA cores."""
+    nc = s // chunk
+    tri = chunk * (chunk + 1) // 2
+    nbytes = (2 * item * b * s * h * p + 4 * b * s * h + 2 * item * b * s * g
+              * n + 4 * h * (2 if d else 1) + 4 * b * h * p * n * (2 if h0
+                                                                   else 1))
+    ops = (b * g * nc * 2 * tri * n
+           + b * h * nc * (2 * tri * p + 4 * chunk * n * p))
+    return bound(nbytes, ops, H100_F32_OPS_PER_S)
+
+
+def check_ssd_scan(torch, np, dev):
+    """K8 against its plain version on the card: Mamba2-780m's prefill
+    shapes (48 heads of 64, N 128, bf16) at 512 and 128 tokens, without
+    and with a carried state; Zamba2-1.2B's (64 heads, N 64); float32;
+    groups of 2 with D; 192 tokens with the wrapper's chunk of 64; a
+    padded tail of dt = 0 rows.  float32 within the JAX package's bound
+    for this kernel (atol 5e-4, rtol 1e-3), bfloat16 y within one
+    bfloat16 ulp besides."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (b, s, h, p, g, n, dtype, h0, D, tail); the first is the main
+    # path's: Mamba2-780m's one-shot prefill of 512 tokens
+    cases = [(1, 512, 48, 64, 1, 128, bf16, False, False, 0),
+             (1, 512, 48, 64, 1, 128, bf16, True, False, 0),
+             (1, 128, 48, 64, 1, 128, bf16, False, False, 0),
+             (1, 128, 48, 64, 1, 128, bf16, True, False, 0),
+             (1, 512, 64, 64, 1, 64, bf16, False, False, 0),
+             (1, 512, 48, 64, 1, 128, f32, True, False, 0),
+             (2, 256, 8, 64, 2, 64, f32, True, True, 0),
+             (1, 192, 48, 64, 1, 128, f32, True, False, 0),
+             (1, 128, 48, 64, 1, 128, f32, True, False, 28)]
+    rows = []
+    for i, (b, s, h, p, g, n, dt_, h0, d, tail) in enumerate(cases):
+        rng = np.random.default_rng(100 + i)
+        t = lambda shape, lo=None, hi=None: torch.from_numpy(
+            (rng.normal(0, 1, shape) if lo is None
+             else rng.uniform(lo, hi, shape)).astype(np.float32)).to(dev)
+        x, bm, cm = t((b, s, h, p)).to(dt_), t((b, s, g, n)).to(dt_), \
+            t((b, s, g, n)).to(dt_)
+        dt = t((b, s, h), 0.001, 0.1)
+        if tail:
+            dt[:, s - tail:] = 0
+        a = -t((h,), 0.5, 2.0)
+        dd = t((h,)) if d else None
+        st = t((b, h, p, n)) if h0 else None
+        chunk = ops._pick_block(s)
+        y, state = ops.ssd_scan(x, dt, a, bm, cm, dd, h0=st)
+        want_y, want_s = ref.ssd_scan_ref(x, dt, a, bm, cm, dd, chunk=chunk,
+                                          h0=st)
+        torch.cuda.synchronize()
+        y_rtol = SSD_RTOL if dt_ == f32 else 2.0 ** -7
+        dy = (y.float() - want_y.float()).abs()
+        ds = (state - want_s).abs()
+        ok = (torch.isfinite(y).all() and torch.isfinite(state).all()
+              and bool((dy <= SSD_ATOL + y_rtol * want_y.float().abs()).all())
+              and bool((ds <= SSD_ATOL + SSD_RTOL * want_s.abs()).all()))
+        if tail:        # the padded rows are exact no-ops on the state
+            _, real = ref.ssd_scan_ref(x[:, :s - tail], dt[:, :s - tail], a,
+                                       bm[:, :s - tail], cm[:, :s - tail],
+                                       dd, chunk=s - tail, h0=st)
+            ok = ok and bool(((state - real).abs()
+                              <= SSD_ATOL + SSD_RTOL * real.abs()).all())
+        err = max(dy.max().item(), ds.max().item())
+        label = (f"{(b, s, h, p, g, n)} {str(dt_)[6:]} chunk {chunk}"
+                 f"{' h0' if h0 else ''}{' D' if d else ''}"
+                 f"{f' tail {tail}' if tail else ''}")
+        if not ok:
+            raise AssertionError(f"K8 {label}: max abs err {err} beyond "
+                                 f"atol {SSD_ATOL} / rtol {y_rtol}")
+        row = {"shape": [b, s, h, p, g, n], "chunk": chunk,
+               "dtype": str(dt_).replace("torch.", ""), "h0": h0, "D": d,
+               "masked_tail": tail, "max_abs_err": err,
+               "max_abs_err_y": dy.max().item(),
+               "max_abs_err_state": ds.max().item(), "library_ms": None,
+               "library": "none: no single PyTorch call computes the scan"}
+        row["ms"], row["call_ms"] = time_ms(torch, lambda: ssd_scan_cuda(
+            x, dt, a, bm, cm, dd, chunk=chunk, h0=st))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.ssd_scan_ref(x, dt, a, bm, cm, dd,
+                                            chunk=chunk, h0=st))
+        row["bound_ms"], row["bound_by"] = ssd_bound(
+            b, s, h, p, g, n, chunk, x.element_size(), h0, d)
+        rows.append(row)
+        log(f"  K8 {label}: err {err:.3g}; " + _times(row))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the interpreter on the card against the CPU reference
 # ---------------------------------------------------------------------------
@@ -964,14 +1088,20 @@ def serve_lm(torch, np, dev, eng, prompts):
     for uid, p in enumerate(prompts):
         eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
     mem0, decode_steps, step_ms = None, 0, []
+    prefills = chunk_steps = 0
     t_run = time.perf_counter()
     while True:
         t0 = time.perf_counter()
         more = eng.step()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
+        prefills += len(eng.last_step["prefill_tokens"])
+        chunk_steps += eng.last_step["chunks"]
+        # a prompt mid-chunked-prefill holds its own batch=1 cache, so
+        # memory is compared at the steps where none is in flight
         if eng.last_step["decoded"]:
             decode_steps += 1
+        if eng.last_step["decoded"] and not eng._chunking:
             mem = torch.cuda.memory_allocated()
             mem0 = mem if mem0 is None else mem0
             if mem != mem0:
@@ -999,11 +1129,14 @@ def serve_lm(torch, np, dev, eng, prompts):
     tokens = sum(len(r.output) for r in res.values())
     median = statistics.median(step_ms)
     paged = f", kv_block {eng.kv_block}" if eng.paged else ""
+    if eng.chunk_tokens:
+        paged += f", prefill_chunk {eng.chunk_tokens}"
     row = {"model": f"{eng.cfg.arch_id} bfloat16 serving{paged}",
            "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
            "requests": len(res), "prompt_lens": [len(p) for p in prompts],
            "new_tokens": SERVE_NEW, "tokens": tokens,
-           "decode_steps": decode_steps,
+           "decode_steps": decode_steps, "prefills": prefills,
+           "chunk_steps": chunk_steps,
            "prefill_ms": [res[u].prefill_s * 1e3 for u in sorted(res)],
            "median_decode_step_ms": median,
            "decode_step_ms_min_max": [min(step_ms), max(step_ms)],
@@ -1266,11 +1399,13 @@ def kernel_counts():
     from repro_torch.kernels import dequant_matmul as K56
     from repro_torch.kernels import paged_decode_attention as K4
     from repro_torch.kernels import paged_decode_attention_q as K7
+    from repro_torch.kernels import ssd_scan as K8
     return {"decode_attention": K3.launches,
             "paged_decode_attention": K4.launches,
             "dequant_matmul": K56.launches,
             "dequant_matmul_i4": K56.launches_i4,
-            "paged_decode_attention_q": K7.launches}
+            "paged_decode_attention_q": K7.launches,
+            "ssd_scan": K8.launches}
 
 
 def zero_counts():
@@ -1280,8 +1415,9 @@ def zero_counts():
     from repro_torch.kernels import paged_decode_attention as K4
     from repro_torch.kernels import paged_decode_attention_q as K7
     from repro_torch.kernels import quant_matmul as K1
+    from repro_torch.kernels import ssd_scan as K8
     K1.launches = K2.launches = K3.launches = K4.launches = 0
-    K56.launches = K56.launches_i4 = K7.launches = 0
+    K56.launches = K56.launches_i4 = K7.launches = K8.launches = 0
 
 
 def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
@@ -1413,6 +1549,256 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
     return list(rows.values()), path_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 8, 11-12: recurrent-state serving (Mamba2-780m, Zamba2-1.2B)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-1.2b"
+# float32 Mamba2-780m, K8 against the plain scan: the two sum in other
+# orders; the stated bound is relative to the largest entry of each
+# compared tensor (a layer's states, a step's logits)
+SSM_RTOL = 1e-4
+
+
+def reduced_recurrent_card_vs_cpu(torch, np, dev):
+    """Phase 8: mamba2-780m and zamba2-1.2b reduced, float32: the engine on
+    the card (K8 under the prefill and chunk scans) and on the CPU (the
+    plain scan) emit identical greedy tokens, exact and with
+    ``prefill_chunk=8``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, ServingEngine
+
+    tokens = []
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = get_config(arch, reduced=True)
+        bundle = get_model(cfg)
+        model = bundle.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(10)
+        prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+                   for n in (21, 13, 30, 1, 9, 40)]
+        n = 0
+        for kw in ({}, {"prefill_chunk": 8}):
+            outs = []
+            for where in ("cpu", dev):
+                eng = ServingEngine(bundle, model.to(where), max_slots=4,
+                                    cache_len=64, device=where, **kw)
+                for uid, p in enumerate(prompts):
+                    eng.submit(Request(uid=uid, tokens=p, max_new_tokens=24))
+                outs.append({u: r.output for u, r in eng.run().items()})
+            if outs[0] != outs[1]:
+                raise AssertionError(f"reduced {arch} {kw} on the card: "
+                                     f"tokens {outs[1]} != CPU {outs[0]}")
+            n += sum(len(o) for o in outs[0].values())
+        tokens.append(n)
+        log(f"  {cfg.arch_id}: {len(prompts)} requests, card == CPU exact "
+            f"and with prefill_chunk=8 ({n} tokens)")
+    return {"model": f"{SSM_ARCH}, {HYBRID_ARCH} reduced float32 card vs "
+                     f"CPU, exact and prefill_chunk=8",
+            "tokens": tokens, "tokens_equal": True}
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def ssm_teacher_forced(torch, np, dev):
+    """Phase 11: Mamba2-780m at full width in float32: 4 seeded prompts
+    prefilled one-shot through ``ssm_prefill`` with the scan on K8 and
+    with the plain scan (final conv windows, SSD states and logits
+    within ``SSM_RTOL`` of the largest entry), 16 teacher-forced decode
+    steps from each state (fed the plain run's greedy tokens), and the
+    chunked prefill (chunks of 128 from an empty cache, K8 with the
+    carried state as h0) against the one-shot K8 cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model, ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32")
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(11)
+    # one-shot prefills of 512, 128, 77 and 384 tokens: each at most 128
+    # or a multiple of 128, the reference's contract
+    prompts = [rng.integers(0, cfg.vocab - 2, n) for n in (513, 129, 78,
+                                                          385)]
+    kernel = ops.ssd_chunked_kernel
+    caches = {k: bundle.empty_cache(len(prompts), 0, torch.float32, dev)
+              for k in ("kernel", "plain")}
+    worst = {"prefill_logits": 0.0, "state": 0.0, "conv": 0.0,
+             "chunked_state": 0.0, "chunked_conv": 0.0, "decode_logits": 0.0}
+    chunk = 128
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            toks = torch.as_tensor(p[None, :-1], device=dev)
+            lk, ck = ssm.ssm_prefill(model, cfg, toks, ssd_impl=kernel)
+            lp, cp = ssm.ssm_prefill(model, cfg, toks)
+            worst["prefill_logits"] = max(worst["prefill_logits"],
+                                          _rel(lk, lp))
+            for name in ("state", "conv"):
+                worst[name] = max(worst[name], max(
+                    _rel(ck[name][l], cp[name][l])
+                    for l in range(cfg.n_layers)))
+            m = toks.shape[1]
+            one = bundle.empty_cache(1, 0, torch.float32, dev)
+            for start in range(0, m, chunk):
+                piece = torch.zeros((1, chunk), dtype=toks.dtype, device=dev)
+                real = min(chunk, m - start)
+                piece[:, :real] = toks[:, start:start + real]
+                ssm.ssm_prefill_chunk(model, cfg, one, piece, real,
+                                      ssd_impl=kernel)
+            for name in ("state", "conv"):
+                worst["chunked_" + name] = max(worst["chunked_" + name], max(
+                    _rel(one[name][l], ck[name][l])
+                    for l in range(cfg.n_layers)))
+            for key, c in (("kernel", ck), ("plain", cp)):
+                for name in ("conv", "state"):
+                    caches[key][name][:, i:i + 1].copy_(c[name])
+        lengths = torch.tensor([len(p) - 1 for p in prompts],
+                               dtype=torch.int32, device=dev)
+        cur = torch.tensor([[int(p[-1])] for p in prompts], device=dev)
+        for _ in range(TF_STEPS):
+            want, _ = ssm.ssm_decode(model, cfg, caches["plain"], cur,
+                                     lengths)
+            got, _ = ssm.ssm_decode(model, cfg, caches["kernel"], cur,
+                                    lengths)
+            if not torch.isfinite(got).all():
+                raise AssertionError("teacher-forced Mamba2 logits not "
+                                     "finite")
+            worst["decode_logits"] = max(worst["decode_logits"],
+                                         _rel(got, want))
+            cur = want[:, :cfg.vocab].argmax(dim=-1, keepdim=True)
+            lengths += 1
+    del model, caches
+    torch.cuda.empty_cache()
+    log(f"  {cfg.arch_id} float32, {n_params:,} parameters, prompts of "
+        f"{[len(p) for p in prompts]}: K8 vs the plain scan, largest "
+        f"difference over the largest entry: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (bound {SSM_RTOL})")
+    bad = {k: v for k, v in worst.items() if not v <= SSM_RTOL}
+    if bad:
+        raise AssertionError(f"Mamba2 float32, K8 vs the plain scan: {bad} "
+                             f"beyond {SSM_RTOL} of the largest entry")
+    return {"model": f"{cfg.arch_id} float32 one-shot and chunked prefill "
+                     f"on K8 vs the plain scan, {TF_STEPS} teacher-forced "
+                     f"decode steps", "parameters": n_params,
+            "prompt_lens": [len(p) for p in prompts],
+            "max_rel_diff": worst, "bound": SSM_RTOL}
+
+
+def recurrent_workload(np, vocab, seed, n, lo, hi, contract):
+    """``n`` seeded prompts; with ``contract`` their lengths less one are
+    64-128 or 256/384/512 (one-shot prefill's lengths), else ``lo``-``hi``
+    tokens."""
+    rng = np.random.default_rng(seed)
+    if contract:
+        lens = [int(rng.integers(64, 129)) + 1 for _ in range(n - n // 2)]
+        lens += [m + 1 for m in (512, 384, 256, 512)[:n // 2]]
+    else:
+        lens = [int(v) for v in rng.integers(lo, hi + 1, n)]
+    return [rng.integers(0, vocab - 2, m).astype(np.int32) for m in lens]
+
+
+def profile_prefill(torch, np, eng, row, prompt) -> None:
+    """Device time by operation of one one-shot prefill of ``prompt``, and
+    its share of the host time around the same call (unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"tokens": torch.as_tensor(prompt[None, :-1].astype(np.int64),
+                                       device=eng.device)}
+    with torch.no_grad():
+        eng._prefill((eng.params, batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._prefill((eng.params, batch))
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._prefill((eng.params, batch))
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    device = sum(e.self_device_time_total for e in events) / 1e3
+    row["prefill_profile"] = {
+        "tokens": len(prompt) - 1, "host_ms": host, "device_ms": device,
+        "busy_share": device / host,
+        "top_device": [{"name": e.key[:80],
+                        "us": e.self_device_time_total,
+                        "count": e.count} for e in events[:8]]}
+    log(f"  prefill of {len(prompt) - 1} tokens: host {host:.2f} ms, device "
+        f"{device:.2f} ms ({100 * device / host:.1f}% busy); top: "
+        + "; ".join(f"{t['name'][:48]} {t['us']:.0f} us x{t['count']}"
+                    for t in row["prefill_profile"]["top_device"][:5]))
+
+
+def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
+    """Phase 12: ``arch`` at full width in bfloat16 through
+    ``ServingEngine(..., max_slots=4, cache_len=2048, device="cuda")``:
+    (a) one-shot prefill, prompts inside the reference's contract, (b)
+    ``prefill_chunk=128``, prompts of 100-600 tokens.  Counts set to 0
+    just before each run: K8 launched once per Mamba layer per one-shot
+    prefill and per chunk step, no other kernel; the cache in place and
+    memory flat (``serve_lm``); the profile of a decode step and of a
+    512-token prefill on (a); with ``preempt``, an EDF displacement on
+    (a) emits the uninterrupted tokens.  Returns (rows, K8's launches on
+    each run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServingEngine
+
+    bundle = get_model(get_config(arch))
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    n_layers, vocab = bundle.cfg.n_layers, bundle.cfg.vocab
+
+    def engine(**kw):
+        return ServingEngine(bundle, model, max_slots=SERVE_SLOTS,
+                             cache_len=SERVE_CACHE,
+                             tags=("cuda", "reference"), device=dev, **kw)
+    runs = {"a": ({}, recurrent_workload(np, vocab, 12, n_requests, 0, 0,
+                                         True)),
+            "b": ({"prefill_chunk": CHUNK},
+                  recurrent_workload(np, vocab, 13, n_requests, 100, 600,
+                                     False))}
+    rows, launches, served = [], {}, {}
+    for key, (kw, prompts) in runs.items():
+        eng = engine(**kw)
+        zero_counts()
+        row, served[key] = serve_lm(torch, np, dev, eng, prompts)
+        counts = kernel_counts()
+        want = {name: 0 for name in counts}
+        want["ssd_scan"] = n_layers * (row["prefills"] + row["chunk_steps"])
+        log(f"  ({key}) {kw or 'one-shot'}: launches {counts} ({n_layers} "
+            f"layers x ({row['prefills']} prefills + {row['chunk_steps']} "
+            f"chunk steps))")
+        if counts != want or not want["ssd_scan"]:
+            raise AssertionError(f"({key}) launches {counts}, expected "
+                                 f"{want}")
+        launches[key] = counts["ssd_scan"]
+        row["launches"] = counts
+        if key == "a":
+            profile_decode(torch, np, eng, row)
+            profile_prefill(torch, np, eng, row,
+                            max(prompts, key=len))
+        del eng
+        torch.cuda.empty_cache()
+        rows.append(row)
+    if preempt:
+        check_preemption(engine(policy="edf", preempt="edf-displace",
+                                clock=lambda: 0), runs["a"][1], served["a"])
+    del model
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1456,6 +1842,7 @@ def main() -> int:
     k4_rows = check_paged_decode_attention(torch, np, dev)
     k5_rows, k6_rows = check_dequant_matmul(torch, np, dev)
     k7_rows = check_paged_decode_attention_q(torch, np, dev)
+    k8_rows = check_ssd_scan(torch, np, dev)
 
     log("phase 3: the interpreter on the card (main path)")
     zero_counts()
@@ -1514,8 +1901,9 @@ def main() -> int:
                             clock=lambda: 0), prompts, served)
     model_rows.append(serve_row)
 
-    log("phase 8: reduced model, the engine on the card vs the CPU")
+    log("phase 8: reduced models, the engine on the card vs the CPU")
     model_rows.append(reduced_card_vs_cpu(torch, np, dev))
+    model_rows.append(reduced_recurrent_card_vs_cpu(torch, np, dev))
 
     log(f"phase 9: {LM_ARCH} full width, bfloat16, paged KV "
         f"(kv_block={PAGED_BLOCK}) through the ServingEngine (main path)")
@@ -1557,8 +1945,23 @@ def main() -> int:
         {"contiguous": serve_row, "paged": paged_row})
     launches.update(q_launches)
     model_rows.extend(q_rows)
-    del lm_model
+    del lm_model, bundle
     torch.cuda.empty_cache()
+
+    log(f"phase 11: {SSM_ARCH} full width, float32, prefill on K8 vs the "
+        f"plain scan (one-shot, chunked, teacher-forced decode)")
+    model_rows.append(ssm_teacher_forced(torch, np, dev))
+
+    log(f"phase 12: {SSM_ARCH} full width, bfloat16, through the "
+        f"ServingEngine (main path)")
+    ssm_rows, ssm_launches = recurrent_serving(torch, np, dev, SSM_ARCH,
+                                               N_SERVE, preempt=True)
+    model_rows.extend(ssm_rows)
+    log(f"  then {HYBRID_ARCH} full width, bfloat16")
+    hybrid_rows, hybrid_launches = recurrent_serving(
+        torch, np, dev, HYBRID_ARCH, SERVE_SLOTS, preempt=False)
+    model_rows.extend(hybrid_rows)
+    launches["ssd_scan"] = ssm_launches["a"]
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
@@ -1596,7 +1999,14 @@ def main() -> int:
         entry("paged_decode_attention_q",
               "src/repro_torch/kernels/csrc/paged_decode_attention_q.cu",
               "src/repro/kernels/decode_attention.py:242", k7_rows),
+        entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:87", k8_rows),
     ]
+    kernels[-1]["launches_on_runs"] = {
+        f"{SSM_ARCH} one-shot": ssm_launches["a"],
+        f"{SSM_ARCH} prefill_chunk={CHUNK}": ssm_launches["b"],
+        f"{HYBRID_ARCH} one-shot": hybrid_launches["a"],
+        f"{HYBRID_ARCH} prefill_chunk={CHUNK}": hybrid_launches["b"]}
     log(json.dumps({"models": model_rows}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

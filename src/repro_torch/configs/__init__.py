@@ -1,9 +1,10 @@
 """Architecture config registry of the port (``--arch <id>``).
 
-The four dense architectures, each copied value for value from the JAX
-package's config (``CONFIG`` the published widths, ``REDUCED`` the
-2-layer smoke-test variant).  The six configs of the other families
-(MoE, SSM, hybrid, VLM, audio) come with their families.
+The four dense architectures, Mamba2-780m (ssm) and Zamba2-1.2B
+(hybrid), each copied value for value from the JAX package's config
+(``CONFIG`` the published widths, ``REDUCED`` the smoke-test variant).
+The four configs of the other families (MoE, VLM, audio) come with
+their families.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "mamba2-780m": "mamba2_780m",
     "qwen3-32b": "qwen3_32b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "yi-6b": "yi_6b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 

@@ -17,6 +17,8 @@ Kernels (each: ``<name>.py`` launcher with its ``launches`` count +
     times quantized weights, the quantized decode step's MLP
   * paged_decode_attention_q — K7, K4 over an int8 KV pool with one
     scale per row (the paged int8-KV decode step)
+  * ssd_scan         — K8, the Mamba-2 SSD chunked scan with a carried
+    state (the ssm and hybrid prefill and prefill-chunk steps)
 """
 
 from . import ops  # noqa: F401  (registers the "cuda" tag)

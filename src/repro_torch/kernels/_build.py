@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 KERNELS = ("quant_matmul", "flash_attention", "decode_attention",
            "paged_decode_attention", "dequant_matmul",
-           "paged_decode_attention_q")
+           "paged_decode_attention_q", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

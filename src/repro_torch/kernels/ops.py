@@ -33,7 +33,8 @@ from .paged_decode_attention_q import paged_decode_attention_q_cuda
 from .quant_matmul import quant_matmul_cuda
 from .ref import (decode_attention_ref, dequant_matmul_i4_ref,
                   dequant_matmul_ref, mha_ref, paged_decode_attention_q_ref,
-                  paged_decode_attention_ref, quant_matmul_ref)
+                  paged_decode_attention_ref, quant_matmul_ref, ssd_scan_ref)
+from .ssd_scan import check_chunk, ssd_scan_cuda
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +155,61 @@ def decode_attention_f32_cache(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# SSD
+# ---------------------------------------------------------------------------
+
+def _pick_block(size: int, pref: int = 128) -> int:
+    """The JAX package's block choice (``repro/kernels/ops.py``): ``pref``
+    when it divides ``size``, else the largest of 64, 32, 16, 8 that
+    does, else ``size``."""
+    if size % pref == 0:
+        return pref
+    for b in (64, 32, 16, 8):
+        if size % b == 0:
+            return b
+    return size
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor,
+             D: Optional[torch.Tensor] = None, *, chunk: Optional[int] = None,
+             h0: Optional[torch.Tensor] = None):
+    """The Mamba-2 SSD chunked scan: x (B,S,H,P), dt (B,S,H), A (H,), B/C
+    (B,S,G,N), D (H,) or None, h0 (B,H,P,N) or None -> (y (B,S,H,P) in
+    x's dtype, state (B,H,P,N) float32).  The chunk defaults to the JAX
+    wrapper's choice; one above the kernel's 128 is refused on either
+    device.  K8 runs it on the card."""
+    if chunk is None:
+        chunk = _pick_block(x.shape[1])
+    check_chunk(chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    f32 = lambda t: None if t is None else t.float().contiguous()
+    return ssd_scan_cuda(x.contiguous(), f32(dt), f32(A), B.contiguous(),
+                         C.contiguous(), f32(D), chunk=chunk, h0=f32(h0))
+
+
+def ssd_chunked_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, *,
+                       chunk: int = 128,
+                       init_state: Optional[torch.Tensor] = None):
+    """``models.ssm.ssd_chunked``'s function through ``ssd_scan`` — the
+    scan hook (``ssd_impl``) of the ``"cuda"`` prefill ops.  The same
+    contract: the chunk is ``min(chunk, S)`` and S must be a multiple of
+    it; D stays outside, as the model adds it.  The state (B,G,H/G,P,N)
+    is a view of K8's (B,H,P,N), head = g·(H/G) + i."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2:]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: sequence {s} is not a multiple of "
+                         f"the chunk {chunk}")
+    h0 = None if init_state is None else init_state.reshape(b, h, p, n)
+    y, state = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    return y, state.view(b, g, h // g, p, n)
+
+
+# ---------------------------------------------------------------------------
 # vendor-tag registrations for the micro path (§4.8)
 # ---------------------------------------------------------------------------
 
@@ -223,6 +279,51 @@ class CudaAttention:
 # vendor-tag registration for the serving path (§4.8 at pod scale)
 # ---------------------------------------------------------------------------
 
+@register_op(OpCode.SERVING_PREFILL, tag="cuda")
+class CudaServingPrefill:
+    """Pod-scale prefill whose SSD scan runs on the ssd_scan kernel (K8)
+    for the recurrent families (ssm, hybrid): one launch per Mamba layer.
+    prepare() bakes the family decision into op_data, as the decode op
+    does: dense runs the bundle's prefill unchanged (the JAX package has
+    no vendor prefill for it).  The op takes exactly the prompts the
+    reference takes: the scan hook keeps ``ssd_chunked``'s contract."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        # imported here: the kernels sit beneath the serving package
+        from repro_torch.serving.ops import RECURRENT_FAMILIES
+        recurrent = ctx.bundle.cfg.family in RECURRENT_FAMILIES
+        return PrepareResult(output_specs=[], op_data={
+            "kw": {"ssd_impl": ssd_chunked_kernel} if recurrent else {}})
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        params, batch = inputs
+        return ctx.bundle.prefill(params, batch,
+                                  cache_len=op.params["cache_len"],
+                                  window=op.params.get("window"),
+                                  **ctx.op_data["kw"])
+
+
+@register_op(OpCode.SERVING_PREFILL_CHUNK_STATE, tag="cuda")
+class CudaServingPrefillChunkState:
+    """Recurrent-state chunked prefill whose SSD scan runs on K8, the
+    carried state passed to the kernel as its initial state ``h0``: one
+    launch per Mamba layer and chunk.  The family gate is the
+    reference's."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        from repro_torch.serving.ops import RefServingPrefillChunkState
+        return RefServingPrefillChunkState.prepare(ctx, op)
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        from repro_torch.serving.ops import prefill_chunk_state
+        return prefill_chunk_state(ctx, op, inputs,
+                                   ssd_impl=ssd_chunked_kernel)
+
+
 @register_op(OpCode.SERVING_DECODE, tag="cuda")
 class CudaServingDecode:
     """Pod-scale decode step whose per-layer attention runs on the
@@ -261,12 +362,8 @@ class CudaServingDecodePaged:
     @staticmethod
     def prepare(ctx, op):
         # imported here: the kernels sit beneath the serving package
-        from repro_torch.serving.errors import UnsupportedFamilyError
-        family = ctx.bundle.cfg.family
-        if family != "dense":
-            raise UnsupportedFamilyError(
-                family, "paged KV in the PyTorch port",
-                supported=("dense",))
+        from repro_torch.serving.ops import PAGED_FEATURE, _dense_only
+        _dense_only(ctx.bundle.cfg, PAGED_FEATURE)
         check_block_size(op.params["kv_block"])
         return PrepareResult(output_specs=[])
 

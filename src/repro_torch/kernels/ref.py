@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.core.quantize import unpack_int4
 
+NEG_INF = -1e30
+
 
 # ---------------------------------------------------------------------------
 # quantized matmul (the CMSIS-NN FC/conv-core analogue)
@@ -175,3 +177,90 @@ def paged_decode_attention_q_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return decode_attention_ref(q, gather(k_pool, k_scales),
                                 gather(v_pool, v_scales), lengths,
                                 window=window, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) scan
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: Optional[torch.Tensor] = None,
+            h0: Optional[torch.Tensor] = None):
+    """The selective state-space recurrence, one position at a time — the
+    sequential oracle of ``repro.kernels.ref.ssd_ref``:
+
+      h_t = exp(dt_t A_h) * h_{t-1} + dt_t * x_t ⊗ B_t
+      y_t = C_t · h_t (+ D_h x_t)
+
+    x (B,S,H,P); dt (B,S,H); A (H,) negative; B, C (B,S,G,N) with H % G
+    == 0 (head h reads group h // (H/G)); D (H,) or None; h0 (B,H,P,N) or
+    None (zeros).  Returns y (B,S,H,P) in x's dtype and the final state
+    (B,H,P,N) in float32."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    group = h // B.shape[2]
+    bh = B.float().repeat_interleave(group, dim=2)           # (B,S,H,N)
+    ch = C.float().repeat_interleave(group, dim=2)
+    xf, dtf, af = x.float(), dt.float(), A.float()
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])           # (B,H)
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]
+               * bh[:, t, :, None, :])                       # (B,H,P,N)
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros_like(xf))
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor,
+                 D: Optional[torch.Tensor] = None, *, chunk: int = 128,
+                 h0: Optional[torch.Tensor] = None):
+    """The chunked scan K8 computes, as ``ssd_scan_pallas`` computes it,
+    for every (b, h) at once: per chunk of ``chunk`` rows (S % chunk ==
+    0), in order, ``cum = cumsum(dt·A)``;
+    ``y = (C·Bᵀ ∘ exp(cum_i − cum_j))_{j<=i}·(x·dt) + exp(cum)·(C·stateᵀ)
+    (+ D·x)``, the difference masked to -1e30 for j > i before the exp,
+    y cast to x's dtype; ``state ← exp(cum_L)·state +
+    (x·dt·exp(cum_L − cum))ᵀ·B``.  The state (B,H,P,N) is float32 and
+    starts from ``h0`` (zeros when None).  Shapes as ``ssd_ref``."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"ssd_scan: sequence {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    group = h // B.shape[2]
+    bh = B.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    ch = C.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    xf = x.float().transpose(1, 2)                           # (B,H,S,P)
+    dtf = dt.float().transpose(1, 2)                         # (B,H,S)
+    af = A.float()[None, :, None]
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    idx = torch.arange(chunk, device=x.device)
+    causal = idx[None, :] <= idx[:, None]                    # j <= i
+    ys = []
+    for c0 in range(0, s, chunk):
+        xc, dtc = xf[:, :, c0:c0 + chunk], dtf[:, :, c0:c0 + chunk]
+        bc, cc = bh[:, :, c0:c0 + chunk], ch[:, :, c0:c0 + chunk]
+        cum = torch.cumsum(dtc * af, dim=-1)                 # (B,H,L)
+        expo = (cum[..., :, None] - cum[..., None, :]).masked_fill(
+            ~causal, NEG_INF)
+        m = (cc @ bc.transpose(-1, -2)) * torch.exp(expo)    # (B,H,L,L)
+        y = m @ (xc * dtc[..., None])
+        y = y + torch.exp(cum)[..., None] * (cc @ state.transpose(-1, -2))
+        if D is not None:
+            y = y + D.float()[None, :, None, None] * xc
+        ys.append(y.transpose(1, 2).to(x.dtype))
+        total = cum[..., -1:]                                # (B,H,1)
+        w = dtc * torch.exp(total - cum)
+        state = (torch.exp(total)[..., None] * state
+                 + (xc * w[..., None]).transpose(-1, -2) @ bc)
+    y = torch.cat(ys, dim=1) if ys else torch.empty_like(x)
+    return y, state

@@ -3,9 +3,11 @@
 reference path on the CPU (reduced widths are the default).
 
 Batched-request serving through the ``ServingEngine`` (continuous
-batching, arena-budgeted KV): build the model from seeded random
-weights, submit a workload of prompts, run the engine to completion,
-and print per-request latency and the throughput summary.  The
+batching, arena-budgeted KV or recurrent state): build the model of any
+ported family (dense, ``--arch mamba2-780m`` for ssm, ``--arch
+zamba2-1.2b`` for hybrid) from seeded random weights, submit a workload
+of prompts, run the engine to completion, and print per-request latency
+and the throughput summary.  The
 per-token streaming front-end (``--stream`` in the JAX package) comes
 with the overlapped decode loop (ROADMAP queue 1, slice 6).
 """

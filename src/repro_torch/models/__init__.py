@@ -1,5 +1,6 @@
-"""Pod-path models of the port: the dense decoder-only LM (``lm``), its
-config schema and primitives (``common``) and the family registry."""
+"""Pod-path models of the port: the dense decoder-only LM (``lm``), the
+Mamba-2 LM (``ssm``), the Zamba2 hybrid (``hybrid``), their config
+schema and primitives (``common``) and the family registry."""
 
 from .common import ModelConfig
 from .registry import ModelBundle, get_model

@@ -68,6 +68,14 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 

@@ -1,0 +1,183 @@
+"""Zamba2 hybrid family [arXiv:2411.15242]: a Mamba-2 backbone with ONE
+weight-tied shared attention+MLP block applied after every
+``shared_attn_every`` Mamba layers.
+
+The port's counterpart of ``repro.models.hybrid``: Zamba2-1.2B.  The
+shared block has a dense transformer layer's parameters (``ln1``,
+``ln2``, ``attn``, ``mlp``), so it is an ``lm.DenseBlock`` and runs the
+dense layer's steps; its parameters exist once, but each application
+point keeps its own KV cache (the activations differ with depth), so the
+cache carries ``attn_k``/``attn_v`` (apps, B, KH, C, dh) beside the
+Mamba layers' ``conv`` and ``state``, batch on axis 1 everywhere.
+
+Layer schedule for n_layers=38, every=6:
+  [6 mamba] attn [6 mamba] attn ... (6 groups of 6) ... [2 mamba tail]
+
+The prefill steps take ``ssd_impl=`` (the scan hook, see
+``models.ssm``); decode keeps the reference attention, as the JAX
+package's vendor decode does for this family.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.executor import resolve_device
+
+from . import lm, ssm
+from .common import ModelConfig, dense_init
+
+Cache = Dict[str, torch.Tensor]
+
+
+def n_shared_apps(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+class HybridLM(nn.Module):
+    """Zamba2's parameters: embedding (V_pad, D), one MambaBlock per
+    layer, the shared ``lm.DenseBlock``, final norm and (untied) head.
+    Built empty on ``device`` (the card by default); ``init_hybrid_lm``
+    or ``hybrid_params_from_jax`` fills it."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        dtype, vp, d = cfg.torch_dtype(), lm.padded_vocab(cfg), cfg.d_model
+        self.cfg = cfg
+        self.embed = lm._param((vp, d), dtype, device)
+        self.final_norm = lm._param((d,), dtype, device)
+        self.layers = nn.ModuleList(ssm.MambaBlock(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+        self.shared = lm.DenseBlock(cfg, dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = lm._param((d, vp), dtype, device)
+
+
+def init_hybrid_lm(gen: torch.Generator, cfg: ModelConfig) -> HybridLM:
+    """Seeded random weights on ``gen.device``: the Mamba layers by
+    ``ssm.init_mamba_block``'s rules, the shared block by ``init_lm``'s,
+    each leaf with its own fan-in (the JAX package draws the shared
+    block's leaves with a leading dim of 1, so its fan-in there is 1)."""
+    dtype = cfg.torch_dtype()
+    model = HybridLM(cfg, gen.device)
+    dt_bias = ssm._dt_bias(cfg, cfg.n_layers)
+    with torch.no_grad():
+        model.embed.copy_(dense_init(gen, model.embed.shape, 0.02, dtype))
+        model.final_norm.fill_(1)
+        for i, blk in enumerate(model.layers):
+            ssm.init_mamba_block(gen, blk, cfg, dt_bias[i])
+        lm.init_dense_block(gen, model.shared, cfg)
+        if not cfg.tie_embeddings:
+            model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0.02,
+                                           dtype))
+    return model
+
+
+def hybrid_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                           device="cuda") -> HybridLM:
+    """The JAX ``init_hybrid_lm`` tree (leaves as numpy arrays) as the
+    port's ``HybridLM`` on ``device`` (the card by default), leaf for
+    leaf."""
+    model = HybridLM(cfg, device)
+    shared = tree["shared"]
+    with torch.no_grad():
+        ssm.put_leaf(model.embed, tree["embed"])
+        ssm.put_leaf(model.final_norm, tree["final_norm"])
+        if not cfg.tie_embeddings:
+            ssm.put_leaf(model.lm_head, tree["lm_head"])
+        ssm.put_mamba_layers(model, tree["blocks"])
+        ssm.put_leaf(model.shared.ln1, shared["ln1"])
+        ssm.put_leaf(model.shared.ln2, shared["ln2"])
+        for part in ("attn", "mlp"):
+            for name, param in getattr(model.shared, part).named_parameters():
+                ssm.put_leaf(param, shared[part][name])
+    return model
+
+
+def hybrid_empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                       dtype: torch.dtype, device) -> Cache:
+    cache = ssm.ssm_empty_cache(cfg, batch, dtype, device)
+    shape = (n_shared_apps(cfg), batch, cfg.n_kv_heads, cache_len, cfg.dh)
+    cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> Optional[int]:
+    """The shared block's application index after Mamba layer ``i``, or
+    None where none follows."""
+    every = cfg.shared_attn_every
+    return (i + 1) // every - 1 if (i + 1) % every == 0 else None
+
+
+def hybrid_prefill(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache_len: Optional[int] = None, *,
+                   window: Optional[int] = None,
+                   ssd_impl=None) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B,S) -> (last-token logits (B,V_pad), cache {conv, state,
+    attn_k, attn_v}); the shared block's K/V land in a C = ``cache_len``
+    (or S) ring at each application point."""
+    x = lm.embed_tokens(model, cfg, tokens)
+    b, s = x.shape[:2]
+    cache = hybrid_empty_cache(cfg, b, cache_len or s, x.dtype, x.device)
+    for i, blk in enumerate(model.layers):
+        x, cache["conv"][i], cache["state"][i] = ssm.mamba_block(
+            blk, cfg, x, ssd_impl=ssd_impl)
+        app = _shared_after(cfg, i)
+        if app is not None:
+            x = lm.prefill_layer(model.shared, cfg, x, cache["attn_k"][app],
+                                 cache["attn_v"][app], window=window)
+    return lm.lm_logits(model, cfg, x[:, -1:])[:, 0], cache
+
+
+def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
+                         tokens: torch.Tensor, start: int, n_real: int, *,
+                         window: Optional[int] = None,
+                         ssd_impl=None) -> Cache:
+    """Advance a batch=1 hybrid cache by one right-padded chunk, in place.
+    The Mamba layers carry (conv, state) through ``mamba_chunk_block``
+    with the padded tail an exact no-op; the shared block is the dense
+    chunk layer (``lm._chunk_layer``): the chunk's K/V land at absolute
+    positions ``start .. start+S`` and its queries attend causally over
+    the cache.  The padded rows write K/V past the prompt, which the
+    length-masked decode never attends to before the ring overwrites
+    them.  ``start`` and ``n_real`` are host ints; ``start + S`` must fit
+    the cache (no ring wrap)."""
+    x = lm.embed_tokens(model, cfg, tokens)
+    s, c = x.shape[1], cache["attn_k"].shape[3]
+    if not 0 <= start <= c - s:
+        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
+                         f"{c}-position cache without wrapping")
+    positions = start + torch.arange(s, device=x.device)
+    for i, blk in enumerate(model.layers):
+        x, cache["conv"][i], cache["state"][i] = ssm.mamba_chunk_block(
+            blk, cfg, x, cache["conv"][i], cache["state"][i], n_real,
+            ssd_impl=ssd_impl)
+        app = _shared_after(cfg, i)
+        if app is not None:
+            x, _, _ = lm._chunk_layer(model.shared, cfg, x,
+                                      cache["attn_k"][app],
+                                      cache["attn_v"][app], start, positions,
+                                      window)
+    return cache
+
+
+def hybrid_decode(model: HybridLM, cfg: ModelConfig, cache: Cache,
+                  tokens: torch.Tensor, lengths: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step.  tokens (B,1); lengths (B,) absolute positions
+    (the shared block's ring slot); the cache is updated in place.
+    Returns (logits (B,V_pad), cache)."""
+    x = lm.embed_tokens(model, cfg, tokens)
+    for i, blk in enumerate(model.layers):
+        x, cache["conv"][i], cache["state"][i] = ssm.mamba_decode_block(
+            blk, cfg, x, cache["conv"][i], cache["state"][i])
+        app = _shared_after(cfg, i)
+        if app is not None:
+            x = lm.decode_layer(model.shared, cfg, x, cache["attn_k"][app],
+                                cache["attn_v"][app], lengths)
+    return lm.lm_logits(model, cfg, x)[:, 0], cache

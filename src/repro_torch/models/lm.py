@@ -136,31 +136,37 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> DenseLM:
     its fan-in is the leaf's input width."""
     dtype = cfg.torch_dtype()
     model = DenseLM(cfg, gen.device)
-    h, dh, f = cfg.n_heads, cfg.dh, cfg.d_ff
     with torch.no_grad():
         model.embed.copy_(dense_init(gen, model.embed.shape, 0.02, dtype))
         model.final_norm.fill_(1)
         for blk in model.layers:
-            blk.ln1.fill_(1)
-            blk.ln2.fill_(1)
-            a = blk.attn
-            for w in (a.wq, a.wk, a.wv):
-                w.copy_(dense_init(gen, w.shape, dtype=dtype))
-            a.wo.copy_(dense_init(gen, a.wo.shape, 1.0 / math.sqrt(h * dh),
-                                  dtype))
-            if cfg.qk_norm:
-                a.q_norm.fill_(1)
-                a.k_norm.fill_(1)
-            m = blk.mlp
-            m.wi.copy_(dense_init(gen, m.wi.shape, dtype=dtype))
-            m.wo.copy_(dense_init(gen, m.wo.shape, 1.0 / math.sqrt(f),
-                                  dtype))
-            if cfg.act in GATED_ACTS:
-                m.wg.copy_(dense_init(gen, m.wg.shape, dtype=dtype))
+            init_dense_block(gen, blk, cfg)
         if not cfg.tie_embeddings:
             model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0.02,
                                            dtype))
     return model
+
+
+def init_dense_block(gen: torch.Generator, blk: DenseBlock,
+                     cfg: ModelConfig) -> None:
+    """One layer's seeded weights by ``init_lm``'s rules (the hybrid
+    family's shared block is drawn by them too)."""
+    dtype = blk.ln1.dtype
+    h, dh, f = cfg.n_heads, cfg.dh, cfg.d_ff
+    blk.ln1.fill_(1)
+    blk.ln2.fill_(1)
+    a = blk.attn
+    for w in (a.wq, a.wk, a.wv):
+        w.copy_(dense_init(gen, w.shape, dtype=dtype))
+    a.wo.copy_(dense_init(gen, a.wo.shape, 1.0 / math.sqrt(h * dh), dtype))
+    if cfg.qk_norm:
+        a.q_norm.fill_(1)
+        a.k_norm.fill_(1)
+    m = blk.mlp
+    m.wi.copy_(dense_init(gen, m.wi.shape, dtype=dtype))
+    m.wo.copy_(dense_init(gen, m.wo.shape, 1.0 / math.sqrt(f), dtype))
+    if cfg.act in GATED_ACTS:
+        m.wg.copy_(dense_init(gen, m.wg.shape, dtype=dtype))
 
 
 def _from_numpy(a: Any, dtype: torch.dtype) -> torch.Tensor:
@@ -438,17 +444,27 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(model, cfg, tokens)
     b, s = x.shape[:2]
     cache = empty_cache(cfg, b, cache_len or s, x.dtype, x.device)
-    positions = torch.arange(s, device=x.device)
     for i, blk in enumerate(model.layers):
-        xin = rms_norm(x, blk.ln1, cfg.norm_eps)
-        q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
-        out = chunked_attention(q, k, v, cfg, window=window)
-        h = x + _out_proj(blk.attn, out)
-        x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
-        _to_cache(cache["k"][i], k)
-        _to_cache(cache["v"][i], v)
+        x = prefill_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
+                          window=window)
     logits = lm_logits(model, cfg, x[:, -1:])[:, 0]
     return logits, cache
+
+
+def prefill_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
+                  ck: torch.Tensor, cv: torch.Tensor, *,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """One transformer layer over a whole prompt x (B,S,D) at positions
+    0..S-1, its K/V written into ck/cv (B,KH,C,dh) (``_to_cache``).
+    Returns x after the layer."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    xin = rms_norm(x, blk.ln1, cfg.norm_eps)
+    q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
+    out = chunked_attention(q, k, v, cfg, window=window)
+    h = x + _out_proj(blk.attn, out)
+    _to_cache(ck, k)
+    _to_cache(cv, v)
+    return h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
 
 
 def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
@@ -544,13 +560,22 @@ def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
     into every layer's decode_attention_block (§4.8)."""
     x = embed_tokens(model, cfg, tokens)
     for i, blk in enumerate(model.layers):
-        xin = rms_norm(x, blk.ln1, cfg.norm_eps)
-        att, _, _ = decode_attention_block(blk.attn, cfg, xin,
-                                           cache["k"][i], cache["v"][i],
-                                           lengths, attn_impl=attn_impl)
-        h = x + att
-        x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+        x = decode_layer(blk, cfg, x, cache["k"][i], cache["v"][i], lengths,
+                         attn_impl=attn_impl)
     return lm_logits(model, cfg, x)[:, 0], cache
+
+
+def decode_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
+                 ck: torch.Tensor, cv: torch.Tensor, lengths: torch.Tensor,
+                 *, attn_impl=None) -> torch.Tensor:
+    """One transformer layer of a decode step: x (B,1,D), its K/V ring
+    written in place into ck/cv (B,KH,C,dh).  Returns x after the
+    layer."""
+    xin = rms_norm(x, blk.ln1, cfg.norm_eps)
+    att, _, _ = decode_attention_block(blk.attn, cfg, xin, ck, cv, lengths,
+                                       attn_impl=attn_impl)
+    h = x + att
+    return h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
 
 
 def lm_decode_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,

@@ -4,7 +4,8 @@ serving macro-kernels (``ops``), latency-aware admission and preemption
 policies (``scheduling``) and the typed family errors."""
 
 from . import ops  # registers the reference serving macro-kernels
-from .engine import (BUCKETED_FAMILIES, DEFAULT_TAGS, Request,
+from .engine import (BUCKETED_FAMILIES, CHUNKED_FAMILIES, DEFAULT_TAGS,
+                     PAGED_FAMILIES, RECURRENT_FAMILIES, Request,
                      RequestResult, ServingEngine, SlotCheckpoint,
                      StreamEvent, default_clock)
 from .errors import UnsupportedFamilyError
@@ -13,7 +14,8 @@ from .scheduling import (EDFDisplacePolicy, EDFPolicy, FIFOPolicy,
                          WFQDisplacePolicy, WFQPolicy, get_policy,
                          get_preemption)
 
-__all__ = ["BUCKETED_FAMILIES", "DEFAULT_TAGS", "Request", "RequestResult",
+__all__ = ["BUCKETED_FAMILIES", "CHUNKED_FAMILIES", "DEFAULT_TAGS",
+           "PAGED_FAMILIES", "RECURRENT_FAMILIES", "Request", "RequestResult",
            "ServingEngine", "SlotCheckpoint", "StreamEvent",
            "UnsupportedFamilyError", "default_clock", "EDFDisplacePolicy",
            "EDFPolicy", "FIFOPolicy", "PreemptionPolicy", "PriorityPolicy",

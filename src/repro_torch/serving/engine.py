@@ -61,6 +61,13 @@ docs/PREEMPTION.md):
     float32 scale per head vector, contiguous or paged; prefill and
     decode resolve ``SERVING_PREFILL_Q`` / ``SERVING_DECODE_Q``.  Not
     with ``prefill_chunk`` (the chunk steps write float KV rows).
+  * **recurrent families** (ssm: Mamba-2, hybrid: Zamba2) — the slot
+    cache is the conv window and SSD state (plus hybrid's shared-attention
+    KV), batch on axis 1, written in place by the decode step; prefill is
+    exact-length (no buckets), and ``prefill_chunk=`` carries the state
+    from chunk to chunk through ``SERVING_PREFILL_CHUNK_STATE``, the first
+    chunk seeded from an empty cache.  The ``"cuda"`` prefill ops run the
+    SSD scan on K8.  Not paged, and not quantized yet.
 
 Mesh sharding and the overlapped decode loop are refused at
 construction with ``NotImplementedError`` naming the ROADMAP slice that
@@ -89,6 +96,8 @@ from repro_torch.models.registry import ModelBundle
 
 from . import ops as serving_ops  # registers tag="reference" serving ops
 from .errors import UnsupportedFamilyError
+from .ops import (CHUNKED_FAMILIES, KV_QUANT_FAMILIES, PAGED_FAMILIES,
+                  RECURRENT_FAMILIES)
 from .scheduling import (PreemptionPolicy, SchedulingPolicy, get_policy,
                          get_preemption)
 
@@ -104,6 +113,8 @@ BUCKETED_FAMILIES = ("dense",)
 _NOT_PORTED = {
     "mesh": "mesh-sharded serving, ROADMAP queue 1, slice 8, item 15",
     "overlap": "overlapped decode, ROADMAP queue 1, slice 6, item 13",
+    "quantized_recurrent": "quantized ssm and hybrid serving, ROADMAP "
+                           "queue 1, slice 5, item 12",
 }
 
 
@@ -279,7 +290,13 @@ class ServingEngine:
                     supported=BUCKETED_FAMILIES)
             self.bucket_table = prefill_buckets
         self.chunk_tokens = 0
+        self._recurrent_chunk = False
         if prefill_chunk:
+            if self.cfg.family not in CHUNKED_FAMILIES:
+                raise UnsupportedFamilyError(self.cfg.family,
+                                             "chunked prefill",
+                                             supported=CHUNKED_FAMILIES)
+            self._recurrent_chunk = self.cfg.family in RECURRENT_FAMILIES
             if prefill_chunk is True:
                 self.chunk_tokens = (self.bucket_table.min_bucket
                                      if self.bucket_table else 8)
@@ -301,6 +318,16 @@ class ServingEngine:
                 raise ValueError(
                     f"kv_dtype must be one of {lm_quant.KV_DTYPES} or None, "
                     f"got {kv_dtype!r}")
+            if kv_dtype and self.cfg.family not in KV_QUANT_FAMILIES:
+                raise UnsupportedFamilyError(
+                    self.cfg.family, "int8 KV cache (requires a dense "
+                                     "(KH, C, dh) cache layout)",
+                    supported=KV_QUANT_FAMILIES)
+            if self.cfg.family in RECURRENT_FAMILIES:
+                raise NotImplementedError(
+                    f"weight_dtype={weight_dtype!r}: "
+                    f"{_NOT_PORTED['quantized_recurrent']} is not in the "
+                    f"PyTorch port yet")
             if self.chunk_tokens:
                 raise ValueError(
                     "prefill_chunk does not compose with quantized "
@@ -311,6 +338,10 @@ class ServingEngine:
         self.kv_block = int(kv_block) if kv_block else 0
         self.paged = bool(self.kv_block)
         if self.paged:
+            if self.cfg.family not in PAGED_FAMILIES:
+                raise UnsupportedFamilyError(self.cfg.family,
+                                             serving_ops.PAGED_FEATURE,
+                                             supported=PAGED_FAMILIES)
             if self.kv_block < 1 or cache_len % self.kv_block:
                 raise ValueError(
                     f"kv_block must divide cache_len, got "
@@ -376,8 +407,12 @@ class ServingEngine:
             decode_code = OpCode.SERVING_DECODE_Q
             qparams = {"paged": self.paged, "kv_q": bool(kv_dtype),
                        "weight_dtype": weight_dtype}
-        chunk_code = (OpCode.SERVING_PREFILL_CHUNK_PAGED if self.paged
-                      else OpCode.SERVING_PREFILL_CHUNK)
+        if self.paged:
+            chunk_code = OpCode.SERVING_PREFILL_CHUNK_PAGED
+        elif self._recurrent_chunk:
+            chunk_code = OpCode.SERVING_PREFILL_CHUNK_STATE
+        else:
+            chunk_code = OpCode.SERVING_PREFILL_CHUNK
         opcodes = [prefill_code, decode_code]
         if self.chunk_tokens:
             opcodes.append(chunk_code)
@@ -413,10 +448,12 @@ class ServingEngine:
 
     def _empty_cache(self, batch: int,
                      length: int) -> Dict[str, torch.Tensor]:
-        """A zeroed {k, v} of (L, batch, KH, length, dh): the slot rings,
-        a batch=1 cache, or (batch = blocks, length = BS) the pool; with
-        an int8 KV cache the quantized {k, v, k_scale, v_scale} layout
-        (int8 zeros, scales 1.0)."""
+        """The family's zeroed cache for ``batch`` sequences: {k, v} of
+        (L, batch, KH, length, dh) for the dense family — the slot rings, a
+        batch=1 cache, or (batch = blocks, length = BS) the pool; with an
+        int8 KV cache the quantized {k, v, k_scale, v_scale} layout (int8
+        zeros, scales 1.0) — or the recurrent {conv, state} (+ hybrid's
+        {attn_k, attn_v} of ``length`` positions)."""
         cache = self.bundle.empty_cache(batch, length,
                                         self.cfg.torch_dtype(), self.device)
         if self.kv_dtype:
@@ -427,13 +464,16 @@ class ServingEngine:
                           new_cache: Dict[str, torch.Tensor]) -> None:
         """Copy a batch=1 cache (on any device) into slot ``slot`` in
         place — the state-INSERTION hook, inverse of
-        ``extract_slot_state``.  The slot index is a host-side offset, so
-        a checkpoint restores into ANY slot."""
+        ``extract_slot_state``.  Every family's leaves (KV rings, or the
+        recurrent conv window, SSD state and shared-attention KV) keep the
+        batch on axis 1.  The slot index is a host-side offset, so a
+        checkpoint restores into ANY slot."""
         for name, full in self.cache.items():
             full[:, slot:slot + 1].copy_(new_cache[name])
 
     def extract_slot_state(self, slot: int) -> Dict[str, torch.Tensor]:
-        """Slot ``slot``'s KV rows as a batch=1 cache of CPU copies — the
+        """Slot ``slot``'s cache rows (KV, or the recurrent state exactly
+        as the decode step left it) as a batch=1 cache of CPU copies — the
         state-EXTRACTION hook a ``SlotCheckpoint`` carries."""
         return {name: full[:, slot:slot + 1].to("cpu", copy=True)
                 for name, full in self.cache.items()}
@@ -594,7 +634,17 @@ class ServingEngine:
         """Admit a long prompt into a slot in PREFILLING state: run the
         FIRST chunk through the ordinary prefill step, keep its batch=1
         cache (paged: page it into the pool) in a ``_ChunkState``, and
-        let the following ``step()`` calls advance one chunk each."""
+        let the following ``step()`` calls advance one chunk each.
+
+        Recurrent families skip the prefill step: the carried-state chunk
+        op is seeded with an EMPTY cache (a zero conv window is the zero
+        left padding ``_causal_conv`` assumes, a zero state no history),
+        and every chunk, the first included, goes through it."""
+        if self._recurrent_chunk:
+            self._chunking[slot] = _ChunkState(
+                req, self._empty_cache(1, self.cache_len), 0)
+            self._advance_chunk(slot)
+            return
         t0 = time.perf_counter()
         first = np.asarray(req.tokens[:self.chunk_tokens])
         batch = {"tokens": torch.as_tensor(first[None].astype(np.int64),
@@ -641,6 +691,11 @@ class ServingEngine:
             row = torch.from_numpy(self._table_row(slot)).to(self.device)
             self.kv_pool = self._prefill_chunk(
                 (self.params, self.kv_pool, row, tokens, start))
+        elif self._recurrent_chunk:
+            # the chunk's true token count rides along: the padded tail of
+            # a final chunk is an exact state no-op
+            cs.cache1 = self._prefill_chunk(
+                (self.params, cs.cache1, tokens, start, real))
         else:
             cs.cache1 = self._prefill_chunk(
                 (self.params, cs.cache1, tokens, start))

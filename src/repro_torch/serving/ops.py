@@ -13,6 +13,10 @@ registry:
   * ``OpCode.SERVING_DECODE_PAGED`` / ``SERVING_PREFILL_CHUNK_PAGED`` —
     the same two steps over the shared pool of KV blocks, each slot's
     placement given by its block-table row;
+  * ``OpCode.SERVING_PREFILL_CHUNK_STATE`` — one right-padded prompt
+    chunk of a recurrent family (ssm, hybrid), carrying the batch=1
+    recurrent cache (conv window and SSD state, plus hybrid's shared
+    attention KV) in place;
   * ``OpCode.SERVING_PREFILL_Q`` / ``SERVING_DECODE_Q`` — quantized
     serving: int8 or packed-int4 weights and/or an int8 KV cache, the
     layout (paged or not, KV quantized or not, weight dtype) riding the
@@ -20,13 +24,17 @@ registry:
 
 They run the family's plain-PyTorch steps — the readable path, the
 serving analogue of the paper's reference kernels.  The kernel library
-(``repro_torch.kernels.ops``) registers ``tag="cuda"`` ``SERVING_DECODE``,
-``SERVING_DECODE_PAGED`` and ``SERVING_DECODE_Q`` whose attention (and
-quantized MLP) run on the kernels; ``ServingEngine`` resolves through the tag priority chain
-(``("cuda", "reference")``), so a kernel shadows the reference per op —
-the ``TAGS="cmsis-nn"`` build mechanism at pod scale (§4.7–4.8).  Only
-the dense family is ported: the chunk and paged ops refuse the others
-(vlm, moe) with ``UnsupportedFamilyError``, as ``get_model`` does.
+(``repro_torch.kernels.ops``) registers ``tag="cuda"`` ``SERVING_PREFILL``,
+``SERVING_PREFILL_CHUNK_STATE``, ``SERVING_DECODE``,
+``SERVING_DECODE_PAGED`` and ``SERVING_DECODE_Q`` whose SSD scan,
+attention (and quantized MLP) run on the kernels; ``ServingEngine``
+resolves through the tag priority chain (``("cuda", "reference")``), so
+a kernel shadows the reference per op — the ``TAGS="cmsis-nn"`` build
+mechanism at pod scale (§4.7–4.8).  The dense, ssm and hybrid families
+are ported; the KV-offset chunk and the paged ops take the dense family
+only and refuse the others with ``UnsupportedFamilyError`` where the
+JAX package refuses them (ssm, hybrid) or the port lacks them (vlm,
+moe).
 
 The contract mirrors the micro C-API: ``prepare(ctx, op)`` runs once at
 engine init (it may inspect the model family and bake decisions into
@@ -39,9 +47,18 @@ from typing import Any
 
 from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
-from repro_torch.models import lm, lm_quant
+from repro_torch.models import hybrid, lm, lm_quant, ssm
 
 from .errors import UnsupportedFamilyError
+
+# families each fast path supports (the engine mirrors these).  The JAX
+# package also chunks vlm and pages vlm and moe, which the port does not
+# have yet.  CHUNKED: dense through the KV-offset chunk op, ssm/hybrid
+# through the recurrent-state one; PAGED needs the dense (KH, C, dh) ring.
+CHUNKED_FAMILIES = ("dense", "ssm", "hybrid")
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+PAGED_FAMILIES = ("dense",)
+KV_QUANT_FAMILIES = ("dense",)
 
 
 class ServingContext:
@@ -88,12 +105,15 @@ class RefServingDecode:
 
 
 def _dense_only(cfg, feature: str) -> None:
-    """The family gate of the chunk and paged ops: the port has the
-    dense family only (the JAX package also chunks vlm and pages vlm and
-    moe, which come with a later slice)."""
+    """The family gate of the KV-offset chunk and the paged ops: a dense
+    (KH, C, dh) ring cache (the JAX package also chunks vlm and pages vlm
+    and moe, which come with a later slice)."""
     if cfg.family != "dense":
         raise UnsupportedFamilyError(cfg.family, feature,
                                      supported=("dense",))
+
+
+PAGED_FEATURE = "paged KV (requires a dense (KH, C, dh) cache layout)"
 
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK, tag="reference")
@@ -105,7 +125,8 @@ class RefServingPrefillChunk:
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
-        _dense_only(ctx.bundle.cfg, "chunked prefill (SERVING_PREFILL_CHUNK)")
+        _dense_only(ctx.bundle.cfg,
+                    "KV-offset chunked prefill (SERVING_PREFILL_CHUNK)")
         return PrepareResult(output_specs=[])
 
     @staticmethod
@@ -124,7 +145,7 @@ class RefServingDecodePaged:
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
-        _dense_only(ctx.bundle.cfg, "paged KV (SERVING_DECODE_PAGED)")
+        _dense_only(ctx.bundle.cfg, PAGED_FEATURE)
         return PrepareResult(output_specs=[])
 
     @staticmethod
@@ -152,6 +173,47 @@ class RefServingPrefillChunkPaged:
         return lm.lm_prefill_chunk_paged(params, ctx.bundle.cfg, pool,
                                          table_row, tokens, start,
                                          window=op.params.get("window"))
+
+
+@register_op(OpCode.SERVING_PREFILL_CHUNK_STATE, tag="reference")
+class RefServingPrefillChunkState:
+    """Reference recurrent-state chunked-prefill macro-kernel: one
+    right-padded prompt chunk through ``ssm_prefill_chunk`` /
+    ``hybrid_prefill_chunk``, carrying the batch=1 recurrent cache in
+    place — a chunk boundary is just a state checkpoint.  Inputs are
+    ``(params, cache, tokens, start, n_real)``: ``start`` the chunk's
+    absolute position (hybrid's shared attention only) and ``n_real``
+    its true token count (the padded tail is an exact state no-op).
+    Only the recurrent families resolve here; dense keeps the KV-offset
+    SERVING_PREFILL_CHUNK op."""
+
+    @staticmethod
+    def prepare(ctx: ServingContext, op) -> PrepareResult:
+        family = ctx.bundle.cfg.family
+        if family not in RECURRENT_FAMILIES:
+            raise UnsupportedFamilyError(
+                family, "recurrent-state chunked prefill "
+                        "(SERVING_PREFILL_CHUNK_STATE)",
+                supported=RECURRENT_FAMILIES)
+        return PrepareResult(output_specs=[], op_data={"family": family})
+
+    @staticmethod
+    def eval(ctx: ServingContext, op, inputs):
+        return prefill_chunk_state(ctx, op, inputs)
+
+
+def prefill_chunk_state(ctx: ServingContext, op, inputs, ssd_impl=None):
+    """The body of SERVING_PREFILL_CHUNK_STATE with the scan hook
+    ``ssd_impl`` (None: the plain ``ssd_chunked``)."""
+    params, cache, tokens, start, n_real = inputs
+    cfg = ctx.bundle.cfg
+    if ctx.op_data["family"] == "hybrid":
+        return hybrid.hybrid_prefill_chunk(params, cfg, cache, tokens, start,
+                                           n_real,
+                                           window=op.params.get("window"),
+                                           ssd_impl=ssd_impl)
+    return ssm.ssm_prefill_chunk(params, cfg, cache, tokens, n_real,
+                                 ssd_impl=ssd_impl)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs, and the interpreter and the serving
-engine (contiguous, paged, chunked and quantized) on the card held
-against the CPU reference.  Every test here is marked ``cuda`` and skips
+engine (contiguous, paged, chunked, quantized, and the recurrent
+families) on the card held against the CPU reference.  Every test here is marked ``cuda`` and skips
 without a card; this module imports no jax, so it also runs where only
 the port is installed:
 
@@ -26,6 +26,7 @@ from repro_torch.kernels import paged_decode_attention as K4
 from repro_torch.kernels import paged_decode_attention_q as K7
 from repro_torch.kernels import quant_matmul as K1
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as K8
 from repro_torch.models import get_model, lm_quant
 from repro_torch.serving import Request, ServingEngine
 
@@ -509,3 +510,152 @@ def test_reduced_quantized_engine_on_card_matches_cpu(cuda, wd, kd, bs):
         mlp[wd == "int4"] = 3 * per
     assert counts == attn + mlp
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# K8: the SSD chunked scan
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's bound for the SSD scan against its oracle
+SSD_ATOL, SSD_RTOL = 5e-4, 1e-3
+
+
+def _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed, h0=False, d=False,
+                tail=0):
+    """Seeded scan inputs on the card: x, B, C in ``dtype``; dt, A, D and
+    h0 float32; the last ``tail`` rows with dt = 0 (a padded chunk)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (b, s, h, p)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (b, s, h)).astype(
+        np.float32))
+    if tail:
+        dt[:, s - tail:] = 0
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, h).astype(np.float32))
+    bm, cm = (torch.from_numpy(rng.normal(0, 1, (b, s, g, n)).astype(
+        np.float32)) for _ in range(2))
+    dd = torch.from_numpy(rng.normal(0, 1, h).astype(np.float32)) if d \
+        else None
+    st = (torch.from_numpy(rng.normal(0, 1, (b, h, p, n)).astype(np.float32))
+          if h0 else None)
+    on = lambda t, dt_=torch.float32: None if t is None else t.to(cuda, dt_)
+    return (on(x, dtype), on(dt), on(a), on(bm, dtype), on(cm, dtype),
+            on(dd), on(st))
+
+
+# (b, s, h, p, g, n, chunk, dtype, h0, D, tail): Mamba2-780m's prefill
+# shapes (48 heads of 64, N 128) at one and four chunks, with a carried
+# state; Zamba2-1.2B's (64 heads, N 64); float32 at both; groups of 2
+# with D; a length off 128 with the wrapper's chunk (64); a chunk of 13
+# with P and N off the tiles; a padded tail of dt = 0 rows
+SSD_CASES = [
+    (1, 128, 48, 64, 1, 128, None, torch.bfloat16, False, False, 0),
+    (1, 512, 48, 64, 1, 128, None, torch.bfloat16, True, False, 0),
+    (1, 256, 48, 64, 1, 128, None, torch.float32, True, False, 0),
+    (1, 256, 64, 64, 1, 64, None, torch.bfloat16, False, False, 0),
+    (1, 256, 64, 64, 1, 64, None, torch.float32, True, False, 0),
+    (2, 256, 4, 32, 2, 64, None, torch.float32, False, True, 0),
+    (1, 192, 8, 64, 1, 128, None, torch.float32, True, True, 0),
+    (2, 26, 3, 24, 1, 20, 13, torch.float32, True, True, 0),
+    (1, 128, 48, 64, 1, 128, None, torch.float32, True, False, 28),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype,h0,d,tail", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype,
+                                       h0, d, tail):
+    args = _ssd_inputs(cuda, b, s, h, p, g, n, dtype, s + h + n, h0, d,
+                       tail)
+    x, dt, a, bm, cm, dd, st = args
+    before = K8.launches
+    y, state = ops.ssd_scan(x, dt, a, bm, cm, dd, chunk=chunk, h0=st)
+    used = chunk or ops._pick_block(s)
+    want_y, want_s = ref.ssd_scan_ref(x, dt, a, bm, cm, dd, chunk=used, h0=st)
+    torch.cuda.synchronize()
+    assert K8.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    # bfloat16 y: each side rounds its float32 sum once, so the two may
+    # differ by one bfloat16 ulp
+    y_rtol = SSD_RTOL if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(y.float(), want_y.float(), atol=SSD_ATOL,
+                               rtol=y_rtol)
+    torch.testing.assert_close(state, want_s, atol=SSD_ATOL, rtol=SSD_RTOL)
+    if dtype == torch.float32 and s <= 256:      # and the sequential oracle
+        oy, os_ = ref.ssd_ref(x, dt, a, bm, cm, dd, h0=st)
+        torch.testing.assert_close(y, oy, atol=SSD_ATOL, rtol=SSD_RTOL)
+        torch.testing.assert_close(state, os_, atol=SSD_ATOL, rtol=SSD_RTOL)
+    if tail:        # the padded rows neither decay nor add to the state
+        _, real = ref.ssd_ref(x[:, :s - tail], dt[:, :s - tail], a,
+                              bm[:, :s - tail], cm[:, :s - tail], dd, h0=st)
+        torch.testing.assert_close(state, real, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+def test_ssd_scan_kernel_never_reaches_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor launches K8 or raises: the wrapper's plain version is
+    for CPU tensors only, and the model hook goes through the kernel."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA tensor reached ssd_scan_ref")
+    monkeypatch.setattr(ops, "ssd_scan_ref", refuse)
+    x, dt, a, bm, cm, _, st = _ssd_inputs(cuda, 1, 256, 8, 64, 1, 64,
+                                          torch.bfloat16, 0, h0=True)
+    before = K8.launches
+    ops.ssd_scan(x, dt, a, bm, cm, h0=st)
+    y, state = ops.ssd_chunked_kernel(x, dt, a, bm, cm,
+                                      init_state=st.view(1, 1, 8, 64, 64))
+    torch.cuda.synchronize()
+    assert K8.launches == before + 2
+    assert state.shape == (1, 1, 8, 64, 64)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd_chunked_kernel(x[:, :200], dt[:, :200], a, bm[:, :200],
+                               cm[:, :200])
+    assert K8.launches == before + 2
+
+
+def test_ssd_scan_kernel_refuses(cuda):
+    x, dt, a, bm, cm, _, st = _ssd_inputs(cuda, 1, 128, 4, 16, 1, 16,
+                                          torch.float32, 1, h0=True)
+    before = K8.launches
+    bad = [dict(x=x.bfloat16()), dict(dt=dt.double()),
+           dict(bm=bm[:, :, :, :8]), dict(x=x.transpose(2, 3)),
+           dict(st=st[:, :2]), dict(chunk=256), dict(chunk=48)]
+    for change in bad:
+        kw = dict(x=x, dt=dt, a=a, bm=bm, cm=cm, st=st, chunk=128)
+        kw.update(change)
+        with pytest.raises(ValueError):
+            K8.ssd_scan_cuda(kw["x"], kw["dt"], kw["a"], kw["bm"], kw["cm"],
+                             chunk=kw["chunk"], h0=kw["st"])
+    wide = torch.zeros(1, 128, 1, 132, device=cuda)
+    with pytest.raises(ValueError, match="state width"):
+        K8.ssd_scan_cuda(x, dt, a, wide, wide, chunk=128)
+    assert K8.launches == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_reduced_recurrent_engines_on_card_match_cpu(cuda, arch):
+    """mamba2 and zamba2 reduced (float32): the engine on the card, its
+    prefill and prefill-chunk scans on K8, emits the CPU engine's greedy
+    tokens, exact and chunked, and launches K8 once per layer per
+    prefill or chunk."""
+    cfg = get_config(arch, reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (21, 13, 30, 1, 9)]
+    for kw in ({}, {"prefill_chunk": 8}):
+        outs = []
+        for dev in ("cpu", cuda):
+            before, runs = K8.launches, 0
+            eng = ServingEngine(bundle, model.to(dev), max_slots=2,
+                                cache_len=64, device=dev, **kw)
+            for uid, p in enumerate(prompts):
+                eng.submit(Request(uid=uid, tokens=p, max_new_tokens=12))
+            while True:
+                more = eng.step()
+                runs += (len(eng.last_step["prefill_tokens"])
+                         + eng.last_step["chunks"])
+                if not more:
+                    break
+            outs.append({u: r.output for u, r in eng.results.items()})
+        assert outs[0] == outs[1], kw
+        assert K8.launches - before == cfg.n_layers * runs

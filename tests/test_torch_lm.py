@@ -92,12 +92,16 @@ def _close_cache(got, want):
                                    atol=CACHE_RTOL * np.abs(w).max())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# the ported configs: the dense ones and the recurrent families' two
+CONFIG_ARCHS = ARCHS + ["mamba2-780m", "zamba2-1.2b"]
+
+
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_configs_equal_the_jax_package(arch):
     for reduced in (False, True):
         assert (dataclasses.asdict(get_config(arch, reduced=reduced))
                 == dataclasses.asdict(jax_get_config(arch, reduced=reduced)))
-    assert sorted(list_archs()) == sorted(ARCHS)
+    assert sorted(list_archs()) == sorted(CONFIG_ARCHS)
 
 
 # (batch, prompt length, cache length): in order, and a prompt longer
