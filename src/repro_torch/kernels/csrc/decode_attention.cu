@@ -1,7 +1,7 @@
 // K3 decode_attention: one query token per sequence against a contiguous
 // KV cache.  q (B,H,D), k/v caches (B,KH,S,D), lengths (B,) int32 read on
-// the device; the kernels and their design are in decode_attention.cuh,
-// shared with K4.
+// the device; the kernel and its design are in decode_attention.cuh,
+// shared with K4 and K7.
 //
 // Replaces the Pallas TPU kernel decode_attention_pallas
 // (src/repro/kernels/decode_attention.py).
@@ -9,7 +9,10 @@
 // Bound on the H100: the bytes of the valid K/V rows (each read once), far
 // above the 4*H*D operations per valid position.  At Yi-6B's decode shape
 // (B 4, H 32, KH 4, S 2048, D 128) in bfloat16 with every row full that is
-// about 16.8 MB per call, about 5.0 us at 3.35 TB/s.
+// about 16.8 MB per call, about 5.0 us at 3.35 TB/s; with lengths
+// 1/37/1500/2048 7.3 MB, 2.2 us.  One launch: 128-position runs copied by
+// cp.async four 32-row stages at once, partials only where a run holds
+// rows, combined in run order by the last block to arrive.
 
 #include "decode_attention.cuh"
 
@@ -31,10 +34,21 @@ extern "C" long long decode_attention_workspace_floats(int B, int H, int S,
   return decode_attn::workspace_floats(B, H, S, D);
 }
 
+extern "C" int decode_attention_attributes(int is_bf16, int G, int D,
+                                           int* regs, int* smem) {
+  using decode_attn::NoScale;
+  if (is_bf16)
+    return decode_attn::attributes<__nv_bfloat16, __nv_bfloat16, NoScale,
+                                   ContiguousRows>(G, D, regs, smem);
+  return decode_attn::attributes<float, float, NoScale, ContiguousRows>(
+      G, D, regs, smem);
+}
+
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
-                                       void* out, void* workspace, int B,
-                                       int H, int KH, int S, int D,
+                                       void* out, void* workspace,
+                                       void* counters, int B, int H,
+                                       int KH, int S, int D,
                                        float scale, int has_window,
                                        int window, int is_bf16,
                                        void* stream) {
@@ -44,13 +58,14 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* ws = static_cast<float*>(workspace);
+  int* ctr = static_cast<int*>(counters);
   const ContiguousRows rows{KH, S};
   const decode_attn::NoScale none{};
   if (is_bf16)
     return decode_attn::launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, none, rows, len, out, ws, B, H, KH, S, D, scale, has_window,
-        window, st);
+        q, k, v, none, rows, len, out, ws, ctr, B, H, KH, S, D, scale,
+        has_window, window, st);
   return decode_attn::launch<float, float>(q, k, v, none, rows, len, out, ws,
-                                           B, H, KH, S, D, scale, has_window,
-                                           window, st);
+                                           ctr, B, H, KH, S, D, scale,
+                                           has_window, window, st);
 }

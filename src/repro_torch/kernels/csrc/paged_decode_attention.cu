@@ -15,8 +15,10 @@
 //
 // Bound on the H100: the bytes of the valid K/V rows, as for K3 (7.4 MB,
 // 2.2 us at 3.35 TB/s at Yi-6B's path shape with lengths 1/37/1500/2048);
-// the table adds 4 bytes per block.  BS divides the 32-position chunk or
-// is a multiple of it, so a chunk spans whole blocks or lies inside one.
+// the table adds 4 bytes per block.  Each block looks up the table entry
+// of each of its valid rows once, before its copies; BS divides the
+// 32-row tile or is a multiple of it, the contract K4 has had since it
+// was written.
 
 #include "decode_attention.cuh"
 
@@ -27,25 +29,26 @@ extern "C" long long paged_decode_attention_workspace_floats(int B, int H,
 
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* lengths, void* out, void* workspace, int B, int H, int KH,
-    int T, int BS, int D, float scale, int has_window, int window,
-    int is_bf16, void* stream) {
+    const void* lengths, void* out, void* workspace, void* counters, int B,
+    int H, int KH, int T, int BS, int D, float scale, int has_window,
+    int window, int is_bf16, void* stream) {
   if (B < 1 || T < 1 || BS < 1 || D < 1 || D > decode_attn::MAX_D ||
       KH < 1 || H % KH != 0 ||
-      (decode_attn::SPLIT % BS != 0 && BS % decode_attn::SPLIT != 0))
+      (decode_attn::TILE % BS != 0 && BS % decode_attn::TILE != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* ws = static_cast<float*>(workspace);
+  int* ctr = static_cast<int*>(counters);
   const decode_attn::PagedRows rows{static_cast<const int*>(tables), KH, T,
                                     BS};
   const decode_attn::NoScale none{};
   const int S = T * BS;
   if (is_bf16)
     return decode_attn::launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pool, v_pool, none, rows, len, out, ws, B, H, KH, S, D, scale,
-        has_window, window, st);
+        q, k_pool, v_pool, none, rows, len, out, ws, ctr, B, H, KH, S, D,
+        scale, has_window, window, st);
   return decode_attn::launch<float, float>(q, k_pool, v_pool, none, rows,
-                                           len, out, ws, B, H, KH, S, D,
+                                           len, out, ws, ctr, B, H, KH, S, D,
                                            scale, has_window, window, st);
 }

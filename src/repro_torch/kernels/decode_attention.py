@@ -11,10 +11,16 @@ or bfloat16 in, float32 math, q's type out; any S and D <= 128.
 Bound on the H100: the bytes of the valid K/V rows, about 16.8 MB per
 call at Yi-6B's (4, 32, 4, 2048, 128) bfloat16 with full rows, about
 5.0 µs at 3.35 TB/s.  B·KH is 16 there, so the kernel
-(``csrc/decode_attention.cu``) splits S into 32-position chunks, one
-block per (chunk, KV head, b), and a second pass combines each row's
-partial (m, l, acc) in chunk order — deterministic, no atomics.  Both
-passes are one launch of the C entry point and count as one launch.
+(``csrc/decode_attention.cu``) gives each block a run of 128 positions of
+one (KV head, b): two warps a 32-row tile, its rows copied to shared
+memory by 16-byte ``cp.async`` (all four tiles' copies in flight at
+once), q·Kᵀ and P·V on tensor cores for a bfloat16 cache (P split into
+two exact bf16 halves) and on the CUDA cores otherwise.  Only runs that
+hold valid positions write partial (m, l, acc); the last block of a
+(b, KV head) to arrive — an arrival counter tells it — combines them in
+run order, so the result is deterministic (no float atomics) and takes
+one launch.  The split depends only on S, so a row's values do not
+depend on the batch.
 
 ``launches`` counts the calls of this process that launched the kernel;
 only ``decode_attention_cuda`` adds to it.  The plain version is
@@ -26,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -34,9 +40,26 @@ from . import _build
 
 launches = 0
 MAX_D = 128
+RUN = 128           # cache positions per block (csrc/decode_attention.cuh)
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# the combining blocks' arrival counters, one int32 per (b, KV head) on
+# each device: allocated zeroed at the first launch there (grown only when
+# B·KH grows) and left at 0 by every launch, so steady-state decode
+# allocates nothing for them and a CUDA-graph capture stays valid.
+# Launches that share them run one after another on one stream.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters on ``device``, shared
+    by K3, K4 and K7."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,7 +69,23 @@ def _lib():
     lib.decode_attention_launch.restype = ctypes.c_int
     lib.decode_attention_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.decode_attention_workspace_floats.restype = ctypes.c_longlong
+    lib.decode_attention_attributes.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.decode_attention_attributes.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(dtype: torch.dtype, group: int, d: int):
+    """(registers a thread, shared-memory bytes a block) of the kernel a
+    launch in ``dtype`` at group size ``group`` and head dim ``d`` runs
+    (needs a card)."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().decode_attention_attributes(
+        int(dtype == torch.bfloat16), group, d, ctypes.byref(regs),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"decode_attention attributes: CUDA error {rc}")
+    return regs.value, smem.value
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -98,12 +137,14 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     lib = _lib()
     ws = torch.empty(lib.decode_attention_workspace_floats(b, h, s, d),
                      dtype=torch.float32, device=q.device)
+    counters = arrival_counters(q.device, b * kh)
     with torch.cuda.device(q.device):
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            b, h, kh, s, d, float(scale), int(window is not None),
-            int(window or 0), int(q.dtype == torch.bfloat16),
+            counters.data_ptr(), b, h, kh, s, d, float(scale),
+            int(window is not None), int(window or 0),
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

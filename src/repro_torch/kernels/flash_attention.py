@@ -9,13 +9,15 @@ valid key.  float32 or bfloat16 in, float32 math, the input's type out.
 
 Bound on the H100: ``4·B·H·S²·D`` operations (about half under the
 causal mask) against reading q, k, v and writing o once; at the micro
-path's (2,4,256,64) both are microseconds, so launch latency and
-occupancy bound it.  The kernel (``csrc/flash_attention.cu``) is the
-simple first version: one block per (b, h, 64-row q tile), K/V tiles of
-64 rows staged in shared memory as f32, the online-softmax state held in
-registers (four threads per query row), and tiles that the causal or
-window mask empties for the whole q tile are never loaded.  It takes any
-S and D <= 128.
+path's float32 (2,4,256,64), causal, the FMAs on the CUDA cores bound it
+(about 1 µs).  The kernel (``csrc/flash_attention.cu``) gives one
+512-thread block to each (16-row q tile, h, b), 128 blocks at that shape;
+K/V tiles of 64 rows arrive by ``cp.async`` into a ring of two stages, the
+next tile's copy overlapping this tile's arithmetic; scores are computed
+a key a lane against two q rows, P·V as four-row by four-column register
+tiles in eight key groups added in order at the end; the mask is applied
+only on tiles that cross it, and tiles it empties are never loaded.  It
+takes any S and D <= 128.
 
 ``launches`` counts the kernel launches of this process; only
 ``flash_attention_cuda`` adds to it.  The plain version is
@@ -41,11 +43,26 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("flash_attention")
+    lib.flash_attention_launch.argtypes = _ARGTYPES
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_attributes.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.flash_attention_attributes.restype = ctypes.c_int
+    return lib
+
+
+def kernel_attributes(dtype: torch.dtype, d: int):
+    """(registers a thread, shared-memory bytes a block) of the kernel
+    instantiated for ``dtype`` at head dim ``d`` (needs a card)."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().flash_attention_attributes(
+        int(dtype == torch.bfloat16), d, ctypes.byref(regs),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention attributes: CUDA error {rc}")
+    return regs.value, smem.value
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,7 +101,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
-        rc = _launcher()(
+        rc = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, kh, s, d, float(scale), int(causal),
             int(window is not None), int(window or 0),

@@ -13,9 +13,9 @@ q's type out; D <= 128; BS divides 32 or is a multiple of 32.
 The kernel (``csrc/paged_decode_attention.cu``) is K3's code
 (``csrc/decode_attention.cuh``) with the row address taken from the
 table, so at the same valid rows its values are K3's bit for bit; the
-grid depends only on (B, KH, T·BS/32), so a decode step never waits on
+grid depends only on (B, KH, T·BS/128), so a decode step never waits on
 the host.  Bound on the H100: the bytes of the valid K/V rows, as K3.
-Both passes are one launch of the C entry point and count as one launch.
+One launch, with K3's arrival counters (``arrival_counters``).
 
 ``launches`` counts the calls of this process that launched the kernel;
 only ``paged_decode_attention_cuda`` adds to it.  The plain version is
@@ -32,12 +32,13 @@ from typing import Optional
 import torch
 
 from . import _build
+from .decode_attention import arrival_counters
 
 launches = 0
 MAX_D = 128
-CHUNK = 32          # the kernel's positions per pass-1 block
+CHUNK = 32          # the kernel's K/V rows per pipeline stage
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -53,7 +54,7 @@ def _lib():
 
 def check_block_size(bs: int) -> None:
     """Raise ``ValueError`` unless the kernel takes blocks of ``bs`` rows:
-    a divisor of its 32-position chunk or a multiple of it."""
+    a divisor of its 32-row tile or a multiple of it."""
     if bs < 1 or (CHUNK % bs and bs % CHUNK):
         raise ValueError(f"paged_decode_attention: block size {bs} neither "
                          f"divides {CHUNK} nor is a multiple of it")
@@ -122,12 +123,13 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     lib = _lib()
     ws = torch.empty(lib.paged_decode_attention_workspace_floats(
         b, h, t_len * bs, d), dtype=torch.float32, device=q.device)
+    counters = arrival_counters(q.device, b * kh)
     with torch.cuda.device(q.device):
         rc = lib.paged_decode_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), b, h, kh, t_len, bs, d, float(scale),
-            int(window is not None), int(window or 0),
+            ws.data_ptr(), counters.data_ptr(), b, h, kh, t_len, bs, d,
+            float(scale), int(window is not None), int(window or 0),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -4,17 +4,17 @@ Replaces the Pallas TPU kernel ``paged_decode_attention_q_pallas``
 (``src/repro/kernels/decode_attention.py``): K4 with int8 pools k, v
 (P,KH,BS,D) and one float32 scale per row, k_scales and v_scales
 (P,KH,BS).  Each cache element is dequantized inside the kernel as
-``float(q8) · s`` right after its load; the float math after that is
-K4's step for step (``csrc/decode_attention.cuh``), so on the float32
-pools that hold ``float(q8) · s`` K7 gives K4's values bit for bit.
+``float(q8) · s`` where the arithmetic reads it; the float math after
+that is K4's step for step (``csrc/decode_attention.cuh``), so on the
+float32 pools that hold ``float(q8) · s`` K7 gives K4's values bit for
+bit.
 q is float32 or bfloat16 and the output has q's type; D <= 128; BS
 divides 32 or is a multiple of it.
 
 Bound on the H100: the bytes of the valid K/V rows and their scales,
 D + 4 bytes per row and head, half K4's on a bfloat16 pool (about
 1.13 µs at Yi-6B's path shape with lengths 1/37/1500/2048, against
-K4's 2.21).  Both passes are one launch of the C entry point and count
-as one launch.
+K4's 2.21).  One launch, with K3's arrival counters.
 
 ``launches`` counts the calls of this process that launched the kernel;
 only ``paged_decode_attention_q_cuda`` adds to it.  The plain version is
@@ -31,12 +31,13 @@ from typing import Optional
 import torch
 
 from . import _build
+from .decode_attention import arrival_counters
 from .paged_decode_attention import MAX_D, check_block_size
 
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,13 +125,15 @@ def paged_decode_attention_q_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     lib = _lib()
     ws = torch.empty(lib.paged_decode_attention_q_workspace_floats(
         b, h, t_len * bs, d), dtype=torch.float32, device=q.device)
+    counters = arrival_counters(q.device, b * kh)
     with torch.cuda.device(q.device):
         rc = lib.paged_decode_attention_q_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h, kh,
-            t_len, bs, d, float(scale), int(window is not None),
-            int(window or 0), int(q.dtype == torch.bfloat16),
+            lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), b, h, kh, t_len, bs, d, float(scale),
+            int(window is not None), int(window or 0),
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention_q kernel launch failed: "

@@ -95,6 +95,28 @@ def test_flash_attention_kernel_bf16(cuda):
                                rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [12, 16, 64, 96, 128])
+@pytest.mark.parametrize("s", [7, 100, 257])
+def test_flash_attention_kernel_across_q_tiles(cuda, s, d, dtype):
+    """Sequence lengths that end inside a 16-row q tile and a 64-row K/V
+    tile, GQA (4 heads on 2 KV heads), causal and with a window, float32
+    within 1e-5 and bfloat16 within one ulp of the plain version; D 12
+    has rows that are not 16-byte multiples in bfloat16 (element-wise
+    copies)."""
+    g = torch.Generator().manual_seed(s * d)
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda, dtype) for shape in
+               ((2, 4, s, d), (2, 2, s, d), (2, 2, s, d)))
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for causal, window in ((True, None), (True, 50), (False, None)):
+        want = ref.mha_ref(q, k, v, causal=causal, window=window)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 16, 256, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -134,7 +156,7 @@ def test_interpreter_on_card_matches_cpu_reference(cuda, build, int8):
 
 # (b, h, kh, s, d, window, dtype): Yi-6B's GQA 8 at head dim 128,
 # Phi-3-mini's head dim 96, a cache length that is no multiple of the
-# kernel's 32-position chunk, a window, and bfloat16
+# kernel's 32-row tile, a window, and bfloat16
 @pytest.mark.parametrize("b,h,kh,s,d,window,dtype", [
     (4, 32, 4, 512, 128, None, torch.float32),
     (4, 8, 8, 256, 96, None, torch.float32),
@@ -175,6 +197,58 @@ def test_decode_attention_kernel_empty_rows_are_zero(cuda):
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     assert torch.equal(ops.decode_attention(q, k, k, lengths, window=0),
                        torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_is_batch_invariant(cuda, dtype, window):
+    """A row's output is the same bits alone (B = 1) and inside a batch
+    of 4 whose other rows have other lengths: the split of a sequence's
+    positions depends only on S."""
+    g = torch.Generator().manual_seed(7)
+    b, h, kh, s, d = 4, 32, 4, 640, 128
+    q = torch.randn(b, h, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(b, kh, s, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    lens = [500, 1, 640, 129]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    batch = ops.decode_attention(q, k, v, lengths, window=window)
+    for i, n in enumerate(lens):
+        alone = ops.decode_attention(
+            q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+            v[i:i + 1].contiguous(),
+            torch.tensor([n], dtype=torch.int32, device=cuda), window=window)
+        assert torch.equal(alone[0], batch[i]), f"row {i} (length {n})"
+    # the arrival counters are left at 0 for the next launch
+    assert not K3.arrival_counters(cuda, b * kh).any()
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("runs,d", [(3, 64), (18, 30)])
+def test_decode_attention_kernel_at_run_edges(cuda, dtype, window, runs, d):
+    """Lengths 0, run - 1, run, run + 1 and S (a full ring), with and
+    without a window that crosses a run's edge, against the plain
+    version; the result is the same bits on a second launch.  The second
+    shape has more runs than the last block stages in shared memory and a
+    head dim whose rows are not 16-byte multiples (element-wise copies,
+    and the CUDA-core path in bfloat16)."""
+    run = K3.RUN
+    g = torch.Generator().manual_seed(run + d)
+    b, h, kh, s = 5, 16, 2, runs * run + 17
+    q = torch.randn(b, h, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(b, kh, s, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    lengths = torch.tensor([0, run - 1, run, run + 1, s], dtype=torch.int32,
+                           device=cuda)
+    want = ref.decode_attention_ref(q, k, v, lengths, window=window)
+    got = ops.decode_attention(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(ops.decode_attention(q, k, v, lengths, window=window),
+                       got)
 
 
 def test_decode_attention_kernel_refuses(cuda):
