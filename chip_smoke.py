@@ -12,8 +12,8 @@ Phases — any failure raises and the script exits non-zero:
 
   1. the card's name and power limit, torch and CUDA versions; nvcc
      builds every kernel from ``src/repro_torch/kernels/csrc`` (timed,
-     one nvcc per source, all at once); K2's and K3's registers a thread
-     and shared memory a block at their path shapes
+     one nvcc per source, all at once); K2's, K3's, K5's and K6's
+     registers a thread and shared memory a block at their path shapes
      (``cudaFuncGetAttributes``).
   2. each kernel against its plain version on the card: K1 quant_matmul
      at the interpreter's FC shapes and two larger ones (outputs equal
@@ -33,7 +33,9 @@ Phases — any failure raises and the script exits non-zero:
      dequant_matmul and K6 dequant_matmul_i4 at Yi-6B's MLP shapes at 4
      slots and at 1 and at two shapes off the tiles (float32 within
      1e-5 of the largest output; a row's values independent of the
-     other rows), K7 paged_decode_attention_q at K4's cases on int8
+     other rows; two calls bit-equal), at 4 slots also with the weight
+     out of L2 (each call on the next of enough copies to hold 150 MB,
+     beside the bf16 cuBLAS product on copies of the float weight), K7 paged_decode_attention_q at K4's cases on int8
      pools with row scales (float32 within 1e-5, bfloat16 within
      ``BF16_ATOL``, and bit-equal to K4 on the float32 pools that hold
      float(q8) * s); kernel, plain and library times from CUDA events
@@ -105,7 +107,8 @@ Phases — any failure raises and the script exits non-zero:
      (a)'s) and (c) ``weight_dtype="int4"`` paged (K6); each run keeps
      its cache in place and device memory flat, every block comes back,
      the resident weights are at least 1.9x (int8) and 3.6x (int4)
-     smaller than bf16 and the KV 1.9x; the profile of each; an EDF
+     smaller than bf16 and the KV 1.9x; the profile of each (with K5's
+     or K6's mean device time a launch inside the step); an EDF
      displacement on (b) emits (b)'s tokens; and, measured with no
      limit, the largest |logit| difference from the bf16 engine over
      16 teacher-forced steps and how many greedy tokens equal phase 7's.
@@ -159,6 +162,9 @@ BF16_ATOL = 2.0 ** -6
 # copies of K3's path-shape cache for its cold-L2 time: 16 x 7.3 MB of
 # valid rows pass through the 50 MB L2 between two uses of one copy
 COLD_COPIES = 16
+# K5's and K6's cold-L2 times rotate weight copies of at least this many
+# bytes in all (the 45.1 MB int8 weight 4 times, the 22.5 MB int4 one 7)
+COLD_BYTES = 150e6
 
 
 def log(*args) -> None:
@@ -572,10 +578,24 @@ def check_paged_decode_attention(torch, np, dev):
     return rows
 
 
+def cold_time_ms(torch, w, fn):
+    """(device ms per call of ``fn`` on a weight out of L2, copies): each
+    call of the captured graph reads the next of enough copies of ``w``
+    to hold ``COLD_BYTES``."""
+    n = max(2, -(-int(COLD_BYTES) // (w.numel() * w.element_size())))
+    calls = itertools.cycle([functools.partial(fn, w.clone())
+                             for _ in range(n)])
+    ms, _ = time_ms(torch, lambda: next(calls)(), calls=n)
+    return ms, n
+
+
 def check_dequant_matmul(torch, np, dev):
     """K5 and K6 against their plain versions: Yi-6B's MLP shapes at 4
     decode slots (wi/wg, then wo) and at one, and two shapes off the
-    tiles (rows of bytes not a multiple of 4, partial column tiles)."""
+    tiles (rows of bytes not a multiple of 16, read byte by byte; partial
+    column tiles): within 1e-5 of the largest output, a row alone equal
+    to the same row in the batch, two calls equal; at 4 slots also the
+    time with the weight out of L2."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.dequant_matmul import (dequant_matmul_cuda,
                                                     dequant_matmul_i4_cuda)
@@ -609,6 +629,8 @@ def check_dequant_matmul(torch, np, dev):
                                got[-1:]):
                 raise AssertionError(f"{name} {(m, k, n)}: a row's values "
                                      f"depend on the other rows")
+            if not torch.equal(ops.dequant_matmul(x, leaf), got):
+                raise AssertionError(f"{name} {(m, k, n)}: two calls differ")
             row = {"shape": [m, k, n], "dtype": "float32",
                    "weight": "int4" if int4 else "int8", "max_abs_err": err,
                    "tolerance": tol}
@@ -656,11 +678,24 @@ def check_dequant_matmul(torch, np, dev):
             xb = x.bfloat16()
             wb = lm_quant.dequant_leaf(leaf, torch.bfloat16)
             row["bf16_cublas_ms"], _ = time_ms(torch, lambda: xb @ wb)
+            cold = ""
+            if m == 4:
+                # the decode step's shapes: there each launch reads another
+                # layer's weight from HBM; each call of the captured graph
+                # reads the next of enough copies to pass COLD_BYTES
+                # through the 50 MB L2 between two uses of one copy
+                row["cold_ms"], row["cold_copies"] = cold_time_ms(
+                    torch, w, lambda wc: kernel(x, wc, scale))
+                row["bf16_cublas_cold_ms"], row["bf16_cublas_cold_copies"] = \
+                    cold_time_ms(torch, wb, lambda wc: xb @ wc)
+                cold = (f"  out of L2: kernel {row['cold_ms'] * 1e3:.2f} us "
+                        f"({row['cold_copies']} copies), bf16 cuBLAS "
+                        f"{row['bf16_cublas_cold_ms'] * 1e3:.2f} us")
             del xb, wb
             out[int4].append(row)
             log(f"  {name} {(m, k, n)}: err {err:.3g} (tol {tol:.3g}); "
                 + _times(row) + f"  bf16 cuBLAS on the float weight "
-                f"{row['bf16_cublas_ms'] * 1e3:.2f} us")
+                f"{row['bf16_cublas_ms'] * 1e3:.2f} us" + cold)
     return out[False], out[True]
 
 
@@ -1216,11 +1251,23 @@ def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
     row["top_device"] = [
         {"name": e.key[:80], "us_per_step": e.self_device_time_total / n_steps,
          "count_per_step": e.count / n_steps} for e in events[:8]]
+    # the mean device time of each launch of K5 and K6 in the step
+    per_launch = {}
+    for e in events:
+        if "dequant_matmul_kernel" in e.key and e.count:
+            name = ("dequant_matmul_i4" if "Int4W" in e.key
+                    else "dequant_matmul")
+            per_launch[name] = e.self_device_time_total / e.count
+    if per_launch:
+        row["kernel_us_per_launch"] = per_launch
     log(f"  device {device_ms:.3f} ms per decode step = "
         f"{100 * row['device_busy_share']:.1f}% of the median step; top: "
         + "; ".join(f"{t['name'][:48]} {t['us_per_step']:.1f} us x"
                     f"{t['count_per_step']:.0f}"
-                    for t in row["top_device"][:5]))
+                    for t in row["top_device"][:5])
+        + "".join(f"; {name} {us:.2f} us a launch"
+                  for name, us in row.get("kernel_us_per_launch",
+                                          {}).items()))
 
 
 def check_preemption(eng, prompts, want) -> None:
@@ -1858,6 +1905,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     from repro_torch.kernels import decode_attention as K3
+    from repro_torch.kernels import dequant_matmul as K56
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import paged_decode_attention as K4
     from repro_torch.kernels import quant_matmul as K1
@@ -1865,7 +1913,9 @@ def main() -> int:
     # registers and shared memory a block at the path shapes
     attrs = {"flash_attention": K2.kernel_attributes(torch.float32, 64),
              "decode_attention": K3.kernel_attributes(torch.bfloat16, 8,
-                                                      128)}
+                                                      128),
+             "dequant_matmul": K56.kernel_attributes(False),
+             "dequant_matmul_i4": K56.kernel_attributes(True)}
     for name, (regs, smem) in attrs.items():
         log(f"  {name} at its path shape: {regs} registers a thread, "
             f"{smem} bytes of shared memory a block")
@@ -2044,6 +2094,13 @@ def main() -> int:
     for kern in kernels:
         if kern["name"] in attrs:
             kern["registers"], kern["smem_bytes"] = attrs[kern["name"]]
+    for kern in kernels:
+        if kern["name"] not in ("dequant_matmul", "dequant_matmul_i4"):
+            continue
+        kern["decode_step_us_per_launch"] = {      # phase 10's profiles
+            r["model"]: r["kernel_us_per_launch"][kern["name"]]
+            for r in q_rows
+            if kern["name"] in r.get("kernel_us_per_launch", {})}
     kernels[-1]["launches_on_runs"] = {
         f"{SSM_ARCH} one-shot": ssm_launches["a"],
         f"{SSM_ARCH} prefill_chunk={CHUNK}": ssm_launches["b"],

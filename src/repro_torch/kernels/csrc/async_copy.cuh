@@ -1,7 +1,8 @@
-// 16-byte asynchronous copies from device memory to shared memory
-// (cp.async, sm_80 and later) and the conversion of a 16-byte chunk of
-// float32, bfloat16 or int8 elements to float32, shared by the attention
-// kernels (flash_attention.cu, decode_attention.cuh).
+// Asynchronous copies from device memory to shared memory (cp.async,
+// sm_80 and later: 16-byte ones, and 4-byte ones for small operands) and
+// the conversion of a 16-byte chunk of float32, bfloat16 or int8 elements
+// to float32, shared by the attention kernels (flash_attention.cu,
+// decode_attention.cuh) and, for the copies, by dequant_matmul.cu.
 
 #pragma once
 
@@ -18,6 +19,16 @@ __device__ __forceinline__ void cp16(void* smem, const void* gmem,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = fill ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
+// copy 4 bytes (or write 4 zero bytes when !fill); both addresses 4-byte
+// aligned.  .ca: through L1, for small operands every block reads
+__device__ __forceinline__ void cp4(void* smem, const void* gmem, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = fill ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n)
                : "memory");
 }

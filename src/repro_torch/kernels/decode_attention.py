@@ -54,7 +54,7 @@ _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters on ``device``, shared
-    by K3, K4 and K7."""
+    by K3, K4, K5, K6 and K7."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
         buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,

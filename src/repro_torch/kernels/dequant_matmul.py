@@ -5,21 +5,28 @@ Replace the Pallas TPU kernels ``dequant_matmul_pallas`` and
 ``dequant_matmul_i4_pallas`` (``src/repro/kernels/dequant_matmul.py``):
 x (M,K) float32 times a weight (K,N) held as int8, or as packed int4
 bytes (K,N/2) whose byte j carries column 2j in its low nibble and 2j+1
-in its high nibble, with one float32 scale per output column.  The
-weight is cast to float32 after its load, the sum over K accumulates in
+in its high nibble, with one float32 scale per output column.  Every
+product of x and the weight is exact, the sum over K accumulates in
 float32 (no TF32) and each output is scaled once after it.  Any M, K and
 N; the JAX wrapper pads to (128,128) tiles instead.
 
 Bound on the H100: the weight's bytes, read once (45.1 MB in int8,
 13.5 µs at 3.35 TB/s, for Yi-6B's 4096 x 11008 MLP weight; half that in
-int4).  The kernel (``csrc/dequant_matmul.cu``) reads each weight row
-coalesced, 16 columns a thread in one vector load, converts them with
-two instructions each, reads x's rows from shared memory, and splits K
-across blocks so the grid fills the card; a second pass adds the K
-chunks' partial sums in chunk order and applies the scale, so the
-result is deterministic and a row's values do not depend on the other
-rows of the batch.  Both passes are one launch of the C entry point and
-count as one launch.
+int4).  Two things keep a kernel from it: a stream of the weight that
+leaves SMs idle or short of bytes in flight, and, at int4's rate, the
+CUDA cores' four FMAs and conversion per weight element at M = 4.  The
+kernel (``csrc/dequant_matmul.cu``) runs a persistent grid of at most
+132 blocks, each taking an equal contiguous share of the weight's units
+of 128 rows by 128 columns (stream-K) through a ring of shared-memory
+buffers filled by 16-byte ``cp.async`` copies, x's rows in the same
+copies.  The products run on the tensor cores (``mma.sync`` bf16,
+float32 sums) with x split exactly into three bf16 terms and the weight
+converted to bf16 exactly, so every product is exact.  A column tile
+shared by several blocks is added up, in K order, by the last of them to
+arrive, through arrival counters (``decode_attention.arrival_counters``,
+allocated once per device and left at 0) — one launch.  The split
+depends on (K, N) only, so the result is deterministic and a row's
+values do not depend on the other rows of the batch.
 
 ``launches`` counts the calls of this process that launched K5 and
 ``launches_i4`` those that launched K6; only ``dequant_matmul_cuda`` and
@@ -36,12 +43,18 @@ import functools
 import torch
 
 from . import _build
+from .decode_attention import arrival_counters
 
 launches = 0
 launches_i4 = 0
-MAX_M = 4 * 65535       # the grid's row tiles of 4 in its z dimension
+MAX_M = 4 * 65535       # the grid's row tiles of 4 in its y dimension
+# the kernel's cut of a weight (csrc/dequant_matmul.cu): units of
+# UNIT_ROWS rows of K by 128 columns, shared out among at most 132 blocks,
+# each taking an equal contiguous run (read in stages of 2 units in int8,
+# 4 in int4)
+UNIT_ROWS = 128
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,9 +63,25 @@ def _lib():
     for fn in (lib.dequant_matmul_launch, lib.dequant_matmul_i4_launch):
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    lib.dequant_matmul_workspace_floats.argtypes = [ctypes.c_int] * 4
-    lib.dequant_matmul_workspace_floats.restype = ctypes.c_longlong
+    for fn in (lib.dequant_matmul_workspace_floats,
+               lib.dequant_matmul_counter_ints):
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+    lib.dequant_matmul_attributes.argtypes = (
+        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.dequant_matmul_attributes.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(int4: bool):
+    """(registers a thread, shared-memory bytes a block) of K5 (K6 with
+    ``int4``) on weights of 16-byte rows (needs a card)."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().dequant_matmul_attributes(int(int4), ctypes.byref(regs),
+                                          ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"dequant_matmul attributes: CUDA error {rc}")
+    return regs.value, smem.value
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -90,10 +119,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     lib = _lib()
     ws = torch.empty(lib.dequant_matmul_workspace_floats(m, k, n, int(int4)),
                      dtype=torch.float32, device=x.device)
+    counters = arrival_counters(
+        x.device, lib.dequant_matmul_counter_ints(m, k, n, int(int4)))
     fn = lib.dequant_matmul_i4_launch if int4 else lib.dequant_matmul_launch
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), m, k, n,
+                ws.data_ptr(), counters.data_ptr(), m, k, n,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

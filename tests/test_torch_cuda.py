@@ -463,6 +463,107 @@ def test_dequant_matmul_kernels_match_plain(cuda, m, k, n, int4):
     assert torch.equal(ops.dequant_matmul(x[-1:], leaf), got[-1:])
 
 
+def _dequant_case(cuda, k, n, int4, seed):
+    """A quantized (k, n) weight's leaf, its kernel operand and scales, and
+    a generator for x, made from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    leaf = lm_quant._quantize_leaf(torch.randn(k, n, generator=g).to(cuda),
+                                   4 if int4 else 8)
+    return leaf, (leaf.q4 if int4 else leaf.q8), leaf.qs.reshape(-1), g
+
+
+def _dequant_kernel(int4):
+    return K56.dequant_matmul_i4_cuda if int4 else K56.dequant_matmul_cuda
+
+
+# (m, k, n): K below 16 and off 16; at and around a unit (UNIT_ROWS rows),
+# a stage of int8 (2 units) and of int4 (4 units) and each ring's depth
+# (4 x 2 and 3 x 4 units); unit counts below, at and above the grid's
+# width (132 blocks) and twice it, so shares of one and two units; one
+# column tile shared by 129 and by 132 blocks; a partial column tile on
+# 16-byte rows
+_U = K56.UNIT_ROWS
+DEQUANT_EDGE_CASES = [
+    (4, 1, 1024), (4, 7, 1024), (4, 15, 1024), (4, 16, 1024), (4, 17, 1024),
+    (3, _U - 1, 1024), (3, _U, 1024), (3, _U + 1, 1024),
+    (4, 2 * _U - 1, 1024), (4, 2 * _U + 1, 1024),
+    (4, 4 * _U - 1, 1024), (4, 4 * _U + 1, 1024),
+    (4, 8 * _U - 1, 1024), (4, 8 * _U + 1, 1024),
+    (4, 12 * _U - 1, 1024), (4, 12 * _U + 1, 1024),
+    (2, 16 * _U, 1024), (2, 16 * _U + 1, 1024),
+    (4, 33 * _U, 1024), (4, 33 * _U + 1, 1024),
+    (4, 129 * _U - 1, 128), (4, 20000, 128), (4, 300, 96)]
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("m,k,n", DEQUANT_EDGE_CASES)
+def test_dequant_matmul_kernels_at_stage_and_share_edges(cuda, m, k, n,
+                                                          int4):
+    """K5 and K6 where the stream-K cut of the weight and its stages change
+    shape: within 1e-5 of the largest output of the plain version, the
+    same bits on a second call, and the arrival counters left at 0."""
+    leaf, w, scale, g = _dequant_case(cuda, k, n, int4, 11 * k + n)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    plain = ref.dequant_matmul_i4_ref if int4 else ref.dequant_matmul_ref
+    want = plain(x, w, scale)
+    got = _dequant_kernel(int4)(x, w, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    assert torch.equal(_dequant_kernel(int4)(x, w, scale), got)
+    assert not K3.arrival_counters(cuda, 1).any()
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (4, 11008, 4096),
+                                   (3, 1000, 522)])
+def test_dequant_matmul_kernels_are_deterministic(cuda, m, k, n, int4):
+    """Two calls on the same operands give the same bits: at the decode
+    step's shapes and on the byte-by-byte path."""
+    _, w, scale, g = _dequant_case(cuda, k, n, int4, k + n)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    first = _dequant_kernel(int4)(x, w, scale)
+    assert torch.equal(_dequant_kernel(int4)(x, w, scale), first)
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("m", range(1, 10))
+def test_dequant_matmul_kernels_are_batch_invariant(cuda, m, int4):
+    """Each row of a batch of m (past 4, a second and third row tile) is
+    the same bits alone: the cut of the weight and every order of
+    summation depend on (K, N) only.  K 2000 and N 1536 make 192 units,
+    shares of one and two units and tiles shared by several blocks."""
+    k, n = 2000, 1536
+    leaf, w, scale, g = _dequant_case(cuda, k, n, int4, 100 + m)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    plain = ref.dequant_matmul_i4_ref if int4 else ref.dequant_matmul_ref
+    want = plain(x, w, scale)
+    batch = _dequant_kernel(int4)(x, w, scale)
+    torch.testing.assert_close(batch, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    for i in range(m):
+        alone = _dequant_kernel(int4)(x[i:i + 1].clone(), w, scale)
+        assert torch.equal(alone[0], batch[i]), f"row {i} of {m}"
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["int8", "int4"])
+def test_dequant_matmul_kernels_on_an_unaligned_weight(cuda, int4):
+    """A weight whose pointer is not 16-byte aligned is read byte by byte
+    into the same buffers: the same bits as the aligned weight."""
+    _, w, scale, g = _dequant_case(cuda, 3000, 2048, int4, 7)
+    x = torch.randn(4, 3000, generator=g).to(cuda)
+    buf = torch.empty(w.numel() + 16, dtype=torch.int8, device=cuda)
+    odd = buf[1:1 + w.numel()].view(w.shape)
+    odd.copy_(w)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    before = (K56.launches, K56.launches_i4)
+    aligned = _dequant_kernel(int4)(x, w, scale)
+    assert torch.equal(_dequant_kernel(int4)(x, odd, scale), aligned)
+    assert (K56.launches - before[0], K56.launches_i4 - before[1]) == \
+        ((0, 2) if int4 else (2, 0))
+    assert not K3.arrival_counters(cuda, 1).any()
+
+
 def test_dequant_matmul_kernels_refuse(cuda):
     x = torch.zeros(2, 8, device=cuda)
     w = torch.zeros(8, 4, dtype=torch.int8, device=cuda)
