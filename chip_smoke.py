@@ -12,13 +12,15 @@ Phases — any failure raises and the script exits non-zero:
 
   1. the card's name and power limit, torch and CUDA versions; nvcc
      builds every kernel from ``src/repro_torch/kernels/csrc`` (timed,
-     one nvcc per source, all at once); K2's, K3's, K5's and K6's
-     registers a thread and shared memory a block at their path shapes
+     one nvcc per source, all at once); K1's (each path), K2's, K3's,
+     K5's, K6's and K8's (each of its three kernels) registers a thread
+     and shared memory a block at their path shapes
      (``cudaFuncGetAttributes``).
   2. each kernel against its plain version on the card: K1 quant_matmul
      at the interpreter's FC shapes and two larger ones (outputs equal
      exactly, with the weight both as a (K, N) tensor and as the
-     transposed view of an (N, K) one that the FC layer passes), K2
+     transposed view of an (N, K) one that the FC layer passes; the path
+     each layout took, and at M = 1 the tiled path's time beside it), K2
      flash_attention causal, non-causal, GQA, sliding window (float32
      within 1e-5) and bfloat16, K3 decode_attention at Yi-6B's and
      Phi-3-mini's decode shapes with lengths 1, 37, 1500 and 2048 (a
@@ -48,8 +50,10 @@ Phases — any failure raises and the script exits non-zero:
      state), Zamba2-1.2B's heads and N 64, float32, groups of 2 with D,
      192 tokens with the wrapper's chunk of 64, and a padded tail of dt =
      0 rows (an exact no-op on the state), against ``ssd_scan_ref``
-     within atol 5e-4 / rtol 1e-3 (bf16 y: one bf16 ulp besides); no
-     single library call computes the scan.
+     within atol 5e-4 / rtol 1e-3 (bf16 y: one bf16 ulp besides); two
+     bounds, the least operations on the CUDA cores in float32 and on
+     the tensor cores in bf16; no single library call computes the
+     scan.
   3. the micro main path, with every launch count set to 0 just before
      it: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
      "reference")), device="cuda")`` answers 8 requests on each of
@@ -126,8 +130,9 @@ Phases — any failure raises and the script exits non-zero:
      tokens) and (b) 8 with ``prefill_chunk=128`` (100-600 tokens), 32
      new tokens each: K8 launched 48 x (one-shot prefills + chunk steps)
      and nothing else, the cache in place, memory flat; torch.profiler
-     over decode steps and over a 512-token prefill; an EDF displacement
-     on (a) emits the uninterrupted tokens.  Then Zamba2-1.2B the same
+     over decode steps and over a 512-token prefill (with K8's device
+     time a launch inside it); an EDF displacement on (a) emits the
+     uninterrupted tokens.  Then Zamba2-1.2B the same
      way with 4 requests a run (K8 38 x per prefill or chunk).
   A JSON line of the models, one listing the kernels (K1-K8), then the
   last line ``{"ok": true, "device": {...}}``.
@@ -229,6 +234,7 @@ def _times(row) -> str:
 
 def check_quant_matmul(torch, np, dev):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quant_matmul as K1
     from repro_torch.kernels.quant_matmul import quant_matmul_cuda
 
     rng = np.random.default_rng(11)
@@ -259,11 +265,21 @@ def check_quant_matmul(torch, np, dev):
                 raise AssertionError(f"K1 {m}x{k}x{n} weight {layout}: kernel "
                                      f"differs from the plain version by up "
                                      f"to {err}")
-        row = {"shape": [m, k, n], "max_abs_err": err, "library_ms": None}
+        row = {"shape": [m, k, n], "max_abs_err": err, "library_ms": None,
+               "path": K1.path(m, k, w.stride()),
+               "path_weight_nk_t": K1.path(m, k, w_nk_t.stride())}
         row["ms"], row["call_ms"] = time_ms(torch, lambda: quant_matmul_cuda(
             x, w, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
         row["ms_weight_nk_t"], _ = time_ms(torch, lambda: quant_matmul_cuda(
             x, w_nk_t, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
+        if row["path"] != "tiles":      # the tiled path on the same call
+            tiled = quant_matmul_cuda(x, w, bias, wsum, scale, x_zp=x_zp,
+                                      out_zp=out_zp, kernel_path="tiles")
+            if not torch.equal(tiled, want):
+                raise AssertionError(f"K1 {m}x{k}x{n} tiled path differs")
+            row["tiles_ms"], _ = time_ms(torch, lambda: quant_matmul_cuda(
+                x, w, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp,
+                kernel_path="tiles"))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
             torch, lambda: ref.quant_matmul_ref(x, w, bias, x_zp, scale,
                                                 out_zp))
@@ -284,9 +300,12 @@ def check_quant_matmul(torch, np, dev):
             row["library_ms"], _ = time_ms(torch, library)
             row["library"] = "torch._int_mm + torch epilogue"
         rows.append(row)
+        tiles = (f"; the tiled path {row['tiles_ms'] * 1e3:.2f} us"
+                 if "tiles_ms" in row else "")
         log(f"  K1 {m:>4}x{k:<5}x{n:<4} equal in both weight layouts; "
             + _times(row) + f"  (N,K).T weight "
-            f"{row['ms_weight_nk_t'] * 1e3:.2f} us")
+            f"{row['ms_weight_nk_t'] * 1e3:.2f} us; paths {row['path']}, "
+            f"{row['path_weight_nk_t']}" + tiles)
     return rows
 
 
@@ -812,12 +831,14 @@ def check_paged_decode_attention_q(torch, np, dev):
 SSD_ATOL, SSD_RTOL = 5e-4, 1e-3
 
 
-def ssd_bound(b, s, h, p, g, n, chunk, item, h0, d):
+def ssd_bound(b, s, h, p, g, n, chunk, item, h0, d,
+              ops_per_s=H100_F32_OPS_PER_S):
     """(least ms, what bounds it) of one SSD scan: the bytes of x, y, dt,
     B, C, A (and D, h0) once and the float32 state out; the least
     operations — C·Bᵀ once per group and chunk and only its causal half,
     the causal half of the (L, L)·(L, P) product, C·stateᵀ and the state
-    update per head and chunk — on the CUDA cores."""
+    update per head and chunk — on the CUDA cores (``ops_per_s``: at
+    another rate, such as the tensor cores')."""
     nc = s // chunk
     tri = chunk * (chunk + 1) // 2
     nbytes = (2 * item * b * s * h * p + 4 * b * s * h + 2 * item * b * s * g
@@ -825,7 +846,7 @@ def ssd_bound(b, s, h, p, g, n, chunk, item, h0, d):
                                                                    else 1))
     ops = (b * g * nc * 2 * tri * n
            + b * h * nc * (2 * tri * p + 4 * chunk * n * p))
-    return bound(nbytes, ops, H100_F32_OPS_PER_S)
+    return bound(nbytes, ops, ops_per_s)
 
 
 def check_ssd_scan(torch, np, dev):
@@ -837,6 +858,7 @@ def check_ssd_scan(torch, np, dev):
     for this kernel (atol 5e-4, rtol 1e-3), bfloat16 y within one
     bfloat16 ulp besides."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as K8
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -902,8 +924,16 @@ def check_ssd_scan(torch, np, dev):
                                             chunk=chunk, h0=st))
         row["bound_ms"], row["bound_by"] = ssd_bound(
             b, s, h, p, g, n, chunk, x.element_size(), h0, d)
+        # the same least operations on the tensor cores in bf16, which
+        # carry the kernel's products
+        row["bound_tensor_core_ms"], row["bound_tensor_core_by"] = ssd_bound(
+            b, s, h, p, g, n, chunk, x.element_size(), h0, d,
+            H100_BF16_OPS_PER_S)
+        row["tiles"] = list(K8.tiling(s, h, p, n, chunk, dt_))
         rows.append(row)
-        log(f"  K8 {label}: err {err:.3g}; " + _times(row))
+        log(f"  K8 {label}: err {err:.3g}; " + _times(row)
+            + f"; on the tensor cores {row['bound_tensor_core_ms'] * 1e3:.4f}"
+            f" us ({row['bound_tensor_core_by']}); tiles {row['tiles']}")
     return rows
 
 
@@ -1786,6 +1816,8 @@ def profile_prefill(torch, np, eng, row, prompt) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ssd_scan as K8
+
     batch = {"tokens": torch.as_tensor(prompt[None, :-1].astype(np.int64),
                                        device=eng.device)}
     with torch.no_grad():
@@ -1795,22 +1827,31 @@ def profile_prefill(torch, np, eng, row, prompt) -> None:
         eng._prefill((eng.params, batch))
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
+        before = K8.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             eng._prefill((eng.params, batch))
             torch.cuda.synchronize()
+        k8_calls = K8.launches - before
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
     device = sum(e.self_device_time_total for e in events) / 1e3
+    # K8's three kernels (chunk_state, state_pass, chunk_output) per call
+    k8_us = sum(e.self_device_time_total for e in events
+                if any(k in e.key for k in K8.KERNEL_NAMES))
     row["prefill_profile"] = {
         "tokens": len(prompt) - 1, "host_ms": host, "device_ms": device,
         "busy_share": device / host,
+        "ssd_scan_us": k8_us, "ssd_scan_calls": k8_calls,
+        "ssd_scan_us_per_launch": k8_us / max(k8_calls, 1),
         "top_device": [{"name": e.key[:80],
                         "us": e.self_device_time_total,
                         "count": e.count} for e in events[:8]]}
     log(f"  prefill of {len(prompt) - 1} tokens: host {host:.2f} ms, device "
-        f"{device:.2f} ms ({100 * device / host:.1f}% busy); top: "
+        f"{device:.2f} ms ({100 * device / host:.1f}% busy); K8 "
+        f"{k8_us / 1e3:.3f} ms in {k8_calls} calls "
+        f"({k8_us / max(k8_calls, 1):.2f} us a call); top: "
         + "; ".join(f"{t['name'][:48]} {t['us']:.0f} us x{t['count']}"
                     for t in row["prefill_profile"]["top_device"][:5]))
 
@@ -1911,14 +1952,27 @@ def main() -> int:
     from repro_torch.kernels import quant_matmul as K1
     dev = torch.device("cuda")
     # registers and shared memory a block at the path shapes
-    attrs = {"flash_attention": K2.kernel_attributes(torch.float32, 64),
+    from repro_torch.kernels import ssd_scan as K8
+    attrs = {"quant_matmul": K1.kernel_attributes("rows_k"),
+             "flash_attention": K2.kernel_attributes(torch.float32, 64),
              "decode_attention": K3.kernel_attributes(torch.bfloat16, 8,
                                                       128),
              "dequant_matmul": K56.kernel_attributes(False),
-             "dequant_matmul_i4": K56.kernel_attributes(True)}
+             "dequant_matmul_i4": K56.kernel_attributes(True),
+             "ssd_scan": K8.kernel_attributes(torch.bfloat16, 2, 512, 48, 64,
+                                              128, 128)}
     for name, (regs, smem) in attrs.items():
         log(f"  {name} at its path shape: {regs} registers a thread, "
             f"{smem} bytes of shared memory a block")
+    k8_parts = {f"{part} {str(dt)[6:]} {s}": K8.kernel_attributes(
+        dt, which, s, 48, 64, 128, 128)
+        for which, part in enumerate(K8.KERNEL_NAMES)
+        for dt in (torch.bfloat16, torch.float32) for s in (512, 128)}
+    log("  quant_matmul paths: " + ", ".join(
+        f"{p_} {K1.kernel_attributes(p_)}" for p_ in K1.PATHS)
+        + " (registers, static bytes); ssd_scan at Mamba2-780m's shapes: "
+        + ", ".join(f"{k} {v}" for k, v in k8_parts.items())
+        + " (registers, bytes)")
     log(f"  flash_attention bfloat16 D 64: "
         f"{K2.kernel_attributes(torch.bfloat16, 64)}; decode_attention "
         f"float32 G 8 D 128: "
@@ -2101,6 +2155,11 @@ def main() -> int:
             r["model"]: r["kernel_us_per_launch"][kern["name"]]
             for r in q_rows
             if kern["name"] in r.get("kernel_us_per_launch", {})}
+    kernels[-1]["bound_tensor_core_ms"] = k8_rows[0]["bound_tensor_core_ms"]
+    kernels[-1]["bound_tensor_core_by"] = k8_rows[0]["bound_tensor_core_by"]
+    kernels[-1]["us_per_launch_in_prefill"] = {
+        r["model"]: r["prefill_profile"]["ssd_scan_us_per_launch"]
+        for r in ssm_rows + hybrid_rows if "prefill_profile" in r}
     kernels[-1]["launches_on_runs"] = {
         f"{SSM_ARCH} one-shot": ssm_launches["a"],
         f"{SSM_ARCH} prefill_chunk={CHUNK}": ssm_launches["b"],

@@ -6,25 +6,40 @@
 //   acc = sum_k x[m,k] * w[k,n] - x_zp * wsum[n] + bias[n]     (int32)
 //   out = clamp(rintf(float(acc) * scale[n]) + out_zp, -128, 127)
 // rintf rounds half to even like jnp.round, and __fmul_rn keeps nvcc from
-// contracting the scale multiply into anything else.
+// contracting the scale multiply into anything else.  int32 sums wrap the
+// same way in any order, so every path gives the same bits.
 //
 // Bound on the H100: at the interpreter's shapes (one row, K and N of a
-// few hundred) the work is a few thousand bytes, so launch latency bounds
-// it; at large shapes max(bytes / 3.35 TB/s, 2MNK / 1979 TOPS).  This
-// first version is the simple one: one 256-thread block per 64x64 output
-// tile, K walked in 32-deep tiles staged in shared memory (the next
-// tile's loads in flight while one computes), plain int32 multiply-adds
-// (4x4 outputs per thread).  The ragged M/K/N edges are
-// masked while tiles load, so the wrapper makes no padded copies (zero
-// padding adds nothing to acc or to wsum).  w is read through its two
-// strides, so a transposed view (the FC weight, stored (N,K)) needs no
-// copy.  Tensor-core int8 MMA is later work.
+// few hundred) the work is a few thousand bytes, so launch latency and
+// the dependent loads after it bound it; at large shapes max(bytes / 3.35
+// TB/s, 2MNK / 1979 TOPS).  Two paths, chosen by the wrapper:
+//
+// - rows (M <= 16), the interpreter's FULLY_CONNECTED: no shared tiles and
+//   no __syncthreads per K step.  For the FC layer's (N,K) weight, seen as
+//   its transposed view (K contiguous per column), one warp takes one
+//   column: 16-byte loads of x and of the column, __dp4a, a warp-shuffle
+//   sum and the epilogue in the warp.  For an n-contiguous (K,N) weight, x
+//   goes once into shared memory and each lane walks its slice of K for
+//   its column (8 warps, 8 slices, summed in order once at the end).
+// - tiles (larger M): one 256-thread block per 64x64 output tile, K walked
+//   in 32-deep tiles staged in shared memory (the next tile's loads in
+//   flight while one computes), plain int32 multiply-adds (4x4 outputs per
+//   thread).
+//
+// The ragged M/K/N edges are masked in the loads, so the wrapper makes no
+// padded copies (zero padding adds nothing to acc or to wsum).  w is read
+// through its two strides, so a transposed view needs no copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int ROW_M = 16;        // the rows path's largest M
+constexpr int ROW_WARPS = 8;     // warps of a rows-path block
+// the most bytes of x the n-contiguous rows path stages (with its 16 KB of
+// partial sums, within the 48 KB a block has without opting in)
+constexpr size_t ROW_X_BYTES = 32 * 1024;
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int BK = 32;
@@ -34,6 +49,120 @@ constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
 constexpr int LOADS = BM * BK / THREADS;         // bytes per thread per tile
 static_assert(BM * BK == BK * BN && BM * BK % THREADS == 0,
               "the x and w tiles split evenly over the threads");
+
+__device__ __forceinline__ int8_t requant(int acc, int n, int x_zp,
+                                         int out_zp,
+                                         const int32_t* __restrict__ bias,
+                                         const int32_t* __restrict__ wsum,
+                                         const float* __restrict__ scale) {
+  const int a = acc - x_zp * wsum[n] + bias[n];
+  const float r = rintf(__fmul_rn(__int2float_rn(a), scale[n]));
+  const float o = fminf(fmaxf(r + static_cast<float>(out_zp), -128.0f),
+                        127.0f);
+  return static_cast<int8_t>(static_cast<int>(o));
+}
+
+// rows path, weight with K contiguous per column (w_sk == 1): warp w of
+// block b takes column b * ROW_WARPS + w; with ``vec`` (K and w_sn multiples
+// of 16, both bases 16-byte aligned) each lane takes 16 bytes of K at a
+// time, else one byte.
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+quant_matmul_rows_k(const int8_t* __restrict__ x,
+                    const int8_t* __restrict__ w,
+                    const int32_t* __restrict__ bias,
+                    const int32_t* __restrict__ wsum,
+                    const float* __restrict__ scale,
+                    int8_t* __restrict__ out, int M, int K, int N,
+                    long long w_sn, int x_zp, int out_zp, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (n >= N) return;                              // warp-uniform
+  const int8_t* col = w + n * w_sn;
+  int acc[ROW_M];
+#pragma unroll
+  for (int m = 0; m < ROW_M; ++m) acc[m] = 0;
+  if (vec) {
+    for (int k = 16 * lane; k < K; k += 16 * 32) {
+      const int4 wv = *reinterpret_cast<const int4*>(col + k);
+#pragma unroll
+      for (int m = 0; m < ROW_M; ++m) {
+        if (m >= M) break;
+        const int4 xv =
+            *reinterpret_cast<const int4*>(x + (long long)m * K + k);
+        acc[m] = __dp4a(xv.x, wv.x, acc[m]);
+        acc[m] = __dp4a(xv.y, wv.y, acc[m]);
+        acc[m] = __dp4a(xv.z, wv.z, acc[m]);
+        acc[m] = __dp4a(xv.w, wv.w, acc[m]);
+      }
+    }
+  } else {
+    for (int k = lane; k < K; k += 32) {
+      const int wv = col[k];
+#pragma unroll
+      for (int m = 0; m < ROW_M; ++m) {
+        if (m >= M) break;
+        acc[m] += x[(long long)m * K + k] * wv;
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < ROW_M; ++m) {
+    if (m >= M) break;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
+    if (lane == m)
+      out[(long long)m * N + n] =
+          requant(acc[m], n, x_zp, out_zp, bias, wsum, scale);
+  }
+}
+
+// rows path, any other weight (an n-contiguous (K,N) one): block b takes
+// columns 32b..32b+31, lane l column 32b + l; x (M x K bytes) goes once
+// into shared memory; warp w walks K slice w of ROW_WARPS, and warp 0 sums
+// the slices in order and writes the outputs.
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+quant_matmul_rows_n(const int8_t* __restrict__ x,
+                    const int8_t* __restrict__ w,
+                    const int32_t* __restrict__ bias,
+                    const int32_t* __restrict__ wsum,
+                    const float* __restrict__ scale,
+                    int8_t* __restrict__ out, int M, int K, int N,
+                    long long w_sk, long long w_sn, int x_zp, int out_zp) {
+  extern __shared__ int8_t xs[];                   // M x K
+  __shared__ int part[ROW_WARPS][ROW_M][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = threadIdx.x; e < M * K; e += ROW_WARPS * 32) xs[e] = x[e];
+  __syncthreads();
+  const int n = blockIdx.x * 32 + lane;
+  const int per = (K + ROW_WARPS - 1) / ROW_WARPS;
+  const int k0 = warp * per, k1 = min(K, k0 + per);
+  int acc[ROW_M];
+#pragma unroll
+  for (int m = 0; m < ROW_M; ++m) acc[m] = 0;
+  if (n < N) {
+    const int8_t* col = w + n * w_sn;
+    for (int k = k0; k < k1; ++k) {
+      const int wv = col[k * w_sk];
+#pragma unroll
+      for (int m = 0; m < ROW_M; ++m) {
+        if (m >= M) break;
+        acc[m] += xs[m * K + k] * wv;
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < ROW_M; ++m) part[warp][m][lane] = acc[m];
+  __syncthreads();
+  if (warp != 0 || n >= N) return;
+  for (int m = 0; m < M; ++m) {
+    int sum = 0;
+#pragma unroll
+    for (int v = 0; v < ROW_WARPS; ++v) sum += part[v][m][lane];
+    out[(long long)m * N + n] =
+        requant(sum, n, x_zp, out_zp, bias, wsum, scale);
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
 quant_matmul_kernel(const int8_t* __restrict__ x,
@@ -115,29 +244,64 @@ quant_matmul_kernel(const int8_t* __restrict__ x,
     for (int j = 0; j < TN; ++j) {
       const int gn = col0 + tx * TN + j;
       if (gn >= N) continue;
-      const int a = acc[i][j] - x_zp * wsum[gn] + bias[gn];
-      const float r = rintf(__fmul_rn(__int2float_rn(a), scale[gn]));
-      const float o = fminf(fmaxf(r + static_cast<float>(out_zp), -128.0f),
-                            127.0f);
-      out[(long long)gm * N + gn] = static_cast<int8_t>(static_cast<int>(o));
+      out[(long long)gm * N + gn] =
+          requant(acc[i][j], gn, x_zp, out_zp, bias, wsum, scale);
     }
   }
 }
 
 }  // namespace
 
+// the paths the wrapper picks (kernels.quant_matmul.PATHS)
+enum Path { TILES = 0, ROWS_K = 1, ROWS_N = 2 };
+
+// registers a thread and shared-memory bytes a block of a path's kernel
+// (ROWS_N: its static part, beside M * K bytes of x)
+extern "C" int quant_matmul_attributes(int path, int* regs, int* smem) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      path == ROWS_K   ? cudaFuncGetAttributes(&a, quant_matmul_rows_k)
+      : path == ROWS_N ? cudaFuncGetAttributes(&a, quant_matmul_rows_n)
+                       : cudaFuncGetAttributes(&a, quant_matmul_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *smem = static_cast<int>(a.sharedSizeBytes);
+  return 0;
+}
+
 extern "C" int quant_matmul_launch(const void* x, const void* w,
                                    const void* bias, const void* wsum,
                                    const void* scale, void* out,
                                    int M, int K, int N,
                                    long long w_sk, long long w_sn,
-                                   int x_zp, int out_zp, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  quant_matmul_kernel<<<grid, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(bias), static_cast<const int32_t*>(wsum),
-      static_cast<const float*>(scale), static_cast<int8_t*>(out),
-      M, K, N, w_sk, w_sn, x_zp, out_zp);
+                                   int x_zp, int out_zp, int path,
+                                   void* stream) {
+  const auto xq = static_cast<const int8_t*>(x);
+  const auto wq = static_cast<const int8_t*>(w);
+  const auto bq = static_cast<const int32_t*>(bias);
+  const auto ws = static_cast<const int32_t*>(wsum);
+  const auto sc = static_cast<const float*>(scale);
+  const auto oq = static_cast<int8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == ROWS_K) {
+    if (M > ROW_M || w_sk != 1) return (int)cudaErrorInvalidValue;
+    const bool vec = K % 16 == 0 && w_sn % 16 == 0 &&
+                     reinterpret_cast<size_t>(x) % 16 == 0 &&
+                     reinterpret_cast<size_t>(w) % 16 == 0;
+    quant_matmul_rows_k<<<(N + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0,
+                          s>>>(xq, wq, bq, ws, sc, oq, M, K, N, w_sn, x_zp,
+                               out_zp, vec);
+  } else if (path == ROWS_N) {
+    if (M > ROW_M || (size_t)M * K > ROW_X_BYTES)
+      return (int)cudaErrorInvalidValue;
+    quant_matmul_rows_n<<<(N + 31) / 32, ROW_WARPS * 32, (size_t)M * K,
+                          s>>>(xq, wq, bq, ws, sc, oq, M, K, N, w_sk, w_sn,
+                               x_zp, out_zp);
+  } else {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    quant_matmul_kernel<<<grid, THREADS, 0, s>>>(xq, wq, bq, ws, sc, oq, M,
+                                                 K, N, w_sk, w_sn, x_zp,
+                                                 out_zp);
+  }
   return static_cast<int>(cudaGetLastError());
 }

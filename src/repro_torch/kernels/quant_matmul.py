@@ -7,13 +7,16 @@ int32 accumulation, zero-point correction from precomputed column sums
 even, ``+ out_zp``, clamp to int8 — bit for bit.
 
 Bound on the H100: at the interpreter's shapes (M = 1, K and N of a few
-hundred) launch latency; at large shapes
-``max(bytes / 3.35 TB/s, 2MNK / 1979 TOPS)``.  The kernel
-(``csrc/quant_matmul.cu``) is the simple first version — one block per
-64x64 output tile, shared-memory K tiles, plain int32 multiply-adds — and
-masks ragged edges itself, so no padded copies are made; the weight is
-read through its strides, so the FC layer's (N,K) weight goes in as a
-transposed view without a copy.
+hundred) launch latency and the loads after it; at large shapes
+``max(bytes / 3.35 TB/s, 2MNK / 1979 TOPS)``.  ``path`` picks one of the
+kernel's (``csrc/quant_matmul.cu``) two paths: for M <= 16 the rows path
+— no shared tiles and no barrier per K step: one warp a column with
+16-byte loads and ``__dp4a`` when K is contiguous in the weight (the FC
+layer's (N,K) weight as a transposed view), else x staged once in shared
+memory and each lane walking K for its column — and for larger M one
+block per 64x64 output tile with shared-memory K tiles.  Both mask ragged
+edges themselves, so no padded copies are made, and read the weight
+through its strides.
 
 ``launches`` counts the kernel launches of this process; only
 ``quant_matmul_cuda`` adds to it.  The plain version is
@@ -24,24 +27,55 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build
 
 launches = 0
+# the kernel's paths, by the code its C entry takes
+PATHS = {"tiles": 0, "rows_k": 1, "rows_n": 2}
+ROW_M = 16                 # the rows path's largest M
+ROW_X_BYTES = 32 * 1024    # x the n-contiguous rows path stages
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("quant_matmul").quant_matmul_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("quant_matmul")
+    lib.quant_matmul_launch.argtypes = _ARGTYPES
+    lib.quant_matmul_launch.restype = ctypes.c_int
+    lib.quant_matmul_attributes.argtypes = (
+        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.quant_matmul_attributes.restype = ctypes.c_int
+    return lib
+
+
+def path(m: int, k: int, w_strides) -> str:
+    """The kernel path for x (m, k) and a weight of these (k, n) strides:
+    ``"rows_k"`` for m <= 16 with K contiguous in the weight, ``"rows_n"``
+    for m <= 16 otherwise while x fits the shared memory it is staged in,
+    else ``"tiles"``."""
+    if m <= ROW_M and w_strides[0] == 1:
+        return "rows_k"
+    if m <= ROW_M and m * k <= ROW_X_BYTES:
+        return "rows_n"
+    return "tiles"
+
+
+def kernel_attributes(name: str):
+    """(registers a thread, static shared-memory bytes a block) of one
+    path's kernel (needs a card)."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().quant_matmul_attributes(PATHS[name], ctypes.byref(regs),
+                                        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"quant_matmul attributes: CUDA error {rc}")
+    return regs.value, smem.value
 
 
 def _check(name, t, dtype, ndim, device, contiguous=True):
@@ -55,13 +89,14 @@ def _check(name, t, dtype, ndim, device, contiguous=True):
 
 def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                       bias_q: torch.Tensor, wsum: torch.Tensor,
-                      scale: torch.Tensor, *, x_zp: int,
-                      out_zp: int) -> torch.Tensor:
+                      scale: torch.Tensor, *, x_zp: int, out_zp: int,
+                      kernel_path: Optional[str] = None) -> torch.Tensor:
     """x_q (M,K) int8 · w_q (K,N) int8 → int8 (M,N) on the card.
 
     bias_q and wsum (= Σ_k w_q) are (N,) int32, scale (N,) float32; w_q
-    may be any strided view.  Raises on anything the kernel does not
-    take, and when the launch fails."""
+    may be any strided view.  ``kernel_path`` overrides ``path``'s choice
+    (to time one path against another).  Raises on anything the kernel
+    does not take, and when the launch fails."""
     global launches
     if x_q.device.type != "cuda":
         raise ValueError(f"quant_matmul_cuda needs CUDA tensors, got "
@@ -85,10 +120,11 @@ def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     if m == 0 or n == 0:
         return out
     with torch.cuda.device(dev):
-        rc = _launcher()(
+        rc = _lib().quant_matmul_launch(
             x_q.data_ptr(), w_q.data_ptr(), bias_q.data_ptr(),
             wsum.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
             w_q.stride(0), w_q.stride(1), int(x_zp), int(out_zp),
+            PATHS[kernel_path or path(m, k, w_q.stride())],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "

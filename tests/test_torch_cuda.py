@@ -63,6 +63,34 @@ def test_quant_matmul_kernel_equals_plain(cuda, m, k, n):
     torch.testing.assert_close(got_t.cpu(), want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("m", [16, 17])
+@pytest.mark.parametrize("k,n", [(200, 1), (37, 45), (256, 2)])
+def test_quant_matmul_kernel_on_both_sides_of_the_rows_path(cuda, m, k, n):
+    """M = 16 takes the rows path (both weight layouts), M = 17 the tiles;
+    with K off 16 and N = 1 every path, and the tiled path forced on the
+    same call, is bit-equal to the plain version."""
+    rng = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
+    bias = torch.from_numpy(rng.integers(-500, 500, n, dtype=np.int32))
+    scale = torch.from_numpy(rng.uniform(1e-4, 5e-3, n).astype(np.float32))
+    x_zp, out_zp = (int(v) for v in rng.integers(-128, 128, 2))
+    want = ref.quant_matmul_ref(x, w, bias, x_zp, scale, out_zp)
+    wsum = w.sum(dim=0, dtype=torch.int32).to(cuda)
+    paths = set()
+    for wl in (w.to(cuda), w.t().contiguous().to(cuda).t()):
+        paths.add(K1.path(m, k, wl.stride()))
+        got = K1.quant_matmul_cuda(x.to(cuda), wl, bias.to(cuda), wsum,
+                                   scale.to(cuda), x_zp=x_zp, out_zp=out_zp)
+        tiled = K1.quant_matmul_cuda(x.to(cuda), wl, bias.to(cuda), wsum,
+                                     scale.to(cuda), x_zp=x_zp,
+                                     out_zp=out_zp, kernel_path="tiles")
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(tiled.cpu(), want)
+    assert paths == ({"rows_k", "rows_n"} if m <= 16 and n > 1
+                     else {"rows_k"} if m <= 16 else {"tiles"})
+
+
 @pytest.mark.parametrize("b,h,kh,s,d,causal,window", [
     (2, 4, 4, 256, 64, True, None), (2, 4, 4, 256, 64, False, None),
     (1, 8, 2, 256, 64, True, None), (1, 2, 2, 128, 32, True, 32),
@@ -721,7 +749,10 @@ def _ssd_inputs(cuda, b, s, h, p, g, n, dtype, seed, h0=False, d=False,
 # shapes (48 heads of 64, N 128) at one and four chunks, with a carried
 # state; Zamba2-1.2B's (64 heads, N 64); float32 at both; groups of 2
 # with D; a length off 128 with the wrapper's chunk (64); a chunk of 13
-# with P and N off the tiles; a padded tail of dt = 0 rows
+# with P and N off the tiles; a padded tail of dt = 0 rows; then the
+# chunk-step shape (one chunk with a carried state), 8 chunks, 3 chunks of
+# 64, a carried state across several chunks in a batch of 2, and
+# Zamba2-1.2B's one-shot prefill of 512 with a carried state
 SSD_CASES = [
     (1, 128, 48, 64, 1, 128, None, torch.bfloat16, False, False, 0),
     (1, 512, 48, 64, 1, 128, None, torch.bfloat16, True, False, 0),
@@ -732,6 +763,11 @@ SSD_CASES = [
     (1, 192, 8, 64, 1, 128, None, torch.float32, True, True, 0),
     (2, 26, 3, 24, 1, 20, 13, torch.float32, True, True, 0),
     (1, 128, 48, 64, 1, 128, None, torch.float32, True, False, 28),
+    (1, 128, 48, 64, 1, 128, None, torch.bfloat16, True, False, 0),
+    (1, 1024, 48, 64, 1, 128, None, torch.bfloat16, False, False, 0),
+    (2, 192, 8, 64, 1, 128, 64, torch.bfloat16, False, True, 0),
+    (2, 384, 16, 64, 2, 64, None, torch.float32, True, False, 0),
+    (1, 512, 64, 64, 1, 64, None, torch.bfloat16, True, False, 0),
 ]
 
 
@@ -763,6 +799,36 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype,
         _, real = ref.ssd_ref(x[:, :s - tail], dt[:, :s - tail], a,
                               bm[:, :s - tail], cm[:, :s - tail], dd, h0=st)
         torch.testing.assert_close(state, real, atol=SSD_ATOL, rtol=SSD_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs give the same bits (no atomics), so a
+    preempted and restored prefill repeats itself exactly."""
+    x, dt, a, bm, cm, dd, st = _ssd_inputs(cuda, 1, 512, 48, 64, 1, 128,
+                                           dtype, 7, h0=True, d=True)
+    y1, s1 = K8.ssd_scan_cuda(x, dt, a, bm, cm, dd, chunk=128, h0=st)
+    y2, s2 = K8.ssd_scan_cuda(x, dt, a, bm, cm, dd, chunk=128, h0=st)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("s,dtype", [(512, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (256, torch.float32)])
+def test_ssd_scan_kernel_is_batch_invariant(cuda, s, dtype):
+    """Each row of a batch of 2 gets the bits it gets alone: the tiles
+    depend on the shape, not on the batch."""
+    x, dt, a, bm, cm, dd, st = _ssd_inputs(cuda, 2, s, 48, 64, 1, 128,
+                                           dtype, 9, h0=True, d=True)
+    y, state = K8.ssd_scan_cuda(x, dt, a, bm, cm, dd, chunk=128, h0=st)
+    for r in range(2):
+        one = lambda t: t[r:r + 1].contiguous()
+        yr, sr = K8.ssd_scan_cuda(one(x), one(dt), a, one(bm), one(cm), dd,
+                                  chunk=128, h0=one(st))
+        torch.cuda.synchronize()
+        assert torch.equal(y[r:r + 1], yr) and torch.equal(state[r:r + 1],
+                                                           sr)
 
 
 def test_ssd_scan_kernel_never_reaches_the_plain_version(cuda, monkeypatch):
