@@ -253,7 +253,8 @@ def check_quant_matmul(torch, np, dev):
         x, w, bias, scale = (t.to(dev) for t in (x, w, bias, scale))
         wsum = w.sum(dim=0, dtype=torch.int32)
         # the FC layer's weight is (N, K); it reaches the kernel as the
-        # transposed view, which takes the kernel's other load branch
+        # transposed view: the rows path at M <= 16, above it the tiled
+        # kernel's other load branch
         w_nk_t = w.t().contiguous().t()
         want = ref.quant_matmul_ref(x, w, bias, x_zp, scale, out_zp)
         err = 0
@@ -265,21 +266,21 @@ def check_quant_matmul(torch, np, dev):
                 raise AssertionError(f"K1 {m}x{k}x{n} weight {layout}: kernel "
                                      f"differs from the plain version by up "
                                      f"to {err}")
+        # the kernels line's time is the FC layer's layout, the path's
         row = {"shape": [m, k, n], "max_abs_err": err, "library_ms": None,
-               "path": K1.path(m, k, w.stride()),
-               "path_weight_nk_t": K1.path(m, k, w_nk_t.stride())}
+               "weight": "(N,K).T", "path": K1.path(m, k, w_nk_t.stride()),
+               "path_weight_kn": K1.path(m, k, w.stride())}
         row["ms"], row["call_ms"] = time_ms(torch, lambda: quant_matmul_cuda(
-            x, w, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
-        row["ms_weight_nk_t"], _ = time_ms(torch, lambda: quant_matmul_cuda(
             x, w_nk_t, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
+        row["ms_weight_kn"], _ = time_ms(torch, lambda: quant_matmul_cuda(
+            x, w, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp))
         if row["path"] != "tiles":      # the tiled path on the same call
-            tiled = quant_matmul_cuda(x, w, bias, wsum, scale, x_zp=x_zp,
-                                      out_zp=out_zp, kernel_path="tiles")
+            tiled, _ = K1._quant_matmul(x, w_nk_t, bias, wsum, scale, x_zp,
+                                        out_zp, "tiles")
             if not torch.equal(tiled, want):
                 raise AssertionError(f"K1 {m}x{k}x{n} tiled path differs")
-            row["tiles_ms"], _ = time_ms(torch, lambda: quant_matmul_cuda(
-                x, w, bias, wsum, scale, x_zp=x_zp, out_zp=out_zp,
-                kernel_path="tiles"))
+            row["tiles_ms"], _ = time_ms(torch, lambda: K1._quant_matmul(
+                x, w_nk_t, bias, wsum, scale, x_zp, out_zp, "tiles"))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
             torch, lambda: ref.quant_matmul_ref(x, w, bias, x_zp, scale,
                                                 out_zp))
@@ -303,9 +304,9 @@ def check_quant_matmul(torch, np, dev):
         tiles = (f"; the tiled path {row['tiles_ms'] * 1e3:.2f} us"
                  if "tiles_ms" in row else "")
         log(f"  K1 {m:>4}x{k:<5}x{n:<4} equal in both weight layouts; "
-            + _times(row) + f"  (N,K).T weight "
-            f"{row['ms_weight_nk_t'] * 1e3:.2f} us; paths {row['path']}, "
-            f"{row['path_weight_nk_t']}" + tiles)
+            f"(N,K).T weight, path {row['path']}: " + _times(row)
+            + f"  (K,N) weight, path {row['path_weight_kn']}: "
+            f"{row['ms_weight_kn'] * 1e3:.2f} us" + tiles)
     return rows
 
 
@@ -849,6 +850,39 @@ def ssd_bound(b, s, h, p, g, n, chunk, item, h0, d,
     return bound(nbytes, ops, ops_per_s)
 
 
+# K8's phase-2 cases (b, s, h, p, g, n, dtype, h0, D, tail); the first is
+# the main path's: Mamba2-780m's one-shot prefill of 512 tokens
+K8_CASES = [(1, 512, 48, 64, 1, 128, "bfloat16", False, False, 0),
+            (1, 512, 48, 64, 1, 128, "bfloat16", True, False, 0),
+            (1, 128, 48, 64, 1, 128, "bfloat16", False, False, 0),
+            (1, 128, 48, 64, 1, 128, "bfloat16", True, False, 0),
+            (1, 512, 64, 64, 1, 64, "bfloat16", False, False, 0),
+            (1, 512, 48, 64, 1, 128, "float32", True, False, 0),
+            (2, 256, 8, 64, 2, 64, "float32", True, True, 0),
+            (1, 192, 48, 64, 1, 128, "float32", True, False, 0),
+            (1, 128, 48, 64, 1, 128, "float32", True, False, 28)]
+
+
+def k8_inputs(torch, np, dev, i):
+    """(x, dt, A, B, C, D, h0) of ``K8_CASES[i]`` on ``dev``, from seed
+    100 + i; a tail of dt = 0 rows where the case has one."""
+    b, s, h, p, g, n, dtype, h0, d, tail = K8_CASES[i]
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(100 + i)
+    t = lambda shape, lo=None, hi=None: torch.from_numpy(
+        (rng.normal(0, 1, shape) if lo is None
+         else rng.uniform(lo, hi, shape)).astype(np.float32)).to(dev)
+    x, bm, cm = t((b, s, h, p)).to(dtype), t((b, s, g, n)).to(dtype), \
+        t((b, s, g, n)).to(dtype)
+    dt = t((b, s, h), 0.001, 0.1)
+    if tail:
+        dt[:, s - tail:] = 0
+    a = -t((h,), 0.5, 2.0)
+    dd = t((h,)) if d else None
+    st = t((b, h, p, n)) if h0 else None
+    return x, dt, a, bm, cm, dd, st
+
+
 def check_ssd_scan(torch, np, dev):
     """K8 against its plain version on the card: Mamba2-780m's prefill
     shapes (48 heads of 64, N 128, bf16) at 512 and 128 tokens, without
@@ -861,32 +895,11 @@ def check_ssd_scan(torch, np, dev):
     from repro_torch.kernels import ssd_scan as K8
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    # (b, s, h, p, g, n, dtype, h0, D, tail); the first is the main
-    # path's: Mamba2-780m's one-shot prefill of 512 tokens
-    cases = [(1, 512, 48, 64, 1, 128, bf16, False, False, 0),
-             (1, 512, 48, 64, 1, 128, bf16, True, False, 0),
-             (1, 128, 48, 64, 1, 128, bf16, False, False, 0),
-             (1, 128, 48, 64, 1, 128, bf16, True, False, 0),
-             (1, 512, 64, 64, 1, 64, bf16, False, False, 0),
-             (1, 512, 48, 64, 1, 128, f32, True, False, 0),
-             (2, 256, 8, 64, 2, 64, f32, True, True, 0),
-             (1, 192, 48, 64, 1, 128, f32, True, False, 0),
-             (1, 128, 48, 64, 1, 128, f32, True, False, 28)]
+    f32 = torch.float32
     rows = []
-    for i, (b, s, h, p, g, n, dt_, h0, d, tail) in enumerate(cases):
-        rng = np.random.default_rng(100 + i)
-        t = lambda shape, lo=None, hi=None: torch.from_numpy(
-            (rng.normal(0, 1, shape) if lo is None
-             else rng.uniform(lo, hi, shape)).astype(np.float32)).to(dev)
-        x, bm, cm = t((b, s, h, p)).to(dt_), t((b, s, g, n)).to(dt_), \
-            t((b, s, g, n)).to(dt_)
-        dt = t((b, s, h), 0.001, 0.1)
-        if tail:
-            dt[:, s - tail:] = 0
-        a = -t((h,), 0.5, 2.0)
-        dd = t((h,)) if d else None
-        st = t((b, h, p, n)) if h0 else None
+    for i, (b, s, h, p, g, n, _, h0, d, tail) in enumerate(K8_CASES):
+        x, dt, a, bm, cm, dd, st = k8_inputs(torch, np, dev, i)
+        dt_ = x.dtype
         chunk = ops._pick_block(s)
         y, state = ops.ssd_scan(x, dt, a, bm, cm, dd, h0=st)
         want_y, want_s = ref.ssd_scan_ref(x, dt, a, bm, cm, dd, chunk=chunk,
@@ -1953,7 +1966,7 @@ def main() -> int:
     dev = torch.device("cuda")
     # registers and shared memory a block at the path shapes
     from repro_torch.kernels import ssd_scan as K8
-    attrs = {"quant_matmul": K1.kernel_attributes("rows_k"),
+    attrs = {"quant_matmul": K1.kernel_attributes("rows"),
              "flash_attention": K2.kernel_attributes(torch.float32, 64),
              "decode_attention": K3.kernel_attributes(torch.bfloat16, 8,
                                                       128),

@@ -14,17 +14,15 @@
 // the dependent loads after it bound it; at large shapes max(bytes / 3.35
 // TB/s, 2MNK / 1979 TOPS).  Two paths, chosen by the wrapper:
 //
-// - rows (M <= 16), the interpreter's FULLY_CONNECTED: no shared tiles and
-//   no __syncthreads per K step.  For the FC layer's (N,K) weight, seen as
-//   its transposed view (K contiguous per column), one warp takes one
-//   column: 16-byte loads of x and of the column, __dp4a, a warp-shuffle
-//   sum and the epilogue in the warp.  For an n-contiguous (K,N) weight, x
-//   goes once into shared memory and each lane walks its slice of K for
-//   its column (8 warps, 8 slices, summed in order once at the end).
-// - tiles (larger M): one 256-thread block per 64x64 output tile, K walked
-//   in 32-deep tiles staged in shared memory (the next tile's loads in
-//   flight while one computes), plain int32 multiply-adds (4x4 outputs per
-//   thread).
+// - rows (M <= 16 with K contiguous in the weight), the interpreter's
+//   FULLY_CONNECTED, whose (N,K) weight reaches the kernel as its
+//   transposed view: no shared tiles and no __syncthreads per K step.  One
+//   warp takes one column: 16-byte loads of x and of the column, __dp4a, a
+//   warp-shuffle sum and the epilogue in the warp.
+// - tiles (larger M, or any other weight): one 256-thread block per 64x64
+//   output tile, K walked in 32-deep tiles staged in shared memory (the
+//   next tile's loads in flight while one computes), plain int32
+//   multiply-adds (4x4 outputs per thread).
 //
 // The ragged M/K/N edges are masked in the loads, so the wrapper makes no
 // padded copies (zero padding adds nothing to acc or to wsum).  w is read
@@ -37,9 +35,6 @@ namespace {
 
 constexpr int ROW_M = 16;        // the rows path's largest M
 constexpr int ROW_WARPS = 8;     // warps of a rows-path block
-// the most bytes of x the n-contiguous rows path stages (with its 16 KB of
-// partial sums, within the 48 KB a block has without opting in)
-constexpr size_t ROW_X_BYTES = 32 * 1024;
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int BK = 32;
@@ -62,18 +57,18 @@ __device__ __forceinline__ int8_t requant(int acc, int n, int x_zp,
   return static_cast<int8_t>(static_cast<int>(o));
 }
 
-// rows path, weight with K contiguous per column (w_sk == 1): warp w of
+// rows path, the weight's K contiguous per column (w_sk == 1): warp w of
 // block b takes column b * ROW_WARPS + w; with ``vec`` (K and w_sn multiples
 // of 16, both bases 16-byte aligned) each lane takes 16 bytes of K at a
 // time, else one byte.
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-quant_matmul_rows_k(const int8_t* __restrict__ x,
-                    const int8_t* __restrict__ w,
-                    const int32_t* __restrict__ bias,
-                    const int32_t* __restrict__ wsum,
-                    const float* __restrict__ scale,
-                    int8_t* __restrict__ out, int M, int K, int N,
-                    long long w_sn, int x_zp, int out_zp, bool vec) {
+quant_matmul_rows(const int8_t* __restrict__ x,
+                  const int8_t* __restrict__ w,
+                  const int32_t* __restrict__ bias,
+                  const int32_t* __restrict__ wsum,
+                  const float* __restrict__ scale,
+                  int8_t* __restrict__ out, int M, int K, int N,
+                  long long w_sn, int x_zp, int out_zp, bool vec) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
   if (n >= N) return;                              // warp-uniform
@@ -114,53 +109,6 @@ quant_matmul_rows_k(const int8_t* __restrict__ x,
     if (lane == m)
       out[(long long)m * N + n] =
           requant(acc[m], n, x_zp, out_zp, bias, wsum, scale);
-  }
-}
-
-// rows path, any other weight (an n-contiguous (K,N) one): block b takes
-// columns 32b..32b+31, lane l column 32b + l; x (M x K bytes) goes once
-// into shared memory; warp w walks K slice w of ROW_WARPS, and warp 0 sums
-// the slices in order and writes the outputs.
-__global__ void __launch_bounds__(ROW_WARPS * 32)
-quant_matmul_rows_n(const int8_t* __restrict__ x,
-                    const int8_t* __restrict__ w,
-                    const int32_t* __restrict__ bias,
-                    const int32_t* __restrict__ wsum,
-                    const float* __restrict__ scale,
-                    int8_t* __restrict__ out, int M, int K, int N,
-                    long long w_sk, long long w_sn, int x_zp, int out_zp) {
-  extern __shared__ int8_t xs[];                   // M x K
-  __shared__ int part[ROW_WARPS][ROW_M][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int e = threadIdx.x; e < M * K; e += ROW_WARPS * 32) xs[e] = x[e];
-  __syncthreads();
-  const int n = blockIdx.x * 32 + lane;
-  const int per = (K + ROW_WARPS - 1) / ROW_WARPS;
-  const int k0 = warp * per, k1 = min(K, k0 + per);
-  int acc[ROW_M];
-#pragma unroll
-  for (int m = 0; m < ROW_M; ++m) acc[m] = 0;
-  if (n < N) {
-    const int8_t* col = w + n * w_sn;
-    for (int k = k0; k < k1; ++k) {
-      const int wv = col[k * w_sk];
-#pragma unroll
-      for (int m = 0; m < ROW_M; ++m) {
-        if (m >= M) break;
-        acc[m] += xs[m * K + k] * wv;
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < ROW_M; ++m) part[warp][m][lane] = acc[m];
-  __syncthreads();
-  if (warp != 0 || n >= N) return;
-  for (int m = 0; m < M; ++m) {
-    int sum = 0;
-#pragma unroll
-    for (int v = 0; v < ROW_WARPS; ++v) sum += part[v][m][lane];
-    out[(long long)m * N + n] =
-        requant(sum, n, x_zp, out_zp, bias, wsum, scale);
   }
 }
 
@@ -253,16 +201,14 @@ quant_matmul_kernel(const int8_t* __restrict__ x,
 }  // namespace
 
 // the paths the wrapper picks (kernels.quant_matmul.PATHS)
-enum Path { TILES = 0, ROWS_K = 1, ROWS_N = 2 };
+enum Path { TILES = 0, ROWS = 1 };
 
 // registers a thread and shared-memory bytes a block of a path's kernel
-// (ROWS_N: its static part, beside M * K bytes of x)
 extern "C" int quant_matmul_attributes(int path, int* regs, int* smem) {
   cudaFuncAttributes a;
   const cudaError_t err =
-      path == ROWS_K   ? cudaFuncGetAttributes(&a, quant_matmul_rows_k)
-      : path == ROWS_N ? cudaFuncGetAttributes(&a, quant_matmul_rows_n)
-                       : cudaFuncGetAttributes(&a, quant_matmul_kernel);
+      path == ROWS ? cudaFuncGetAttributes(&a, quant_matmul_rows)
+                   : cudaFuncGetAttributes(&a, quant_matmul_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = a.numRegs;
   *smem = static_cast<int>(a.sharedSizeBytes);
@@ -283,20 +229,14 @@ extern "C" int quant_matmul_launch(const void* x, const void* w,
   const auto sc = static_cast<const float*>(scale);
   const auto oq = static_cast<int8_t*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (path == ROWS_K) {
+  if (path == ROWS) {
     if (M > ROW_M || w_sk != 1) return (int)cudaErrorInvalidValue;
     const bool vec = K % 16 == 0 && w_sn % 16 == 0 &&
                      reinterpret_cast<size_t>(x) % 16 == 0 &&
                      reinterpret_cast<size_t>(w) % 16 == 0;
-    quant_matmul_rows_k<<<(N + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0,
-                          s>>>(xq, wq, bq, ws, sc, oq, M, K, N, w_sn, x_zp,
-                               out_zp, vec);
-  } else if (path == ROWS_N) {
-    if (M > ROW_M || (size_t)M * K > ROW_X_BYTES)
-      return (int)cudaErrorInvalidValue;
-    quant_matmul_rows_n<<<(N + 31) / 32, ROW_WARPS * 32, (size_t)M * K,
-                          s>>>(xq, wq, bq, ws, sc, oq, M, K, N, w_sk, w_sn,
-                               x_zp, out_zp);
+    quant_matmul_rows<<<(N + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0,
+                        s>>>(xq, wq, bq, ws, sc, oq, M, K, N, w_sn, x_zp,
+                             out_zp, vec);
   } else {
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     quant_matmul_kernel<<<grid, THREADS, 0, s>>>(xq, wq, bq, ws, sc, oq, M,

@@ -121,8 +121,7 @@ struct Args {
   float* dec;          // (batch, chunks, H): exp(cum_L)
   int batch, seqlen, heads, P, groups, N, chunk;
   int row_tile;        // chunk_output's rows a block
-  int n_cols;          // chunk_state's state columns a block (16, 32, 64
-                       // or 128)
+  int n_cols;          // chunk_state's state columns a block (16, 32 or 64)
   bool vec;            // 16-byte copies of x, B and C are aligned
   bool own_state;      // chunk_output's state planes have their own region
 };
@@ -702,8 +701,10 @@ __device__ __forceinline__ void chunk_output(const Args& a,
   const float A_h = a.A[h];                      // in flight with the copies
   const float D_h = a.D ? a.D[h] : 0.f;
   const size_t row0 = (size_t)b * S + (size_t)c * L;
-  const bf16* sg = a.sp + (((size_t)b * nc + c) * H + h) * K::MIX * P * N +
-                   (size_t)pt0 * N;              // the state's terms
+  const bf16* sg =                               // the state's terms
+      ONE ? nullptr
+          : a.sp + (((size_t)b * nc + c) * H + h) * K::MIX * P * N +
+                (size_t)pt0 * N;
   const T* Cg = static_cast<const T*>(a.C) + (row0 * G + g) * N;
   const T* Bg = static_cast<const T*>(a.B) + (row0 * G + g) * N;
   const T* xg = static_cast<const T*>(a.x) + (row0 * H + h) * P + pt0;
@@ -954,7 +955,8 @@ cudaError_t launch_one_chunk(const Args& a, int n_state, int n_out,
   return cudaSuccess;
 }
 
-// a one-chunk call at 64-row and 64-column tiles takes one launch
+// a one-chunk call at 64-row and 64-column tiles takes one launch (the
+// wrapper's one_launch, which then allocates no workspaces)
 inline bool one_launch(int seqlen, int chunk, int row_tile, int n_cols) {
   return seqlen == chunk && row_tile == 64 && n_cols == 64;
 }
@@ -981,8 +983,7 @@ int launch(Args a, cudaStream_t stream) {
   switch (a.n_cols) {
     case 16: err = launch_state<T, 2>(a, sgrid, stream); break;
     case 32: err = launch_state<T, 4>(a, sgrid, stream); break;
-    case 64: err = launch_state<T, 8>(a, sgrid, stream); break;
-    default: err = launch_state<T, 16>(a, sgrid, stream); break;
+    default: err = launch_state<T, 8>(a, sgrid, stream); break;
   }
   if (err != cudaSuccess) return (int)err;
   const int PN = a.P * a.N;
@@ -1008,7 +1009,7 @@ template <typename T>
 bool valid_tiles(int row_tile, int n_cols) {
   return (row_tile == 16 || row_tile == 32 || row_tile == 64 ||
           row_tile == 128) && row_tile <= Kind<T>::ROWS &&
-         (n_cols == 16 || n_cols == 32 || n_cols == 64 || n_cols == 128);
+         (n_cols == 16 || n_cols == 32 || n_cols == 64);
 }
 
 template <typename T>
@@ -1021,9 +1022,7 @@ int attributes(int which, int chunk, int N, int row_tile, int n_cols,
     dyn = state_smem<T>(chunk, n_cols);
     err = n_cols == 16   ? cudaFuncGetAttributes(&fa, chunk_state_kernel<T, 2>)
           : n_cols == 32 ? cudaFuncGetAttributes(&fa, chunk_state_kernel<T, 4>)
-          : n_cols == 64 ? cudaFuncGetAttributes(&fa, chunk_state_kernel<T, 8>)
-                         : cudaFuncGetAttributes(&fa,
-                                                 chunk_state_kernel<T, 16>);
+                         : cudaFuncGetAttributes(&fa, chunk_state_kernel<T, 8>);
   } else if (which == 1) {
     err = cudaFuncGetAttributes(&fa, state_pass_kernel<4, Kind<T>::MIX>);
   } else if (which == 3) {
@@ -1072,6 +1071,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
       !(is_bf16 ? valid_tiles<bf16>(row_tile, n_cols)
                 : valid_tiles<float>(row_tile, n_cols)) ||
       reinterpret_cast<size_t>(sp) % 16 || reinterpret_cast<size_t>(ws) % 16)
+    return (int)cudaErrorInvalidValue;
+  // the workspaces, which a one-launch call does without
+  if (!one_launch(seqlen, chunk, row_tile, n_cols) && !(ws && sp && dec))
     return (int)cudaErrorInvalidValue;
   const int E = is_bf16 ? 8 : 4;               // elements in 16 bytes
   const auto aligned = [](const void* p) {

@@ -9,11 +9,10 @@ even, ``+ out_zp``, clamp to int8 — bit for bit.
 Bound on the H100: at the interpreter's shapes (M = 1, K and N of a few
 hundred) launch latency and the loads after it; at large shapes
 ``max(bytes / 3.35 TB/s, 2MNK / 1979 TOPS)``.  ``path`` picks one of the
-kernel's (``csrc/quant_matmul.cu``) two paths: for M <= 16 the rows path
-— no shared tiles and no barrier per K step: one warp a column with
-16-byte loads and ``__dp4a`` when K is contiguous in the weight (the FC
-layer's (N,K) weight as a transposed view), else x staged once in shared
-memory and each lane walking K for its column — and for larger M one
+kernel's (``csrc/quant_matmul.cu``) two paths: for M <= 16 with K
+contiguous in the weight (the FC layer's (N,K) weight as a transposed
+view) the rows path — one warp a column with 16-byte loads and
+``__dp4a``, no shared tiles and no barrier per K step — and otherwise one
 block per 64x64 output tile with shared-memory K tiles.  Both mask ragged
 edges themselves, so no padded copies are made, and read the weight
 through its strides.
@@ -35,9 +34,8 @@ from . import _build
 
 launches = 0
 # the kernel's paths, by the code its C entry takes
-PATHS = {"tiles": 0, "rows_k": 1, "rows_n": 2}
+PATHS = {"tiles": 0, "rows": 1}
 ROW_M = 16                 # the rows path's largest M
-ROW_X_BYTES = 32 * 1024    # x the n-contiguous rows path stages
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
@@ -57,14 +55,9 @@ def _lib():
 
 def path(m: int, k: int, w_strides) -> str:
     """The kernel path for x (m, k) and a weight of these (k, n) strides:
-    ``"rows_k"`` for m <= 16 with K contiguous in the weight, ``"rows_n"``
-    for m <= 16 otherwise while x fits the shared memory it is staged in,
-    else ``"tiles"``."""
-    if m <= ROW_M and w_strides[0] == 1:
-        return "rows_k"
-    if m <= ROW_M and m * k <= ROW_X_BYTES:
-        return "rows_n"
-    return "tiles"
+    ``"rows"`` for m <= 16 with K contiguous in the weight, else
+    ``"tiles"``."""
+    return "rows" if m <= ROW_M and w_strides[0] == 1 else "tiles"
 
 
 def kernel_attributes(name: str):
@@ -89,15 +82,26 @@ def _check(name, t, dtype, ndim, device, contiguous=True):
 
 def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                       bias_q: torch.Tensor, wsum: torch.Tensor,
-                      scale: torch.Tensor, *, x_zp: int, out_zp: int,
-                      kernel_path: Optional[str] = None) -> torch.Tensor:
+                      scale: torch.Tensor, *, x_zp: int,
+                      out_zp: int) -> torch.Tensor:
     """x_q (M,K) int8 · w_q (K,N) int8 → int8 (M,N) on the card.
 
     bias_q and wsum (= Σ_k w_q) are (N,) int32, scale (N,) float32; w_q
-    may be any strided view.  ``kernel_path`` overrides ``path``'s choice
-    (to time one path against another).  Raises on anything the kernel
-    does not take, and when the launch fails."""
+    may be any strided view.  Raises on anything the kernel does not take,
+    and when the launch fails."""
     global launches
+    out, launched = _quant_matmul(x_q, w_q, bias_q, wsum, scale, x_zp,
+                                  out_zp)
+    launches += launched
+    return out
+
+
+def _quant_matmul(x_q, w_q, bias_q, wsum, scale, x_zp: int, out_zp: int,
+                  kernel_path: Optional[str] = None):
+    """(out, whether the kernel launched) of ``quant_matmul_cuda``, on
+    ``kernel_path`` (by default ``path``'s choice) and left out of
+    ``launches``: ``chip_smoke.py`` and the card tests check and time the
+    tiled path at M <= 16 through it."""
     if x_q.device.type != "cuda":
         raise ValueError(f"quant_matmul_cuda needs CUDA tensors, got "
                          f"{x_q.device}")
@@ -118,7 +122,7 @@ def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
                              f"entries for N={n}")
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     if m == 0 or n == 0:
-        return out
+        return out, False
     with torch.cuda.device(dev):
         rc = _lib().quant_matmul_launch(
             x_q.data_ptr(), w_q.data_ptr(), bias_q.data_ptr(),
@@ -129,5 +133,4 @@ def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
-    return out
+    return out, True

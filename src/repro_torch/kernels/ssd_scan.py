@@ -98,6 +98,12 @@ def tiling(s: int, h: int, p: int, n: int, chunk: int,
     return row_tile, n_cols
 
 
+def one_launch(s: int, chunk: int, row_tile: int, n_cols: int) -> bool:
+    """Whether a call makes one launch (``one_chunk_kernel``) and so needs
+    no workspaces: a single chunk at 64-row and 64-column tiles."""
+    return s == chunk and row_tile == 64 and n_cols == 64
+
+
 def kernel_attributes(dtype: torch.dtype, which: int, s: int, h: int,
                       p: int, n: int, chunk: int) -> Tuple[int, int]:
     """(registers a thread, shared-memory bytes a block) of the chunk-state
@@ -178,20 +184,22 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             state.copy_(h0)
         return y, state
     row_tile, n_cols = tiling(s, h, p, n, chunk, x.dtype)
-    # each chunk's state contribution, the state entering it as bf16 terms,
-    # and its decay exp(cum_L)
-    nc = s // chunk
-    ws = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
-    sp = torch.empty((b, nc, h, MIX_TERMS[x.dtype], p, n),
-                     dtype=torch.bfloat16, device=x.device)
-    dec = torch.empty((b, nc, h), dtype=torch.float32, device=x.device)
+    ws = sp = dec = None
+    if not one_launch(s, chunk, row_tile, n_cols):
+        # each chunk's state contribution, the state entering it as bf16
+        # terms, and its decay exp(cum_L)
+        nc = s // chunk
+        ws = torch.empty((b, nc, h, p, n), dtype=torch.float32,
+                         device=x.device)
+        sp = torch.empty((b, nc, h, MIX_TERMS[x.dtype], p, n),
+                         dtype=torch.bfloat16, device=x.device)
+        dec = torch.empty((b, nc, h), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         rc = _lib().ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), ptr(D), ptr(h0), y.data_ptr(), state.data_ptr(),
-            ws.data_ptr(), sp.data_ptr(), dec.data_ptr(), b, s, h, p, g, n,
-            chunk,
+            ptr(ws), ptr(sp), ptr(dec), b, s, h, p, g, n, chunk,
             int(x.dtype == torch.bfloat16), row_tile, n_cols,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

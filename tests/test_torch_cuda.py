@@ -66,9 +66,10 @@ def test_quant_matmul_kernel_equals_plain(cuda, m, k, n):
 @pytest.mark.parametrize("m", [16, 17])
 @pytest.mark.parametrize("k,n", [(200, 1), (37, 45), (256, 2)])
 def test_quant_matmul_kernel_on_both_sides_of_the_rows_path(cuda, m, k, n):
-    """M = 16 takes the rows path (both weight layouts), M = 17 the tiles;
-    with K off 16 and N = 1 every path, and the tiled path forced on the
-    same call, is bit-equal to the plain version."""
+    """M = 16 takes the rows path on the FC layer's (N,K).T weight and the
+    tiles on a (K,N) one, M = 17 the tiles on both; with K off 16 and N = 1
+    every path, and the tiled path forced on the same call, is bit-equal
+    to the plain version."""
     rng = np.random.default_rng(m * k + n)
     x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
     w = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8))
@@ -77,18 +78,21 @@ def test_quant_matmul_kernel_on_both_sides_of_the_rows_path(cuda, m, k, n):
     x_zp, out_zp = (int(v) for v in rng.integers(-128, 128, 2))
     want = ref.quant_matmul_ref(x, w, bias, x_zp, scale, out_zp)
     wsum = w.sum(dim=0, dtype=torch.int32).to(cuda)
-    paths = set()
-    for wl in (w.to(cuda), w.t().contiguous().to(cuda).t()):
-        paths.add(K1.path(m, k, wl.stride()))
+    paths = []
+    for wl in (w.t().contiguous().to(cuda).t(), w.to(cuda)):
+        paths.append(K1.path(m, k, wl.stride()))
+        before = K1.launches
         got = K1.quant_matmul_cuda(x.to(cuda), wl, bias.to(cuda), wsum,
                                    scale.to(cuda), x_zp=x_zp, out_zp=out_zp)
-        tiled = K1.quant_matmul_cuda(x.to(cuda), wl, bias.to(cuda), wsum,
-                                     scale.to(cuda), x_zp=x_zp,
-                                     out_zp=out_zp, kernel_path="tiles")
+        tiled, _ = K1._quant_matmul(x.to(cuda), wl, bias.to(cuda), wsum,
+                                    scale.to(cuda), x_zp, out_zp, "tiles")
         torch.cuda.synchronize()
+        assert K1.launches == before + 1
         assert torch.equal(got.cpu(), want) and torch.equal(tiled.cpu(), want)
-    assert paths == ({"rows_k", "rows_n"} if m <= 16 and n > 1
-                     else {"rows_k"} if m <= 16 else {"tiles"})
+    # a (K,1) weight has K contiguous in either layout
+    assert paths == (["rows", "rows"] if m <= 16 and n == 1
+                     else ["rows", "tiles"] if m <= 16
+                     else ["tiles", "tiles"])
 
 
 @pytest.mark.parametrize("b,h,kh,s,d,causal,window", [

@@ -55,15 +55,29 @@ def test_ssd_tiling_is_within_the_kernels_limits(s, h, p, n, chunk, dtype):
     assert n_cols in (16, 32, 64) and (n_cols == 16 or n_cols < 2 * n)
 
 
+@pytest.mark.parametrize("s,h,p,n,chunk,dtype,want", [
+    (128, 48, 64, 128, 128, torch.bfloat16, True),   # Mamba2's chunk step
+    (128, 48, 64, 128, 128, torch.float32, True),
+    (512, 48, 64, 128, 128, torch.bfloat16, False),  # four chunks
+    (512, 64, 64, 64, 128, torch.bfloat16, False),     # Zamba2's prefill
+    (64, 4, 32, 16, 64, torch.bfloat16, False),      # 16 state columns
+])
+def test_ssd_one_launch_only_for_one_chunk_at_64_tiles(s, h, p, n, chunk,
+                                                       dtype, want):
+    """The calls that make one launch, and so allocate no workspaces."""
+    assert K8.one_launch(s, chunk, *K8.tiling(s, h, p, n, chunk, dtype)) \
+        == want
+
+
 @pytest.mark.parametrize("m,k,strides,want", [
-    (1, 256, (1, 256), "rows_k"),        # vww's FC weight, (N,K).T
-    (1, 256, (2, 1), "rows_n"),          # the same as a (K,N) tensor
-    (16, 2048, (1, 2048), "rows_k"),     # K contiguous: no staging limit
-    (16, 2048, (64, 1), "rows_n"),       # 32 KB of x: staged
-    (16, 2049, (64, 1), "tiles"),        # x too large to stage
+    (1, 256, (1, 256), "rows"),          # vww's FC weight, (N,K).T
+    (1, 256, (2, 1), "tiles"),           # the same as a (K,N) tensor
+    (16, 2048, (1, 2048), "rows"),       # K contiguous: any K
+    (16, 2048, (64, 1), "tiles"),
+    (16, 37, (1, 40), "rows"),           # a strided column
     (17, 64, (1, 64), "tiles"),          # past the rows path's M
     (300, 1000, (520, 1), "tiles"),
-    (1, 5, (1, 1), "rows_k"),            # a single column
+    (1, 5, (1, 1), "rows"),              # a single column
 ])
 def test_quant_matmul_path_choice(m, k, strides, want):
     assert K1.path(m, k, strides) == want
