@@ -54,8 +54,15 @@ Phases — any failure raises and the script exits non-zero:
      bounds, the least operations on the CUDA cores in float32 and on
      the tensor cores in bf16; no single library call computes the
      scan.
-  3. the micro main path, with every launch count set to 0 just before
-     it: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
+  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12) runs inside
+  ``main_path``: every launch count set to 0 just before it, the device
+  traced by torch.profiler over it, and after it each kernel's launches
+  counted in the trace (by the device function one launch of its wrapper
+  runs) must equal its wrapper's count; the traced counts are the ones
+  checked and printed.  Every program runs replayed from its CUDA graph
+  unless a phase says eager (``disable_capture()``).
+
+  3. the micro main path: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
      "reference")), device="cuda")`` answers 8 requests on each of
      conv_reference, hotword and vww (float) and conv_reference, vww and
      fc_stack (int8), all at full width and exported by the port's own
@@ -64,8 +71,11 @@ Phases — any failure raises and the script exits non-zero:
   4. still on the micro path: a one-op ATTENTION graph (q, k, v of
      (2, 4, 256, 64), causal) through the interpreter on the card.
      The launch counts are read after it and must match the ops served.
-  5. after the counts are read: torch.profiler over 3 more invokes per
-     model gives the device time by kernel and the device's busy share.
+  5. after the counts are read, untraced: every model's requests again
+     replayed (the median invoke) and eagerly, each bit-equal to phase
+     3's outputs, one program per model; torch.profiler over 3 more
+     invokes per model gives the device time by kernel and the device's
+     busy share.
   6. Yi-6B at full width in float32 (24.3 GB, TF32 off for matmuls and
      cuDNN): 4 seeded prompts prefilled, then 16 teacher-forced decode
      steps through ``lm_decode`` with K3 and with its plain version,
@@ -76,12 +86,16 @@ Phases — any failure raises and the script exits non-zero:
      tags=("cuda", "reference"), device="cuda")`` answers 8 seeded
      requests (prompts of 16–512 tokens, 32 new tokens each).  K3's
      launches equal 32 layers × the decode steps; the cache keeps its
-     addresses, device memory after every step equals its value after
-     the first, the arena's persistent bytes do not change.  Then
+     addresses, device memory after every step is its value after the
+     first plus at most ``NEW_PROGRAM_BYTES`` a program captured since,
+     the arena's persistent bytes do not change; programs: decode 1,
+     prefill one per bucket hit.  Then the same requests again untraced
+     (the timed run): the same tokens, no capture, memory flat.  Then
      torch.profiler over pure decode steps (busy share, top device
      operations), and an EDF run in which a tight-deadline request
      displaces a decoding one: both emit exactly their tokens of the
-     uninterrupted run.
+     uninterrupted run; the same requests through a fresh engine under
+     ``disable_capture()`` give the same tokens and the eager medians.
   8. Yi-6B reduced, float32: the engine on the card and on the CPU emit
      identical greedy tokens, contiguous and with ``kv_block=8,
      prefill_chunk=8`` (also equal to the contiguous engine's), and
@@ -112,7 +126,9 @@ Phases — any failure raises and the script exits non-zero:
      its cache in place and device memory flat, every block comes back,
      the resident weights are at least 1.9x (int8) and 3.6x (int4)
      smaller than bf16 and the KV 1.9x; the profile of each (with K5's
-     or K6's mean device time a launch inside the step); an EDF
+     or K6's mean device time a launch inside the step); the bytes of
+     the engine's one graph pool beside those of a pool for each program
+     (the same requests again, captured anew); an EDF
      displacement on (b) emits (b)'s tokens; and, measured with no
      limit, the largest |logit| difference from the bf16 engine over
      16 teacher-forced steps and how many greedy tokens equal phase 7's.
@@ -140,6 +156,7 @@ Phases — any failure raises and the script exits non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -172,8 +189,15 @@ COLD_COPIES = 16
 COLD_BYTES = 150e6
 
 
+T0 = time.perf_counter()
+
+
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def phase(msg: str) -> None:
+    log(f"{msg}  [{time.perf_counter() - T0:.0f} s]")
 
 
 def time_ms(torch, fn, calls: int = 20, reps: int = 10):
@@ -1018,6 +1042,7 @@ def run_models(np, dev):
                     for _ in range(N_REQUESTS)]
         ms, err, outs = serve(np, card, cpu, requests,
                               INT8_ATOL if int8 else FLOAT_ATOL, label)
+        replayed = list(outs)
         fc = sum(1 for op in model.operators
                  if op.opcode == OpCode.FULLY_CONNECTED
                  and model.tensor(op.inputs[0]).dtype == "int8")
@@ -1036,7 +1061,7 @@ def run_models(np, dev):
                      "blob_bytes": len(blob), "arena_bytes": size,
                      "median_invoke_ms": ms, "max_abs_err": err,
                      "int8_fc_ops": fc})
-        cards.append((card, requests[0]))
+        cards.append((card, requests, replayed))
         log(f"  {label:<20} {len(model.operators):>3} ops  blob "
             f"{len(blob):>8,} B  arena {size:>8,} B  median invoke "
             f"{ms:8.3f} ms  max err {err:.3g}")
@@ -1060,43 +1085,95 @@ def run_attention(np, dev):
     rng = np.random.default_rng(99)
     requests = [tuple(rng.normal(0, 1, shape).astype(np.float32)
                       for _ in range(3)) for _ in range(N_REQUESTS)]
-    ms, err, _ = serve(np, card, cpu, requests, FLOAT_ATOL, "attention")
+    ms, err, outs = serve(np, card, cpu, requests, FLOAT_ATOL, "attention")
     log(f"  attention (2,4,256,64) causal  blob {len(blob):,} B  arena "
         f"{size:,} B  median invoke {ms:.3f} ms  max err {err:.3g}")
     return {"model": "attention float", "ops": 1, "blob_bytes": len(blob),
             "arena_bytes": size, "median_invoke_ms": ms,
-            "max_abs_err": err}, (card, requests[0])
+            "max_abs_err": err}, (card, requests, outs)
+
+
+def eager_invokes(np, rows, cards) -> None:
+    """Phase 5: every micro model's requests twice more from the same
+    variable state, untraced: replayed, then eagerly
+    (``disable_capture()``); outputs bit-equal to those of phases 3-4
+    both times, the replayed median invoke beside the eager one, one
+    captured program per model."""
+    from repro_torch.core import capture_count, disable_capture
+
+    def timed(card, requests, want, label):
+        card.reset_variable_tensors()
+        times = []
+        for feeds, out in zip(requests, want):
+            t0 = time.perf_counter()
+            for pos, x in enumerate(feeds):
+                card.set_input(pos, x)
+            card.invoke()
+            got = card.output(0)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, out):
+                raise AssertionError(f"{label}: an invoke differs from the "
+                                     f"replayed one of phase 3")
+        return statistics.median(times)
+
+    for row, (card, requests, replayed) in zip(rows, cards):
+        prog = card.compiled.program
+        row["traced_median_invoke_ms"] = row["median_invoke_ms"]
+        row["median_invoke_ms"] = timed(card, requests, replayed,
+                                        row["model"])
+        with disable_capture():
+            eager = timed(card, requests, replayed, row["model"] + " eager")
+        if capture_count(prog) != 1 or prog.captures != 1:
+            raise AssertionError(f"{row['model']}: {capture_count(prog)} "
+                                 f"programs, {prog.captures} captures")
+        row.update(eager_median_invoke_ms=eager,
+                   replay_bit_equal_eager=True, captures=capture_count(prog),
+                   capture_s=prog.capture_s)
+        log(f"  {row['model']:<20} invoke median eager "
+            f"{row['eager_median_invoke_ms']:.3f} ms, replayed "
+            f"{row['median_invoke_ms']:.3f} ms; {len(requests)} replayed "
+            f"outputs bit-equal to eager; 1 program, captured in "
+            f"{prog.capture_s * 1e3:.1f} ms")
 
 
 def profile_invokes(torch, rows, cards) -> None:
     """Where an invoke's time goes on the card: device time by kernel
-    from torch.profiler over 3 invokes, and the share of the median
-    invoke (phase 3, not profiled) during which the device was busy."""
+    from torch.profiler over 3 invokes, replayed and eager, and the share
+    of the median invoke (phases 3-5, not profiled) during which the
+    device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for row, (card, feeds) in zip(rows, cards):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                for pos, x in enumerate(feeds):
-                    card.set_input(pos, x)
-                card.invoke()
-        events = sorted((e for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA),
-                        key=lambda e: -e.self_device_time_total)
-        device_ms = sum(e.self_device_time_total for e in events) / 3e3
-        row["device_ms_per_invoke"] = device_ms
-        row["device_busy_share"] = device_ms / row["median_invoke_ms"]
-        row["top_device"] = [
-            {"name": e.key[:80], "us_per_invoke":
-             e.self_device_time_total / 3, "count_per_invoke": e.count / 3}
-            for e in events[:6]]
-        log(f"  {row['model']:<20} device {device_ms * 1e3:9.1f} us per "
-            f"invoke = {100 * row['device_busy_share']:5.1f}% of "
-            f"{row['median_invoke_ms']:.3f} ms; top: " + "; ".join(
-                f"{t['name'][:40]} {t['us_per_invoke']:.1f} us"
-                for t in row["top_device"][:3]))
+    from repro_torch.core import disable_capture
+
+    for row, (card, requests, _) in zip(rows, cards):
+        feeds = requests[0]
+        for key, ctx in (("", contextlib.nullcontext()),
+                         ("eager_", disable_capture())):
+            with ctx, profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    for pos, x in enumerate(feeds):
+                        card.set_input(pos, x)
+                    card.invoke()
+            events = sorted((e for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA),
+                            key=lambda e: -e.self_device_time_total)
+            device_ms = sum(e.self_device_time_total for e in events) / 3e3
+            row[key + "device_ms_per_invoke"] = device_ms
+            row[key + "device_busy_share"] = (
+                device_ms / row[key + "median_invoke_ms"])
+            row[key + "top_device"] = [
+                {"name": e.key[:80], "us_per_invoke":
+                 e.self_device_time_total / 3,
+                 "count_per_invoke": e.count / 3} for e in events[:6]]
+        us = row["device_ms_per_invoke"] * 1e3
+        log(f"  {row['model']:<20} device {us:9.1f} us per invoke: busy "
+            f"{100 * row['device_busy_share']:5.1f}% replayed, "
+            f"{100 * row['eager_device_busy_share']:5.1f}% eager "
+            f"({row['eager_device_ms_per_invoke'] * 1e3:.1f} us); top: "
+            + "; ".join(f"{t['name'][:40]} {t['us_per_invoke']:.1f} us"
+                        for t in row["top_device"][:3]))
 
 
 # ---------------------------------------------------------------------------
@@ -1184,24 +1261,55 @@ def kv_state(eng):
     return list(eng.cache.values())
 
 
-def serve_lm(torch, np, dev, eng, prompts):
-    """Phases 7 and 9, the counted part: every request through ``eng``;
-    checks what stays in place and returns the run's numbers."""
+def captures(eng) -> int:
+    """Captures the engine's programs made so far."""
+    return sum(p.captures for p in eng.programs().values())
+
+
+def capture_cost(torch, programs):
+    """(seconds the programs spent capturing, warm-up included; bytes of
+    device memory their graph pools hold)."""
+    pools = {tuple(p.pool.handle) for p in programs
+             if p.pool.handle is not None}
+    held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
+    return sum(p.capture_s for p in programs), held
+
+
+# device memory a newly captured program may add (its graph's memory
+# stays in the engine's pool, which memory_allocated does not count)
+NEW_PROGRAM_BYTES = 1 << 20
+
+
+def serve_lm(torch, np, dev, eng, prompts, eager=False):
+    """Phases 7, 9, 10 and 12: every request through ``eng``, replayed
+    from CUDA graphs (or, with ``eager``, under ``disable_capture()``);
+    checks what stays in place, that device memory after each decode
+    step (with no chunked prefill in flight) is its value after the
+    first one plus at most ``NEW_PROGRAM_BYTES`` for each program
+    captured since, and the program counts (decode 1, chunk 1, prefill
+    one per length hit: the buckets on a bucketed engine), and returns
+    the run's numbers."""
+    from repro_torch.core import capture_count, disable_capture
     from repro_torch.serving import Request
 
     ptrs = [t.data_ptr() for t in kv_state(eng)]
     persistent = eng.arena.usage().persistent
     for uid, p in enumerate(prompts):
         eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
-    mem0, decode_steps, step_ms = None, 0, []
+    mem0, caps0, growth, decode_steps, step_ms = None, 0, 0, 0, []
     prefills = chunk_steps = 0
+    lengths = set()
+    ctx = disable_capture() if eager else contextlib.nullcontext()
     t_run = time.perf_counter()
     while True:
         t0 = time.perf_counter()
-        more = eng.step()
+        with ctx:
+            more = eng.step()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         prefills += len(eng.last_step["prefill_tokens"])
+        lengths.update(eng.last_step["prefill_tokens"])
         chunk_steps += eng.last_step["chunks"]
         # a prompt mid-chunked-prefill holds its own batch=1 cache, so
         # memory is compared at the steps where none is in flight
@@ -1209,11 +1317,15 @@ def serve_lm(torch, np, dev, eng, prompts):
             decode_steps += 1
         if eng.last_step["decoded"] and not eng._chunking:
             mem = torch.cuda.memory_allocated()
-            mem0 = mem if mem0 is None else mem0
-            if mem != mem0:
+            if mem0 is None:
+                mem0, caps0 = mem, captures(eng)
+            growth = max(growth, mem - mem0)
+            new = captures(eng) - caps0
+            if not 0 <= mem - mem0 <= NEW_PROGRAM_BYTES * new:
                 raise AssertionError(f"device memory {mem} B after decode "
                                      f"step {decode_steps}, {mem0} B after "
-                                     f"the first")
+                                     f"the first, {new} programs captured "
+                                     f"since")
             if not eng.last_step["prefill_tokens"]:
                 step_ms.append(dt)
         if [t.data_ptr() for t in kv_state(eng)] != ptrs:
@@ -1223,7 +1335,7 @@ def serve_lm(torch, np, dev, eng, prompts):
     wall = time.perf_counter() - t_run
     if eng.arena.usage().persistent != persistent:
         raise AssertionError("the arena's persistent bytes changed")
-    res = eng.results
+    res = {uid: eng.results[uid] for uid in range(len(prompts))}
     for uid, r in res.items():
         if not (r.done and 1 <= len(r.output) <= SERVE_NEW and all(
                 0 <= t < eng.cfg.vocab for t in r.output)):
@@ -1232,11 +1344,27 @@ def serve_lm(torch, np, dev, eng, prompts):
     if eng.paged and eng.pool.free_blocks() != eng.pool.usable_blocks:
         raise AssertionError(f"{eng.pool.free_blocks()} of "
                              f"{eng.pool.usable_blocks} blocks came back")
+    counts = {"decode": capture_count(eng._decode),
+              "prefill": eng.prefill_compiles(),
+              "chunk": eng.chunk_compiles()}
+    want = ({"decode": 0, "prefill": 0, "chunk": 0} if eager else
+            {"decode": 1, "prefill": len(lengths),
+             "chunk": int(bool(eng.chunk_tokens))})
+    if counts != want:
+        raise AssertionError(f"programs {counts}, expected {want}")
+    # on a bucketed engine every prefill length is a bucket hit (or a
+    # chunked prompt's first chunk)
+    if eng.bucket_table is not None and not \
+            lengths - {eng.chunk_tokens} <= set(eng.bucket_table.hits):
+        raise AssertionError(f"prefill lengths {sorted(lengths)}, buckets "
+                             f"hit {sorted(eng.bucket_table.hits)}")
+    cap_s, pool_bytes = capture_cost(torch, eng.programs().values())
     tokens = sum(len(r.output) for r in res.values())
     median = statistics.median(step_ms)
     paged = f", kv_block {eng.kv_block}" if eng.paged else ""
     if eng.chunk_tokens:
         paged += f", prefill_chunk {eng.chunk_tokens}"
+    paged += ", eager" if eager else ""
     row = {"model": f"{eng.cfg.arch_id} bfloat16 serving{paged}",
            "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
            "requests": len(res), "prompt_lens": [len(p) for p in prompts],
@@ -1250,25 +1378,105 @@ def serve_lm(torch, np, dev, eng, prompts):
            "param_bytes": eng.param_bytes, "kv_bytes": eng.kv_bytes,
            "decode_tok_per_s": SERVE_SLOTS / median * 1e3,
            "wall_s": wall, "wall_tok_per_s": tokens / wall,
-           "device_memory_bytes": mem0}
+           "device_memory_bytes": mem0,
+           "device_memory_growth_bytes": growth, "programs": counts,
+           "prefill_lengths": sorted(lengths),
+           "captures": captures(eng), "capture_s": cap_s,
+           "graph_pool_bytes": pool_bytes}
     log(f"  {len(res)} requests, {tokens} tokens in {wall:.2f} s "
         f"({decode_steps} decode steps); prefill ms "
         + ", ".join(f"{p} tok {ms:.1f}" for p, ms in
                     zip(row["prompt_lens"], row["prefill_ms"])))
-    log(f"  decode step median {median:.3f} ms (min {min(step_ms):.3f}, max "
-        f"{max(step_ms):.3f}; {len(step_ms)} steps without prefill) vs "
-        f"weight-streaming bound {row['weight_bound_ms']:.3f} ms; "
-        f"{row['decode_tok_per_s']:.1f} tok/s at {SERVE_SLOTS} slots")
+    how = "eager" if eager else "replayed"
+    log(f"  decode step median {median:.3f} ms {how} (min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f}; {len(step_ms)} "
+        f"steps without prefill) vs weight-streaming bound "
+        f"{row['weight_bound_ms']:.3f} ms; {row['decode_tok_per_s']:.1f} "
+        f"tok/s at {SERVE_SLOTS} slots; programs {counts}, "
+        f"{row['captures']} captures in {cap_s:.2f} s, graph pools "
+        f"{pool_bytes:,} B; device memory {growth:,} B above the first "
+        f"step's at most (allowed {NEW_PROGRAM_BYTES:,} B a new program)")
     return row, {u: r.output for u, r in res.items()}
 
 
+def serve_main(torch, np, dev, eng, prompts, what):
+    """A serving main path: the requests through ``eng`` once inside
+    ``main_path`` (counts from 0, the launches traced), then once more
+    untraced with every program held, the timed run: its tokens equal
+    the first run's, it captures nothing and device memory stays at its
+    first step's value.  Returns the timed run's row, with the traced
+    launches, and the tokens."""
+    with main_path(torch, what) as traced:
+        first, served = serve_lm(torch, np, dev, eng, prompts)
+    row, again = serve_lm(torch, np, dev, eng, prompts)
+    if again != served or row["decode_steps"] != first["decode_steps"]:
+        raise AssertionError(f"the timed run emitted {again}, the counted "
+                             f"one {served}")
+    if row["captures"] != first["captures"] or \
+            row["device_memory_growth_bytes"]:
+        raise AssertionError(f"the timed run captured "
+                             f"{row['captures'] - first['captures']} "
+                             f"programs, memory grew "
+                             f"{row['device_memory_growth_bytes']} B")
+    row["launches"] = traced
+    row["traced_run"] = {k: first[k] for k in (
+        "median_decode_step_ms", "device_memory_growth_bytes", "wall_s",
+        "captures")}
+    log(f"  timed run: the same tokens, no capture, memory flat; decode "
+        f"step median {row['median_decode_step_ms']:.3f} ms (the traced "
+        f"run's {first['median_decode_step_ms']:.3f} ms)")
+    return row, served
+
+
+def eager_twin(torch, np, dev, eng, prompts, row, served):
+    """The same requests through a fresh engine (``eng``) under
+    ``disable_capture()``: tokens equal the replayed run's request for
+    request; the eager run's row (its decode-step median, its profile)
+    goes under ``row["eager"]``."""
+    from repro_torch.core import disable_capture
+
+    erow, etoks = serve_lm(torch, np, dev, eng, prompts, eager=True)
+    if etoks != served:
+        raise AssertionError(f"replayed tokens {served} != eager {etoks}")
+    with disable_capture():
+        profile_decode(torch, np, eng, erow)
+    row["eager"] = erow
+    row["replay_tokens_equal_eager"] = True
+    log(f"  replayed tokens equal the eager engine's, request for request; "
+        f"decode step median {erow['median_decode_step_ms']:.3f} ms eager, "
+        f"{row['median_decode_step_ms']:.3f} ms replayed (bound "
+        f"{row['weight_bound_ms']:.3f} ms); busy "
+        f"{100 * erow['device_busy_share']:.1f}% eager, "
+        f"{100 * row['device_busy_share']:.1f}% replayed")
+
+
+def private_pools(torch, np, dev, eng, prompts, served) -> int:
+    """The requests through ``eng`` again with each of its programs
+    captured anew in a graph pool of its own instead of the engine's
+    shared one; the tokens stay ``served``.  Returns the bytes the
+    programs' pools then hold."""
+    from repro_torch.core import GraphPool
+
+    programs = eng.programs().values()
+    for prog in programs:
+        prog.clear()
+        prog.pool = GraphPool()
+    torch.cuda.empty_cache()
+    _, toks = serve_lm(torch, np, dev, eng, prompts)
+    if toks != served:
+        raise AssertionError("private graph pools changed the tokens")
+    return capture_cost(torch, programs)[1]
+
+
 def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
-    """Phase 7, after the counts are read: device time by operation over
-    pure decode steps, and the share of the median step (measured
-    unprofiled above) during which the device was busy."""
+    """Phases 7, 9, 10 and 12, after the counts are read: device time by
+    operation over pure decode steps (replayed, or eager under
+    ``disable_capture()``), and the share of the median step (measured
+    unprofiled above, the same way) during which the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import capture_count
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(8)
@@ -1303,6 +1511,24 @@ def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
             per_launch[name] = e.self_device_time_total / e.count
     if per_launch:
         row["kernel_us_per_launch"] = per_launch
+    if capture_count(eng._decode):
+        # the decode program alone between two CUDA events: its graph's
+        # device time plus one launch (the slots are idle by now, so the
+        # repeated step writes only rows nothing reads)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        kv = ((eng.kv_pool, eng.block_tables) if eng.paged
+              else (eng.cache,))
+        ms = []
+        for _ in range(5):
+            start.record()
+            eng._decode((eng.params, *kv, eng.cur_tokens, eng.lengths))
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        row["replay_event_ms"] = statistics.median(ms)
+        log(f"  one replay of the decode program between CUDA events: "
+            f"{row['replay_event_ms']:.3f} ms")
     log(f"  device {device_ms:.3f} ms per decode step = "
         f"{100 * row['device_busy_share']:.1f}% of the median step; top: "
         + "; ".join(f"{t['name'][:48]} {t['us_per_step']:.1f} us x"
@@ -1511,37 +1737,90 @@ WEIGHT_RATIO = {"int8": 1.9, "int4": 3.6}
 KV_RATIO = 1.9
 
 
-def kernel_counts():
-    """The launch counts of every kernel the serving paths run."""
-    from repro_torch.kernels import decode_attention as K3
-    from repro_torch.kernels import dequant_matmul as K56
-    from repro_torch.kernels import paged_decode_attention as K4
-    from repro_torch.kernels import paged_decode_attention_q as K7
-    from repro_torch.kernels import ssd_scan as K8
-    return {"decode_attention": K3.launches,
-            "paged_decode_attention": K4.launches,
-            "dequant_matmul": K56.launches,
-            "dequant_matmul_i4": K56.launches_i4,
-            "paged_decode_attention_q": K7.launches,
-            "ssd_scan": K8.launches}
+def kernel_of(name: str):
+    """The kernel whose wrapper launched the device function ``name`` (a
+    symbol in a torch.profiler trace), by the one function each launch
+    of the wrapper runs: K3, K4 and K7 run one function of K3's device
+    code and differ in its template arguments; K8 runs one state pass or
+    one single-chunk kernel a call.  None for any other function."""
+    if "decode_simt_kernel" in name or "decode_mma_kernel" in name:
+        if "ContiguousRows" in name:
+            return "decode_attention"
+        return ("paged_decode_attention_q" if "RowScale" in name
+                else "paged_decode_attention")
+    if "dequant_matmul_kernel" in name:
+        return "dequant_matmul_i4" if "Int4W" in name else "dequant_matmul"
+    if "quant_matmul_rows" in name or "quant_matmul_kernel" in name:
+        return "quant_matmul"
+    if "flash_attention_kernel" in name:
+        return "flash_attention"
+    if "state_pass_kernel" in name or "one_chunk_kernel" in name:
+        return "ssd_scan"
+    return None
 
 
-def zero_counts():
-    from repro_torch.kernels import decode_attention as K3
-    from repro_torch.kernels import dequant_matmul as K56
-    from repro_torch.kernels import flash_attention as K2
-    from repro_torch.kernels import paged_decode_attention as K4
-    from repro_torch.kernels import paged_decode_attention_q as K7
-    from repro_torch.kernels import quant_matmul as K1
-    from repro_torch.kernels import ssd_scan as K8
-    K1.launches = K2.launches = K3.launches = K4.launches = 0
-    K56.launches = K56.launches_i4 = K7.launches = K8.launches = 0
+def trace_launches(prof):
+    """Each kernel's launches in a torch.profiler trace of the device,
+    read from the trace's raw records (``key_averages`` would build an
+    event object for each of the run's ~10^5 launches)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels import _build
+
+    counts = dict.fromkeys(_build.launches, 0)
+    names = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name not in names:
+            names[name] = kernel_of(name)
+        if names[name] is not None:
+            counts[names[name]] += 1
+    return counts
+
+
+TRACE_MARGIN_S = 0.25
+
+
+@contextlib.contextmanager
+def main_path(torch, what: str):
+    """Drive a main path inside the block: every launch count is set to
+    0 just before it and the device is traced by torch.profiler over
+    it.  After it, each kernel's launches counted in the trace must
+    equal its wrapper's count (``_build.launches``: the eager launches
+    plus what each replay's capture recorded); the yielded dict is
+    filled with the traced counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+
+    traced = {}
+    for name in _build.launches:
+        _build.launches[name] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace keeps the device records inside its window on the
+        # host clock: margins on both sides keep the first and the last
+        # kernels of the run in it
+        time.sleep(TRACE_MARGIN_S)
+        yield traced
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    counted = dict(_build.launches)
+    traced.update(trace_launches(prof))
+    if traced != counted:
+        raise AssertionError(f"{what}: launches in the trace {traced}, the "
+                             f"wrappers counted {counted}")
+    log(f"  launches on {what}, traced on the device (equal to the "
+        f"wrappers' counts): "
+        + ", ".join(f"{k} {n}" for k, n in traced.items() if n))
 
 
 def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
     """The largest |logit| difference between the bf16 engine and a
     quantized one (``kw``) over the prefill and ``LOGIT_STEPS`` decode
     steps, both fed the bf16 engine's greedy tokens; batch 1."""
+    from repro_torch.core import disable_capture
     from repro_torch.serving import ServingEngine
 
     def engine(**q):
@@ -1552,7 +1831,8 @@ def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
     v = bundle.cfg.vocab
     batch = {"tokens": torch.as_tensor(prompt[None, :-1].astype(np.int64),
                                        device=dev)}
-    with torch.no_grad():
+    # a comparison on new tensors at every step: run eagerly
+    with torch.no_grad(), disable_capture():
         lf, cf = feng._prefill((feng.params, batch))
         lq, cq = qeng._prefill((qeng.params, batch))
         err = (lf[..., :v].float() - lq[..., :v].float()).abs().max().item()
@@ -1593,9 +1873,9 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        zero_counts()
-        row, toks[key] = serve_lm(torch, np, dev, eng, prompts)
-        counts = kernel_counts()
+        row, toks[key] = serve_main(torch, np, dev, eng, prompts,
+                                    f"quantized run ({key})")
+        counts = row["launches"]
         steps = row["decode_steps"]
         mm = "dequant_matmul_i4" if kw["weight_dtype"] == "int4" \
             else "dequant_matmul"
@@ -1604,8 +1884,6 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
         want = {name: 0 for name in counts}
         want[mm] = 3 * n_layers * steps
         want[attn] = n_layers * steps
-        log(f"  ({key}) {kw}: launches {counts} ({n_layers} layers x "
-            f"{steps} decode steps)")
         if counts != want:
             raise AssertionError(f"({key}) launches {counts}, expected "
                                  f"{want}")
@@ -1644,7 +1922,13 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
             f"{row['requests_equal_phase7']} of {len(served)} requests "
             f"whole")
         profile_decode(torch, np, eng, row)
+        row["private_pools_bytes"] = private_pools(torch, np, dev, eng,
+                                                   prompts, toks[key])
+        log(f"  ({key}) graph pool {row['graph_pool_bytes']:,} B shared by "
+            f"the engine's programs; {row['private_pools_bytes']:,} B with "
+            f"a pool for each program")
         del eng
+        eager_twin(torch, np, dev, engine(**kw), prompts, row, toks[key])
         torch.cuda.empty_cache()
         rows[key] = row
     if toks["b"] != toks["a"]:
@@ -1825,48 +2109,100 @@ def recurrent_workload(np, vocab, seed, n, lo, hi, contract):
 
 def profile_prefill(torch, np, eng, row, prompt) -> None:
     """Device time by operation of one one-shot prefill of ``prompt``, and
-    its share of the host time around the same call (unprofiled)."""
+    its share of the host time around the same call (unprofiled): the
+    engine's prefill program replayed, then eagerly under
+    ``disable_capture()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import disable_capture
     from repro_torch.kernels import ssd_scan as K8
 
-    batch = {"tokens": torch.as_tensor(prompt[None, :-1].astype(np.int64),
-                                       device=eng.device)}
-    with torch.no_grad():
-        eng._prefill((eng.params, batch))
-        torch.cuda.synchronize()
+    for key, ctx in (("prefill_profile", contextlib.nullcontext()),
+                     ("eager_prefill_profile", disable_capture())):
+        with torch.no_grad(), ctx:
+            eng._run_prefill(prompt[:-1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._run_prefill(prompt[:-1])
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng._run_prefill(prompt[:-1])
+                torch.cuda.synchronize()
+            k8_calls = trace_launches(prof)["ssd_scan"]
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+        device = sum(e.self_device_time_total for e in events) / 1e3
+        # K8's three kernels (chunk_state, state_pass, chunk_output) a call
+        k8_us = sum(e.self_device_time_total for e in events
+                    if any(k in e.key for k in K8.KERNEL_NAMES))
+        prof_row = row[key] = {
+            "tokens": len(prompt) - 1, "host_ms": host, "device_ms": device,
+            "busy_share": device / host,
+            "ssd_scan_us": k8_us, "ssd_scan_calls": k8_calls,
+            "ssd_scan_us_per_launch": k8_us / max(k8_calls, 1),
+            "top_device": [{"name": e.key[:80],
+                            "us": e.self_device_time_total,
+                            "count": e.count} for e in events[:8]]}
+        log(f"  prefill of {len(prompt) - 1} tokens, "
+            f"{'eager' if 'eager' in key else 'replayed'}: host {host:.2f} "
+            f"ms, device {device:.2f} ms ({100 * device / host:.1f}% busy); "
+            f"K8 {k8_us / 1e3:.3f} ms in {k8_calls} calls "
+            f"({k8_us / max(k8_calls, 1):.2f} us a call); top: "
+            + "; ".join(f"{t['name'][:48]} {t['us']:.0f} us x{t['count']}"
+                        for t in prof_row["top_device"][:5]))
+
+
+def profile_chunked_prefill(torch, eng, row, prompt) -> None:
+    """Device time of one chunked prefill of ``prompt`` on a chunking
+    engine (its chunk steps alone, replayed), beside the host time of the
+    same calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    req = Request(uid=30_000, tokens=prompt, max_new_tokens=1)
+    eng.submit(req)
+    eng.queue.remove(req)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng._prefill((eng.params, batch))
+        eng._start_chunked(req, 0)
+        chunks = 1
+        while 0 in eng._chunking:
+            eng._advance_chunk(0)
+            chunks += 1
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
-        before = K8.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng._prefill((eng.params, batch))
-            torch.cuda.synchronize()
-        k8_calls = K8.launches - before
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: -e.self_device_time_total)
-    device = sum(e.self_device_time_total for e in events) / 1e3
-    # K8's three kernels (chunk_state, state_pass, chunk_output) per call
-    k8_us = sum(e.self_device_time_total for e in events
-                if any(k in e.key for k in K8.KERNEL_NAMES))
-    row["prefill_profile"] = {
-        "tokens": len(prompt) - 1, "host_ms": host, "device_ms": device,
-        "busy_share": device / host,
-        "ssd_scan_us": k8_us, "ssd_scan_calls": k8_calls,
-        "ssd_scan_us_per_launch": k8_us / max(k8_calls, 1),
-        "top_device": [{"name": e.key[:80],
-                        "us": e.self_device_time_total,
-                        "count": e.count} for e in events[:8]]}
-    log(f"  prefill of {len(prompt) - 1} tokens: host {host:.2f} ms, device "
-        f"{device:.2f} ms ({100 * device / host:.1f}% busy); K8 "
-        f"{k8_us / 1e3:.3f} ms in {k8_calls} calls "
-        f"({k8_us / max(k8_calls, 1):.2f} us a call); top: "
-        + "; ".join(f"{t['name'][:48]} {t['us']:.0f} us x{t['count']}"
-                    for t in row["prefill_profile"]["top_device"][:5]))
+    eng.run()
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    row["chunked_prefill_profile"] = {"tokens": len(prompt) - 1,
+                                      "chunks": chunks, "host_ms": host,
+                                      "device_ms": device}
+    log(f"  chunked prefill of {len(prompt) - 1} tokens in {chunks} chunk "
+        f"steps, replayed (profiled): host {host:.2f} ms, device "
+        f"{device:.2f} ms ({100 * device / host:.1f}% busy)")
+
+
+def timed_prefill(eng, prompt, n: int = 3) -> float:
+    """Median ms of ``n`` prefills of ``prompt`` through ``eng``, one
+    request at a time after one untimed, each to its completion on the
+    device (the request's ``prefill_s``: one-shot, or the sum of its
+    chunk steps)."""
+    from repro_torch.serving import Request
+
+    times = []
+    for i in range(n + 1):
+        uid = 20_000 + i
+        eng.submit(Request(uid=uid, tokens=prompt, max_new_tokens=1))
+        eng.run()
+        times.append(eng.results[uid].prefill_s * 1e3)
+    return statistics.median(times[1:])
 
 
 def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
@@ -1881,6 +2217,7 @@ def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
     (a) emits the uninterrupted tokens.  Returns (rows, K8's launches on
     each run)."""
     from repro_torch.configs import get_config
+    from repro_torch.core import disable_capture
     from repro_torch.models import get_model
     from repro_torch.serving import ServingEngine
 
@@ -1900,24 +2237,35 @@ def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
     rows, launches, served = [], {}, {}
     for key, (kw, prompts) in runs.items():
         eng = engine(**kw)
-        zero_counts()
-        row, served[key] = serve_lm(torch, np, dev, eng, prompts)
-        counts = kernel_counts()
+        row, served[key] = serve_main(torch, np, dev, eng, prompts,
+                                      f"{arch} run ({key})")
+        counts = row["launches"]
         want = {name: 0 for name in counts}
         want["ssd_scan"] = n_layers * (row["prefills"] + row["chunk_steps"])
-        log(f"  ({key}) {kw or 'one-shot'}: launches {counts} ({n_layers} "
-            f"layers x ({row['prefills']} prefills + {row['chunk_steps']} "
-            f"chunk steps))")
         if counts != want or not want["ssd_scan"]:
             raise AssertionError(f"({key}) launches {counts}, expected "
-                                 f"{want}")
+                                 f"{want} ({n_layers} layers x "
+                                 f"({row['prefills']} prefills + "
+                                 f"{row['chunk_steps']} chunk steps))")
         launches[key] = counts["ssd_scan"]
-        row["launches"] = counts
+        profile_decode(torch, np, eng, row)
         if key == "a":
-            profile_decode(torch, np, eng, row)
             profile_prefill(torch, np, eng, row,
                             max(prompts, key=len))
+        # a 512-token prompt's prefill, one-shot on (a), in chunks of
+        # CHUNK on (b), replayed and eager
+        long_prompt = recurrent_workload(np, vocab, 14, 2, 0, 0, True)[-1]
+        row["prefill_512_ms"] = timed_prefill(eng, long_prompt)
+        with disable_capture():
+            row["eager_prefill_512_ms"] = timed_prefill(eng, long_prompt)
+        log(f"  ({key}) a {len(long_prompt) - 1}-token prompt's prefill "
+            f"({'one-shot' if key == 'a' else f'chunks of {CHUNK}'}): "
+            f"{row['prefill_512_ms']:.2f} ms replayed, "
+            f"{row['eager_prefill_512_ms']:.2f} ms eager")
+        if key == "b":
+            profile_chunked_prefill(torch, eng, row, long_prompt)
         del eng
+        eager_twin(torch, np, dev, engine(**kw), prompts, row, served[key])
         torch.cuda.empty_cache()
         rows.append(row)
     if preempt:
@@ -1961,7 +2309,6 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as K3
     from repro_torch.kernels import dequant_matmul as K56
     from repro_torch.kernels import flash_attention as K2
-    from repro_torch.kernels import paged_decode_attention as K4
     from repro_torch.kernels import quant_matmul as K1
     dev = torch.device("cuda")
     # registers and shared memory a block at the path shapes
@@ -1991,7 +2338,7 @@ def main() -> int:
         f"float32 G 8 D 128: "
         f"{K3.kernel_attributes(torch.float32, 8, 128)} (registers, bytes)")
 
-    log("phase 2: kernels against their plain versions")
+    phase("phase 2: kernels against their plain versions")
     k1_rows = check_quant_matmul(torch, np, dev)
     k2_rows = check_flash_attention(torch, np, dev)
     k3_rows = check_decode_attention(torch, np, dev)
@@ -2000,15 +2347,15 @@ def main() -> int:
     k7_rows = check_paged_decode_attention_q(torch, np, dev)
     k8_rows = check_ssd_scan(torch, np, dev)
 
-    log("phase 3: the interpreter on the card (main path)")
-    zero_counts()
-    model_rows, cards, want_k1 = run_models(np, dev)
-    log("phase 4: ATTENTION through the interpreter (main path)")
-    row, card = run_attention(np, dev)
-    model_rows.append(row)
-    cards.append(card)
-    launches = {"quant_matmul": K1.launches, "flash_attention": K2.launches}
-    log(f"  launches on the main path: {launches}")
+    phase("phase 3: the interpreter on the card (main path)")
+    with main_path(torch, "the micro path (phases 3-4)") as traced:
+        model_rows, cards, want_k1 = run_models(np, dev)
+        phase("phase 4: ATTENTION through the interpreter (main path)")
+        row, card = run_attention(np, dev)
+        model_rows.append(row)
+        cards.append(card)
+    launches = {"quant_matmul": traced["quant_matmul"],
+                "flash_attention": traced["flash_attention"]}
     if launches["quant_matmul"] != want_k1:
         raise AssertionError(f"quant_matmul launched "
                              f"{launches['quant_matmul']} times, the int8 "
@@ -2017,14 +2364,16 @@ def main() -> int:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times for "
                              f"{N_REQUESTS} ATTENTION invokes")
-    log("phase 5: where an invoke's time goes (torch.profiler)")
+    phase("phase 5: replayed invokes against eager ones; where an invoke's "
+        "time goes (torch.profiler)")
+    eager_invokes(np, model_rows, cards)
     profile_invokes(torch, model_rows, cards)
 
-    log(f"phase 6: {LM_ARCH} full width, float32, K3 vs its plain version "
+    phase(f"phase 6: {LM_ARCH} full width, float32, K3 vs its plain version "
         f"(teacher-forced)")
     model_rows.append(teacher_forced(torch, np, dev))
 
-    log(f"phase 7: {LM_ARCH} full width, bfloat16, through the "
+    phase(f"phase 7: {LM_ARCH} full width, bfloat16, through the "
         f"ServingEngine (main path)")
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -2038,44 +2387,40 @@ def main() -> int:
                              cache_len=SERVE_CACHE,
                              tags=("cuda", "reference"), device=dev, **kw)
     eng = engine()
-    zero_counts()
-    serve_row, served = serve_lm(torch, np, dev, eng, prompts)
-    launches["decode_attention"] = K3.launches
+    serve_row, served = serve_main(torch, np, dev, eng, prompts,
+                                   "the serving path")
     n_layers = bundle.cfg.n_layers
-    log(f"  launches on the serving path: K1 {K1.launches}, K2 "
-        f"{K2.launches}, K3 {K3.launches}, K4 {K4.launches} ({n_layers} "
-        f"layers x {serve_row['decode_steps']} decode steps)")
-    if (K3.launches, K4.launches) != (n_layers * serve_row["decode_steps"],
-                                      0):
-        raise AssertionError(f"decode_attention launched {K3.launches} "
-                             f"times (K4 {K4.launches}) for "
-                             f"{serve_row['decode_steps']} decode steps of "
-                             f"{n_layers} layers")
+    want = dict.fromkeys(serve_row["launches"], 0)
+    want["decode_attention"] = n_layers * serve_row["decode_steps"]
+    if serve_row["launches"] != want:
+        raise AssertionError(f"launches {serve_row['launches']}, expected "
+                             f"{want} ({serve_row['decode_steps']} decode "
+                             f"steps of {n_layers} layers)")
+    launches["decode_attention"] = want["decode_attention"]
     profile_decode(torch, np, eng, serve_row)
     del eng
+    eager_twin(torch, np, dev, engine(), prompts, serve_row, served)
     check_preemption(engine(policy="edf", preempt="edf-displace",
                             clock=lambda: 0), prompts, served)
     model_rows.append(serve_row)
 
-    log("phase 8: reduced models, the engine on the card vs the CPU")
+    phase("phase 8: reduced models, the engine on the card vs the CPU")
     model_rows.append(reduced_card_vs_cpu(torch, np, dev))
     model_rows.append(reduced_recurrent_card_vs_cpu(torch, np, dev))
 
-    log(f"phase 9: {LM_ARCH} full width, bfloat16, paged KV "
+    phase(f"phase 9: {LM_ARCH} full width, bfloat16, paged KV "
         f"(kv_block={PAGED_BLOCK}) through the ServingEngine (main path)")
     eng = engine(kv_block=PAGED_BLOCK)
-    zero_counts()
-    paged_row, paged_served = serve_lm(torch, np, dev, eng, prompts)
-    launches["paged_decode_attention"] = K4.launches
-    log(f"  launches on the paged serving path: K3 {K3.launches}, K4 "
-        f"{K4.launches} ({n_layers} layers x {paged_row['decode_steps']} "
-        f"decode steps); pool {eng.pool.n_blocks} blocks of {PAGED_BLOCK}")
-    if (K3.launches, K4.launches) != (0, n_layers
-                                      * paged_row["decode_steps"]):
-        raise AssertionError(f"paged_decode_attention launched "
-                             f"{K4.launches} times (K3 {K3.launches}) for "
-                             f"{paged_row['decode_steps']} decode steps of "
-                             f"{n_layers} layers")
+    paged_row, paged_served = serve_main(torch, np, dev, eng, prompts,
+                                         "the paged serving path")
+    want = dict.fromkeys(paged_row["launches"], 0)
+    want["paged_decode_attention"] = n_layers * paged_row["decode_steps"]
+    if paged_row["launches"] != want:
+        raise AssertionError(f"launches {paged_row['launches']}, expected "
+                             f"{want} ({paged_row['decode_steps']} decode "
+                             f"steps of {n_layers} layers; pool "
+                             f"{eng.pool.n_blocks} blocks of {PAGED_BLOCK})")
+    launches["paged_decode_attention"] = want["paged_decode_attention"]
     if paged_served != served:
         raise AssertionError(f"paged tokens {paged_served} != phase 7's "
                              f"contiguous tokens {served}")
@@ -2083,6 +2428,8 @@ def main() -> int:
         "request; every block came back")
     profile_decode(torch, np, eng, paged_row)
     del eng
+    eager_twin(torch, np, dev, engine(kv_block=PAGED_BLOCK), prompts,
+               paged_row, paged_served)
     check_preemption(engine(kv_block=PAGED_BLOCK, policy="edf",
                             preempt="edf-displace", clock=lambda: 0),
                      prompts, served)
@@ -2094,7 +2441,7 @@ def main() -> int:
                                              served)
     model_rows.append(paged_row)
 
-    log(f"phase 10: {LM_ARCH} full width, bfloat16, quantized serving "
+    phase(f"phase 10: {LM_ARCH} full width, bfloat16, quantized serving "
         f"through the ServingEngine (main path)")
     q_rows, q_launches = quantized_serving(
         torch, np, dev, engine, bundle, lm_model, prompts, served,
@@ -2104,11 +2451,11 @@ def main() -> int:
     del lm_model, bundle
     torch.cuda.empty_cache()
 
-    log(f"phase 11: {SSM_ARCH} full width, float32, prefill on K8 vs the "
+    phase(f"phase 11: {SSM_ARCH} full width, float32, prefill on K8 vs the "
         f"plain scan (one-shot, chunked, teacher-forced decode)")
     model_rows.append(ssm_teacher_forced(torch, np, dev))
 
-    log(f"phase 12: {SSM_ARCH} full width, bfloat16, through the "
+    phase(f"phase 12: {SSM_ARCH} full width, bfloat16, through the "
         f"ServingEngine (main path)")
     ssm_rows, ssm_launches = recurrent_serving(torch, np, dev, SSM_ARCH,
                                                N_SERVE, preempt=True)
@@ -2178,6 +2525,11 @@ def main() -> int:
         f"{SSM_ARCH} prefill_chunk={CHUNK}": ssm_launches["b"],
         f"{HYBRID_ARCH} one-shot": hybrid_launches["a"],
         f"{HYBRID_ARCH} prefill_chunk={CHUNK}": hybrid_launches["b"]}
+    cap = [(r["model"], r["capture_s"], r.get("graph_pool_bytes"))
+           for r in model_rows if "capture_s" in r]
+    log(f"capture cost: {sum(c[1] for c in cap):.2f} s over "
+        f"{len(cap)} models and engines; graph pools "
+        + ", ".join(f"{m} {b:,} B" for m, _, b in cap if b is not None))
     log(json.dumps({"models": model_rows}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

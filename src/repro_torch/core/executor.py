@@ -10,7 +10,9 @@ steady-state invoke is pure dispatch — as a pipeline of phases:
      from the blob onto the device once.  Nothing is planned after this.
 
   2. **CompiledPlan** (execute): the arena read/dispatch/write loop over
-     the topologically sorted op list, run eagerly.  The arena is ONE
+     the topologically sorted op list, one ``CapturedProgram`` per model:
+     on the card one CUDA graph per input signature, captured after one
+     eager call and replayed from then on.  The arena is ONE
      preallocated ``torch.uint8`` tensor on the device; every planned
      tensor is a ``.view(dtype).view(shape)`` of it at its planned byte
      offset (``DEFAULT_ALIGN = 16`` keeps every view aligned), and each
@@ -18,6 +20,12 @@ steady-state invoke is pure dispatch — as a pipeline of phases:
 
   3. **dispatch**: ``MicroInterpreter`` (the paper's application API)
      feeds inputs in and reads outputs back.
+
+**Compile once.**  ``CapturedProgram`` is the port's counterpart of
+``jax.jit``: a function run as one CUDA graph per signature (the shapes,
+dtypes and addresses of its tensor inputs), and ``capture_count`` the
+counterpart of ``jit_cache_size``.  ``disable_capture()`` is the
+counterpart of ``jax.disable_jit()``.
 
 **Arena pooling.**  ``ArenaPool`` owns the physical nonpersistent byte
 buffer that interpreters sharing an arena (§4.5) recycle between
@@ -34,11 +42,14 @@ growth, release at retirement).
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .arena import TwoStackArena, align_up
 from .memory_planner import MemoryPlan, plan_nonpersistent, select_planner
@@ -309,22 +320,232 @@ def plan_model(model: MicroModel, resolver: MicroMutableOpResolver,
 
 
 # ---------------------------------------------------------------------------
+# compile once: one CUDA-graph capture per program signature
+# ---------------------------------------------------------------------------
+
+_capture_disabled = 0
+
+
+class disable_capture:
+    """The counterpart of ``jax.disable_jit()``, a context manager (like
+    ``torch.no_grad``, reusable): inside the block every
+    ``CapturedProgram`` runs its function eagerly, op by op, and records
+    no signature.  The eager side of a replay-against-eager comparison
+    runs here."""
+
+    def __enter__(self) -> "disable_capture":
+        global _capture_disabled
+        _capture_disabled += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _capture_disabled
+        _capture_disabled -= 1
+
+
+def _leaf_key(leaf) -> Any:
+    if isinstance(leaf, torch.Tensor):
+        return (tuple(leaf.shape), leaf.dtype, leaf.device,
+                tuple(leaf.stride()), leaf.data_ptr())
+    return leaf
+
+
+def _add_launches(counts: Dict[str, int], sign: int = 1) -> None:
+    """Add ``counts`` to the kernels' launch counts (``kernels._build``;
+    imported here, as the kernel package imports this one)."""
+    from repro_torch.kernels import _build
+    for name, n in counts.items():
+        _build.launches[name] += sign * n
+
+
+class GraphPool:
+    """One CUDA-graph memory pool and the side stream its programs warm
+    up and capture on.  The programs of one pool share its memory: a
+    capture reuses the blocks the earlier captures freed, so the pool
+    holds the largest program's temporaries, not their sum.  That is
+    safe because replays run one at a time on the caller's stream and a
+    program's outputs are copied out of the pool (``CapturedProgram``),
+    so no replay reads what another left in the pool.  One pool serves
+    one owner (a serving engine, an interpreter)."""
+
+    def __init__(self) -> None:
+        self.handle = None
+        self.stream = None
+
+    def bind(self, device: torch.device) -> "GraphPool":
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+            self.handle = torch.cuda.graph_pool_handle()
+        return self
+
+
+@dataclass
+class _Graph:
+    graph: Any                  # torch.cuda.CUDAGraph
+    outputs: Any                # what a replay returns
+    launches: Dict[str, int]    # kernel launches a replay makes
+
+
+class CapturedProgram:
+    """``fn`` as one program per signature — the port's ``jax.jit``.
+
+    A signature is the argument structure and, for each tensor
+    argument, its shape, dtype, strides, device and address; any other
+    argument (a model, a flag) counts by its hash: value, or identity for
+    a module.  Every tensor is a *bound buffer*: the program reads and
+    writes it in place at its address, so a caller keeps its inputs at
+    fixed addresses (static staging tensors it copies new values into)
+    and gets one program however many calls it makes.
+
+    On the card, the first call of a signature runs ``fn`` once eagerly
+    on the pool's side stream (the call's result; it also builds the
+    kernels, allocates their lasting buffers and warms the libraries, as
+    torch's capture recipe asks), then captures ``fn`` into a
+    ``torch.cuda.CUDAGraph`` (the capture runs nothing); every later call
+    replays the graph.  On the CPU nothing is captured: each call runs
+    ``fn`` eagerly and the signature is recorded all the same, so
+    ``capture_count`` keeps its meaning there.  A failed capture or
+    replay raises; nothing falls back to eager.  Inside
+    ``disable_capture()`` every call runs eagerly and records nothing.
+
+    Memory: the graphs live in ``pool`` (a ``GraphPool``, the program's
+    own unless the owner shares one among its programs).  An output that
+    is not an input (the bound buffers a step updates in place) is copied
+    at the end of the graph into a buffer the program owns, one per
+    output position and shape, shared by its signatures: a replay returns
+    those buffers, valid until the next call of the program, so read or
+    copy them first.  Nothing of a graph stays allocated in the pool, and
+    a new signature adds no device memory once its output shapes were
+    seen.  ``max_signatures`` bounds the graphs held: past it the least
+    recently used one is dropped (``evictions``) and captured again if
+    its signature returns.  ``clear()`` drops every graph (its buffers
+    were rebound); ``captures`` counts every capture made, recaptures
+    included, and ``capture_s`` the seconds they took, warm-up included.
+
+    Launch counts: the capture's calls of the kernel wrappers launch
+    nothing, so their counts are taken back, and each replay adds the
+    launches its capture recorded."""
+
+    def __init__(self, fn: Callable, name: str = "",
+                 pool: Optional[GraphPool] = None,
+                 max_signatures: Optional[int] = None):
+        self.fn = fn
+        self.name = name or getattr(fn, "__name__", "program")
+        self.pool = pool if pool is not None else GraphPool()
+        self.max_signatures = max_signatures
+        self._graphs: "OrderedDict[Any, Optional[_Graph]]" = OrderedDict()
+        self._outs: Dict[Any, torch.Tensor] = {}
+        self.captures = 0
+        self.evictions = 0
+        self.capture_s = 0.0
+
+    def __repr__(self) -> str:
+        return (f"CapturedProgram({self.name!r}, "
+                f"{len(self._graphs)} signatures)")
+
+    def clear(self) -> None:
+        """Drop every signature and its graph."""
+        self._graphs.clear()
+
+    def __call__(self, *args):
+        if _capture_disabled:
+            return self.fn(*args)
+        flat, spec = tree_flatten(args)
+        key = (str(spec), tuple(_leaf_key(x) for x in flat))
+        if key in self._graphs:
+            self._graphs.move_to_end(key)
+            entry = self._graphs[key]
+            if entry is None:                       # the CPU: eager
+                return self.fn(*args)
+            entry.graph.replay()
+            _add_launches(entry.launches)
+            return entry.outputs
+        device = next((x.device for x in flat
+                       if isinstance(x, torch.Tensor)
+                       and x.device.type == "cuda"), None)
+        if device is None:
+            self._hold(key, None)
+            return self.fn(*args)
+        return self._capture(key, args, flat, device)
+
+    def _hold(self, key, entry: Optional[_Graph]) -> None:
+        self._graphs[key] = entry
+        if self.max_signatures and len(self._graphs) > self.max_signatures:
+            self._graphs.popitem(last=False)
+            self.evictions += 1
+
+    def _capture(self, key, args, flat, device: torch.device):
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        pool = self.pool.bind(device)
+        current = torch.cuda.current_stream(device)
+        pool.stream.wait_stream(current)
+        with torch.cuda.stream(pool.stream):
+            out = self.fn(*args)                    # the eager warm-up
+        current.wait_stream(pool.stream)
+        # the outputs that are no input go to the program's own buffers
+        bound = {x.untyped_storage().data_ptr() for x in flat
+                 if isinstance(x, torch.Tensor)}
+        static, out_spec = tree_flatten(out)
+        copied = [i for i, x in enumerate(static)
+                  if isinstance(x, torch.Tensor)
+                  and x.untyped_storage().data_ptr() not in bound]
+        for i in copied:
+            x = static[i]
+            okey = (i, tuple(x.shape), x.dtype, tuple(x.stride()))
+            if okey not in self._outs:
+                self._outs[okey] = torch.empty_like(x)
+            static[i] = self._outs[okey]
+        before = dict(_build.launches)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
+            res, _ = tree_flatten(self.fn(*args))
+            for i in copied:
+                static[i].copy_(res[i])
+            del res
+        recorded = {k: n - before[k] for k, n in _build.launches.items()
+                    if n != before[k]}
+        _add_launches(recorded, -1)
+        self._hold(key, _Graph(graph, tree_unflatten(static, out_spec),
+                               recorded))
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return out
+
+
+def capture_count(program: CapturedProgram) -> int:
+    """How many distinct signatures ``program`` holds — the counterpart
+    of the JAX package's ``jit_cache_size``: one CUDA graph per
+    signature on the card, one recorded signature per eager signature on
+    the CPU.  A compile-once contract reads ``capture_count(fn) == 1``
+    however many calls were made."""
+    return len(program._graphs)
+
+
+# ---------------------------------------------------------------------------
 # phase 2: CompiledPlan
 # ---------------------------------------------------------------------------
 
 class CompiledPlan:
     """The invoke body over a frozen AllocationPlan: one request per call,
-    dispatched eagerly op by op over the arena buffer's views."""
+    the op loop over the arena buffer's views run as one
+    ``CapturedProgram`` (``program``) — one CUDA graph per (model, input
+    shapes) on the card, bound to the arena buffer, the variable tensors
+    and the caller's static input tensors.  When the arena pool hands
+    out a new buffer, the graphs bound to the old one are dropped and the
+    next call captures again."""
 
     def __init__(self, alloc: AllocationPlan):
         self.alloc = alloc
         self._bound: Optional[torch.Tensor] = None
         self._views: Dict[int, torch.Tensor] = {}
+        self.program = CapturedProgram(self._run, name="invoke")
 
     def views(self, buf: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Typed, shaped views of every planned tensor inside ``buf``.
         Made once per physical buffer and reused while it stays the
-        pool's buffer."""
+        pool's buffer; a new buffer drops the programs bound to the old
+        one."""
         if buf is not self._bound:
             views = {}
             for tid, off in self.alloc.tensor_offset.items():
@@ -332,13 +553,23 @@ class CompiledPlan:
                 raw = buf[off:off + _spec_nbytes(spec)]
                 views[tid] = raw.view(torch_dtype(spec.dtype)).view(
                     spec.shape)
+            if self._bound is not None:
+                self.program.clear()
             self._bound, self._views = buf, views
         return self._views
 
     def execute(self, buf: torch.Tensor, variables: Sequence[torch.Tensor],
                 inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Run every op once.  Variable tensors are updated in place;
-        returns the arena views of the model outputs."""
+        """Run every op once: on the card, replay the graph of this
+        signature (captured at its first call).  ``inputs`` are copied
+        into the arena inside the program, so pass tensors at fixed
+        addresses; variable tensors are updated in place.  Returns the
+        arena views of the model outputs."""
+        self.views(buf)
+        return self.program(buf, list(variables), list(inputs))
+
+    def _run(self, buf: torch.Tensor, variables: List[torch.Tensor],
+             inputs: List[torch.Tensor]) -> List[torch.Tensor]:
         alloc = self.alloc
         views = self.views(buf)
         for pos, tid in enumerate(alloc.model.inputs):
@@ -385,7 +616,9 @@ class ArenaPool:
         self.alloc_count = 0
 
     def ensure(self, nbytes: int) -> None:
-        """Grow the pooled buffer size (a smaller buffer is dropped)."""
+        """Grow the pooled buffer size (a smaller buffer is dropped, and
+        each tenant's ``CompiledPlan`` drops the graphs bound to it at its
+        next invoke)."""
         if nbytes > self.nbytes:
             self.nbytes = int(nbytes)
             self.buf = None

@@ -11,7 +11,8 @@ Life cycle, exactly as the paper describes:
      frozen, and the weights move onto the device,
   4. the application writes inputs and calls invoke() — a blocking call
      into the executor's CompiledPlan: no allocation from the arena, no
-     graph processing, just the op loop over the arena buffer,
+     graph processing, just the op loop over the arena buffer (on the
+     card one CUDA-graph replay, captured at the first invoke),
   5. outputs are read back from the arena.
 
 The interpreter runs on ``device``, which defaults to ``"cuda"``; with no
@@ -73,7 +74,7 @@ class MicroInterpreter:
             raise ValueError(f"arena pool on {self._shared.device}, "
                              f"interpreter on {self.device}")
         setup_device(self.device)
-        self._inputs: Dict[int, torch.Tensor] = {}
+        self._set: set = set()
         self._outs: List[np.ndarray] = []
 
         # plan (all cost paid here, at init)
@@ -82,6 +83,17 @@ class MicroInterpreter:
             self.device)
         self.compiled = CompiledPlan(self.alloc)
         self._variables: List[torch.Tensor] = self.alloc.zero_variables()
+        # the static input tensors the invoke program reads: set_input
+        # writes them in place, so every invoke is the same program; on
+        # the card through a pinned host twin, one asynchronous copy
+        self._inputs: List[torch.Tensor] = [
+            torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                        device=self.device)
+            for s in (self.alloc.specs[t] for t in model.inputs)]
+        self._staging = ([torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                          for t in self._inputs]
+                         if self.device.type == "cuda" else self._inputs)
         self._shared.ensure(self.alloc.nonpersistent_nbytes)
         if parent is not None:
             parent.arena.absorb_tenant(self.arena)
@@ -106,8 +118,11 @@ class MicroInterpreter:
         if tuple(value.shape) != tuple(spec.shape):
             raise ValueError(f"input {pos}: shape {value.shape} != "
                              f"{spec.shape}")
-        self._inputs[pos] = torch.from_numpy(
-            np.ascontiguousarray(value)).to(torch_dtype(spec.dtype))
+        stage = self._staging[pos]
+        stage.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        if stage is not self._inputs[pos]:
+            self._inputs[pos].copy_(stage, non_blocking=True)
+        self._set.add(pos)
 
     def input_spec(self, pos: int) -> TensorSpec:
         return self.alloc.specs[self.model.inputs[pos]]
@@ -118,12 +133,11 @@ class MicroInterpreter:
     def invoke(self) -> None:
         """Run the model once on the inputs set; blocks until the outputs
         are on the host."""
-        if len(self._inputs) != len(self.model.inputs):
+        if len(self._set) != len(self.model.inputs):
             raise RuntimeError("not all inputs set")
-        ins = [self._inputs[p] for p in range(len(self.model.inputs))]
         buf = self._shared.take()
         try:
-            outs = self.compiled.execute(buf, self._variables, ins)
+            outs = self.compiled.execute(buf, self._variables, self._inputs)
             # copy the outputs out of the arena before another tenant
             # reuses the shared buffer
             self._outs = [o.to("cpu", copy=True).numpy() for o in outs]

@@ -31,6 +31,13 @@ KERNELS = ("quant_matmul", "flash_attention", "decode_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# the launches of each kernel in this process, by name: its wrapper adds
+# one where it launches the kernel, and a CUDA-graph replay adds the
+# launches its capture recorded (``core.executor.CapturedProgram``); a
+# wrapper module reads its own as ``<module>.launches`` (``count_of``)
+launches: Dict[str, int] = dict.fromkeys(
+    KERNELS[:5] + ("dequant_matmul_i4",) + KERNELS[5:], 0)
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's report (registers, shared memory, spills) for each kernel built
 # by this process
@@ -88,3 +95,12 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def count_of(module: str, attr: str) -> int:
+    """A wrapper module's ``launches`` (``dequant_matmul``'s
+    ``launches_i4`` too): its kernel's entry in ``launches``."""
+    key = module.rsplit(".", 1)[-1] + attr[len("launches"):]
+    if not attr.startswith("launches") or key not in launches:
+        raise AttributeError(f"module {module!r} has no attribute {attr!r}")
+    return launches[key]

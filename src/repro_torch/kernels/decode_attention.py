@@ -23,7 +23,9 @@ one launch.  The split depends only on S, so a row's values do not
 depend on the batch.
 
 ``launches`` counts the calls of this process that launched the kernel;
-only ``decode_attention_cuda`` adds to it.  The plain version is
+only ``decode_attention_cuda`` adds to it, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+version is
 ``repro_torch.kernels.ref.decode_attention_ref``.
 """
 
@@ -32,13 +34,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from . import _build
 
-launches = 0
 MAX_D = 128
 RUN = 128           # cache positions per block (csrc/decode_attention.cuh)
 
@@ -48,8 +49,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
 # each device: allocated zeroed at the first launch there (grown only when
 # B·KH grows) and left at 0 by every launch, so steady-state decode
 # allocates nothing for them and a CUDA-graph capture stays valid.
-# Launches that share them run one after another on one stream.
+# Launches that share them run one after another on one stream.  A
+# buffer a growth replaces is kept: graphs captured on it still read it.
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_REPLACED: List[torch.Tensor] = []
 
 
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -57,6 +60,8 @@ def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
     by K3, K4, K5, K6 and K7."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _REPLACED.append(buf)
         buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                               device=device)
     return buf
@@ -95,7 +100,6 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B,H,D), caches (B,KH,S,D), lengths (B,) int32 -> (B,H,D) on the
     card.  Raises on anything the kernel does not take, and when the
     launch fails."""
-    global launches
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -149,5 +153,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    _build.launches["decode_attention"] += 1
     return out
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

@@ -30,7 +30,9 @@ values do not depend on the other rows of the batch.
 
 ``launches`` counts the calls of this process that launched K5 and
 ``launches_i4`` those that launched K6; only ``dequant_matmul_cuda`` and
-``dequant_matmul_i4_cuda`` add to them.  The plain versions are
+``dequant_matmul_i4_cuda`` add to them, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+versions are
 ``repro_torch.kernels.ref.dequant_matmul_ref`` and
 ``dequant_matmul_i4_ref``.
 """
@@ -45,8 +47,6 @@ import torch
 from . import _build
 from .decode_attention import arrival_counters
 
-launches = 0
-launches_i4 = 0
 MAX_M = 4 * 65535       # the grid's row tiles of 4 in its y dimension
 # the kernel's cut of a weight (csrc/dequant_matmul.cu): units of
 # UNIT_ROWS rows of K by 128 columns, shared out among at most 132 blocks,
@@ -136,9 +136,8 @@ def dequant_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
     """K5: x (M,K) float32 · w_q (K,N) int8, scale N float32 -> float32
     (M,N) on the card.  Raises on anything the kernel does not take, and
     when the launch fails."""
-    global launches
     out, launched = _launch(x, w_q, scale, int4=False)
-    launches += launched
+    _build.launches["dequant_matmul"] += launched
     return out
 
 
@@ -147,7 +146,10 @@ def dequant_matmul_i4_cuda(x: torch.Tensor, w_p: torch.Tensor,
     """K6: x (M,K) float32 · packed int4 w_p (K,N/2) int8, scale N
     float32 -> float32 (M,N) on the card.  Raises on anything the kernel
     does not take, and when the launch fails."""
-    global launches_i4
     out, launched = _launch(x, w_p, scale, int4=True)
-    launches_i4 += launched
+    _build.launches["dequant_matmul_i4"] += launched
     return out
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

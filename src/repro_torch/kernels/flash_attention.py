@@ -20,7 +20,9 @@ only on tiles that cross it, and tiles it empties are never loaded.  It
 takes any S and D <= 128.
 
 ``launches`` counts the kernel launches of this process; only
-``flash_attention_cuda`` adds to it.  The plain version is
+``flash_attention_cuda`` adds to it, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+version is
 ``repro_torch.kernels.ref.mha_ref``.
 """
 
@@ -35,7 +37,6 @@ import torch
 
 from . import _build
 
-launches = 0
 MAX_D = 128
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
@@ -71,7 +72,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
     """q (B,H,S,D), k/v (B,KH,S,D) -> (B,H,S,D) on the card.  Raises on
     anything the kernel does not take, and when the launch fails."""
-    global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -110,5 +110,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    _build.launches["flash_attention"] += 1
     return out
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

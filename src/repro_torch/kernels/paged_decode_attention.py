@@ -18,7 +18,9 @@ the host.  Bound on the H100: the bytes of the valid K/V rows, as K3.
 One launch, with K3's arrival counters (``arrival_counters``).
 
 ``launches`` counts the calls of this process that launched the kernel;
-only ``paged_decode_attention_cuda`` adds to it.  The plain version is
+only ``paged_decode_attention_cuda`` adds to it, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+version is
 ``repro_torch.kernels.ref.paged_decode_attention_ref``.
 """
 
@@ -34,7 +36,6 @@ import torch
 from . import _build
 from .decode_attention import arrival_counters
 
-launches = 0
 MAX_D = 128
 CHUNK = 32          # the kernel's K/V rows per pipeline stage
 
@@ -71,7 +72,6 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     take, and when the launch fails.  Table entries are not range-checked
     (that would read them on the host): the caller keeps every entry a
     row can reach below P."""
-    global launches
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
@@ -135,5 +135,9 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
-    launches += 1
+    _build.launches["paged_decode_attention"] += 1
     return out
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

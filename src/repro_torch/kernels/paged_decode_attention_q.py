@@ -17,7 +17,9 @@ D + 4 bytes per row and head, half K4's on a bfloat16 pool (about
 K4's 2.21).  One launch, with K3's arrival counters.
 
 ``launches`` counts the calls of this process that launched the kernel;
-only ``paged_decode_attention_q_cuda`` adds to it.  The plain version is
+only ``paged_decode_attention_q_cuda`` adds to it, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+version is
 ``repro_torch.kernels.ref.paged_decode_attention_q_ref``.
 """
 
@@ -34,7 +36,6 @@ from . import _build
 from .decode_attention import arrival_counters
 from .paged_decode_attention import MAX_D, check_block_size
 
-launches = 0
 
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -65,7 +66,6 @@ def paged_decode_attention_q_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     launch fails.  Table entries are not range-checked (that would read
     them on the host): the caller keeps every entry a row can reach
     below P."""
-    global launches
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_q_cuda needs CUDA tensors, "
                          f"got {q.device}")
@@ -138,5 +138,9 @@ def paged_decode_attention_q_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention_q kernel launch failed: "
                            f"CUDA error {rc}")
-    launches += 1
+    _build.launches["paged_decode_attention_q"] += 1
     return out
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

@@ -18,7 +18,9 @@ edges themselves, so no padded copies are made, and read the weight
 through its strides.
 
 ``launches`` counts the kernel launches of this process; only
-``quant_matmul_cuda`` adds to it.  The plain version is
+``quant_matmul_cuda`` adds to it, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+version is
 ``repro_torch.kernels.ref.quant_matmul_ref``.
 """
 
@@ -32,7 +34,6 @@ import torch
 
 from . import _build
 
-launches = 0
 # the kernel's paths, by the code its C entry takes
 PATHS = {"tiles": 0, "rows": 1}
 ROW_M = 16                 # the rows path's largest M
@@ -89,10 +90,9 @@ def quant_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     bias_q and wsum (= Σ_k w_q) are (N,) int32, scale (N,) float32; w_q
     may be any strided view.  Raises on anything the kernel does not take,
     and when the launch fails."""
-    global launches
     out, launched = _quant_matmul(x_q, w_q, bias_q, wsum, scale, x_zp,
                                   out_zp)
-    launches += launched
+    _build.launches["quant_matmul"] += launched
     return out
 
 
@@ -134,3 +134,7 @@ def _quant_matmul(x_q, w_q, bias_q, wsum, scale, x_zp: int, out_zp: int,
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{rc}")
     return out, True
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

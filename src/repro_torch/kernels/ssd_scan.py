@@ -22,7 +22,9 @@ single chunk at 64-row and 64-column tiles (the chunked-prefill step);
 row gets the same bits alone and in any batch.
 
 ``launches`` counts the calls of this process that launched the kernel;
-only ``ssd_scan_cuda`` adds to it.  The plain version is
+only ``ssd_scan_cuda`` adds to it, and a CUDA-graph replay
+adds the launches its capture recorded (``_build.launches``).  The plain
+version is
 ``repro_torch.kernels.ref.ssd_scan_ref``; only ``kernels.ops`` calls
 this wrapper.
 """
@@ -37,7 +39,6 @@ import torch
 
 from . import _build
 
-launches = 0
 MAX_CHUNK = 128
 MAX_STATE = 128
 # the H100's streaming multiprocessors (``tiling`` halves a row tile that
@@ -143,7 +144,6 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y (B,S,H,P), state (B,H,P,N)) on the card.  Raises on anything the
     kernel does not take, and when the launch fails."""
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -204,5 +204,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
-    launches += 1
+    _build.launches["ssd_scan"] += 1
     return y, state
+
+
+def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``
+    return _build.count_of(__name__, attr)

@@ -7,7 +7,7 @@ batching, arena-budgeted KV or recurrent state): build the model of any
 ported family (dense, ``--arch mamba2-780m`` for ssm, ``--arch
 zamba2-1.2b`` for hybrid) from seeded random weights, submit a workload
 of prompts, run the engine to completion, and print per-request latency
-and the throughput summary.  The
+and the throughput summary (with the engine's program counts).  The
 per-token streaming front-end (``--stream`` in the JAX package) comes
 with the overlapped decode loop (ROADMAP queue 1, slice 6).
 """
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs
-from repro_torch.core.executor import resolve_device
+from repro_torch.core.executor import capture_count, resolve_device
 from repro_torch.models import get_model
 from repro_torch.serving import Request, ServingEngine
 
@@ -75,6 +75,11 @@ def _serve_batch(eng: ServingEngine, cfg, args) -> None:
         "tokens_generated": total_new,
         "tok_per_s": round(total_new / wall, 2),
         "arena_persistent_bytes": eng.arena.usage().persistent,
+        # programs captured (on the card) or signatures run (on the CPU):
+        # decode 1, prefill one per bucket or prompt length hit
+        "captures": {"decode": capture_count(eng._decode),
+                     "prefill": eng.prefill_compiles(),
+                     "chunk": eng.chunk_compiles()},
     }))
 
 

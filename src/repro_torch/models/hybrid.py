@@ -135,7 +135,7 @@ def hybrid_prefill(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
-                         tokens: torch.Tensor, start: int, n_real: int, *,
+                         tokens: torch.Tensor, start, n_real, *,
                          window: Optional[int] = None,
                          ssd_impl=None) -> Cache:
     """Advance a batch=1 hybrid cache by one right-padded chunk, in place.
@@ -145,13 +145,13 @@ def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
     positions ``start .. start+S`` and its queries attend causally over
     the cache.  The padded rows write K/V past the prompt, which the
     length-masked decode never attends to before the ring overwrites
-    them.  ``start`` and ``n_real`` are host ints; ``start + S`` must fit
-    the cache (no ring wrap)."""
+    them.  ``start`` and ``n_real`` are int32 scalar tensors, as in the
+    JAX package, so one program serves every chunk (host ints are
+    converted; ``start`` is checked, ``lm.chunk_offset``); ``start + S``
+    must fit the cache (no ring wrap)."""
     x = lm.embed_tokens(model, cfg, tokens)
     s, c = x.shape[1], cache["attn_k"].shape[3]
-    if not 0 <= start <= c - s:
-        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
-                         f"{c}-position cache without wrapping")
+    start = lm.chunk_offset(start, s, c, x.device)
     positions = start + torch.arange(s, device=x.device)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = ssm.mamba_chunk_block(
@@ -161,7 +161,7 @@ def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
         if app is not None:
             x, _, _ = lm._chunk_layer(model.shared, cfg, x,
                                       cache["attn_k"][app],
-                                      cache["attn_v"][app], start, positions,
+                                      cache["attn_v"][app], positions,
                                       window)
     return cache
 

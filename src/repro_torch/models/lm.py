@@ -467,8 +467,28 @@ def prefill_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
     return h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
 
 
+def check_chunk_fits(start: int, s: int, capacity: int) -> None:
+    """The chunk ``[start, start + s)`` must fit ``capacity`` positions
+    without wrapping; raises otherwise.  The host-side bounds check of
+    every chunk step (the serving engine's, and ``chunk_offset``'s)."""
+    if not 0 <= start <= capacity - s:
+        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
+                         f"{capacity}-position cache without wrapping")
+
+
+def chunk_offset(start, s: int, capacity: int,
+                 device) -> torch.Tensor:
+    """A chunk step's ``start`` as the int32 scalar tensor the step
+    computes with.  The engine passes a tensor (it checked the host
+    int); a host int is checked (``check_chunk_fits``) and converted."""
+    if isinstance(start, torch.Tensor):
+        return start
+    check_chunk_fits(start, s, capacity)
+    return torch.tensor(start, dtype=torch.int32, device=device)
+
+
 def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
-                     tokens: torch.Tensor, start: int, *,
+                     tokens: torch.Tensor, start, *,
                      window: Optional[int] = None) -> Cache:
     """One prompt CHUNK through the backbone: tokens (B,S) take absolute
     positions ``start .. start+S`` of a cache {k,v} (L,B,KH,C,dh) that
@@ -477,22 +497,22 @@ def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
     over the whole cache with the mask ``kpos <= position`` (and the
     window): positions past the chunk weigh exactly 0.  Returns the
     cache; no logits (the engine hands the last prompt token to decode).
-    ``start`` is a host int; ``start + S <= C`` (no ring wrap)."""
+    ``start`` is an int32 scalar tensor, as in the JAX package, so one
+    program serves every chunk (a host int is checked and converted,
+    ``chunk_offset``); ``start + S <= C`` (no ring wrap)."""
     x = embed_tokens(model, cfg, tokens)
     s, c = x.shape[1], cache["k"].shape[3]
-    if not 0 <= start <= c - s:
-        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
-                         f"{c}-position cache without wrapping")
+    start = chunk_offset(start, s, c, x.device)
     positions = start + torch.arange(s, device=x.device)
     for i, blk in enumerate(model.layers):
         x, _, _ = _chunk_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
-                               start, positions, window)
+                               positions, window)
     return cache
 
 
 def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
                            table_row: torch.Tensor, tokens: torch.Tensor,
-                           start: int, *,
+                           start, *,
                            window: Optional[int] = None) -> Cache:
     """Paged twin of ``lm_prefill_chunk`` for one slot: pool {k,v}
     (L,P,KH,BS,dh), table_row (T,) its block ids in logical order.  The
@@ -501,13 +521,12 @@ def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
     back; here each layer gathers its own (1,KH,T·BS,dh) view, runs the
     same layer math on it, and writes only the chunk's rows back into
     the pool, in place.  The values are the JAX function's: the rest of
-    the slot is written back unchanged there."""
+    the slot is written back unchanged there.  ``start`` as in
+    ``lm_prefill_chunk``."""
     x = embed_tokens(model, cfg, tokens)
     s = x.shape[1]
     bs, t = pool["k"].shape[3], table_row.shape[0]
-    if not 0 <= start <= t * bs - s:
-        raise ValueError(f"chunk [{start}, {start + s}) does not fit the "
-                         f"{t * bs}-position slot without wrapping")
+    start = chunk_offset(start, s, t * bs, x.device)
     positions = start + torch.arange(s, device=x.device)
     idx = table_row.long()
     phys, off = idx[positions // bs], positions % bs
@@ -516,26 +535,27 @@ def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
         kh, dh = pk.shape[1], pk.shape[3]
         ck = pk[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
         cv = pv[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
-        x, k, v = _chunk_layer(blk, cfg, x, ck, cv, start, positions, window)
+        x, k, v = _chunk_layer(blk, cfg, x, ck, cv, positions, window)
         pk[phys, :, off] = k[0].to(pk.dtype)
         pv[phys, :, off] = v[0].to(pv.dtype)
     return pool
 
 
 def _chunk_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
-                 ck: torch.Tensor, cv: torch.Tensor, start: int,
-                 positions: torch.Tensor, window: Optional[int]):
-    """One layer of a prompt chunk: x (B,S,D) at ``positions``; writes
-    the chunk's K/V into ck/cv (B,KH,C,dh) at ``start`` in place, then
-    attends over the whole of ck/cv, as the JAX ``lm_prefill_chunk``
-    does.  Returns (x after the layer, k, v (B,S,KH,dh))."""
-    s, c = x.shape[1], ck.shape[2]
+                 ck: torch.Tensor, cv: torch.Tensor, positions: torch.Tensor,
+                 window: Optional[int]):
+    """One layer of a prompt chunk: x (B,S,D) at ``positions`` (S,), a
+    device tensor; writes the chunk's K/V into ck/cv (B,KH,C,dh) at those
+    positions in place, then attends over the whole of ck/cv, as the JAX
+    ``lm_prefill_chunk`` does.  Returns (x after the layer, k, v
+    (B,S,KH,dh))."""
+    c = ck.shape[2]
     g = cfg.n_heads // cfg.n_kv_heads
     p = blk.attn
     q, k, v = _proj_qkv(p, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
                         positions)
-    ck[:, :, start:start + s] = k.transpose(1, 2).to(ck.dtype)
-    cv[:, :, start:start + s] = v.transpose(1, 2).to(cv.dtype)
+    ck.index_copy_(2, positions, k.transpose(1, 2).to(ck.dtype))
+    cv.index_copy_(2, positions, v.transpose(1, 2).to(cv.dtype))
     kx = ck.repeat_interleave(g, dim=1) if g > 1 else ck     # (B,H,C,dh)
     vx = cv.repeat_interleave(g, dim=1) if g > 1 else cv
     logits = (q.transpose(1, 2).float()

@@ -332,19 +332,21 @@ def mamba_decode_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
 
 
 def mamba_chunk_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
-                      conv: torch.Tensor, state: torch.Tensor, n_real: int,
+                      conv: torch.Tensor, state: torch.Tensor, n_real,
                       *, ssd_impl=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer over a right-padded chunk h (B,S,D) with CARRIED state:
     ``conv`` (B,K-1,C) the pre-activation window after the tokens so far,
-    ``state`` (B,G,gh,P,N).  The first ``n_real`` rows are real; the rest
-    are exact no-ops (dt masked to 0: decay 1, input 0) and the window is
-    sliced to end at the last real token.  Returns (h out, conv, state)."""
+    ``state`` (B,G,gh,P,N).  The first ``n_real`` rows are real (an int32
+    scalar tensor, or a host int); the rest are exact no-ops (dt masked
+    to 0: decay 1, input 0) and the window is gathered to end at the last
+    real token.  Returns (h out, conv, state)."""
     k, s = cfg.ssm_conv, h.shape[1]
     z, xbc, dt = _in_proj(blk, cfg, h)
     # the causal conv continued from the carried window
     full = torch.cat([conv, xbc], dim=1)                     # (B,K-1+S,C)
-    new_conv = full[:, n_real:n_real + k - 1]
+    tail = n_real + torch.arange(k - 1, device=h.device)
+    new_conv = full.index_select(1, tail)
     out = sum(full[:, i:i + s] * blk.conv_w[i][None, None] for i in range(k))
     xbc = F.silu(out + blk.conv_b[None, None])
     xs, bm, cm, dtf, a = _ssd_inputs(blk, cfg, xbc, dt)
@@ -385,11 +387,12 @@ def ssm_prefill(model: SSMLM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def ssm_prefill_chunk(model: SSMLM, cfg: ModelConfig, cache: Cache,
-                      tokens: torch.Tensor, n_real: int, *,
+                      tokens: torch.Tensor, n_real, *,
                       ssd_impl=None) -> Cache:
     """Advance a recurrent cache {conv, state} by one right-padded chunk of
-    prompt tokens (B,S), of which the first ``n_real`` are real, in
-    place.  A chunk boundary is only a state checkpoint: there are no
+    prompt tokens (B,S), of which the first ``n_real`` are real (an int32
+    scalar tensor, as in the JAX package, or a host int), in place.  A
+    chunk boundary is only a state checkpoint: there are no
     positions, so every chunk of every prompt is the same step.  Returns
     the cache; no logits (the engine hands the last prompt token to
     decode)."""

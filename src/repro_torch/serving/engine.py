@@ -22,11 +22,24 @@ discipline:
     kernels, and shadow the reference decode with no engine change —
     the micro interpreter's ``TAGS=`` mechanism.
 
-The decode step is eager PyTorch that never reads a device value on the
-host and takes no branch on one, so a later change can capture it in a
-CUDA graph; the host reads back only the sampled tokens.  Sampling is
-greedy (argmax over the true vocab, first maximum on ties; EOS is
-``vocab - 1``), as in the JAX engine.
+Compile once: the decode step, the chunk step and prefill are each a
+``CapturedProgram`` (``core.executor``), the counterpart of the JAX
+engine's ``jax.jit`` programs.  On the card each program shape runs as
+one CUDA graph, captured after one eager call and replayed from then on:
+decode is one program per engine, the chunk step one per chunk length,
+and prefill one per bucket on a bucketed engine (one per prompt length
+without buckets, as ``jax.jit`` retraces; at most ``PREFILL_PROGRAMS``
+held).  ``capture_count(eng._decode)``,
+``prefill_compiles()`` and ``chunk_compiles()`` count them as
+``jit_cache_size`` counts the JAX engine's.  The programs read the cache
+or pool, the block table, ``cur_tokens`` and ``lengths`` at their fixed
+addresses, and their other inputs from static staging tensors the host
+writes between steps (a chunking slot's batch=1 cache is copied into one
+static cache and back around each chunk); ``disable_capture()`` runs
+them eagerly.  A step never reads a device value on the host and takes
+no branch on one; the host reads back only the sampled tokens, outside
+the graphs.  Sampling is greedy (argmax over the true vocab, first
+maximum on ties; EOS is ``vocab - 1``), as in the JAX engine.
 
 Host-side degrees of freedom ride on top (docs/SCHEDULING.md,
 docs/PREEMPTION.md):
@@ -85,13 +98,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.arena import TwoStackArena, align_up
-from repro_torch.core.executor import (BucketTable, PagedKVPool,
+from repro_torch.core.executor import (BucketTable, CapturedProgram,
+                                       GraphPool, PagedKVPool, capture_count,
                                        resolve_device)
 from repro_torch.core.interpreter import setup_device
 from repro_torch.core.op_resolver import MicroMutableOpResolver
 from repro_torch.core.schema import OpCode, OpDef
 from repro_torch.kernels import ops as _vendor_kernels  # noqa: F401 (tag "cuda")
-from repro_torch.models import lm_quant
+from repro_torch.models import lm, lm_quant
 from repro_torch.models.registry import ModelBundle
 
 from . import ops as serving_ops  # registers tag="reference" serving ops
@@ -102,6 +116,11 @@ from .scheduling import (PreemptionPolicy, SchedulingPolicy, get_policy,
                          get_preemption)
 
 DEFAULT_TAGS = ("cuda", "reference")
+
+# prefill programs an engine holds at once, the least recently used
+# dropped past it: a bucketed engine sees one per bucket, an engine
+# without buckets (the recurrent families) one per prompt length
+PREFILL_PROGRAMS = 16
 
 # BUCKETED: decode masks the KV cache by per-slot length, so
 # right-padded (bucketed) prefill gives the tokens of exact-length
@@ -421,12 +440,39 @@ class ServingEngine:
         decode_params = {"window": window, **qparams}
         if self.paged:
             decode_params["kv_block"] = self.kv_block
-        self._prefill = self._bind(prefill_code,
-                                   {"cache_len": cache_len, "window": window,
-                                    **qparams})
-        self._decode = self._bind(decode_code, decode_params)
-        self._prefill_chunk = (self._bind(chunk_code, {"window": window})
-                               if self.chunk_tokens else None)
+        # the programs share one graph pool: each replay's outputs are
+        # read or copied before the next replay
+        self.graph_pool = GraphPool()
+        self._prefill = CapturedProgram(
+            self._bind(prefill_code, {"cache_len": cache_len,
+                                      "window": window, **qparams}),
+            name="prefill", pool=self.graph_pool,
+            max_signatures=PREFILL_PROGRAMS)
+        self._decode = CapturedProgram(self._bind(decode_code, decode_params),
+                                       name="decode", pool=self.graph_pool)
+        self._prefill_chunk = (CapturedProgram(
+            self._bind(chunk_code, {"window": window}), name="chunk",
+            pool=self.graph_pool) if self.chunk_tokens else None)
+        # static inputs of the programs: prefill's tokens (a prompt of S
+        # tokens is the first S of one buffer); the chunk step's tokens,
+        # start, true token count and table row, and (contiguous and
+        # recurrent) the batch=1 cache a chunking slot's cache is copied
+        # into and out of
+        self._prefill_tokens = torch.zeros((1, cache_len), dtype=torch.int64,
+                                           device=self.device)
+        if self.chunk_tokens:
+            self._chunk_tokens = torch.zeros((1, self.chunk_tokens),
+                                             dtype=torch.int64,
+                                             device=self.device)
+            self._chunk_start = torch.zeros((), dtype=torch.int32,
+                                            device=self.device)
+            self._chunk_real = torch.zeros((), dtype=torch.int32,
+                                           device=self.device)
+            if self.paged:
+                self._chunk_row = torch.zeros(self.n_table, dtype=torch.int32,
+                                              device=self.device)
+            else:
+                self._chunk_cache = self._empty_cache(1, cache_len)
 
     def _bind(self, code: OpCode, params: Dict[str, Any]):
         """Resolve ``code`` through the tag chain, run its prepare() once
@@ -437,6 +483,53 @@ class ServingEngine:
             self.bundle, reg.prepare(serving_ops.ServingContext(self.bundle),
                                      op).op_data)
         return functools.partial(reg.eval, ctx, op)
+
+    def prefill_compiles(self) -> int:
+        """How many distinct prefill programs were captured — the
+        trace-count hook.  With bucketing on, this is the number of
+        buckets HIT, independent of how many prompt lengths arrived;
+        at most ``PREFILL_PROGRAMS`` are held."""
+        return capture_count(self._prefill)
+
+    def chunk_compiles(self) -> int:
+        """How many distinct chunk-prefill programs were captured — must
+        stay 1 however many prompts/chunks ran (the start offset and the
+        true token count are int32 tensors, never shapes)."""
+        return (capture_count(self._prefill_chunk)
+                if self._prefill_chunk is not None else 0)
+
+    def programs(self) -> Dict[str, CapturedProgram]:
+        """The engine's programs by name (decode, prefill, chunk)."""
+        progs = {"decode": self._decode, "prefill": self._prefill}
+        if self._prefill_chunk is not None:
+            progs["chunk"] = self._prefill_chunk
+        return progs
+
+    @staticmethod
+    def _check_in_place(returned: Dict[str, torch.Tensor],
+                        bound: Dict[str, torch.Tensor]) -> None:
+        """A step updates the cache or pool it was given in place (the
+        programs are bound to its addresses): the one it returns must be
+        that one, or the update would be lost."""
+        if any(returned[name].data_ptr() != t.data_ptr()
+               for name, t in bound.items()):
+            raise RuntimeError("a step returned a new cache or pool instead "
+                               "of updating the bound one in place")
+
+    def _run_prefill(self, prompt: np.ndarray):
+        """One prefill of ``prompt`` (host tokens) through the program of
+        its length, the tokens written into the first ``len(prompt)`` of
+        the static token buffer (grown, and the prefill programs
+        dropped, for a prompt longer than the cache).  The returned cache
+        is valid until the next prefill."""
+        s = len(prompt)
+        if s > self._prefill_tokens.shape[1]:
+            self._prefill.clear()
+            self._prefill_tokens = torch.zeros(
+                (1, s), dtype=torch.int64, device=self.device)
+        toks = self._prefill_tokens[:, :s]
+        toks.copy_(torch.from_numpy(prompt[None].astype(np.int64)))
+        return self._prefill((self.params, {"tokens": toks}))
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -601,9 +694,7 @@ class ServingEngine:
             prompt = np.asarray(req.tokens[:-1])
             if self.bucket_table is not None:
                 prompt = self._padded_prompt(prompt)
-            batch = {"tokens": torch.as_tensor(
-                prompt[None].astype(np.int64), device=self.device)}
-            _, cache1 = self._prefill((self.params, batch))
+            _, cache1 = self._run_prefill(prompt)
             self.last_step["prefill_tokens"].append(len(prompt))
             self.policy.charge(req.tenant, 1.0)
         else:   # single-token prompt: the slot starts from a fresh cache
@@ -647,9 +738,7 @@ class ServingEngine:
             return
         t0 = time.perf_counter()
         first = np.asarray(req.tokens[:self.chunk_tokens])
-        batch = {"tokens": torch.as_tensor(first[None].astype(np.int64),
-                                           device=self.device)}
-        _, cache1 = self._prefill((self.params, batch))
+        _, cache1 = self._run_prefill(first)
         self.last_step["prefill_tokens"].append(len(first))
         self.policy.charge(req.tenant, 1.0)
         if self.paged:
@@ -659,16 +748,24 @@ class ServingEngine:
                                           self.cache_len - 1))
             self._scatter_slot_cache(slot, cache1)
             cache1 = None
+        else:
+            # the slot's own copy: the prefill program's output is
+            # overwritten by its next replay
+            cache1 = {name: t.clone() for name, t in cache1.items()}
         self._chunking[slot] = _ChunkState(req, cache1, len(first))
         self._settle()
         self.results[req.uid].prefill_s += time.perf_counter() - t0
 
     def _advance_chunk(self, slot: int) -> None:
-        """Advance a PREFILLING slot by ONE chunk at host offset
-        ``start``; the final partial chunk is right-padded (its rows sit
-        past the prompt, so the length-masked decode never attends to
-        them and the first decode steps overwrite them).  When the last
-        prompt token's predecessor lands, the slot turns to decoding."""
+        """Advance a PREFILLING slot by ONE chunk, one replay of the chunk
+        program: the tokens, the offset ``start`` and the true token
+        count go through static tensors (the offset checked here, on the
+        host); the final partial chunk is right-padded (its rows sit past
+        the prompt, so the length-masked decode never attends to them and
+        the first decode steps overwrite them).  A contiguous or
+        recurrent slot's batch=1 cache is copied into the program's
+        static cache and back.  When the last prompt token's predecessor
+        lands, the slot turns to decoding."""
         cs = self._chunking[slot]
         res = self.results[cs.req.uid]
         t0 = time.perf_counter()
@@ -678,9 +775,10 @@ class ServingEngine:
         if real < self.chunk_tokens:
             tok = np.concatenate(
                 [tok, np.zeros(self.chunk_tokens - real, tok.dtype)])
-        tokens = torch.as_tensor(tok[None].astype(np.int64),
-                                 device=self.device)
         start = cs.done
+        lm.check_chunk_fits(start, self.chunk_tokens, self.cache_len)
+        self._chunk_tokens.copy_(torch.from_numpy(tok[None].astype(np.int64)))
+        self._chunk_start.fill_(start)
         if self.paged:
             # map the blocks of the chunk's REAL rows only: the padded
             # tail of a final chunk is not in the reservation, and its
@@ -688,17 +786,29 @@ class ServingEngine:
             # real query attends to them)
             self._ensure_blocks(slot, min(start + real - 1,
                                           self.cache_len - 1))
-            row = torch.from_numpy(self._table_row(slot)).to(self.device)
-            self.kv_pool = self._prefill_chunk(
-                (self.params, self.kv_pool, row, tokens, start))
-        elif self._recurrent_chunk:
-            # the chunk's true token count rides along: the padded tail of
-            # a final chunk is an exact state no-op
-            cs.cache1 = self._prefill_chunk(
-                (self.params, cs.cache1, tokens, start, real))
+            self._chunk_row.copy_(torch.from_numpy(self._table_row(slot)))
+            out = self._prefill_chunk((self.params, self.kv_pool,
+                                       self._chunk_row, self._chunk_tokens,
+                                       self._chunk_start))
+            self._check_in_place(out, self.kv_pool)
         else:
-            cs.cache1 = self._prefill_chunk(
-                (self.params, cs.cache1, tokens, start))
+            stage = self._chunk_cache
+            for name, t in stage.items():
+                t.copy_(cs.cache1[name])
+            if self._recurrent_chunk:
+                # the chunk's true token count rides along: the padded
+                # tail of a final chunk is an exact state no-op
+                self._chunk_real.fill_(real)
+                out = self._prefill_chunk(
+                    (self.params, stage, self._chunk_tokens,
+                     self._chunk_start, self._chunk_real))
+            else:
+                out = self._prefill_chunk(
+                    (self.params, stage, self._chunk_tokens,
+                     self._chunk_start))
+            self._check_in_place(out, stage)
+            for name, t in cs.cache1.items():
+                t.copy_(stage[name])
         cs.done += real
         self.last_step["chunks"] += 1
         self.policy.charge(cs.req.tenant, 1.0)
@@ -885,13 +995,16 @@ class ServingEngine:
         if not self.active.any():
             return bool(self.queue or self._chunking)
         t0 = time.perf_counter()
+        # the decode program updates the cache or pool in place
         if self.paged:
-            logits, self.kv_pool = self._decode(
+            logits, kv = self._decode(
                 (self.params, self.kv_pool, self.block_tables,
                  self.cur_tokens, self.lengths))
+            self._check_in_place(kv, self.kv_pool)
         else:
-            logits, self.cache = self._decode(
+            logits, kv = self._decode(
                 (self.params, self.cache, self.cur_tokens, self.lengths))
+            self._check_in_place(kv, self.cache)
         toks = self._sample(logits)
         dt = time.perf_counter() - t0
         self.last_step["decoded"] = True

@@ -8,8 +8,9 @@ registry:
     the last-token logits and a populated KV cache;
   * ``OpCode.SERVING_DECODE``  — one fused decode step advancing every
     slot;
-  * ``OpCode.SERVING_PREFILL_CHUNK`` — one prompt chunk at a host start
-    offset into a slot's contiguous batch=1 cache;
+  * ``OpCode.SERVING_PREFILL_CHUNK`` — one prompt chunk at a start
+    offset (an int32 scalar tensor) into a slot's contiguous batch=1
+    cache;
   * ``OpCode.SERVING_DECODE_PAGED`` / ``SERVING_PREFILL_CHUNK_PAGED`` —
     the same two steps over the shared pool of KV blocks, each slot's
     placement given by its block-table row;
@@ -118,10 +119,11 @@ PAGED_FEATURE = "paged KV (requires a dense (KH, C, dh) cache layout)"
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK, tag="reference")
 class RefServingPrefillChunk:
-    """Reference chunked-prefill macro-kernel: one prompt CHUNK at a host
-    start offset through ``lm_prefill_chunk``, updating the request's
-    batch=1 cache in place (no logits: the engine hands the last prompt
-    token to decode)."""
+    """Reference chunked-prefill macro-kernel: one prompt CHUNK at a start
+    offset through ``lm_prefill_chunk``, updating the request's batch=1
+    cache in place (no logits: the engine hands the last prompt token to
+    decode).  The offset is an int32 scalar tensor, passed through, so
+    one captured program serves every chunk."""
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
@@ -159,7 +161,8 @@ class RefServingDecodePaged:
 class RefServingPrefillChunkPaged:
     """Reference paged chunked-prefill macro-kernel: one prompt chunk of
     ONE slot straight into the pool through ``lm_prefill_chunk_paged``,
-    token-identical to the contiguous chunked path."""
+    token-identical to the contiguous chunked path; the table row and
+    the int32 start offset are device tensors, passed through."""
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
@@ -183,7 +186,8 @@ class RefServingPrefillChunkState:
     place — a chunk boundary is just a state checkpoint.  Inputs are
     ``(params, cache, tokens, start, n_real)``: ``start`` the chunk's
     absolute position (hybrid's shared attention only) and ``n_real``
-    its true token count (the padded tail is an exact state no-op).
+    its true token count (the padded tail is an exact state no-op), both
+    int32 scalar tensors, passed through.
     Only the recurrent families resolve here; dense keeps the KV-offset
     SERVING_PREFILL_CHUNK op."""
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card, each held against its plain
 PyTorch version on the same inputs, and the interpreter and the serving
 engine (contiguous, paged, chunked, quantized, and the recurrent
-families) on the card held against the CPU reference.  Every test here is marked ``cuda`` and skips
-without a card; this module imports no jax, so it also runs where only
-the port is installed:
+families) on the card held against the CPU reference, and the programs'
+CUDA-graph replays held bit-equal to eager runs.  Every test here is
+marked ``cuda`` and skips without a card; this module imports no jax, so
+it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -14,8 +15,9 @@ import torch
 
 from repro_torch.apps.models import (build_fc_stack, build_vww,
                                      representative_dataset)
-from repro_torch.core import (AllOpsResolver, MicroInterpreter, MicroModel,
-                              export)
+from repro_torch.core import (AllOpsResolver, ArenaPool, CapturedProgram,
+                              MicroInterpreter, MicroModel, capture_count,
+                              disable_capture, export)
 from repro_torch.configs import get_config
 from repro_torch.core.quantize import dequantize_kv_heads, quantize_kv_heads
 from repro_torch.kernels import decode_attention as K3
@@ -29,6 +31,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as K8
 from repro_torch.models import get_model, lm_quant
 from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving.engine import PREFILL_PROGRAMS
 
 pytestmark = pytest.mark.cuda
 
@@ -904,3 +907,221 @@ def test_reduced_recurrent_engines_on_card_match_cpu(cuda, arch):
             outs.append({u: r.output for u, r in eng.results.items()})
         assert outs[0] == outs[1], kw
         assert K8.launches - before == cfg.n_layers * runs
+
+
+# ---------------------------------------------------------------------------
+# compile once: CUDA-graph replays against eager runs
+# ---------------------------------------------------------------------------
+
+def _state(tensors):
+    return [t.clone() for t in tensors]
+
+
+def _replay_equals_eager(program, args, written):
+    """Call ``program`` on ``args`` (captured, then a replay), then, from
+    the same starting values of the tensors it writes in place
+    (``written``), once eagerly: outputs and written tensors bit-equal."""
+    start = _state(written)
+    program(*args)                          # captured after a warm-up
+    for t, s in zip(written, start):
+        t.copy_(s)
+    got = program(*args)                    # a replay
+    got = [t.clone() for t in torch.utils._pytree.tree_leaves(got)
+           if isinstance(t, torch.Tensor)]
+    got_written = _state(written)
+    for t, s in zip(written, start):
+        t.copy_(s)
+    with disable_capture():
+        want = [t for t in torch.utils._pytree.tree_leaves(program(*args))
+                if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got + got_written, want + list(written)):
+        assert torch.equal(g, w)
+
+
+def _reduced(arch):
+    cfg = get_config(arch, reduced=True)
+    bundle = get_model(cfg)
+    return bundle, bundle.init(torch.Generator().manual_seed(0))
+
+
+def test_micro_invoke_replay_equals_eager(cuda):
+    for int8 in (False, True):
+        gb = build_fc_stack()
+        blob = (export(gb, representative_dataset(gb), quantize_int8=True)
+                if int8 else export(gb))
+        model = MicroModel(blob)
+        res = AllOpsResolver(tags=("cuda", "reference"))
+        it = MicroInterpreter(model, res,
+                              MicroInterpreter.required_arena_size(model, res),
+                              device=cuda)
+        x = np.random.default_rng(1).normal(0, 1, it.input_spec(0).shape)
+        it.set_input(0, x.astype(np.float32))
+        buf = it.shared.take()
+        _replay_equals_eager(it.compiled.execute,
+                             (buf, it._variables, it._inputs), [buf])
+        it.shared.put(buf)
+        assert capture_count(it.compiled.program) == 1
+
+
+ENGINE_CASES = {"contiguous": ("yi-6b", {}),
+                "paged-chunked": ("yi-6b", {"kv_block": 8,
+                                            "prefill_chunk": 8}),
+                "int8": ("yi-6b", {"weight_dtype": "int8",
+                                   "kv_dtype": "int8"}),
+                "int4-paged": ("yi-6b", {"weight_dtype": "int4",
+                                         "kv_dtype": "int8", "kv_block": 8}),
+                "mamba2-chunked": ("mamba2-780m", {"prefill_chunk": 8}),
+                "zamba2-chunked": ("zamba2-1.2b", {"prefill_chunk": 8})}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_programs_replay_equal_eager(cuda, case):
+    """Each program of a reduced engine on the card — decode, prefill and
+    (chunking) the chunk step — replayed is bit-equal to the same call
+    run eagerly; the engine's tokens equal an eager engine's, with one
+    decode program, one chunk program and one prefill program per
+    prompt length."""
+    arch, kw = ENGINE_CASES[case]
+    bundle, model = _reduced(arch)
+    model = model.to(cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, bundle.cfg.vocab - 2, n).astype(np.int32)
+               for n in (21, 13, 30, 9)]
+    outs = []
+    for eager in (True, False):
+        eng = ServingEngine(bundle, model, max_slots=2, cache_len=64,
+                            prefill_buckets=False, device=cuda, **kw)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, tokens=p, max_new_tokens=8))
+        if eager:
+            with disable_capture():
+                res = eng.run()
+        else:
+            res = eng.run()
+        outs.append({u: r.output for u, r in res.items()})
+    assert outs[0] == outs[1]
+    assert capture_count(eng._decode) == 1
+    assert eng.chunk_compiles() == (1 if "prefill_chunk" in kw else 0)
+    state = (list(eng.kv_pool.values()) + [eng.block_tables] if eng.paged
+             else list(eng.cache.values()))
+    state += [eng.cur_tokens, eng.lengths]
+    eng.lengths.copy_(torch.tensor([20, 40], dtype=torch.int32))
+    if eng.paged:
+        eng.block_tables.copy_(torch.arange(1, 17, dtype=torch.int32)
+                               .reshape(2, 8))
+    kv = ((eng.kv_pool, eng.block_tables) if eng.paged else (eng.cache,))
+    args = ((eng.params, *kv, eng.cur_tokens, eng.lengths),)
+    _replay_equals_eager(eng._decode, args, state)
+    toks = eng._prefill_tokens[:, :8]       # the 9-token prompt's prefill
+    _replay_equals_eager(eng._prefill, ((eng.params, {"tokens": toks}),),
+                         [])
+    if eng.chunk_tokens:
+        eng._chunk_start.fill_(16)
+        eng._chunk_real.fill_(5)
+        if eng.paged:
+            eng._chunk_row.copy_(torch.arange(1, 9, dtype=torch.int32))
+            args = (eng.params, eng.kv_pool, eng._chunk_row,
+                    eng._chunk_tokens, eng._chunk_start)
+            written = list(eng.kv_pool.values())
+        else:
+            args = (eng.params, eng._chunk_cache, eng._chunk_tokens,
+                    eng._chunk_start) + ((eng._chunk_real,)
+                                         if eng._recurrent_chunk else ())
+            written = list(eng._chunk_cache.values())
+        _replay_equals_eager(eng._prefill_chunk, (args,), written)
+
+
+def test_arena_rebinding_recaptures_the_first_tenant(cuda):
+    """A second tenant grows the shared arena pool; the first tenant's
+    next invoke drops its graph on the old buffer, captures on the new
+    one and answers as before."""
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    small = MicroModel(export(build_fc_stack()))
+    large = MicroModel(export(build_vww()))
+    pool = ArenaPool(cuda)
+    a = MicroInterpreter(small, res,
+                         MicroInterpreter.required_arena_size(small, res),
+                         shared=pool, device=cuda)
+    x = np.random.default_rng(2).normal(0, 1, a.input_spec(0).shape
+                                        ).astype(np.float32)
+    outs = []
+    for _ in range(3):
+        a.set_input(0, x)
+        a.invoke()
+        outs.append(a.output(0))
+    assert a.compiled.program.captures == 1
+    b = MicroInterpreter(large, res,
+                         MicroInterpreter.required_arena_size(large, res),
+                         shared=pool, device=cuda)
+    b.set_input(0, np.zeros(b.input_spec(0).shape, np.float32))
+    b.invoke()
+    assert pool.alloc_count == 2
+    a.set_input(0, x)
+    a.invoke()
+    assert a.compiled.program.captures == 2
+    assert capture_count(a.compiled.program) == 1
+    for out in outs[1:] + [a.output(0)]:
+        np.testing.assert_array_equal(out, outs[0])
+
+
+def test_device_memory_flat_over_replayed_steps(cuda):
+    """After the decode program is captured, 32 replayed decode steps
+    allocate nothing."""
+    bundle, model = _reduced("yi-6b")
+    eng = ServingEngine(bundle, model.to(cuda), max_slots=2, cache_len=64,
+                        device=cuda)
+    rng = np.random.default_rng(4)
+    for uid in range(2):
+        eng.submit(Request(uid=uid, tokens=rng.integers(
+            0, bundle.cfg.vocab - 2, 6).astype(np.int32),
+            max_new_tokens=40))
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    captures = eng._decode.captures
+    for _ in range(32):
+        eng.step()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == mem
+    assert eng._decode.captures == captures == 1
+
+
+def test_new_prompt_lengths_add_no_device_memory(cuda):
+    """An engine without buckets (Mamba2: one prefill program a prompt
+    length) serves 24 prompts of distinct lengths one after another:
+    after the first, device memory never grows (the prefill programs
+    share their outputs and the engine's one graph pool), and the
+    engine holds at most ``PREFILL_PROGRAMS`` prefill programs."""
+    bundle, model = _reduced("mamba2-780m")
+    eng = ServingEngine(bundle, model.to(cuda), max_slots=2, cache_len=64,
+                        device=cuda)
+    rng = np.random.default_rng(5)
+    lengths = range(2, 2 + PREFILL_PROGRAMS + 8)
+    mem = None
+    for n in lengths:
+        eng.submit(Request(uid=n, tokens=rng.integers(
+            0, bundle.cfg.vocab - 2, n).astype(np.int32), max_new_tokens=3))
+        eng.run()
+        torch.cuda.synchronize()
+        if mem is None:
+            mem = torch.cuda.memory_allocated()
+        assert torch.cuda.memory_allocated() == mem
+    assert eng.prefill_compiles() == PREFILL_PROGRAMS
+    assert eng._prefill.evictions == len(lengths) - PREFILL_PROGRAMS
+    assert all(p.pool is eng.graph_pool for p in eng.programs().values())
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A program that reads a device value on the host cannot be
+    captured: the call raises, nothing runs eagerly in its place and no
+    signature is kept."""
+    prog = CapturedProgram(lambda x: (x * 2).cpu(), name="host read")
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        prog(x)
+    assert capture_count(prog) == 0
+    torch.cuda.synchronize()
+    assert torch.equal((x + 1).cpu(), torch.full((4,), 2.0))
