@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: its main paths end to end on one
-NVIDIA GPU — the micro interpreter, dense-LM serving (contiguous, paged
-and quantized) and recurrent-state serving (Mamba-2, Zamba2) — with
+NVIDIA GPU — the micro interpreter (single, batched and ragged
+dispatch), dense-LM serving (contiguous, paged and quantized) and
+recurrent-state serving (Mamba-2, Zamba2) — with
 every CUDA kernel of those paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
@@ -150,8 +151,40 @@ Phases — any failure raises and the script exits non-zero:
      time a launch inside it); an EDF displacement on (a) emits the
      uninterrupted tokens.  Then Zamba2-1.2B the same
      way with 4 requests a run (K8 38 x per prefill or chunk).
-  A JSON line of the models, one listing the kernels (K1-K8), then the
-  last line ``{"ok": true, "device": {...}}``.
+  13. every micro op on the card, counts set to 0 just before: one
+     decoder block at Yi-6B's published widths (d 4096, 32 query heads
+     of 128, 4 KV heads repeated to 32 by CONCATENATION, d_ff 11008, rope
+     base 5e6, vocab 64000; 1.7 GB of seeded float32 consts) over 256
+     tokens — EMBEDDING_LOOKUP, RMS_NORM, MATMUL, RESHAPE, ROPE,
+     TRANSPOSE, ATTENTION on K2 at (1, 32, 256, 128) causal, ADD, SILU,
+     MUL — and the op-coverage graph at VWW's 96x96 input
+     (``repro_torch.apps.graphs``), float (every other new opcode,
+     IDENTITY and DROPOUT kept) and int8 (every quantizable one, its FC on
+     K1); 4 seeded requests each against the same blob on the CPU: float
+     within ``GRAPH_RTOL`` of each output's largest entry, int8 within
+     ``INT8_ATOL``.  Then, untraced, phase 5's pass: replays bit-equal to
+     eager, the medians, one program each, the device time.
+  14. ragged micro dispatch, counts set to 0 just before the waves: one
+     ``RaggedInterpreterPool`` of four 16-lane buckets under the
+     ``("cuda", "reference")`` tags — fc_stack int8 (K1 at M = 16),
+     conv_reference int8, hotword float with each lowering (exact and
+     lane-stacked) — over 12 waves whose occupancy cycles 0.25, 0.5,
+     0.75, 1.0 (the reference benchmark's, benchmarks/ragged_invoke.py),
+     requests of 1-4 streamed frames admitted and retired between waves,
+     a hotword lane of each lowering snapshotted, retired and restored
+     into another lane.  Every int8 and exact lane bit-equal to its
+     request alone through a ``MicroInterpreter`` on the card, the other
+     float lanes within ``RAGGED_FLOAT_ATOL``; one masked program and one
+     capture per bucket through every admission and retirement; device
+     memory the same after every wave from the second on (the first
+     still holds its eager warm-up's outputs); K1's launches equal the
+     waves' int8 FC ops.  Then, untraced, the per-request us of a wave at each
+     occupancy against a request alone.
+  Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
+  and K2 at (1, 32, 256, 128) causal float32, phase 13's shape.
+  A JSON line of the models, one listing the kernels (K1-K8; K1's and
+  K2's launches summed over phases 3-4, 13 and 14, with each path's
+  count), then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -263,9 +296,10 @@ def check_quant_matmul(torch, np, dev):
 
     rng = np.random.default_rng(11)
     # (M, K, N): vww, fc_stack x3, conv_reference FC layers; a larger
-    # block; a ragged large shape
+    # block; a ragged large shape; fc_stack's first layer over the 16
+    # lanes of a ragged bucket (phase 14)
     shapes = [(1, 256, 2), (1, 64, 32), (1, 32, 32), (1, 32, 8), (1, 16, 10),
-              (64, 128, 96), (300, 1000, 520)]
+              (64, 128, 96), (300, 1000, 520), (16, 64, 32)]
     rows = []
     for m, k, n in shapes:
         x = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
@@ -350,12 +384,14 @@ def check_flash_attention(torch, np, dev):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     g = torch.Generator(device="cpu").manual_seed(5)
-    # (b, h, kh, s, d, causal, window, dtype); the first is the path's
+    # (b, h, kh, s, d, causal, window, dtype); the first is the path's,
+    # the last phase 13's decoder block at Yi-6B's heads
     cases = [(2, 4, 4, 256, 64, True, None, torch.float32),
              (2, 4, 4, 256, 64, False, None, torch.float32),
              (1, 8, 2, 256, 64, True, None, torch.float32),
              (2, 4, 4, 256, 64, True, 64, torch.float32),
-             (2, 4, 4, 256, 64, True, None, torch.bfloat16)]
+             (2, 4, 4, 256, 64, True, None, torch.bfloat16),
+             (1, 32, 32, 256, 128, True, None, torch.float32)]
     rows = []
     for b, h, kh, s, d, causal, window, dt in cases:
         q = torch.randn(b, h, s, d, generator=g).to(dev, dt)
@@ -978,17 +1014,22 @@ def check_ssd_scan(torch, np, dev):
 # phases 3-4: the interpreter on the card against the CPU reference
 # ---------------------------------------------------------------------------
 
-def serve(np, card, cpu, requests, atol, label):
+def outputs(it):
+    return [it.output(k) for k in range(len(it.model.outputs))]
+
+
+def serve(np, card, cpu, requests, atol, label, relative=False):
     """Answer every request on both interpreters; returns the median
-    invoke ms on the card (set_input, invoke, output), the max abs error
-    and the card's outputs."""
+    invoke ms on the card (set_input, invoke, outputs), the max error
+    (abs, or with ``relative`` over the largest |entry| of each CPU
+    output) and the card's outputs (a list per request)."""
     times, err, allocs, outs = [], 0.0, None, []
     for i, feeds in enumerate(requests):
         t0 = time.perf_counter()
         for pos, x in enumerate(feeds):
             card.set_input(pos, x)
         card.invoke()
-        got = card.output(0)
+        got = outputs(card)
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(got)
         if i == 0:
@@ -996,12 +1037,14 @@ def serve(np, card, cpu, requests, atol, label):
         for pos, x in enumerate(feeds):
             cpu.set_input(pos, x)
         cpu.invoke()
-        want = cpu.output(0)
-        if got.shape != want.shape or not np.isfinite(got).all():
-            raise AssertionError(f"{label}: bad output {got.shape}")
-        err = max(err, float(np.abs(got - want).max()))
+        for g, w in zip(got, outputs(cpu)):
+            if g.shape != w.shape or not np.isfinite(g).all():
+                raise AssertionError(f"{label}: bad output {g.shape}")
+            e = float(np.abs(g - w).max())
+            err = max(err, e / float(np.abs(w).max()) if relative else e)
     if err > atol:
-        raise AssertionError(f"{label}: card vs CPU reference max abs err "
+        raise AssertionError(f"{label}: card vs CPU reference max "
+                             f"{'relative' if relative else 'abs'} err "
                              f"{err} > {atol}")
     if card.shared.alloc_count != allocs:
         raise AssertionError(f"{label}: the arena pool allocated after the "
@@ -1054,7 +1097,8 @@ def run_models(np, dev):
                 card.reset_variable_tensors()
                 card.set_input(0, requests[i][0])
                 card.invoke()
-                if np.allclose(card.output(0), outs[i], atol=1e-6) != same:
+                if np.allclose(card.output(0), outs[i][0],
+                               atol=1e-6) != same:
                     raise AssertionError(f"{label}: variable state did not "
                                          f"carry across invokes")
         rows.append({"model": label, "ops": len(model.operators),
@@ -1109,9 +1153,9 @@ def eager_invokes(np, rows, cards) -> None:
             for pos, x in enumerate(feeds):
                 card.set_input(pos, x)
             card.invoke()
-            got = card.output(0)
+            got = outputs(card)
             times.append((time.perf_counter() - t0) * 1e3)
-            if not np.array_equal(got, out):
+            if not all(np.array_equal(g, o) for g, o in zip(got, out)):
                 raise AssertionError(f"{label}: an invoke differs from the "
                                      f"replayed one of phase 3")
         return statistics.median(times)
@@ -1174,6 +1218,295 @@ def profile_invokes(torch, rows, cards) -> None:
             f"({row['eager_device_ms_per_invoke'] * 1e3:.1f} us); top: "
             + "; ".join(f"{t['name'][:40]} {t['us_per_invoke']:.1f} us"
                         for t in row["top_device"][:3]))
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the micro interpreter complete (every micro op; batched
+# and ragged dispatch)
+# ---------------------------------------------------------------------------
+
+BLOCK_SEQ = 256
+N_GRAPH_REQUESTS = 4
+# float32 graphs on the card vs the CPU: a Yi-6B block sums 4096 and
+# 11008 products per output in another order, the coverage graph's
+# transcendentals differ in their last ulps; the stated bound is relative
+# to the largest entry of each output
+GRAPH_RTOL = 1e-4
+
+
+def graph_requests(np, model, seed, n, vocab):
+    """n seeded requests: token ids in [0, vocab) for an int32 input,
+    N(0, 1) for a float one."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        feeds = []
+        for t in model.inputs:
+            spec = model.tensor(t)
+            feeds.append(rng.integers(0, vocab, spec.shape).astype(np.int32)
+                         if spec.dtype == "int32" else
+                         rng.normal(0, 1, spec.shape).astype(np.float32))
+        reqs.append(tuple(feeds))
+    return reqs
+
+
+def run_new_ops(np, dev):
+    """Phase 13: the decoder block at Yi-6B's widths (float32, K2 at
+    (1, 32, 256, 128)) and the op-coverage graph at VWW's input, float
+    (serialized with its IDENTITY and DROPOUT) and int8, each on the card
+    against the same blob on the CPU.  Returns the rows, the cards for
+    phase 5's replay-vs-eager pass, and the K1 and K2 launches the
+    invokes make."""
+    from repro_torch.apps.graphs import build_decoder_block, build_op_coverage
+    from repro_torch.apps.models import representative_dataset
+    from repro_torch.configs import get_config
+    from repro_torch.core import (AllOpsResolver, MicroInterpreter,
+                                  MicroModel, OpCode, export)
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    block = export(build_decoder_block(cfg, BLOCK_SEQ, seed=13))
+    log(f"  {LM_ARCH} block blob: {len(block):,} B, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cov_q = build_op_coverage(96, quantizable_only=True)
+    plan = [(f"{LM_ARCH} block float32", block, GRAPH_RTOL, True,
+             cfg.vocab),
+            ("op coverage float", build_op_coverage(96).build(), GRAPH_RTOL,
+             True, 50),
+            ("op coverage int8", export(cov_q, representative_dataset(cov_q),
+                                        quantize_int8=True),
+             INT8_ATOL, False, 50)]
+    card_res = AllOpsResolver(tags=("cuda", "reference"))
+    cpu_res = AllOpsResolver(tags=("reference",))
+    rows, cards = [], []
+    want = {"quant_matmul": 0, "flash_attention": 0}
+    for label, blob, tol, relative, vocab in plan:
+        model = MicroModel(blob)
+        size = MicroInterpreter.required_arena_size(model, card_res)
+        card = MicroInterpreter(model, card_res, size, device=dev)
+        cpu = MicroInterpreter(model, cpu_res, size, device="cpu")
+        requests = graph_requests(np, model, len(rows), N_GRAPH_REQUESTS,
+                                  vocab)
+        ms, err, outs = serve(np, card, cpu, requests, tol, label, relative)
+        del cpu
+        ops = [op.opcode for op in model.operators]
+        int8_fc = sum(1 for op in model.operators
+                      if op.opcode == OpCode.FULLY_CONNECTED
+                      and model.tensor(op.inputs[0]).dtype == "int8")
+        want["quant_matmul"] += int8_fc * N_GRAPH_REQUESTS
+        want["flash_attention"] += ops.count(OpCode.ATTENTION) * \
+            N_GRAPH_REQUESTS
+        rows.append({"model": label, "ops": len(ops),
+                     "opcodes": len(set(ops)), "blob_bytes": len(blob),
+                     "arena_bytes": size, "median_invoke_ms": ms,
+                     ("max_rel_err" if relative else "max_abs_err"): err})
+        cards.append((card, requests, outs))
+        log(f"  {label:<24} {len(ops):>3} ops ({len(set(ops))} opcodes)  "
+            f"blob {len(blob):>13,} B  arena {size:>10,} B  median invoke "
+            f"{ms:8.3f} ms  max {'rel' if relative else 'abs'} err "
+            f"{err:.3g} (bound {tol:.3g})")
+    return rows, cards, want
+
+
+RAGGED_LANES = 16
+OCCUPANCIES = (0.25, 0.5, 0.75, 1.0)
+RAGGED_WAVES = 12
+TIMED_WAVES = 20
+# hotword float lanes of the throughput lowering (each op once over the
+# 16 stacked lanes) against a single invoke: float32 sums in another
+# order, on softmax outputs in [0, 1]
+RAGGED_FLOAT_ATOL = 1e-5
+
+
+def ragged_buckets():
+    """(bucket, blob, exact, frames a request): the reference
+    benchmark's int8 buckets (benchmarks/ragged_invoke.py) and the
+    streaming hotword, under both lowerings."""
+    from repro_torch.apps.models import (build_conv_reference, build_fc_stack,
+                                         build_hotword, representative_dataset)
+    from repro_torch.core import export
+
+    def int8(gb):
+        return export(gb, representative_dataset(gb), quantize_int8=True)
+    hotword = export(build_hotword())
+    return [("fc_stack int8", int8(build_fc_stack()), False, (1, 1)),
+            ("conv_reference int8", int8(build_conv_reference()), False,
+             (1, 1)),
+            ("hotword float", hotword, False, (1, 4)),
+            ("hotword float exact", hotword, True, (1, 4))]
+
+
+def run_ragged(torch, np, pool, buckets, shapes):
+    """Phase 14's waves: each bucket's occupancy cycles through
+    ``OCCUPANCIES`` of its 16 lanes; a request streams 1-4 frames
+    (hotword) or one; one hotword lane of each lowering is snapshotted
+    and retired at wave 2 and restored into a free lane at wave 5.
+    Returns {bucket: {uid: (frames, outputs)}} and each wave's device
+    memory."""
+    rng = np.random.default_rng(14)
+    reqs = {name: {} for name, *_ in buckets}
+    live = {name: {} for name, *_ in buckets}        # uid -> slot
+    parked, restored, memory, uid = {}, set(), [], 0
+    for wave in range(RAGGED_WAVES):
+        occ = int(OCCUPANCIES[wave % len(OCCUPANCIES)] * RAGGED_LANES)
+        for name, _, exact, (lo, hi) in buckets:
+            if wave == 5 and name in parked:
+                ckpt = parked.pop(name)
+                slot = pool.free_lanes(name)[-1]
+                live[name][ckpt.uid] = pool.restore_lane(ckpt, slot)
+                restored.add(name)
+            while len(live[name]) < occ:
+                n = int(rng.integers(lo, hi + 1))
+                frames = [rng.normal(0, 1, shapes[name]).astype(np.float32)
+                          for _ in range(n)]
+                reqs[name][uid] = (frames, [])
+                live[name][uid] = pool.admit(name, uid=uid)
+                uid += 1
+            for u, slot in live[name].items():
+                frames, outs = reqs[name][u]
+                pool.set_input(name, slot, 0, frames[len(outs)])
+        pool.dispatch()
+        torch.cuda.synchronize()
+        memory.append(torch.cuda.memory_allocated())
+        for name, _, exact, _ in buckets:
+            got = pool.outputs(name, 0)
+            for u, slot in list(live[name].items()):
+                frames, outs = reqs[name][u]
+                outs.append(got[slot].copy())
+                if wave == 2 and name.startswith("hotword") and \
+                        name not in parked and len(outs) < len(frames):
+                    parked[name] = pool.snapshot_lane(name, slot)
+                    pool.retire(name, slot)
+                    del live[name][u]
+                elif len(outs) == len(frames):
+                    pool.retire(name, slot)
+                    del live[name][u]
+    for name, lanes in live.items():             # unfinished at the end
+        for u, slot in lanes.items():
+            pool.retire(name, slot)
+            frames, outs = reqs[name][u]
+            del frames[len(outs):]
+    streaming = {name for name, *_ in buckets if name.startswith("hotword")}
+    if parked or restored != streaming:
+        raise AssertionError(f"phase 14: snapshotted and restored lanes in "
+                             f"{sorted(restored)}, of {sorted(streaming)}")
+    return reqs, memory
+
+
+def ragged_micro(torch, np, dev):
+    """Phase 14: ragged micro dispatch on the card (main path), then the
+    checks and the timing.  Returns the row and the K1 launches the
+    waves make."""
+    from repro_torch.core import (AllOpsResolver, MicroInterpreter,
+                                  MicroModel, OpCode, RaggedInterpreterPool,
+                                  capture_count)
+
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    buckets = ragged_buckets()
+    models = {name: MicroModel(blob) for name, blob, *_ in buckets}
+    shapes = {name: tuple(m.tensor(m.inputs[0]).shape)
+              for name, m in models.items()}
+    pool = RaggedInterpreterPool(device=dev)
+    for name, _, exact, _ in buckets:
+        pool.add_bucket(name, models[name], res, RAGGED_LANES, exact=exact)
+    want_k1 = RAGGED_WAVES * sum(
+        1 for m in models.values() for op in m.operators
+        if op.opcode == OpCode.FULLY_CONNECTED
+        and m.tensor(op.inputs[0]).dtype == "int8")
+    with main_path(torch, "the ragged micro path (phase 14)") as traced:
+        reqs, memory = run_ragged(torch, np, pool, buckets, shapes)
+    if traced["quant_matmul"] != want_k1:
+        raise AssertionError(f"phase 14: K1 launched "
+                             f"{traced['quant_matmul']} times, the waves' "
+                             f"int8 FC ops {want_k1}")
+    # the first dispatch of each bucket returns its eager warm-up's
+    # outputs (freed at the next wave); from then on nothing may move
+    if len(set(memory[1:])) != 1 or memory[1] > memory[0]:
+        raise AssertionError(f"phase 14: device memory moved after the "
+                             f"first wave: {memory}")
+    row = {"model": "ragged micro", "lanes": RAGGED_LANES,
+           "waves": RAGGED_WAVES, "buckets": {}}
+    for name, _, exact, _ in buckets:
+        prog = pool.program(name)
+        if capture_count(prog) != 1 or prog.captures != 1:
+            raise AssertionError(f"phase 14 {name}: {capture_count(prog)} "
+                                 f"programs, {prog.captures} captures")
+        alone = MicroInterpreter(models[name], res,
+                                 MicroInterpreter.required_arena_size(
+                                     models[name], res), device=dev)
+        err, n = 0.0, 0
+        for frames, outs in reqs[name].values():
+            alone.reset_variable_tensors()
+            for f, got in zip(frames, outs):
+                alone.set_input(0, f)
+                alone.invoke()
+                e = float(np.abs(got - alone.output(0)).max())
+                if (exact or "int8" in name) and e != 0.0:
+                    raise AssertionError(f"phase 14 {name}: a lane differs "
+                                         f"from its request alone by {e}")
+                err, n = max(err, e), n + 1
+        if err > RAGGED_FLOAT_ATOL:
+            raise AssertionError(f"phase 14 {name}: max abs err {err} > "
+                                 f"{RAGGED_FLOAT_ATOL}")
+        row["buckets"][name] = {"exact": exact, "requests": len(reqs[name]),
+                                "frames": n, "max_abs_err": err,
+                                "captures": 1, "alone": alone}
+        log(f"  {name:<22} {len(reqs[name]):>3} requests, {n:>3} frames: "
+            + ("bit-equal to each request alone" if exact or "int8" in name
+               else f"max abs err {err:.3g} (bound {RAGGED_FLOAT_ATOL})")
+            + "; 1 masked program, 1 capture")
+    log(f"  device memory {memory[1]:,} B after every wave from the "
+        f"second to the {RAGGED_WAVES}th ({memory[0] - memory[1]:,} B more "
+        f"after the first: its eager warm-up's outputs); lanes admitted, "
+        f"retired, snapshotted and restored across waves")
+    row["memory_bytes_after_waves"] = memory
+    time_ragged(np, pool, buckets, shapes, row)
+    return row, want_k1
+
+
+def time_ragged(np, pool, buckets, shapes, row) -> None:
+    """Per-request us of a wave at each occupancy (set_input for its
+    lanes, one dispatch, the outputs read), the median of TIMED_WAVES,
+    against one request alone through a MicroInterpreter (set_input,
+    invoke, output), each bucket on its own."""
+    rng = np.random.default_rng(41)
+    for name, _, _, _ in buckets:
+        b = row["buckets"][name]
+        alone = b.pop("alone")
+        x = rng.normal(0, 1, shapes[name]).astype(np.float32)
+
+        def single():
+            alone.set_input(0, x)
+            alone.invoke()
+            alone.output(0)
+        b["sequential_us"] = median_us(single)
+        b["wave_us_per_request"] = {}
+        for occ in OCCUPANCIES:
+            k = int(occ * RAGGED_LANES)
+            slots = [pool.admit(name) for _ in range(k)]
+
+            def wave():
+                for slot in slots:
+                    pool.set_input(name, slot, 0, x)
+                pool.dispatch()
+                pool.outputs(name, 0)
+            b["wave_us_per_request"][occ] = median_us(wave) / k
+            for slot in slots:
+                pool.retire(name, slot)
+        log(f"  {name:<22} per request: alone {b['sequential_us']:7.1f} us; "
+            "a wave at occupancy " + ", ".join(
+                f"{occ:.2f} {us:6.1f} us"
+                for occ, us in b["wave_us_per_request"].items()))
+
+
+def median_us(fn, n: int = TIMED_WAVES) -> float:
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -2466,6 +2799,30 @@ def main() -> int:
     model_rows.extend(hybrid_rows)
     launches["ssd_scan"] = ssm_launches["a"]
 
+    phase("phase 13: every micro op on the card — a Yi-6B decoder block "
+          "and the op-coverage graph (main path)")
+    with main_path(torch, "the new micro ops (phase 13)") as traced:
+        graph_rows, graph_cards, want = run_new_ops(np, dev)
+    for name, n in want.items():
+        if traced[name] != n:
+            raise AssertionError(f"phase 13: {name} launched {traced[name]} "
+                                 f"times, the invokes' ops {n}")
+    eager_invokes(np, graph_rows, graph_cards)
+    profile_invokes(torch, graph_rows, graph_cards)
+    model_rows.extend(graph_rows)
+    del graph_cards
+    torch.cuda.empty_cache()
+
+    phase("phase 14: ragged micro dispatch on the card (main path)")
+    ragged_row, ragged_k1 = ragged_micro(torch, np, dev)
+    model_rows.append(ragged_row)
+    micro_paths = {
+        "phases 3-4": {k: launches[k] for k in want},
+        "phase 13": {k: traced[k] for k in want},
+        "phase 14": {"quant_matmul": ragged_k1, "flash_attention": 0}}
+    for name in want:
+        launches[name] = sum(path[name] for path in micro_paths.values())
+
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
         for r in rows:                       # aliases: kernel_ms, max_err
@@ -2515,6 +2872,9 @@ def main() -> int:
             r["model"]: r["kernel_us_per_launch"][kern["name"]]
             for r in q_rows
             if kern["name"] in r.get("kernel_us_per_launch", {})}
+    for kern in kernels[:2]:
+        kern["launches_on_paths"] = {
+            path: n[kern["name"]] for path, n in micro_paths.items()}
     kernels[-1]["bound_tensor_core_ms"] = k8_rows[0]["bound_tensor_core_ms"]
     kernels[-1]["bound_tensor_core_by"] = k8_rows[0]["bound_tensor_core_by"]
     kernels[-1]["us_per_launch_in_prefill"] = {

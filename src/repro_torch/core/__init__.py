@@ -5,9 +5,12 @@ quantization, and export toolchain."""
 from . import micro_ops  # registers the reference kernels on import
 from . import quantize  # keep the module visible as repro_torch.core.quantize
 from .arena import ArenaOverflowError, TwoStackArena
-from .executor import (AllocationPlan, ArenaPool, CapturedProgram,
-                       CompiledPlan, GraphPool, capture_count,
-                       disable_capture, plan_model, required_arena_size)
+from .executor import (AllocationPlan, ArenaPool, BucketTable,
+                       CapturedProgram, CompiledPlan, GraphPool,
+                       InterpreterPool, LaneCheckpoint, LaneState,
+                       PagedKVPool, RaggedInterpreterPool, SharedArenaState,
+                       capture_count, disable_capture, plan_model,
+                       required_arena_size)
 from .exporter import export, fold_constants, strip_training_ops
 from .exporter import quantize as quantize_graph
 from .graph_builder import GraphBuilder
@@ -23,8 +26,10 @@ from .schema import (MicroModel, OpCode, QuantParams, TensorDef,
 __all__ = [
     "ArenaOverflowError", "TwoStackArena", "export", "fold_constants",
     "quantize", "quantize_graph", "strip_training_ops", "GraphBuilder",
-    "MicroInterpreter", "AllocationPlan", "ArenaPool", "CapturedProgram",
-    "CompiledPlan", "GraphPool", "capture_count", "disable_capture",
+    "MicroInterpreter", "AllocationPlan", "ArenaPool", "BucketTable",
+    "CapturedProgram", "CompiledPlan", "GraphPool", "InterpreterPool",
+    "LaneCheckpoint", "LaneState", "PagedKVPool", "RaggedInterpreterPool",
+    "SharedArenaState", "capture_count", "disable_capture",
     "plan_model", "required_arena_size", "BufferRequest",
     "GreedyMemoryPlanner", "LinearMemoryPlanner", "MemoryPlan",
     "OfflineMemoryPlanner", "AllOpsResolver", "MicroMutableOpResolver",

@@ -19,7 +19,27 @@ steady-state invoke is pure dispatch — as a pipeline of phases:
      op's result is copied into its output's slot.
 
   3. **dispatch**: ``MicroInterpreter`` (the paper's application API)
-     feeds inputs in and reads outputs back.
+     feeds inputs in and reads outputs back; ``InterpreterPool`` advances
+     B requests of one model in one program, and
+     ``RaggedInterpreterPool`` advances lanes of several models, each at
+     its own step, admitted and retired between dispatches.
+
+**Batched dispatch.**  ``CompiledPlan.batched(B, exact)`` is one
+program over B lanes: the arena buffer is ``(B, nbytes)`` and the
+variable and input tensors carry a leading lane axis.  ``exact=True``
+runs the op loop once per lane on that lane's views, the same kernels at
+the same shapes as a single invoke, so every lane is bit-identical to
+one.  ``exact=False`` runs each op once on the lane-stacked tensors:
+through the op's own ``eval_lanes`` rule where it registers one (the
+``"cuda"`` FULLY_CONNECTED folds the lanes into K1's rows, the
+``"cuda"`` ATTENTION into K2's batch), and otherwise through
+``torch.func.vmap`` of its ``eval``, which sees one lane's shapes, so
+axis parameters (TRANSPOSE's perm, CONCATENATION's axis, RESHAPE's
+shape, SVDF's state) need no shifting.  int8 lanes stay bit-exact (the
+integer products are exact in float64); float lanes may differ from a
+single invoke in the last ulps, as ``jax.vmap``'s do.
+``masked_batched`` adds an active-lane mask, a device tensor input, so
+admitting or retiring a lane changes its value and never the program.
 
 **Compile once.**  ``CapturedProgram`` is the port's counterpart of
 ``jax.jit``: a function run as one CUDA graph per signature (the shapes,
@@ -28,9 +48,9 @@ counterpart of ``jit_cache_size``.  ``disable_capture()`` is the
 counterpart of ``jax.disable_jit()``.
 
 **Arena pooling.**  ``ArenaPool`` owns the physical nonpersistent byte
-buffer that interpreters sharing an arena (§4.5) recycle between
-non-concurrent invocations.  It allocates during warm-up only, which
-``alloc_count`` makes observable and testable.
+buffers that interpreters sharing an arena (§4.5) and batched pools
+recycle between non-concurrent invocations.  It allocates during
+warm-up only, which ``alloc_count`` makes observable and testable.
 
 **Length bucketing.**  ``BucketTable`` quantizes ragged sizes to a few
 levels; the serving engine pads prompts to them (bucketed prefill).
@@ -42,6 +62,7 @@ growth, release at retirement).
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -96,6 +117,16 @@ def resolve_device(device) -> torch.device:
         # the card tensors land on, so devices compare equal to theirs
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def setup_device(device: torch.device) -> None:
+    """Float convolutions and matmuls on the card run in true float32:
+    cuDNN's default TF32 keeps about three decimal digits and would break
+    float parity with the reference, so TF32 is switched off here, for
+    the process, before any op runs on the card."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def const_to_device(arr: np.ndarray, dtype: str,
@@ -527,36 +558,64 @@ def capture_count(program: CapturedProgram) -> int:
 # ---------------------------------------------------------------------------
 
 class CompiledPlan:
-    """The invoke body over a frozen AllocationPlan: one request per call,
-    the op loop over the arena buffer's views run as one
-    ``CapturedProgram`` (``program``) — one CUDA graph per (model, input
-    shapes) on the card, bound to the arena buffer, the variable tensors
-    and the caller's static input tensors.  When the arena pool hands
-    out a new buffer, the graphs bound to the old one are dropped and the
-    next call captures again."""
+    """The invoke body over a frozen AllocationPlan: the op loop over the
+    arena buffer's views run as one ``CapturedProgram`` — one CUDA graph
+    per (model, input shapes) on the card, bound to the arena buffer, the
+    variable tensors and the caller's static input tensors.  ``program``
+    runs one request per call; ``batched`` and ``masked_batched`` give
+    the programs over B lanes (the module docstring).  When the arena
+    pool hands out a new buffer, the programs bound to the old one are
+    dropped and the next call captures again."""
 
     def __init__(self, alloc: AllocationPlan):
         self.alloc = alloc
         self._bound: Optional[torch.Tensor] = None
         self._views: Dict[int, torch.Tensor] = {}
         self.program = CapturedProgram(self._run, name="invoke")
+        # (batch, exact[, "masked"]) -> its program; the batch buffer
+        # each batch size is bound to, with its views
+        self._batched: Dict[tuple, CapturedProgram] = {}
+        self._lane_bound: Dict[int, Tuple[torch.Tensor, Any]] = {}
+
+    def _typed_views(self, buf: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """Typed, shaped views of every planned tensor inside ``buf``, a
+        ``(nbytes,)`` buffer or a ``(B, nbytes)`` one (views then carry
+        the lane axis first)."""
+        lead = tuple(buf.shape[:-1])
+        views = {}
+        for tid, off in self.alloc.tensor_offset.items():
+            spec = self.alloc.specs[tid]
+            raw = buf[..., off:off + _spec_nbytes(spec)]
+            views[tid] = raw.view(torch_dtype(spec.dtype)).view(
+                lead + tuple(spec.shape))
+        return views
 
     def views(self, buf: torch.Tensor) -> Dict[int, torch.Tensor]:
-        """Typed, shaped views of every planned tensor inside ``buf``.
-        Made once per physical buffer and reused while it stays the
-        pool's buffer; a new buffer drops the programs bound to the old
-        one."""
+        """The views of ``buf``, made once per physical buffer and reused
+        while it stays the pool's buffer; a new buffer drops the programs
+        bound to the old one."""
         if buf is not self._bound:
-            views = {}
-            for tid, off in self.alloc.tensor_offset.items():
-                spec = self.alloc.specs[tid]
-                raw = buf[off:off + _spec_nbytes(spec)]
-                views[tid] = raw.view(torch_dtype(spec.dtype)).view(
-                    spec.shape)
             if self._bound is not None:
                 self.program.clear()
-            self._bound, self._views = buf, views
+            self._bound, self._views = buf, self._typed_views(buf)
         return self._views
+
+    def lane_views(self, buf: torch.Tensor):
+        """(stacked views, each lane's views) of a ``(B, nbytes)`` buffer,
+        made once per buffer of a batch size; a new buffer of that size
+        drops the batched programs bound to the old one."""
+        batch = int(buf.shape[0])
+        bound = self._lane_bound.get(batch)
+        if bound is None or bound[0] is not buf:
+            if bound is not None:
+                for key, prog in self._batched.items():
+                    if key[0] == batch:
+                        prog.clear()
+            stacked = self._typed_views(buf)
+            lanes = [{t: v[i] for t, v in stacked.items()}
+                     for i in range(batch)]
+            bound = self._lane_bound[batch] = (buf, (stacked, lanes))
+        return bound[1]
 
     def execute(self, buf: torch.Tensor, variables: Sequence[torch.Tensor],
                 inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -570,13 +629,24 @@ class CompiledPlan:
 
     def _run(self, buf: torch.Tensor, variables: List[torch.Tensor],
              inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return self._body(self.views(buf), variables, inputs, _eval_one)
+
+    def _body(self, views: Dict[int, torch.Tensor],
+              variables: Sequence[torch.Tensor],
+              inputs: Sequence[torch.Tensor],
+              eval_op: Callable) -> List[torch.Tensor]:
+        """The op loop over one set of arena views: inputs copied in, each
+        op evaluated by ``eval_op(op_plan, inputs, in_dims)`` (``in_dims``
+        is 0 for an input read from the arena or the variables, None for
+        a const or an absent one), its outputs copied into their views and
+        its variable updates into the variables.  Returns the views of
+        the model outputs."""
         alloc = self.alloc
-        views = self.views(buf)
         for pos, tid in enumerate(alloc.model.inputs):
             views[tid].copy_(inputs[pos])
         for opp in alloc.op_plans:
             op = opp.op
-            in_tensors = []
+            in_tensors, in_dims = [], []
             for t in op.inputs:
                 if t < 0:
                     in_tensors.append(None)
@@ -586,7 +656,9 @@ class CompiledPlan:
                     in_tensors.append(variables[alloc.var_pos[t]])
                 else:
                     in_tensors.append(views[t])
-            outs = opp.registration.eval(opp.eval_ctx, op, in_tensors)
+                in_dims.append(0 if t >= 0 and t not in alloc.const_pos
+                               else None)
+            outs = eval_op(opp, in_tensors, in_dims)
             n_out = len(op.outputs)
             for t, o in zip(op.outputs, outs[:n_out]):
                 views[t].copy_(o.reshape(views[t].shape))
@@ -594,35 +666,148 @@ class CompiledPlan:
                 variables[alloc.var_pos[t]].copy_(v)
         return [views[t] for t in alloc.model.outputs]
 
+    # -- B lanes in one program -----------------------------------------
+
+    def batched(self, batch: int, exact: bool = False) -> CapturedProgram:
+        """The program advancing ``batch`` independent requests:
+        ``(buf (B, nbytes), variables (B, ...), inputs (B, ...)) ->
+        outputs (B, ...)``, the variables updated in place.  Consts are
+        shared by every lane.  ``exact=True`` unrolls the lane body (every
+        lane bit-identical to a single invoke, any dtype); ``exact=False``
+        runs each op once on the lane-stacked tensors (int8 bit-exact,
+        float within the last ulps).  Call it through
+        ``execute_batched``."""
+        key = (batch, exact)
+        if key not in self._batched:
+            self._batched[key] = CapturedProgram(
+                functools.partial(self._lanes, exact=exact),
+                name=f"invoke[{batch}{', exact' if exact else ''}]")
+        return self._batched[key]
+
+    def masked_batched(self, batch: int,
+                       exact: bool = False) -> CapturedProgram:
+        """The ragged lowering: ``batched(batch, exact)`` plus an
+        active-lane mask, ``(buf, variables, inputs, mask) -> outputs``
+        with ``mask`` a ``(B,)`` bool device tensor.  Every lane's math
+        runs every dispatch, but an inactive lane's variables are held
+        (``where(mask, new, old)``).  The mask is an input of the program,
+        not a constant of it, so admitting or retiring lanes changes only
+        its value: one program per (batch, exact) covers every occupancy.
+        Active lanes are bit-identical to ``batched``'s."""
+        key = (batch, exact, "masked")
+        if key not in self._batched:
+            self._batched[key] = CapturedProgram(
+                functools.partial(self._masked_lanes, exact=exact),
+                name=f"invoke[{batch}{', exact' if exact else ''}, masked]")
+        return self._batched[key]
+
+    def execute_batched(self, buf: torch.Tensor,
+                        variables: Sequence[torch.Tensor],
+                        inputs: Sequence[torch.Tensor], exact: bool = False,
+                        mask: Optional[torch.Tensor] = None
+                        ) -> List[torch.Tensor]:
+        """Advance the ``buf.shape[0]`` lanes once through ``batched`` (or
+        ``masked_batched`` when a mask is given), binding the programs to
+        ``buf``.  Returns the model outputs with the lane axis first, in
+        tensors the program owns (valid until its next call)."""
+        batch = int(buf.shape[0])
+        self.lane_views(buf)
+        if mask is None:
+            return self.batched(batch, exact)(buf, list(variables),
+                                              list(inputs))
+        return self.masked_batched(batch, exact)(buf, list(variables),
+                                                 list(inputs), mask)
+
+    def _lanes(self, buf, variables, inputs, exact):
+        stacked, lanes = self.lane_views(buf)
+        if exact:
+            for i, views in enumerate(lanes):
+                self._body(views, [v[i] for v in variables],
+                           [x[i] for x in inputs], _eval_one)
+        else:
+            self._body(stacked, variables, inputs, _eval_stacked)
+        return [stacked[t].clone() for t in self.alloc.model.outputs]
+
+    def _masked_lanes(self, buf, variables, inputs, mask, exact):
+        held = [v.clone() for v in variables]
+        outs = self._lanes(buf, variables, inputs, exact)
+        for v, old in zip(variables, held):
+            m = mask.view((-1,) + (1,) * (v.dim() - 1))
+            v.copy_(torch.where(m, v, old))
+        return outs
+
+
+def _eval_one(opp: OpPlan, inputs, in_dims) -> List[torch.Tensor]:
+    return opp.registration.eval(opp.eval_ctx, opp.op, inputs)
+
+
+def _eval_stacked(opp: OpPlan, inputs, in_dims) -> List[torch.Tensor]:
+    """One op on lane-stacked inputs: its ``eval_lanes`` rule, or its
+    ``eval`` mapped over the lanes by ``torch.func.vmap``."""
+    reg = opp.registration
+    if reg.eval_lanes is not None:
+        return reg.eval_lanes(opp.eval_ctx, opp.op, inputs, in_dims)
+    return torch.func.vmap(
+        lambda *xs: reg.eval(opp.eval_ctx, opp.op, list(xs)),
+        in_dims=tuple(in_dims))(*inputs)
+
+
+def eval_each_lane(eval_fn: Callable, ctx, op, inputs,
+                   in_dims) -> List[torch.Tensor]:
+    """An ``eval_lanes`` rule's last resort: ``eval_fn`` once per lane,
+    its outputs stacked."""
+    lanes = next(x.shape[0] for x, d in zip(inputs, in_dims)
+                 if d is not None)
+    per_lane = [eval_fn(ctx, op, [x if d is None else x[i]
+                                  for x, d in zip(inputs, in_dims)])
+                for i in range(lanes)]
+    return [torch.stack(outs) for outs in zip(*per_lane)]
+
 
 # ---------------------------------------------------------------------------
-# arena buffer pooling (§4.5: one physical buffer, many invocations)
+# arena buffer pooling (§4.5 grown up: one pool, many invocations)
 # ---------------------------------------------------------------------------
 
 class ArenaPool:
-    """Owns the physical nonpersistent byte buffer that interpreters
-    sharing an arena recycle between non-concurrent invocations.
+    """Owns the physical nonpersistent byte buffers that interpreters and
+    batched pools sharing an arena recycle between non-concurrent
+    invocations: one single-request buffer, and a free list of stacked
+    ``(B, nbytes)`` buffers per batch size.
 
-    ``ensure`` grows the size every tenant needs; the buffer itself is
-    made lazily on the first ``take`` after that, so after warm-up
-    ``alloc_count`` stays constant — the malloc-free steady state,
-    observable."""
+    ``ensure`` grows the size every tenant needs (to a multiple of 16,
+    so each lane's views stay aligned); the buffers are made lazily on
+    the first take after that, so after warm-up ``alloc_count`` stays
+    constant — the malloc-free steady state, observable.
 
-    def __init__(self, device="cuda") -> None:
+    The free list is at most ``depth`` buffers deep (default 2), the
+    double buffer of the JAX package's pool.  Dispatches here take and
+    put back in turn on one stream, so a batch size's free list hands out
+    the same buffer every time, and the programs bound to it keep their
+    one capture."""
+
+    def __init__(self, device="cuda", depth: int = 2) -> None:
         self.device = resolve_device(device)
         self.nbytes = 0
+        self.depth = max(1, int(depth))
         self.buf: Optional[torch.Tensor] = None
         self._taken = False
+        self._batched: Dict[int, List[torch.Tensor]] = {}
         self.alloc_count = 0
 
-    def ensure(self, nbytes: int) -> None:
-        """Grow the pooled buffer size (a smaller buffer is dropped, and
-        each tenant's ``CompiledPlan`` drops the graphs bound to it at its
-        next invoke)."""
-        if nbytes > self.nbytes:
-            self.nbytes = int(nbytes)
-            self.buf = None
+    def _alloc(self, shape) -> torch.Tensor:
+        self.alloc_count += 1
+        return torch.zeros(shape, dtype=torch.uint8, device=self.device)
 
+    def ensure(self, nbytes: int) -> None:
+        """Grow the pooled buffer size (smaller buffers are dropped, and
+        each tenant's ``CompiledPlan`` drops the programs bound to them at
+        its next invoke)."""
+        if nbytes > self.nbytes:
+            self.nbytes = align_up(int(nbytes))
+            self.buf = None
+            self._batched.clear()
+
+    # -- single-request buffer (the §4.5 shared-arena contract) ---------
     def take(self) -> torch.Tensor:
         if self.nbytes <= 0:
             raise RuntimeError("ArenaPool.ensure() before take()")
@@ -631,14 +816,462 @@ class ArenaPool:
                                "(concurrent invoke?)")
         self._taken = True
         if self.buf is None:
-            self.alloc_count += 1
-            self.buf = torch.zeros(self.nbytes, dtype=torch.uint8,
-                                   device=self.device)
+            self.buf = self._alloc(self.nbytes)
         return self.buf
 
     def put(self, buf: torch.Tensor) -> None:
         self._taken = False
         self.buf = buf
+
+    # -- batched buffers (free list = the double buffer) -----------------
+    def take_batch(self, batch: int) -> torch.Tensor:
+        if self.nbytes <= 0:
+            raise RuntimeError("ArenaPool.ensure() before take_batch()")
+        free = self._batched.get(batch)
+        if free:
+            return free.pop()
+        return self._alloc((batch, self.nbytes))
+
+    def put_batch(self, buf: torch.Tensor) -> None:
+        free = self._batched.setdefault(int(buf.shape[0]), [])
+        if len(free) < self.depth:
+            free.append(buf)
+
+
+class SharedArenaState(ArenaPool):
+    """Back-compat name: the single-buffer view of ArenaPool (§4.5)."""
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (batched dispatch): InterpreterPool
+# ---------------------------------------------------------------------------
+
+class _LaneInputs:
+    """The lane-stacked input tensors a batched program reads at fixed
+    addresses (and, for a ragged bucket, its active-lane mask), with the
+    pinned host tensors they are uploaded from in one asynchronous copy
+    each; a later upload waits for the earlier one's copies."""
+
+    def __init__(self, alloc: AllocationPlan, lanes: int,
+                 mask: bool = False):
+        dev = alloc.device
+        specs = [alloc.specs[t] for t in alloc.model.inputs]
+        self.tensors = [torch.zeros((lanes,) + tuple(s.shape),
+                                    dtype=torch_dtype(s.dtype), device=dev)
+                        for s in specs]
+        self.mask = (torch.zeros(lanes, dtype=torch.bool, device=dev)
+                     if mask else None)
+        on_card = dev.type == "cuda"
+        staged = self.tensors + ([self.mask] if mask else [])
+        self._host = ([torch.zeros(t.shape, dtype=t.dtype, pin_memory=True)
+                       for t in staged] if on_card else staged)
+        self._device = staged if on_card else []
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def upload(self, per_lane: Sequence[Dict[int, np.ndarray]],
+               active: Optional[np.ndarray] = None) -> None:
+        """Lane i's staged values (zeros for a position it has none of)
+        and the mask ``active``, onto the device."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for pos, host in enumerate(self._host[:len(self.tensors)]):
+            rows = host.numpy()
+            for lane, staged in enumerate(per_lane):
+                if pos in staged:
+                    rows[lane] = staged[pos]
+                else:
+                    rows[lane] = 0
+        if active is not None:
+            self._host[-1].numpy()[:] = active
+        if self._device:
+            for dst, src in zip(self._device, self._host):
+                dst.copy_(src, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+
+def _lane_variables(alloc: AllocationPlan, lanes: int) -> List[torch.Tensor]:
+    return [torch.zeros((lanes,) + tuple(s.shape), dtype=torch_dtype(s.dtype),
+                        device=alloc.device) for s in alloc.var_specs]
+
+
+def _checked_value(alloc: AllocationPlan, pos: int, value,
+                   where: str) -> np.ndarray:
+    spec = alloc.specs[alloc.model.inputs[pos]]
+    value = np.asarray(value)
+    if tuple(value.shape) != tuple(spec.shape):
+        raise ValueError(f"{where} input {pos}: shape {value.shape} != "
+                         f"{spec.shape}")
+    return value.astype(spec.dtype)
+
+
+class InterpreterPool:
+    """B independent requests of ONE model advanced by one program.
+
+    All lanes share one AllocationPlan (weights, op_data, memory plan)
+    and one CompiledPlan; per-lane state is the lane axis of the pooled
+    arena buffer and of the variable tensors.  ``device`` defaults to
+    ``"cuda"`` (the pool's, when one is given)."""
+
+    def __init__(self, model: MicroModel,
+                 op_resolver: MicroMutableOpResolver, batch: int,
+                 arena_size_bytes: Optional[int] = None,
+                 planner: Optional[object] = None,
+                 prefer_offline_plan: bool = True,
+                 host_arena: Optional[TwoStackArena] = None,
+                 pool: Optional[ArenaPool] = None, exact: bool = False,
+                 device="cuda"):
+        if batch < 1:
+            raise ValueError("batch must be >= 1")
+        self.batch = batch
+        self.exact = exact
+        self.pool = pool if pool is not None else ArenaPool(device)
+        setup_device(self.pool.device)
+        self.alloc = plan_model(model, op_resolver, arena_size_bytes,
+                                planner, prefer_offline_plan, host_arena,
+                                self.pool.device)
+        self.compiled = CompiledPlan(self.alloc)
+        self.pool.ensure(self.alloc.nonpersistent_nbytes)
+        self._variables = _lane_variables(self.alloc, batch)
+        self._inputs: List[Dict[int, np.ndarray]] = [
+            {} for _ in range(batch)]
+        self._staged = _LaneInputs(self.alloc, batch)
+        self._outs: Optional[List[np.ndarray]] = None
+        self._invoke_count = 0
+
+    @property
+    def program(self) -> CapturedProgram:
+        """The batched program this pool dispatches."""
+        return self.compiled.batched(self.batch, self.exact)
+
+    def set_input(self, lane: int, pos: int, value: np.ndarray) -> None:
+        self._inputs[lane][pos] = _checked_value(self.alloc, pos, value,
+                                                 f"lane {lane}")
+
+    def clear_inputs(self) -> None:
+        self._inputs = [{} for _ in range(self.batch)]
+
+    def invoke(self) -> None:
+        """Advance every lane by one invocation — ONE program; a lane
+        with no inputs at all is idle and runs on zeros.  Blocks until
+        the outputs are on the host."""
+        n_in = len(self.alloc.model.inputs)
+        for lane, staged in enumerate(self._inputs):
+            # same contract as MicroInterpreter.invoke(), per lane
+            if staged and len(staged) != n_in:
+                raise RuntimeError(f"lane {lane}: not all inputs set")
+        self._staged.upload(self._inputs)
+        buf = self.pool.take_batch(self.batch)
+        try:
+            outs = self.compiled.execute_batched(
+                buf, self._variables, self._staged.tensors, self.exact)
+            self._outs = [o.to("cpu", copy=True).numpy() for o in outs]
+        finally:
+            self.pool.put_batch(buf)
+        self._invoke_count += 1
+
+    def output(self, lane: int, pos: int) -> np.ndarray:
+        return self.outputs(pos)[lane]
+
+    def outputs(self, pos: int) -> np.ndarray:
+        """All lanes' outputs, stacked on axis 0."""
+        if self._outs is None:
+            raise RuntimeError("invoke() first")
+        return self._outs[pos]
+
+    def reset_variable_tensors(self) -> None:
+        for v in self._variables:
+            v.zero_()
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (ragged dispatch): lane table + RaggedInterpreterPool
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LaneState:
+    """One row of the ragged pool's lane table.
+
+    ``bucket`` names the model family the lane belongs to, ``slot`` is
+    its index on that bucket's lane axis, ``uid`` identifies the request
+    currently occupying the lane (None = free), ``step`` counts
+    dispatches completed for that request (the continuation counter),
+    and ``active`` is the lane's bit in the dispatch mask.
+    """
+
+    bucket: str
+    slot: int
+    uid: Optional[int] = None
+    step: int = 0
+    active: bool = False
+
+
+@dataclass
+class LaneCheckpoint:
+    """A lane's continuation state, captured on the host so the lane can
+    be freed and the request re-admitted later — the preemption
+    primitive.
+
+    ``variables`` holds one numpy copy of each variable tensor's lane row
+    (the recurrent continuation state), ``step`` the dispatch counter,
+    ``bucket``/``uid`` where it came from.  Snapshotting and restoring
+    move values between the host and the lane-stacked device tensors;
+    the masked program, its mask and every shape stay what the first
+    dispatch captured, so a preempt/resume cycle never captures again."""
+
+    bucket: str
+    uid: Optional[int]
+    step: int
+    variables: Tuple[np.ndarray, ...]
+
+
+class _RaggedBucket:
+    """Per-model-family state of a RaggedInterpreterPool: one shared
+    AllocationPlan/CompiledPlan, the lane-stacked variable state, inputs
+    staged for the next wave, and that family's lane-table rows."""
+
+    def __init__(self, name: str, alloc: AllocationPlan,
+                 compiled: CompiledPlan, lanes: int, exact: bool):
+        self.name = name
+        self.alloc = alloc
+        self.compiled = compiled
+        self.lanes = lanes
+        self.exact = exact
+        self.table = [LaneState(bucket=name, slot=i) for i in range(lanes)]
+        self.variables = _lane_variables(alloc, lanes)
+        self.inputs: List[Dict[int, np.ndarray]] = [{} for _ in range(lanes)]
+        self.staged = _LaneInputs(alloc, lanes, mask=True)
+        self.outs: Optional[List[torch.Tensor]] = None
+        self.outs_host: Optional[List[np.ndarray]] = None
+        self.dispatch_count = 0
+
+    def check_staged(self) -> None:
+        n_in = len(self.alloc.model.inputs)
+        for lane in self.table:
+            if lane.active and len(self.inputs[lane.slot]) != n_in:
+                raise RuntimeError(
+                    f"bucket {self.name!r} lane {lane.slot}: not all "
+                    f"inputs set for this wave")
+
+
+class RaggedInterpreterPool:
+    """Lanes at different models, steps, and lifecycles — one masked
+    program per model-family bucket.
+
+    The lockstep ``InterpreterPool`` requires every lane to run the same
+    model and start/finish together.  Here a *lane table* relaxes that:
+
+      * **different models** — each bucket plans its model once; buckets
+        draw lane-stacked arena buffers from ONE shared ``ArenaPool``
+        (sized to the largest requirement, §4.5 style);
+      * **different steps** — every lane carries its own variable-tensor
+        continuation state and step counter, so a lane on step 7 of a
+        streaming request rides in the same dispatch as a lane on step 0;
+      * **different lifecycles** — ``admit``/``retire`` flip the lane's
+        bit in the active mask between dispatches.  The mask is an input
+        of ``CompiledPlan.masked_batched``, so occupancy changes never
+        capture a program again.
+
+    ``dispatch()`` enqueues each bucket's program without waiting for the
+    device; ``output()``/``outputs()`` read a bucket's outputs to the
+    host, once per wave.  ``device`` defaults to ``"cuda"`` (the pool's,
+    when one is given).
+    """
+
+    def __init__(self, pool: Optional[ArenaPool] = None, depth: int = 2,
+                 device="cuda"):
+        self.pool = pool if pool is not None else ArenaPool(device, depth)
+        setup_device(self.pool.device)
+        self._buckets: Dict[str, _RaggedBucket] = {}
+
+    # -- bucket construction (init-time; all planning happens here) -----
+
+    def add_bucket(self, name: str, model: MicroModel,
+                   resolver: MicroMutableOpResolver, lanes: int, *,
+                   exact: bool = False,
+                   arena_size_bytes: Optional[int] = None,
+                   planner: Optional[object] = None,
+                   prefer_offline_plan: bool = True,
+                   host_arena: Optional[TwoStackArena] = None,
+                   lane_buckets: Optional["BucketTable"] = None) -> None:
+        """Admit a model family with ``lanes`` lane slots; plans exactly
+        once — admission and retirement later touch only the lane table.
+
+        ``lane_buckets`` (optional) rounds ``lanes`` up through a shared
+        ``BucketTable`` so model buckets with nearby lane counts draw from
+        the ``ArenaPool`` free list of the SAME stacked batch size; the
+        extra lanes are ordinary free lanes."""
+        if name in self._buckets:
+            raise ValueError(f"bucket {name!r} already exists")
+        if lanes < 1:
+            raise ValueError("lanes must be >= 1")
+        if lane_buckets is not None:
+            lanes = lane_buckets.bucket(lanes)
+        alloc = plan_model(model, resolver, arena_size_bytes, planner,
+                           prefer_offline_plan, host_arena, self.pool.device)
+        self.pool.ensure(alloc.nonpersistent_nbytes)
+        self._buckets[name] = _RaggedBucket(
+            name, alloc, CompiledPlan(alloc), lanes, exact)
+
+    # -- lane-table views ------------------------------------------------
+
+    @property
+    def lane_table(self) -> List[LaneState]:
+        """Every lane of every bucket — the global lane table."""
+        return [lane for b in self._buckets.values() for lane in b.table]
+
+    def lanes(self, bucket: str) -> List[LaneState]:
+        return self._buckets[bucket].table
+
+    def free_lanes(self, bucket: str) -> List[int]:
+        return [lane.slot for lane in self._buckets[bucket].table
+                if not lane.active]
+
+    def occupancy(self) -> float:
+        table = self.lane_table
+        if not table:
+            return 0.0
+        return sum(lane.active for lane in table) / len(table)
+
+    def program(self, bucket: str) -> CapturedProgram:
+        """The masked program of ``bucket`` (``capture_count`` reads it)."""
+        b = self._buckets[bucket]
+        return b.compiled.masked_batched(b.lanes, b.exact)
+
+    # -- admission / retirement (between dispatches; never captures) ----
+
+    def admit(self, bucket: str, uid: Optional[int] = None) -> int:
+        """Claim a free lane for a new request: reset its continuation
+        state to the model's initial (zero) variable values, zero its step
+        counter, and set its mask bit.  Returns the lane slot."""
+        b = self._buckets[bucket]
+        for lane in b.table:
+            if not lane.active:
+                break
+        else:
+            raise RuntimeError(f"bucket {bucket!r}: no free lane")
+        lane.active, lane.uid, lane.step = True, uid, 0
+        for v in b.variables:
+            v[lane.slot].zero_()
+        b.inputs[lane.slot] = {}
+        return lane.slot
+
+    def retire(self, bucket: str, slot: int) -> LaneState:
+        """Free a lane mid-flight: clear its mask bit and staged inputs.
+        The other lanes' continuation state is untouched and the next
+        dispatch replays the same program."""
+        b = self._buckets[bucket]
+        lane = b.table[slot]
+        lane.active = False
+        lane.uid = None
+        b.inputs[slot] = {}
+        return lane
+
+    # -- preemption: checkpoint / restore (host side, never captures) ---
+
+    def snapshot_lane(self, bucket: str, slot: int) -> LaneCheckpoint:
+        """Copy an active lane's continuation state (variable rows + step
+        counter) to a host-side ``LaneCheckpoint``.  The lane itself is
+        untouched — pair with ``retire`` to preempt.  Waits for the
+        lane's variable rows (a device-to-host copy), the checkpoint's
+        whole cost."""
+        b = self._buckets[bucket]
+        lane = b.table[slot]
+        if not lane.active:
+            raise RuntimeError(
+                f"bucket {bucket!r} lane {slot} is not active")
+        rows = tuple(v[slot].to("cpu", copy=True).numpy()
+                     for v in b.variables)
+        return LaneCheckpoint(bucket=bucket, uid=lane.uid,
+                              step=lane.step, variables=rows)
+
+    def restore_lane(self, ckpt: LaneCheckpoint,
+                     slot: Optional[int] = None) -> int:
+        """Re-admit a checkpointed continuation into a free lane of its
+        bucket (any free lane by default, or ``slot``).  The lane's
+        variable rows are set to the checkpoint's values and its step
+        counter resumes where the snapshot left off, so the next
+        dispatches are bit-identical to an uninterrupted run: lanes are
+        independent, so the slot and the other lanes cannot perturb the
+        math.  Only the lane table and the rows' values change."""
+        b = self._buckets[ckpt.bucket]
+        if slot is None:
+            free = self.free_lanes(ckpt.bucket)
+            if not free:
+                raise RuntimeError(
+                    f"bucket {ckpt.bucket!r}: no free lane to restore")
+            slot = free[0]
+        lane = b.table[slot]
+        if lane.active:
+            raise RuntimeError(
+                f"bucket {ckpt.bucket!r} lane {slot} is occupied")
+        lane.active, lane.uid, lane.step = True, ckpt.uid, ckpt.step
+        for v, row in zip(b.variables, ckpt.variables):
+            v[slot].copy_(torch.from_numpy(np.asarray(row)))
+        b.inputs[slot] = {}
+        return slot
+
+    # -- per-wave input staging -----------------------------------------
+
+    def set_input(self, bucket: str, slot: int, pos: int,
+                  value: np.ndarray) -> None:
+        b = self._buckets[bucket]
+        if not b.table[slot].active:
+            raise RuntimeError(
+                f"bucket {bucket!r} lane {slot} is not active")
+        b.inputs[slot][pos] = _checked_value(
+            b.alloc, pos, value, f"bucket {bucket!r} lane {slot}")
+
+    # -- the ragged dispatch --------------------------------------------
+
+    def dispatch(self) -> int:
+        """Advance every bucket that has at least one active lane by one
+        step — ONE masked program per such bucket.  Returns the number of
+        lanes advanced; inputs staged for this wave are consumed.
+
+        Staging is validated for EVERY bucket before ANY bucket runs, so
+        a staging error raises with no lane advanced — dispatch is
+        atomic across buckets and safe to retry after restaging."""
+        waves = []
+        for b in self._buckets.values():
+            mask = np.array([lane.active for lane in b.table])
+            if mask.any():
+                b.check_staged()
+                waves.append((b, mask))
+        advanced = 0
+        for b, mask in waves:
+            b.staged.upload(b.inputs, mask)
+            buf = self.pool.take_batch(b.lanes)
+            try:
+                b.outs = b.compiled.execute_batched(
+                    buf, b.variables, b.staged.tensors, b.exact,
+                    mask=b.staged.mask)
+            finally:
+                self.pool.put_batch(buf)
+            b.outs_host = None
+            b.dispatch_count += 1
+            b.inputs = [{} for _ in range(b.lanes)]
+            for lane in b.table:
+                if lane.active:
+                    lane.step += 1
+                    advanced += 1
+        return advanced
+
+    def output(self, bucket: str, slot: int, pos: int) -> np.ndarray:
+        """Lane ``slot``'s model output ``pos`` from the last dispatch.
+        The bucket's outputs come to the host ONCE per wave (cached), so
+        reading every active lane costs one copy, not one per lane."""
+        return self.outputs(bucket, pos)[slot]
+
+    def outputs(self, bucket: str, pos: int) -> np.ndarray:
+        """All lanes' output ``pos`` from the last dispatch, stacked on
+        axis 0 (inactive lanes hold garbage — consult the lane table)."""
+        b = self._buckets[bucket]
+        if b.outs is None:
+            raise RuntimeError("dispatch() first")
+        if b.outs_host is None:
+            b.outs_host = [o.to("cpu", copy=True).numpy() for o in b.outs]
+        return b.outs_host[pos]
 
 
 # ---------------------------------------------------------------------------

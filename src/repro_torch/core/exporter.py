@@ -35,10 +35,13 @@ from .schema import OpCode, OpDef, QuantParams, TensorDef, TensorFlags
 
 _PASSTHROUGH_OPS = {OpCode.DROPOUT, OpCode.IDENTITY}
 
-# ops whose int8 path exists in the port's reference kernels
+# ops whose int8 path exists in the reference kernels
 _QUANTIZABLE = {
     OpCode.CONV_2D, OpCode.DEPTHWISE_CONV_2D, OpCode.FULLY_CONNECTED,
-    OpCode.MAX_POOL_2D, OpCode.RESHAPE, OpCode.MEAN, OpCode.SOFTMAX,
+    OpCode.ADD, OpCode.MUL, OpCode.SUB, OpCode.MAX_POOL_2D,
+    OpCode.AVERAGE_POOL_2D, OpCode.RESHAPE, OpCode.MEAN, OpCode.SOFTMAX,
+    OpCode.RELU, OpCode.RELU6, OpCode.LOGISTIC, OpCode.TANH,
+    OpCode.CONCATENATION, OpCode.PAD, OpCode.TRANSPOSE,
 }
 
 

@@ -7,8 +7,7 @@ removal, post-training quantization) and serializes to µFB.
 
 The port's copy of ``repro.core.graph_builder``: the same numpy graph and
 the same serialization, so the same builder calls give the same blob.
-Output shapes come from the port's reference ``prepare()`` functions, so
-the builder offers sugar only for the ops the port registers.
+Output shapes come from the port's reference ``prepare()`` functions.
 """
 
 from __future__ import annotations
@@ -146,6 +145,19 @@ class GraphBuilder:
         return self._infer_and_add(OpCode.SVDF, ins,
                                    dict(rank=rank, activation=activation))
 
+    def add(self, a, b, activation="none", out_quant=None):
+        return self._infer_and_add(OpCode.ADD, [a.index, b.index],
+                                   dict(activation=activation),
+                                   out_quant=out_quant)
+
+    def mul(self, a, b, out_quant=None):
+        return self._infer_and_add(OpCode.MUL, [a.index, b.index], {},
+                                   out_quant=out_quant)
+
+    def sub(self, a, b, out_quant=None):
+        return self._infer_and_add(OpCode.SUB, [a.index, b.index], {},
+                                   out_quant=out_quant)
+
     def max_pool2d(self, x, k=2, stride=None, padding="VALID",
                    out_quant=None):
         stride = stride or k
@@ -154,9 +166,26 @@ class GraphBuilder:
             dict(filter_h=k, filter_w=k, stride_h=stride, stride_w=stride,
                  padding=padding), out_quant=out_quant)
 
+    def avg_pool2d(self, x, k=2, stride=None, padding="VALID",
+                   out_quant=None):
+        stride = stride or k
+        return self._infer_and_add(
+            OpCode.AVERAGE_POOL_2D, [x.index],
+            dict(filter_h=k, filter_w=k, stride_h=stride, stride_w=stride,
+                 padding=padding), out_quant=out_quant)
+
     def reshape(self, x, new_shape, out_quant=None):
         return self._infer_and_add(OpCode.RESHAPE, [x.index],
                                    dict(new_shape=list(new_shape)),
+                                   out_quant=out_quant)
+
+    def transpose(self, x, perm):
+        return self._infer_and_add(OpCode.TRANSPOSE, [x.index],
+                                   dict(perm=list(perm)))
+
+    def concat(self, xs, axis=-1, out_quant=None):
+        return self._infer_and_add(OpCode.CONCATENATION,
+                                   [x.index for x in xs], dict(axis=axis),
                                    out_quant=out_quant)
 
     def mean(self, x, axes, keepdims=False, out_quant=None):
@@ -168,6 +197,20 @@ class GraphBuilder:
         return self._infer_and_add(OpCode.SOFTMAX, [x.index],
                                    dict(beta=beta), out_quant=out_quant)
 
+    def unary(self, opcode, x, out_quant=None, **params):
+        return self._infer_and_add(opcode, [x.index], params,
+                                   out_quant=out_quant)
+
+    def relu(self, x, out_quant=None):
+        return self.unary(OpCode.RELU, x, out_quant)
+
+    def dropout(self, x, rate=0.5):
+        return self._infer_and_add(OpCode.DROPOUT, [x.index],
+                                   dict(rate=rate))
+
+    def identity(self, x):
+        return self._infer_and_add(OpCode.IDENTITY, [x.index], {})
+
     def quantize(self, x, scale, zero_point):
         q = QuantParams(scale, zero_point)
         return self._infer_and_add(OpCode.QUANTIZE, [x.index], {},
@@ -177,10 +220,36 @@ class GraphBuilder:
         return self._infer_and_add(OpCode.DEQUANTIZE, [x.index], {},
                                    out_dtype="float32")
 
+    def matmul(self, a, b, transpose_b=False):
+        return self._infer_and_add(OpCode.MATMUL, [a.index, b.index],
+                                   dict(transpose_b=transpose_b))
+
+    def rms_norm(self, x, gamma, eps=1e-6):
+        return self._infer_and_add(OpCode.RMS_NORM, [x.index, gamma.index],
+                                   dict(eps=eps))
+
+    def layer_norm(self, x, gamma, beta, eps=1e-5):
+        return self._infer_and_add(
+            OpCode.LAYER_NORM, [x.index, gamma.index, beta.index],
+            dict(eps=eps))
+
+    def gelu(self, x):
+        return self.unary(OpCode.GELU, x)
+
+    def silu(self, x):
+        return self.unary(OpCode.SILU, x)
+
+    def rope(self, x, base=10000.0):
+        return self._infer_and_add(OpCode.ROPE, [x.index], dict(base=base))
+
     def attention(self, q, k, v, causal=True):
         return self._infer_and_add(
             OpCode.ATTENTION, [q.index, k.index, v.index],
             dict(causal=causal))
+
+    def embedding(self, ids, table):
+        return self._infer_and_add(OpCode.EMBEDDING_LOOKUP,
+                                   [ids.index, table.index], {})
 
     # ------------------------------------------------------------------
     def build(self, offline_plan: bool = False) -> bytes:

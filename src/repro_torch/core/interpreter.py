@@ -29,20 +29,11 @@ import torch
 
 from .arena import TwoStackArena
 from .executor import (AllocationPlan, ArenaPool, CompiledPlan,
-                       required_arena_size, resolve_device, torch_dtype)
+                       required_arena_size, resolve_device, setup_device,
+                       torch_dtype)
 from .memory_planner import MemoryPlan
 from .op_resolver import MicroMutableOpResolver, TensorSpec
 from .schema import MicroModel
-
-
-def setup_device(device: torch.device) -> None:
-    """Float convolutions and matmuls on the card run in true float32:
-    cuDNN's default TF32 keeps about three decimal digits and would break
-    float parity with the reference, so TF32 is switched off here, for
-    the process, before any op runs on the card."""
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 class MicroInterpreter:

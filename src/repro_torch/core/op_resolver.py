@@ -65,6 +65,9 @@ class OpRegistration:
     prepare: Callable[..., PrepareResult]
     eval: Callable[..., Sequence[Any]]
     code_nbytes: int = 0
+    # the op's own rule for lane-stacked inputs (``eval_lanes``), or
+    # None: the batched executor then maps ``eval`` over the lanes
+    eval_lanes: Optional[Callable[..., Sequence[Any]]] = None
 
     @property
     def name(self) -> str:
@@ -78,14 +81,15 @@ class _Registry:
     def __init__(self) -> None:
         self._impls: Dict[Tuple[int, str], OpRegistration] = {}
 
-    def register(self, opcode: int, tag: str,
-                 prepare: Callable, eval_fn: Callable) -> OpRegistration:
+    def register(self, opcode: int, tag: str, prepare: Callable,
+                 eval_fn: Callable,
+                 eval_lanes: Optional[Callable] = None) -> OpRegistration:
         code = 0
         for fn in (prepare, eval_fn):
             co = getattr(fn, "__code__", None)
             if co is not None:
                 code += len(co.co_code) + 4 * len(co.co_consts or ())
-        reg = OpRegistration(opcode, tag, prepare, eval_fn, code)
+        reg = OpRegistration(opcode, tag, prepare, eval_fn, code, eval_lanes)
         self._impls[(opcode, tag)] = reg
         return reg
 
@@ -111,9 +115,15 @@ def register_op(opcode: int, tag: str = REFERENCE_TAG):
             def prepare(ctx, op): ...
             @staticmethod
             def eval(ctx, op, inputs): ...
+
+    A class may also give ``eval_lanes(ctx, op, inputs, in_dims)``: its
+    rule for inputs that carry a leading lane axis (``in_dims[i]`` is 0
+    for those, None for the rest), used by the batched executor in place
+    of mapping ``eval`` over the lanes (``core.executor``).
     """
     def wrap(impl):
-        GLOBAL_REGISTRY.register(opcode, tag, impl.prepare, impl.eval)
+        GLOBAL_REGISTRY.register(opcode, tag, impl.prepare, impl.eval,
+                                 getattr(impl, "eval_lanes", None))
         return impl
     return wrap
 

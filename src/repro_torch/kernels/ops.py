@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import quantize as Q
+from repro_torch.core.executor import eval_each_lane
 from repro_torch.core.micro_ops import Attention, FullyConnected
 from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
@@ -261,6 +262,16 @@ class CudaFullyConnected:
                            rs.output_zero_point, wsum=d["wsum_t"])
         return [out.clamp(d["qmin"], d["qmax"]).reshape(*lead, nchan)]
 
+    @staticmethod
+    def eval_lanes(ctx, op, inputs, in_dims):
+        """Lane-stacked x (L, ..., K) with a shared weight: the lanes fold
+        into the kernel's rows, one launch of M = L x rows (``eval``
+        already flattens every leading axis)."""
+        if in_dims[0] == 0 and all(d is None for d in in_dims[1:]):
+            return CudaFullyConnected.eval(ctx, op, inputs)
+        return eval_each_lane(CudaFullyConnected.eval, ctx, op, inputs,
+                              in_dims)
+
 
 @register_op(OpCode.ATTENTION, tag="cuda")
 class CudaAttention:
@@ -273,6 +284,18 @@ class CudaAttention:
         q, k, v = inputs
         return [flash_attention(q, k, v,
                                 causal=op.params.get("causal", True))]
+
+    @staticmethod
+    def eval_lanes(ctx, op, inputs, in_dims):
+        """Lane-stacked q, k, v (L, B, H, S, D): the lanes fold into the
+        kernel's batch axis, one launch over L x B."""
+        if any(d is None for d in in_dims):
+            return eval_each_lane(CudaAttention.eval, ctx, op, inputs,
+                                  in_dims)
+        lanes, b = inputs[0].shape[:2]
+        folded = [x.reshape(lanes * b, *x.shape[2:]) for x in inputs]
+        (out,) = CudaAttention.eval(ctx, op, folded)
+        return [out.reshape(lanes, b, *out.shape[1:])]
 
 
 # ---------------------------------------------------------------------------

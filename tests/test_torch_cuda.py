@@ -9,6 +9,8 @@ it also runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1079,6 +1081,9 @@ def test_device_memory_flat_over_replayed_steps(cuda):
             max_new_tokens=40))
     for _ in range(3):
         eng.step()
+    # free what earlier tests left in reference cycles first: a collection
+    # during the loop would move the count by memory not this engine's
+    gc.collect()
     torch.cuda.synchronize()
     mem = torch.cuda.memory_allocated()
     captures = eng._decode.captures
@@ -1100,6 +1105,7 @@ def test_new_prompt_lengths_add_no_device_memory(cuda):
                         device=cuda)
     rng = np.random.default_rng(5)
     lengths = range(2, 2 + PREFILL_PROGRAMS + 8)
+    gc.collect()                # what earlier tests left in cycles
     mem = None
     for n in lengths:
         eng.submit(Request(uid=n, tokens=rng.integers(
@@ -1125,3 +1131,96 @@ def test_a_capture_that_fails_raises(cuda):
     assert capture_count(prog) == 0
     torch.cuda.synchronize()
     assert torch.equal((x + 1).cpu(), torch.full((4,), 2.0))
+
+
+# ---------------------------------------------------------------------------
+# the micro interpreter complete: K1 and K2 at their new path shapes, the
+# ragged pool on the card
+# ---------------------------------------------------------------------------
+
+def test_quant_matmul_rows_path_is_row_independent(cuda):
+    """The 16 lanes of the batched int8 FC reach K1 as one call of M = 16
+    (rows path): each row's output is bit-equal to that row alone, M = 1,
+    and to the plain version."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.integers(-128, 128, (16, 64), dtype=np.int8))
+    w_nk = torch.from_numpy(rng.integers(-128, 128, (32, 64), dtype=np.int8))
+    bias = torch.from_numpy(rng.integers(-500, 500, 32, dtype=np.int32))
+    scale = torch.from_numpy(rng.uniform(1e-4, 5e-3, 32).astype(np.float32))
+    w = w_nk.to(cuda).t()                          # the FC layer's view
+    assert K1.path(16, 64, w.stride()) == "rows"
+    args = (bias.to(cuda), 3, scale.to(cuda), -7)
+    rows = ops.quant_matmul(x.to(cuda), w, *args)
+    alone = torch.cat([ops.quant_matmul(x[i:i + 1].to(cuda), w, *args)
+                       for i in range(16)])
+    want = ref.quant_matmul_ref(x, w_nk.t(), bias, 3, scale, -7)
+    torch.testing.assert_close(rows.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(alone.cpu(), want, rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_at_yi_6b_heads(cuda):
+    """K2 at the decoder block's shape, (1, 32, 256, 128) causal float32,
+    within 1e-5 of the plain version."""
+    g = torch.Generator().manual_seed(128)
+    q, k, v = (torch.randn(1, 32, 256, 128, generator=g).to(cuda)
+               for _ in range(3))
+    got = K2.flash_attention_cuda(q, k, v, causal=True)
+    want = ref.mha_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_ragged_pool_on_card_bit_equal_and_memory_flat(cuda):
+    """A ragged pool of the int8 FC stack (K1 at M = 16) and the float
+    hotword (exact) on the card: 50 waves of churning occupancy, every
+    active lane bit-equal to its request alone through a MicroInterpreter
+    on the card, one masked program per bucket, device memory exact from
+    the second wave on."""
+    from repro_torch.apps.models import build_hotword
+    from repro_torch.core import RaggedInterpreterPool
+
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    gb = build_fc_stack()
+    fc = MicroModel(export(gb, representative_dataset(gb),
+                           quantize_int8=True))
+    hw = MicroModel(export(build_hotword(n_layers=1)))
+    alone = {name: MicroInterpreter(m, res,
+                                    MicroInterpreter.required_arena_size(
+                                        m, res), device=cuda)
+             for name, m in (("fc", fc), ("hw", hw))}
+    pool = RaggedInterpreterPool(device=cuda)
+    pool.add_bucket("fc", fc, res, lanes=16)
+    pool.add_bucket("hw", hw, res, lanes=4, exact=True)
+    rng = np.random.default_rng(50)
+    hw_lane = pool.admit("hw", uid=0)
+    gc.collect()                # what earlier tests left in cycles
+    frames = []
+    base = None
+    for wave in range(50):
+        n = 1 + wave % 16
+        slots = [pool.admit("fc") for _ in range(n)]
+        xs = [rng.normal(0, 1, (1, 64)).astype(np.float32) for _ in slots]
+        for slot, x in zip(slots, xs):
+            pool.set_input("fc", slot, 0, x)
+        frames.append(rng.normal(0, 1, (1, 40)).astype(np.float32))
+        pool.set_input("hw", hw_lane, 0, frames[-1])
+        pool.dispatch()
+        got = pool.outputs("fc", 0)
+        for slot, x in zip(slots, xs):
+            alone["fc"].set_input(0, x)
+            alone["fc"].invoke()
+            np.testing.assert_array_equal(got[slot], alone["fc"].output(0))
+            pool.retire("fc", slot)
+        alone["hw"].set_input(0, frames[-1])
+        alone["hw"].invoke()
+        np.testing.assert_array_equal(pool.output("hw", hw_lane, 0),
+                                      alone["hw"].output(0))
+        torch.cuda.synchronize()
+        # the first wave's outputs are its eager warm-up's, freed at the
+        # second; from then on nothing may move
+        if wave == 1:
+            base = torch.cuda.memory_allocated(cuda)
+        assert base is None or torch.cuda.memory_allocated(cuda) == base
+    assert capture_count(pool.program("fc")) == 1
+    assert capture_count(pool.program("hw")) == 1
+    assert pool.program("fc").captures == pool.program("hw").captures == 1

@@ -1,8 +1,9 @@
-"""Each of the port's eleven reference ops against the JAX package's op of
-the same opcode: the same single-op graph, built with each package's
-GraphBuilder, prepared by each package's prepare() and evaluated by each
-package's eval() on the same seeded inputs.  int8 results must be
-identical; float results agree within FLOAT_TOL."""
+"""Each of the port's reference ops (every micro opcode the JAX package
+registers) against the JAX package's op of the same opcode: the same
+single-op graph, built with each package's GraphBuilder, prepared by
+each package's prepare() and evaluated by each package's eval() on the
+same seeded inputs.  int8 results must be identical; float results
+agree within FLOAT_TOL."""
 
 import jax
 import jax.experimental
@@ -23,7 +24,9 @@ from repro_torch.core.graph_builder import _BuilderPrepareCtx as TorchPrepCtx
 from repro_torch.core.op_resolver import resolve_chain as torch_resolve
 
 # float32 results of the same formula differ only in summation order and
-# in the transcendental's last ulp; outputs here are O(1)
+# in the transcendental's last ulp; outputs here are O(1).  GELU, ROPE,
+# RSQRT, EXP, LOGISTIC, TANH and the matmuls agree within 5e-7 on these
+# inputs (a few ulps), so one bound serves every op.
 FLOAT_TOL = 1e-5
 
 
@@ -201,6 +204,138 @@ def _attention(core, rng, int8, causal):
     return gb, {t.index: _f32(rng, shape) for t in (q, k, v)}
 
 
+
+# -- the ops of ROADMAP item 1 ------------------------------------------------
+
+SHAPE = (2, 6, 6, 4)
+
+
+def _graph(shapes, make, positive=False):
+    """A graph of one op over model inputs of ``shapes`` (int8 inputs with
+    distinct quant params, or float32), added by ``make(gb, core, xs,
+    out_quant)``; ``positive`` feeds float values in [0.1, 3)."""
+    def build(core, rng, int8):
+        gb = core.GraphBuilder("op")
+        xs, feeds = [], {}
+        for i, shape in enumerate(shapes):
+            if int8:
+                x = gb.input(f"x{i}", shape, "int8",
+                             core.QuantParams(0.07 - 0.02 * i, 13 * i - 20))
+                feeds[x.index] = _int8(rng, shape)
+            else:
+                x = gb.input(f"x{i}", shape)
+                feeds[x.index] = (rng.uniform(0.1, 3.0, shape).astype(
+                    np.float32) if positive else _f32(rng, shape))
+            xs.append(x)
+        make(gb, core, xs, core.QuantParams(0.09, -3) if int8 else None)
+        return gb, feeds
+    return build
+
+
+def _raw(opcode, n_out=1, quant=True, **params):
+    """An op through the builder's ``_infer_and_add``, as the reference
+    builds the ops that have no sugar."""
+    def make(gb, core, xs, oq):
+        kw = {"out_quant": oq} if quant else {}
+        return gb._infer_and_add(getattr(core.OpCode, opcode),
+                                 [x.index for x in xs], params,
+                                 n_outputs=n_out, **kw)
+    return make
+
+
+def _sugar(method, quant=True, **params):
+    def make(gb, core, xs, oq):
+        kw = {"out_quant": oq} if quant else {}
+        return getattr(gb, method)(*xs, **params, **kw)
+    return make
+
+
+def _unary_op(opcode, positive=False):
+    return _graph([SHAPE], lambda gb, core, xs, oq: gb.unary(
+        getattr(core.OpCode, opcode), xs[0], out_quant=oq),
+        positive=positive)
+
+
+def _with_consts(shapes, consts, make):
+    """A float graph of one op over inputs of ``shapes`` then seeded float
+    consts of ``consts`` shapes."""
+    def build(core, rng, int8):
+        gb = core.GraphBuilder("op")
+        xs = [gb.input(f"x{i}", s) for i, s in enumerate(shapes)]
+        feeds = {x.index: _f32(rng, s) for x, s in zip(xs, shapes)}
+        cs = [gb.const(_f32(rng, s, 0.5), f"c{i}")
+              for i, s in enumerate(consts)]
+        make(gb, xs + cs)
+        return gb, feeds
+    return build
+
+
+def _embedding(core, rng, int8):
+    gb = core.GraphBuilder("embedding")
+    ids = gb.input("ids", (2, 7), "int32")
+    table = gb.const(_f32(rng, (50, 16)), "table")
+    gb.embedding(ids, table)
+    return gb, {ids.index: rng.integers(0, 50, (2, 7)).astype(np.int32)}
+
+
+NEW_INT8_OPS = {
+    "add": _graph([SHAPE, SHAPE], _sugar("add")),
+    "add-relu-broadcast": _graph([SHAPE, (4,)], _sugar("add",
+                                                       activation="relu")),
+    "sub": _graph([SHAPE, SHAPE], _sugar("sub")),
+    "mul": _graph([SHAPE, SHAPE], _sugar("mul")),
+    "mul-broadcast": _graph([SHAPE, (1, 6, 1, 4)], _sugar("mul")),
+    "minimum": _graph([SHAPE, SHAPE], _raw("MINIMUM")),
+    "maximum": _graph([SHAPE, SHAPE], _raw("MAXIMUM")),
+    "squared_difference": _graph([SHAPE, SHAPE],
+                                 _raw("SQUARED_DIFFERENCE")),
+    "avg_pool-valid": _unary("avg_pool2d", k=2),
+    "avg_pool-same-k3-s2": _unary("avg_pool2d", k=3, stride=2,
+                                  padding="SAME"),
+    "transpose": _graph([SHAPE], _sugar("transpose", quant=False,
+                                        perm=[0, 3, 1, 2])),
+    "concat": _graph([SHAPE, (2, 6, 6, 3)], lambda gb, core, xs, oq:
+                     gb.concat(xs, out_quant=oq)),
+    "concat-axis1": _graph([SHAPE, (2, 2, 6, 4)], lambda gb, core, xs, oq:
+                           gb.concat(xs, axis=1, out_quant=oq)),
+    "pad": _graph([SHAPE], _raw("PAD", paddings=[[0, 0], [1, 2], [2, 1],
+                                                 [0, 0]])),
+    "strided_slice": _graph([SHAPE], _raw("STRIDED_SLICE",
+                                          begin=[0, 1, 0, 1],
+                                          end=[2, 6, 5, 4],
+                                          strides=[1, 2, 2, 1])),
+    "split": _graph([SHAPE], _raw("SPLIT", n_out=2, axis=-1)),
+    "relu": _unary_op("RELU"),
+    "relu6": _unary_op("RELU6"),
+    "logistic": _unary_op("LOGISTIC"),
+    "tanh": _unary_op("TANH"),
+    "neg": _unary_op("NEG"),
+    "leaky_relu": _unary_op("LEAKY_RELU"),
+}
+NEW_FLOAT_OPS = {
+    "silu": _unary_op("SILU"),
+    "gelu": _unary_op("GELU"),
+    "rsqrt": _unary_op("RSQRT", positive=True),
+    "exp": _unary_op("EXP"),
+    "identity": _graph([SHAPE], _sugar("identity", quant=False)),
+    "dropout": _graph([SHAPE], _sugar("dropout", quant=False)),
+    "matmul": _with_consts([(2, 3, 5, 8)], [(8, 6)],
+                           lambda gb, t: gb.matmul(*t)),
+    "matmul-tb-batched": _with_consts([(2, 3, 5, 8)], [(3, 6, 8)],
+                                      lambda gb, t: gb.matmul(
+                                          *t, transpose_b=True)),
+    "batch_matmul": _graph([(2, 5, 8), (2, 8, 6)], _raw("BATCH_MATMUL",
+                                                        quant=False)),
+    "rms_norm": _with_consts([(2, 6, 16)], [(16,)],
+                             lambda gb, t: gb.rms_norm(*t)),
+    "layer_norm": _with_consts([(2, 6, 16)], [(16,), (16,)],
+                               lambda gb, t: gb.layer_norm(*t)),
+    "rope": _graph([(2, 8, 3, 16)], _sugar("rope", quant=False)),
+    "rope-base5e6": _graph([(1, 33, 2, 32)], _sugar("rope", quant=False,
+                                                    base=5e6)),
+    "embedding": _embedding,
+}
+
 OPS = {
     "conv2d-same-s2-relu6": lambda c, r, q: _conv(c, r, q, 2, "SAME",
                                                   "relu6"),
@@ -220,7 +355,9 @@ OPS = {
     "mean-keepdims": _unary("mean", axes=[2], keepdims=True),
     "softmax": _softmax,
 }
+OPS.update(NEW_INT8_OPS)
 INT8_OPS = list(OPS)
+OPS.update(NEW_FLOAT_OPS)
 FLOAT_OPS = list(OPS) + ["svdf", "svdf-no-bias", "attention-causal",
                          "attention-full"]
 OPS.update({
@@ -270,7 +407,8 @@ def test_quantize_dequantize_identical(name):
 
 @pytest.mark.parametrize("name", ["conv2d-same-s2-relu6",
                                   "depthwise-same-s2-relu6", "fc-relu",
-                                  "max_pool-same-k3-s2", "mean-hw"])
+                                  "max_pool-same-k3-s2", "mean-hw"]
+                         + list(NEW_INT8_OPS) + list(NEW_FLOAT_OPS))
 def test_prepare_accounting_identical(name):
     """Output specs, scratch and persistent bytes drive the arena plan, so
     they must match the JAX package exactly."""
@@ -286,3 +424,36 @@ def test_prepare_accounting_identical(name):
             [(s.shape, s.dtype) for s in pt.output_specs]
         assert pj.scratch_nbytes == pt.scratch_nbytes
         assert pj.persistent_nbytes == pt.persistent_nbytes
+
+
+def test_all_ops_resolvers_link_the_same_opcodes():
+    """Every micro opcode the JAX package registers is registered in the
+    port, and each package's AllOpsResolver links the same set, under the
+    reference tags and under the vendor tag chains."""
+    import repro.kernels.ops  # noqa: F401  (the "pallas" tag)
+    import repro_torch.kernels  # noqa: F401  (the "cuda" tag)
+
+    def linked(core, tags):
+        return {r.opcode for r in core.AllOpsResolver(tags=tags).linked_ops}
+    want = linked(jax_core, ("reference",))
+    assert len(want) == 41
+    assert linked(torch_core, ("reference",)) == want
+    assert linked(torch_core, ("cuda", "reference")) == \
+        linked(jax_core, ("pallas", "reference")) == want
+
+
+def test_embedding_out_of_range_ids_like_jnp_take():
+    """Ids outside [0, V): -V..-1 count from the end and the rest give a
+    NaN row, as the reference's ``jnp.take`` does, instead of an index
+    error on the CPU or a fault on the card."""
+    def build(core, rng, int8):
+        gb = core.GraphBuilder("embedding")
+        ids = gb.input("ids", (2, 4), "int32")
+        gb.embedding(ids, gb.const(_f32(rng, (5, 3)), "table"))
+        return gb, {ids.index: np.array([[0, 4, 5, -1], [-5, -6, 99, 2]],
+                                        np.int32)}
+    gj, feeds = build(jax_core, np.random.default_rng(0), False)
+    gt, _ = build(torch_core, np.random.default_rng(0), False)
+    (want,), (got,) = _run_jax(gj, feeds), _run_torch(gt, feeds)
+    assert np.isnan(got[0, 2]).all() and not np.isnan(got[0, 3]).any()
+    np.testing.assert_array_equal(got, want)
