@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: its main paths end to end on one
 NVIDIA GPU — the micro interpreter (single, batched and ragged
-dispatch), dense-LM serving (contiguous, paged and quantized) and
-recurrent-state serving (Mamba-2, Zamba2) — with
-every CUDA kernel of those paths held against its plain PyTorch version.
+dispatch), dense-LM serving (contiguous, paged and quantized),
+recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
+serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper —
+with every CUDA kernel of those paths held against its plain PyTorch
+version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -55,13 +57,13 @@ Phases — any failure raises and the script exits non-zero:
      bounds, the least operations on the CUDA cores in float32 and on
      the tensor cores in bf16; no single library call computes the
      scan.
-  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12) runs inside
-  ``main_path``: every launch count set to 0 just before it, the device
-  traced by torch.profiler over it, and after it each kernel's launches
-  counted in the trace (by the device function one launch of its wrapper
-  runs) must equal its wrapper's count; the traced counts are the ones
-  checked and printed.  Every program runs replayed from its CUDA graph
-  unless a phase says eager (``disable_capture()``).
+  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12, 13, 14, 15-18) runs
+  inside ``main_path``: every launch count set to 0 just before it, the
+  device traced by torch.profiler over it, and after it each kernel's
+  launches counted in the trace (by the device function one launch of
+  its wrapper runs) must equal its wrapper's count; the traced counts
+  are the ones checked and printed.  Every program runs replayed from
+  its CUDA graph unless a phase says eager (``disable_capture()``).
 
   3. the micro main path: ``MicroInterpreter(..., AllOpsResolver(tags=("cuda",
      "reference")), device="cuda")`` answers 8 requests on each of
@@ -97,6 +99,9 @@ Phases — any failure raises and the script exits non-zero:
      displaces a decoding one: both emit exactly their tokens of the
      uninterrupted run; the same requests through a fresh engine under
      ``disable_capture()`` give the same tokens and the eager medians.
+     Each prompt's bucketed prefill against its exact-length one: K/V
+     at layer 0 within one bfloat16 ulp of each row's largest entry,
+     the worst layer reported (phase 15's drift on a dense model).
   8. Yi-6B reduced, float32: the engine on the card and on the CPU emit
      identical greedy tokens, contiguous and with ``kv_block=8,
      prefill_chunk=8`` (also equal to the contiguous engine's), and
@@ -130,9 +135,10 @@ Phases — any failure raises and the script exits non-zero:
      or K6's mean device time a launch inside the step); the bytes of
      the engine's one graph pool beside those of a pool for each program
      (the same requests again, captured anew); an EDF
-     displacement on (b) emits (b)'s tokens; and, measured with no
-     limit, the largest |logit| difference from the bf16 engine over
-     16 teacher-forced steps and how many greedy tokens equal phase 7's.
+     displacement on (b) emits (b)'s tokens; the largest |logit|
+     difference from the bf16 engine over 16 teacher-forced steps, for
+     (a) within 0.25 of the largest |logit| (``INT8_VS_BF16_RTOL``), for
+     int4 reported; and how many greedy tokens equal phase 7's.
   11. Mamba2-780m at full width in float32 (3.1 GB): 4 seeded prompts
      (512, 128, 77 and 384 tokens) through ``ssm_prefill`` with the scan
      on K8 and on the plain ``ssd_chunked``: conv windows, SSD states and
@@ -180,11 +186,56 @@ Phases — any failure raises and the script exits non-zero:
      still holds its eager warm-up's outputs); K1's launches equal the
      waves' int8 FC ops.  Then, untraced, the per-request us of a wave at each
      occupancy against a request alone.
+  15. MoE serving, counts set to 0 just before each run:
+     DeepSeek-MoE-16B at full width and depth in bfloat16 (16.4 B
+     parameters seeded on the card), 5 requests of 16-512 tokens, 16 new:
+     (a) contiguous (K3 28 x the decode steps), replays bit-equal to an
+     eager engine; (b) bucketed: one prefill program per bucket hit, its
+     prefill K/V within one bf16 ulp of (a)'s at layer 0 (a bf16 GEMM
+     rounds by its shape, so later layers and tokens may drift; both
+     counted), and the first MoE layer's block fed each prompt's rows
+     unpadded and padded to its bucket (masked dispatch): the same
+     dispatch ids, outputs within 4 bf16 ulps of each row's max; (c)
+     paged with ``kv_block=16`` (K4) with (a)'s tokens, and an EDF
+     displacement on it emits them too; (d) int8 weights and KV, paged
+     (K5 3 x a step on the dense first block's MLP, K7 28 x); (e) int4
+     weights (K6, K7); for each, the served weights layer by layer on
+     one prompt's rows: the first block's MLP on K5/K6 within 2 bf16
+     ulps of its plain version, it and the first MoE block (experts
+     dequantized) within a relative 0.05 (int8) / 0.5 (int4) of bf16;
+     teacher-forced logits against the bf16 engine and the plain
+     versions reported (over 28 routed layers any rounding flips
+     routing: (a) on K3 against the plain versions is reported too);
+     and DeepSeek reduced in float32, int8 and int4 paged: card tokens
+     equal the CPU's.  Then Qwen3-MoE-30B-A3B at full width with 4 of
+     its 48 layers: contiguous and bucketed on K3 (4 x a step),
+     compared as (a) and (b).
+  16. PaliGemma-3B at full width in bfloat16 with seeded patch
+     embeddings: bucketed, ``prefill_chunk=128``, paged and int8 KV; no
+     kernel launched on any run (vlm keeps reference attention, as in
+     the JAX package); paged emits the bucketed tokens; chunked prefill
+     against one-shot, K/V at layer 0 within one bf16 ulp of each row's
+     max; int8 KV against bf16, teacher-forced logits within 0.25 of the
+     largest |logit|, its tokens counted.
+  17. Whisper-large-v3 at full width in bfloat16 with seeded frames:
+     exact, replays bit-equal to eager, and checkpointed (an EDF
+     displacement, the checkpoint carrying the cross K/V) with the
+     uninterrupted tokens; no kernel launched.
+  18. Mamba2-780m and Zamba2-1.2B at full width, int8 and int4 weights:
+     K8 once per Mamba layer per prefill and nothing else; a float engine
+     on the dequantized weights emits the same tokens.
+  Each of phases 15-18 logs its seconds, its replayed and eager decode
+  step medians and its peak device memory.
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
-  and K2 at (1, 32, 256, 128) causal float32, phase 13's shape.
-  A JSON line of the models, one listing the kernels (K1-K8; K1's and
-  K2's launches summed over phases 3-4, 13 and 14, with each path's
-  count), then the last line ``{"ok": true, "device": {...}}``.
+  K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
+  15's new shapes: K3, K4 and K7 at DeepSeek's (4, 16, 16, 2048, 128)
+  bf16 (group 1), K5 and K6 at its first block's MLP, (4, 2048) x
+  (2048, 10944) and (4, 10944) x (10944, 2048).
+  A JSON line of phases 15-18's summaries, one of the models, one
+  listing the kernels (K1-K8; K1's and K2's launches summed over phases
+  3-4, 13 and 14, with each path's count; K3-K8 with their launches on
+  phases 15 and 18's runs), then the last line ``{"ok": true,
+  "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -192,6 +243,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import statistics
@@ -469,7 +521,9 @@ def check_decode_attention(torch, np, dev):
              (4, 32, 32, 2048, 96, None, torch.float32),
              (4, 32, 32, 2048, 96, None, torch.bfloat16),
              (4, 32, 4, 2048, 128, 256, torch.float32),
-             (4, 32, 4, 2000, 128, None, torch.float32)]
+             (4, 32, 4, 2000, 128, None, torch.float32),
+             # DeepSeek-MoE-16B's decode step (phase 15): group 1, D 128
+             (4, 16, 16, 2048, 128, None, torch.bfloat16)]
     rows = []
     for b, h, kh, s, d, window, dt in cases:
         q = torch.randn(b, h, d, generator=g).to(dev, dt)
@@ -585,7 +639,9 @@ def check_paged_decode_attention(torch, np, dev):
              (4, 32, 4, 256, 8, 128, None, torch.bfloat16),
              (4, 32, 4, 32, 64, 128, None, torch.bfloat16),
              (4, 32, 32, 128, 16, 96, None, torch.float32),
-             (4, 32, 32, 128, 16, 96, None, torch.bfloat16)]
+             (4, 32, 32, 128, 16, 96, None, torch.bfloat16),
+             # DeepSeek-MoE-16B's paged decode step (phase 15)
+             (4, 16, 16, 128, 16, 128, None, torch.bfloat16)]
     rows = []
     for b, h, kh, t, bs, d, window, dt in cases:
         s = t * bs
@@ -683,7 +739,9 @@ def check_dequant_matmul(torch, np, dev):
 
     g = torch.Generator(device="cpu").manual_seed(5)
     cases = [(4, 4096, 11008), (4, 11008, 4096), (1, 4096, 11008),
-             (1, 11008, 4096), (3, 1000, 522), (5, 777, 1000)]
+             (1, 11008, 4096), (3, 1000, 522), (5, 777, 1000),
+             # DeepSeek-MoE-16B's first-block MLP at 4 slots (phase 15)
+             (4, 2048, 10944), (4, 10944, 2048)]
     out = {False: [], True: []}
     int8pack_error = None
     for int4 in (False, True):
@@ -801,7 +859,9 @@ def check_paged_decode_attention_q(torch, np, dev):
              (4, 32, 4, 128, 16, 128, None, torch.float32),
              (4, 32, 4, 128, 16, 128, 256, torch.float32),
              (4, 32, 4, 256, 8, 128, None, torch.bfloat16),
-             (4, 32, 4, 32, 64, 128, None, torch.bfloat16)]
+             (4, 32, 4, 32, 64, 128, None, torch.bfloat16),
+             # DeepSeek-MoE-16B's int8-KV paged decode step (phase 15)
+             (4, 16, 16, 128, 16, 128, None, torch.bfloat16)]
     rows = []
     for b, h, kh, t, bs, d, window, dt in cases:
         s = t * bs
@@ -1581,6 +1641,20 @@ def teacher_forced(torch, np, dev):
             "max_abs_dlogit": max(steps), "max_rel_dlogit": worst}
 
 
+def family_extras(np, cfg, uid):
+    """Request ``uid``'s seeded stub-frontend inputs: PaliGemma's patch
+    embeddings, Whisper's frame embeddings; None for the other
+    families."""
+    rng = np.random.default_rng(40_000 + uid)
+    if cfg.family == "vlm":
+        return {"vision": rng.normal(0, 1, (cfg.n_vision_tokens,
+                                            cfg.d_vision)).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.normal(0, 1, (cfg.n_audio_ctx,
+                                            cfg.d_model)).astype(np.float32)}
+    return None
+
+
 def serving_workload(np, vocab):
     rng = np.random.default_rng(7)
     return [rng.integers(0, vocab - 2, int(n)).astype(np.int32)
@@ -1614,7 +1688,7 @@ def capture_cost(torch, programs):
 NEW_PROGRAM_BYTES = 1 << 20
 
 
-def serve_lm(torch, np, dev, eng, prompts, eager=False):
+def serve_lm(torch, np, dev, eng, prompts, eager=False, new=SERVE_NEW):
     """Phases 7, 9, 10 and 12: every request through ``eng``, replayed
     from CUDA graphs (or, with ``eager``, under ``disable_capture()``);
     checks what stays in place, that device memory after each decode
@@ -1626,10 +1700,14 @@ def serve_lm(torch, np, dev, eng, prompts, eager=False):
     from repro_torch.core import capture_count, disable_capture
     from repro_torch.serving import Request
 
+    # earlier phases' garbage freed now, not during the run, where the
+    # memory check below would see device memory fall
+    gc.collect()
     ptrs = [t.data_ptr() for t in kv_state(eng)]
     persistent = eng.arena.usage().persistent
     for uid, p in enumerate(prompts):
-        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=new,
+                           extras=family_extras(np, eng.cfg, uid)))
     mem0, caps0, growth, decode_steps, step_ms = None, 0, 0, 0, []
     prefills = chunk_steps = 0
     lengths = set()
@@ -1653,11 +1731,11 @@ def serve_lm(torch, np, dev, eng, prompts, eager=False):
             if mem0 is None:
                 mem0, caps0 = mem, captures(eng)
             growth = max(growth, mem - mem0)
-            new = captures(eng) - caps0
-            if not 0 <= mem - mem0 <= NEW_PROGRAM_BYTES * new:
+            fresh = captures(eng) - caps0
+            if not 0 <= mem - mem0 <= NEW_PROGRAM_BYTES * fresh:
                 raise AssertionError(f"device memory {mem} B after decode "
                                      f"step {decode_steps}, {mem0} B after "
-                                     f"the first, {new} programs captured "
+                                     f"the first, {fresh} programs captured "
                                      f"since")
             if not eng.last_step["prefill_tokens"]:
                 step_ms.append(dt)
@@ -1670,7 +1748,7 @@ def serve_lm(torch, np, dev, eng, prompts, eager=False):
         raise AssertionError("the arena's persistent bytes changed")
     res = {uid: eng.results[uid] for uid in range(len(prompts))}
     for uid, r in res.items():
-        if not (r.done and 1 <= len(r.output) <= SERVE_NEW and all(
+        if not (r.done and 1 <= len(r.output) <= new and all(
                 0 <= t < eng.cfg.vocab for t in r.output)):
             raise AssertionError(f"request {uid} did not finish well: "
                                  f"{r.output}")
@@ -1701,7 +1779,7 @@ def serve_lm(torch, np, dev, eng, prompts, eager=False):
     row = {"model": f"{eng.cfg.arch_id} bfloat16 serving{paged}",
            "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
            "requests": len(res), "prompt_lens": [len(p) for p in prompts],
-           "new_tokens": SERVE_NEW, "tokens": tokens,
+           "new_tokens": new, "tokens": tokens,
            "decode_steps": decode_steps, "prefills": prefills,
            "chunk_steps": chunk_steps,
            "prefill_ms": [res[u].prefill_s * 1e3 for u in sorted(res)],
@@ -1732,7 +1810,7 @@ def serve_lm(torch, np, dev, eng, prompts, eager=False):
     return row, {u: r.output for u, r in res.items()}
 
 
-def serve_main(torch, np, dev, eng, prompts, what):
+def serve_main(torch, np, dev, eng, prompts, what, new=SERVE_NEW):
     """A serving main path: the requests through ``eng`` once inside
     ``main_path`` (counts from 0, the launches traced), then once more
     untraced with every program held, the timed run: its tokens equal
@@ -1740,8 +1818,8 @@ def serve_main(torch, np, dev, eng, prompts, what):
     first step's value.  Returns the timed run's row, with the traced
     launches, and the tokens."""
     with main_path(torch, what) as traced:
-        first, served = serve_lm(torch, np, dev, eng, prompts)
-    row, again = serve_lm(torch, np, dev, eng, prompts)
+        first, served = serve_lm(torch, np, dev, eng, prompts, new=new)
+    row, again = serve_lm(torch, np, dev, eng, prompts, new=new)
     if again != served or row["decode_steps"] != first["decode_steps"]:
         raise AssertionError(f"the timed run emitted {again}, the counted "
                              f"one {served}")
@@ -1761,14 +1839,15 @@ def serve_main(torch, np, dev, eng, prompts, what):
     return row, served
 
 
-def eager_twin(torch, np, dev, eng, prompts, row, served):
+def eager_twin(torch, np, dev, eng, prompts, row, served, new=SERVE_NEW):
     """The same requests through a fresh engine (``eng``) under
     ``disable_capture()``: tokens equal the replayed run's request for
     request; the eager run's row (its decode-step median, its profile)
     goes under ``row["eager"]``."""
     from repro_torch.core import disable_capture
 
-    erow, etoks = serve_lm(torch, np, dev, eng, prompts, eager=True)
+    erow, etoks = serve_lm(torch, np, dev, eng, prompts, eager=True,
+                           new=new)
     if etoks != served:
         raise AssertionError(f"replayed tokens {served} != eager {etoks}")
     with disable_capture():
@@ -1816,7 +1895,8 @@ def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
     for uid in range(SERVE_SLOTS):
         eng.submit(Request(uid=1000 + uid, tokens=rng.integers(
             0, eng.cfg.vocab - 2, 64).astype(np.int32),
-            max_new_tokens=n_steps + 4))
+            max_new_tokens=n_steps + 4,
+            extras=family_extras(np, eng.cfg, 1000 + uid)))
     eng.step()                                  # admission + first step
     eng.step()
     torch.cuda.synchronize()
@@ -1872,21 +1952,25 @@ def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
                                           {}).items()))
 
 
-def check_preemption(eng, prompts, want) -> None:
+def check_preemption(eng, prompts, want, new=SERVE_NEW) -> None:
     """Phases 7 and 9: a tight deadline displaces a decoding request;
     both (and the others) emit exactly the uninterrupted run's tokens.
     On a paged engine the checkpoint carries block ids, no KV, and every
     block comes back."""
+    import numpy as np
+
     from repro_torch.serving import Request
 
     urgent = SERVE_SLOTS
     for uid in range(SERVE_SLOTS):
         eng.submit(Request(uid=uid, tokens=prompts[uid],
-                           max_new_tokens=SERVE_NEW))
+                           max_new_tokens=new,
+                           extras=family_extras(np, eng.cfg, uid)))
     for _ in range(6):
         eng.step()
     eng.submit(Request(uid=urgent, tokens=prompts[urgent],
-                       max_new_tokens=SERVE_NEW, deadline_us=100))
+                       max_new_tokens=new, deadline_us=100,
+                       extras=family_extras(np, eng.cfg, urgent)))
     eng.step()
     ckpts = list(eng._ckpt.values())
     if len(ckpts) != 1 or ckpts[0].phase != "decode":
@@ -1988,10 +2072,8 @@ def paged_chunked_run(torch, np, engine, prompts, want):
     for name in ("k", "v"):
         chunked, oneshot = rows[0][name], rows[1][name]
         d = (chunked - oneshot).abs()
-        # one bf16 ulp at each row's largest magnitude: 2^(floor(log2)-7)
-        top = oneshot.abs().amax(dim=-1, keepdim=True).clamp_min(2 ** -126)
-        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
-        worst0 = (d[0] / ulp[0]).max().item()
+        ulps = row_ulps(torch, chunked, oneshot)
+        worst0 = ulps[0].max().item()
         if worst0 > 1.0:
             raise AssertionError(f"chunked vs one-shot prefill, layer 0 "
                                  f"{name}: {worst0:.3g} ulps of the row max")
@@ -1999,7 +2081,7 @@ def paged_chunked_run(torch, np, engine, prompts, want):
                        "layer0_max_abs": d[0].max().item(),
                        "last_layer_max_abs": d[-1].max().item(),
                        "last_layer_max_ulps_of_row_max":
-                           (d[-1] / ulp[-1]).max().item()}
+                           ulps[-1].max().item()}
     log(f"  prefill_chunk={CHUNK}: {len(res)} requests finish, {chunks} "
         f"chunk steps, {same} of {len(res)} emit phase 7's tokens; prompt "
         f"of {m + 1} tokens, chunked vs one-shot K/V rows: layer 0 within "
@@ -2064,6 +2146,11 @@ def reduced_card_vs_cpu(torch, np, dev):
 # ---------------------------------------------------------------------------
 
 LOGIT_STEPS = 16
+# teacher-forced max |dlogit| over the reference's largest |logit|:
+# int8 weights (per-channel scales) and/or an int8 KV cache against the
+# bf16 engine; quantization error, held for int8 (the int4 one is only
+# reported: on random weights it is of the logits' own size)
+INT8_VS_BF16_RTOL = 0.25
 # the resident footprint against bfloat16: int8 weights carry their
 # float32 scales, int4 ones too, int8 KV one float32 scale per 128
 WEIGHT_RATIO = {"int8": 1.9, "int4": 3.6}
@@ -2149,10 +2236,13 @@ def main_path(torch, what: str):
         + ", ".join(f"{k} {n}" for k, n in traced.items() if n))
 
 
-def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
-    """The largest |logit| difference between the bf16 engine and a
-    quantized one (``kw``) over the prefill and ``LOGIT_STEPS`` decode
-    steps, both fed the bf16 engine's greedy tokens; batch 1."""
+def teacher_forced_logits(torch, np, dev, bundle, model, prompt, want=None,
+                          extras=None, **kw):
+    """The largest |logit| difference between a reference engine
+    (``want``'s keywords; by default the bf16 engine) and a quantized one
+    (``kw``) over the prefill and ``LOGIT_STEPS`` decode steps, both fed
+    the reference's greedy tokens; batch 1, contiguous KV; ``extras``
+    the request's (PaliGemma's patch embeddings)."""
     from repro_torch.core import disable_capture
     from repro_torch.serving import ServingEngine
 
@@ -2160,17 +2250,15 @@ def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
         return ServingEngine(bundle, model, max_slots=1,
                              cache_len=SERVE_CACHE, prefill_buckets=False,
                              device=dev, **q)
-    feng, qeng = engine(), engine(**kw)
+    feng, qeng = engine(**(want or {})), engine(**kw)
     v = bundle.cfg.vocab
-    batch = {"tokens": torch.as_tensor(prompt[None, :-1].astype(np.int64),
-                                       device=dev)}
     # a comparison on new tensors at every step: run eagerly
     with torch.no_grad(), disable_capture():
-        lf, cf = feng._prefill((feng.params, batch))
-        lq, cq = qeng._prefill((qeng.params, batch))
+        lf, cf = feng._run_prefill(prompt[:-1], extras)
+        lq, cq = qeng._run_prefill(prompt[:-1], extras)
         err = (lf[..., :v].float() - lq[..., :v].float()).abs().max().item()
         top = lf[..., :v].float().abs().max().item()
-        pos, cur = len(prompt) - 1, int(prompt[-1])
+        pos, cur = feng._vis() + len(prompt) - 1, int(prompt[-1])
         for _ in range(LOGIT_STEPS):
             curs = torch.tensor([[cur]], device=dev)
             lens = torch.tensor([pos], dtype=torch.int32, device=dev)
@@ -2181,8 +2269,22 @@ def teacher_forced_logits(torch, np, dev, bundle, model, prompt, **kw):
             top = max(top, lf[:, :v].float().abs().max().item())
             cur = int(lf[0, :v].float().argmax())
             pos += 1
-    del qeng, cq
+    del feng, qeng, cf, cq
     return err, top
+
+
+def check_logits(label, err, top, rtol) -> dict:
+    """A teacher-forced comparison's reading, held to ``rtol`` of the
+    reference's largest |logit| (reported only where ``rtol`` is
+    None)."""
+    out = {"max_abs_dlogit": err, "max_abs_logit": top, "rtol": rtol}
+    if rtol is not None and err > rtol * top:
+        raise AssertionError(f"{label}: max |dlogit| {err:.4g} > {rtol} x "
+                             f"the largest |logit| {top:.4g}")
+    log(f"  {label}, {LOGIT_STEPS} teacher-forced steps: max |dlogit| "
+        f"{err:.4g}, {err / top:.4g} of the largest |logit| {top:.4g}"
+        + (f" (limit {rtol})" if rtol is not None else " (reported)"))
+    return out
 
 
 def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
@@ -2278,9 +2380,9 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
             weight_dtype=runs[key]["weight_dtype"], kv_dtype="int8")
         rows[key]["max_abs_dlogit_vs_bf16"] = err
         rows[key]["max_abs_logit_bf16"] = top
-        log(f"  ({key}) vs the bf16 engine, prompt of {len(longest)} tokens "
-            f"and {LOGIT_STEPS} teacher-forced steps: max |dlogit| "
-            f"{err:.4g} (largest |logit| {top:.4g})")
+        check_logits(f"({key}) vs the bf16 engine, prompt of {len(longest)} "
+                     f"tokens", err, top,
+                     INT8_VS_BF16_RTOL if key == "a" else None)
     return list(rows.values()), path_launches
 
 
@@ -2609,6 +2711,693 @@ def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 15-18: MoE, VLM, encoder-decoder and quantized recurrent serving
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE2_ARCH = "deepseek-moe-16b", "qwen3-moe-30b-a3b"
+# Qwen3-MoE-30B-A3B at full width with 4 of its 48 layers (its 32/4/128
+# heads and 128 experts per layer are what this checks; 48 layers would
+# add 57 GB of bf16 weights beside DeepSeek's)
+MOE2_LAYERS = 4
+VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-large-v3"
+# requests a run: more than the 4 slots, so admission waits and a
+# fifth request is there for the preemption check; new tokens each
+N_FAMILY, FAMILY_NEW = 5, 16
+
+
+def family_workload(np, vocab, seed, lo, hi):
+    """``N_FAMILY`` seeded prompts of ``lo``-``hi`` tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab - 2, int(m)).astype(np.int32)
+            for m in rng.integers(lo, hi + 1, N_FAMILY)]
+
+
+def family_engine(dev, bundle, model):
+    """The phase's engine factory: 4 slots of 2048 positions on the card
+    under the ``("cuda", "reference")`` tags, keywords on top."""
+    from repro_torch.serving import ServingEngine
+
+    def engine(**kw):
+        return ServingEngine(bundle, model, max_slots=SERVE_SLOTS,
+                             cache_len=SERVE_CACHE,
+                             tags=("cuda", "reference"), device=dev, **kw)
+    return engine
+
+
+def describe(kw) -> str:
+    return ", ".join(f"{k}={v}" for k, v in kw.items()) or "defaults"
+
+
+def family_run(torch, np, dev, engine, prompts, label, kw, per_step):
+    """One run of a family's main path through ``engine(**kw)``
+    (``serve_main``: counted from 0 and traced, then the timed run).
+    Each kernel's launches must equal ``per_step[name]`` x the decode
+    steps, every other kernel's 0.  Returns (engine, row, tokens)."""
+    t0 = time.perf_counter()
+    eng = engine(**kw)
+    row, toks = serve_main(torch, np, dev, eng, prompts,
+                           f"{label} ({describe(kw)})", new=FAMILY_NEW)
+    row["run_s"] = time.perf_counter() - t0
+    log(f"  {label}: engine built and both runs in {row['run_s']:.1f} s")
+    steps = row["decode_steps"]
+    want = dict.fromkeys(row["launches"], 0)
+    want.update({name: n * steps for name, n in per_step.items()})
+    if row["launches"] != want:
+        raise AssertionError(f"{label} ({describe(kw)}): launches "
+                             f"{row['launches']}, expected {want} "
+                             f"({steps} decode steps)")
+    row["model"] = f"{eng.cfg.arch_id} bfloat16 serving, {describe(kw)}"
+    return eng, row, toks
+
+
+def same_tokens(label, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: tokens {got} != {want}")
+    log(f"  {label}: the same tokens, request for request")
+
+
+def row_ulps(torch, got, want):
+    """|got - want| in bfloat16 ulps of each row's largest |entry| of
+    ``want`` (2^(floor(log2) - 7)), both (..., rows, dh) float32."""
+    top = want.abs().amax(dim=-1, keepdim=True).clamp_min(2 ** -126)
+    return (got - want).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def bucketed_vs_exact(torch, np, exact, bucketed, prompts):
+    """Each prompt's prefill through the exact-length engine and through
+    the bucketed one (right-padded to its bucket; on a moe engine the
+    dispatch masked to the true length): K/V rows of the real positions,
+    in bfloat16 ulps of each row's largest entry.  On the card a bf16
+    GEMM rounds by its shape (a bucket's M is not the prompt's), so the
+    rows may differ by rounding: layer 0 (one projection from the
+    embedding) must be within one ulp; the worst layer is reported (on
+    a moe model ``moe_masked_witness`` holds the MoE block itself)."""
+    worst0 = worst = 0.0
+    for p in prompts:
+        m = len(p) - 1
+        _, c1 = exact._run_prefill(np.asarray(p[:-1]))
+        want = {k: c1[k][:, 0, :, :m].float().clone() for k in ("k", "v")}
+        padded = np.concatenate([p[:-1], np.zeros(
+            bucketed.bucket_table.fit(m) - m, p.dtype)])
+        _, c2 = bucketed._run_prefill(padded, None, m)
+        for name in ("k", "v"):
+            ulps = row_ulps(torch, c2[name][:, 0, :, :m].float(), want[name])
+            worst0 = max(worst0, ulps[0].max().item())
+            worst = max(worst, ulps.max().item())
+    if worst0 > 1.0:
+        raise AssertionError(f"bucketed vs exact prefill, layer 0: "
+                             f"{worst0:.3g} bf16 ulps of the row max")
+    log(f"  bucketed vs exact-length prefill of the {len(prompts)} prompts: "
+        f"layer 0 K/V within {worst0:.3g} bf16 ulps of each row's max, the "
+        f"worst layer {worst:.3g}")
+    return {"layer0_max_ulps": worst0, "max_ulps": worst}
+
+
+# bucketed MoE prefill: one MoE block fed the same rows unpadded and
+# right-padded to the bucket (the masked dispatch).  The expert and
+# shared-expert products run at another M, which a bf16 GEMM may round
+# differently: each output row within this many bf16 ulps of its
+# largest |entry|
+MOE_MASKED_ULPS = 4.0
+
+
+def layer_inputs(torch, model, cfg, tokens):
+    """An exact-length prefill of ``tokens`` (1,S) through the model's
+    first layers: each layer's block and feed-forward input, in cache
+    order up to and including the first MoE layer."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import rms_norm
+
+    out = []
+    x = lm.embed_tokens(model, cfg, tokens)
+    s = x.shape[1]
+    for blk in lm.blocks(model):
+        ck = x.new_empty(1, cfg.n_kv_heads, s, cfg.dh)
+        h = lm.prefill_attention(blk, cfg, x, ck, torch.empty_like(ck))
+        hin = rms_norm(h, blk.ln2, cfg.norm_eps)
+        out.append((blk, hin))
+        if getattr(blk, "moe", None) is not None:
+            return out
+        x = h + lm.ffn(blk, cfg, hin)
+    raise AssertionError(f"{cfg.arch_id}: no MoE layer")
+
+
+def moe_masked_witness(torch, np, model, cfg, bucket_table, prompts):
+    """Bucketed MoE prefill at the MoE block itself.  Each prompt's input
+    to the first MoE layer's feed-forward (an exact-length prefill of
+    the layers before it and of that layer's attention) goes through
+    ``moe_block`` unpadded, and right-padded to its bucket (the pad rows
+    those of the padded prompt) in the masked mode at the true length
+    and its capacity, as the bucketed engine's prefill runs it.  Each
+    expert's first C slots (C the true length's capacity) must hold the
+    same tokens, its further slots none; y within ``MOE_MASKED_ULPS``.
+    The combine weights' largest difference is reported."""
+    from repro_torch.models import lm
+
+    dev = model.embed.device
+    worst = dw = 0.0
+    e = cfg.n_experts
+    with torch.no_grad():
+        for p in prompts:
+            m = len(p) - 1
+            b = bucket_table.fit(m)
+            toks = torch.as_tensor(p[None, :-1].astype(np.int64), device=dev)
+            blk, x = layer_inputs(torch, model, cfg, toks)[-1]
+            moe = blk.moe
+            xb = layer_inputs(torch, model, cfg, torch.cat(
+                [toks, toks.new_zeros(1, b - m)], 1))[-1][1]
+            xpad = torch.cat([x, xb[:, m:]], dim=1)
+            cm, cb = lm.moe_capacity(cfg, m), lm.moe_capacity(cfg, b)
+            n_valid = torch.tensor(m, dtype=torch.int32, device=dev)
+            cap = torch.tensor(cm, dtype=torch.int32, device=dev)
+            du, wu, _ = lm.moe_dispatch(x.float() @ moe.router, cfg, cm)
+            dp, wp, _ = lm.moe_dispatch(xpad.float() @ moe.router, cfg, cb,
+                                        n_valid, cap)
+            du, wu = du.view(e, cm), wu.view(e, cm)
+            dp, wp = dp.view(e, cb), wp.view(e, cb)
+            ids = torch.where(dp[:, :cm] == b, m, dp[:, :cm])
+            if not (torch.equal(ids, du) and bool((dp[:, cm:] == b).all())):
+                raise AssertionError(
+                    f"{cfg.arch_id} masked dispatch at bucket {b}, true "
+                    f"length {m}: {int((ids != du).sum())} slots differ "
+                    f"from the unpadded dispatch")
+            dw = max(dw, (wp[:, :cm] - wu).abs().max().item(),
+                     wp[:, cm:].abs().max().item() if cb > cm else 0.0)
+            yu = lm.moe_block(moe, cfg, x)[0]
+            yp = lm.moe_block(moe, cfg, xpad, n_valid=n_valid,
+                              eff_capacity=cap)[0][:, :m]
+            worst = max(worst, row_ulps(torch, yp.float(),
+                                        yu.float()).max().item())
+    if worst > MOE_MASKED_ULPS:
+        raise AssertionError(f"{cfg.arch_id} masked MoE block at the "
+                             f"bucket: {worst:.3g} bf16 ulps of the row max")
+    log(f"  masked MoE block at the bucket vs unpadded, the first MoE "
+        f"layer's input of the {len(prompts)} prompts: the same dispatch "
+        f"ids, combine weights within {dw:.3g}, y within {worst:.3g} bf16 "
+        f"ulps of each row's max (limit {MOE_MASKED_ULPS})")
+    return {"moe_block_max_ulps": worst, "combine_max_abs": dw,
+            "dispatch_ids_equal": True}
+
+
+def vlm_chunked_vs_oneshot(torch, np, cfg, engine, prompts):
+    """PaliGemma's ``prefill_chunk=CHUNK`` against one-shot prefill, as
+    phase 9 holds the dense chunked prefill: the longest prompt, cut to
+    the longest that a one-shot prefill takes (vision prefix + prompt
+    within 512 positions), through both exact-length engines; its K/V
+    rows, vision prefix included, at layer 0 within one bfloat16
+    rounding of each row's largest entry, the last layer's reported."""
+    from repro_torch.serving import Request
+
+    p = max(prompts, key=len)[:512 - cfg.n_vision_tokens + 1]
+    n = cfg.n_vision_tokens + len(p) - 1
+    extras = family_extras(np, cfg, 0)
+    rows = []
+    for kw in ({"prefill_chunk": CHUNK}, {}):
+        e = engine(prefill_buckets=False, **kw)
+        e.submit(Request(uid=0, tokens=p, max_new_tokens=2, extras=extras))
+        while not e.results[0].output:
+            e.step()
+        slot = int(np.flatnonzero(e.active)[0])
+        rows.append({name: e.cache[name][:, slot, :, :n].float().clone()
+                     for name in ("k", "v")})
+        e.run()
+        del e
+    out = {"compared_prompt": len(p), "positions": n}
+    for name in ("k", "v"):
+        ulps = row_ulps(torch, rows[0][name], rows[1][name])
+        out[f"{name}_layer0_max_ulps"] = ulps[0].max().item()
+        out[f"{name}_last_layer_max_ulps"] = ulps[-1].max().item()
+        worst0 = out[f"{name}_layer0_max_ulps"]
+        if worst0 > 1.0:
+            raise AssertionError(f"vlm chunked vs one-shot prefill, layer 0 "
+                                 f"{name}: {worst0:.3g} ulps of the row max")
+    log(f"  prefill_chunk={CHUNK} vs one-shot, prompt of {len(p)} tokens "
+        f"after the {cfg.n_vision_tokens}-token vision prefix: K/V rows at "
+        f"layer 0 within {out['k_layer0_max_ulps']:.3g} / "
+        f"{out['v_layer0_max_ulps']:.3g} bf16 ulps of the row max, the last "
+        f"layer {out['k_last_layer_max_ulps']:.3g} / "
+        f"{out['v_last_layer_max_ulps']:.3g}")
+    return out
+
+
+def quantized_vs_references(torch, np, dev, bundle, model, prompt, kw,
+                            rtol, extras=None) -> dict:
+    """A quantized engine's teacher-forced logits (``kw``: its weight and
+    KV dtypes, contiguous KV) against the bf16 engine, held to ``rtol``
+    (reported where it is None), and with quantized weights against the
+    same weights through the plain versions (the reference tag chain),
+    reported."""
+    q = {k: kw[k] for k in ("weight_dtype", "kv_dtype") if kw.get(k)}
+    out = {}
+    # the served run's engines gone before two more are built
+    gc.collect()
+    torch.cuda.empty_cache()
+    if q.get("weight_dtype"):
+        out["vs_plain"] = check_logits(
+            f"{describe(q)} on the kernels vs the plain versions",
+            *teacher_forced_logits(torch, np, dev, bundle, model, prompt,
+                                   want={"tags": ("reference",), **q},
+                                   extras=extras, **q), None)
+    out["vs_bf16"] = check_logits(
+        f"{describe(q)} vs the bf16 engine",
+        *teacher_forced_logits(torch, np, dev, bundle, model, prompt,
+                               extras=extras, **q), rtol)
+    torch.cuda.empty_cache()
+    return out
+
+
+# the served quantized weights at full width, one prompt's rows at the
+# first two layers (``quantized_layers``): the dense first block's MLP on
+# K5/K6 against the same weights through their plain versions (float32
+# sums in another order, then the bf16 casts), within this many bf16
+# ulps of each row's max ...
+QUANT_MLP_ULPS = 2.0
+# ... and ||quantized - bf16|| / ||bf16|| of that MLP and of the first
+# MoE block (its experts dequantized; the router is not quantized, so
+# the dispatch is the bf16 one): quantization error, from per-channel
+# steps of max|w|/127 (int8) and max|w|/7 (int4)
+QUANT_LAYER_REL = {"int8": 0.05, "int4": 0.5}
+
+
+def quantized_layers(torch, np, model, qmodel, cfg, prompt, wd) -> dict:
+    """Phase 15 (d)/(e): the engine's quantized weights (``qmodel``, of
+    ``model`` quantized to ``wd``) on the exact-length prefill's rows of
+    ``prompt`` at the dense first block and the first MoE layer:
+    ``QUANT_MLP_ULPS`` and ``QUANT_LAYER_REL``.  Layer by layer, so a
+    fault in the dequantized experts or the K5/K6 MLP shows apart from
+    the routing flips that rounding causes over the full depth."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import dequant_matmul_i4_ref, \
+        dequant_matmul_ref
+    from repro_torch.models import lm, lm_quant
+
+    def plain(x, w):
+        fn = dequant_matmul_i4_ref if w.int4 else dequant_matmul_ref
+        return fn(x.float(), w.q4 if w.int4 else w.q8, w.qs.reshape(-1))
+
+    def rel(got, want):
+        return ((got.float() - want.float()).norm()
+                / want.float().norm()).item()
+
+    dt = cfg.torch_dtype()
+    toks = torch.as_tensor(prompt[None, :-1].astype(np.int64),
+                           device=model.embed.device)
+    out = {}
+    with torch.no_grad():
+        (fb, h0), (mb, h1) = layer_inputs(torch, model, cfg, toks)
+        qfb, qmb = qmodel.first_block, qmodel.layers[0]
+        got = lm_quant.mlp_block_q(qfb.mlp, cfg, h0, mm=kops.dequant_matmul)
+        want = lm_quant.mlp_block_q(qfb.mlp, cfg, h0, mm=plain)
+        out["mlp_kernel_vs_plain_ulps"] = row_ulps(
+            torch, got.float(), want.float()).max().item()
+        out["mlp_rel_vs_bf16"] = rel(got, lm.mlp_block(fb.mlp, cfg, h0))
+        out["moe_rel_vs_bf16"] = rel(
+            lm.moe_block(lm_quant.dequant_params(qmb.moe, dt), cfg, h1)[0],
+            lm.moe_block(mb.moe, cfg, h1)[0])
+    limit = QUANT_LAYER_REL[wd]
+    if out["mlp_kernel_vs_plain_ulps"] > QUANT_MLP_ULPS \
+            or max(out["mlp_rel_vs_bf16"], out["moe_rel_vs_bf16"]) > limit:
+        raise AssertionError(f"{cfg.arch_id} {wd} weights, layer by layer: "
+                             f"{out} (limits {QUANT_MLP_ULPS} ulps, {limit})")
+    log(f"  {wd} weights, prompt of {len(prompt)} tokens: the first block's "
+        f"MLP on the kernel within {out['mlp_kernel_vs_plain_ulps']:.3g} "
+        f"bf16 ulps of its plain version (limit {QUANT_MLP_ULPS}); against "
+        f"bf16, relative error {out['mlp_rel_vs_bf16']:.4g} (that MLP) and "
+        f"{out['moe_rel_vs_bf16']:.4g} (the first MoE block, experts "
+        f"dequantized), limit {limit}")
+    return out
+
+
+def reduced_moe_card_vs_cpu(torch, np, dev) -> dict:
+    """Phase 15, as phase 8 for Yi-6B: DeepSeek-MoE-16B reduced, float32,
+    int8 weights and KV and int4 weights and int8 KV, paged by 8: the
+    engine on the card emits the CPU engine's greedy tokens, its decode
+    steps on K5 or K6 (the first block's MLP) and K7."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(MOE_ARCH, reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (5, 30, 1, 70, 12, 40)]
+    out = {}
+    for wd, mm in (("int8", "dequant_matmul"), ("int4", "dequant_matmul_i4")):
+        outs = []
+        for where in ("cpu", dev):
+            before = dict(_build.launches)
+            eng = ServingEngine(bundle, model.to(where), max_slots=4,
+                                cache_len=128, device=where, weight_dtype=wd,
+                                kv_dtype="int8", kv_block=8)
+            for uid, p in enumerate(prompts):
+                eng.submit(Request(uid=uid, tokens=p, max_new_tokens=24))
+            outs.append({u: r.output for u, r in eng.run().items()})
+        new = {k: n - before[k] for k, n in _build.launches.items()
+               if n != before[k]}
+        if outs[0] != outs[1] or not new.get(mm) \
+                or not new.get("paged_decode_attention_q"):
+            raise AssertionError(f"reduced {MOE_ARCH} {wd}: card tokens "
+                                 f"{outs[1]}, CPU {outs[0]}; launches {new}")
+        out[wd] = {"tokens": sum(len(o) for o in outs[0].values()),
+                   "launches": new}
+    log(f"  {cfg.arch_id} reduced, float32, int8/int8 and int4/int8 paged by "
+        f"8: card == CPU, {len(prompts)} requests, "
+        + ", ".join(f"{wd} {v['tokens']} tokens ({v['launches']})"
+                    for wd, v in out.items()))
+    return out
+
+
+def tokens_equal(label, got, want) -> dict:
+    """How many of ``got``'s requests and tokens equal ``want``'s."""
+    out = {"requests_equal": sum(got[u] == want[u] for u in want),
+           "tokens_equal": sum(a == b for u in want
+                               for a, b in zip(got[u], want[u])),
+           "tokens": sum(len(t) for t in want.values())}
+    log(f"  {label}: {out['requests_equal']} of {len(want)} requests and "
+        f"{out['tokens_equal']} of {out['tokens']} tokens equal")
+    return out
+
+
+def phase_summary(torch, label, t0, rows):
+    """The phase's seconds, decode-step medians (replayed, and eager where
+    an eager twin ran) and peak device memory, logged and returned."""
+    info = {"phase": label, "seconds": time.perf_counter() - t0,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "median_decode_step_ms": {
+                r["model"]: r["median_decode_step_ms"] for r in rows},
+            "eager_median_decode_step_ms": {
+                r["model"]: r["eager"]["median_decode_step_ms"]
+                for r in rows if "eager" in r}}
+    log(f"  {label}: {info['seconds']:.1f} s, peak device memory "
+        f"{info['peak_memory_bytes'] / 2**30:.2f} GiB; decode step medians "
+        "replayed " + ", ".join(f"{m} {ms:.3f} ms" for m, ms in
+                                info["median_decode_step_ms"].items())
+        + "; eager " + ", ".join(
+            f"{m} {ms:.3f} ms"
+            for m, ms in info["eager_median_decode_step_ms"].items()))
+    return info
+
+
+def moe_serving(torch, np, dev):
+    """Phase 15: DeepSeek-MoE-16B at full width and depth in bfloat16
+    (16.4 B parameters, seeded on the card): (a) contiguous on K3, its
+    replays bit-equal to an eager engine; (b) bucketed (one prefill
+    program per bucket hit; its prefill K/V against (a)'s within
+    rounding, ``bucketed_vs_exact``, the MoE block's masked dispatch
+    against the unpadded one, ``moe_masked_witness``, and the tokens
+    that stay equal counted); (c) paged with blocks of 16 on K4 with
+    (a)'s tokens, and an EDF displacement on (c) with the uninterrupted
+    tokens; (d) int8 weights and KV paged (K5 on the dense first block's
+    MLP, K7), (e) int4 weights (K6, K7), each held layer by layer
+    (``quantized_layers``), its teacher-forced logits reported
+    (``quantized_vs_references``), and both held in float32 at the
+    reduced size, card against CPU (``reduced_moe_card_vs_cpu``).  Then
+    Qwen3-MoE-30B-A3B at full width with 4 of its 48 layers: contiguous
+    and bucketed on K3, compared as (a) and (b).  Returns (rows,
+    summaries, launches by run)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = get_model(get_config(MOE_ARCH))
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {MOE_ARCH}: {n_params / 1e9:.2f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"seeded in {time.perf_counter() - t0:.1f} s")
+    engine = family_engine(dev, bundle, model)
+    layers = bundle.cfg.n_layers
+    prompts = family_workload(np, bundle.cfg.vocab, 31, 16, 512)
+    exact = {"prefill_buckets": False}
+    q8 = {**exact, "kv_block": PAGED_BLOCK, "weight_dtype": "int8",
+          "kv_dtype": "int8"}
+    runs = {"a": (exact, {"decode_attention": layers}),
+            "b": ({}, {"decode_attention": layers}),
+            "c": ({**exact, "kv_block": PAGED_BLOCK},
+                  {"paged_decode_attention": layers}),
+            "d": (q8, {"dequant_matmul": 3,
+                       "paged_decode_attention_q": layers}),
+            "e": ({**q8, "weight_dtype": "int4"},
+                  {"dequant_matmul_i4": 3,
+                   "paged_decode_attention_q": layers})}
+    rows, toks, launches, engines = [], {}, {}, {}
+    for key, (kw, per_step) in runs.items():
+        eng, row, toks[key] = family_run(torch, np, dev, engine, prompts,
+                                         f"{MOE_ARCH} run ({key})", kw,
+                                         per_step)
+        launches[f"{MOE_ARCH} ({key})"] = {
+            k: n for k, n in row["launches"].items() if n}
+        if key in ("a", "d"):
+            profile_decode(torch, np, eng, row)
+        if key == "a":
+            eager_twin(torch, np, dev, engine(**kw), prompts, row, toks[key],
+                       new=FAMILY_NEW)
+            engines["a"] = eng
+        if key == "b":
+            row["vs_exact"] = {**bucketed_vs_exact(
+                torch, np, engines.pop("a"), eng, prompts),
+                **moe_masked_witness(torch, np, model, bundle.cfg,
+                                     eng.bucket_table, prompts),
+                **tokens_equal("(b) against (a)", toks["b"], toks["a"])}
+        if key in ("d", "e"):
+            row["layers"] = quantized_layers(
+                torch, np, model, eng.params, bundle.cfg,
+                max(prompts, key=len), kw["weight_dtype"])
+        del eng
+        if key == "c":
+            same_tokens("(c) against (a)", toks["c"], toks["a"])
+            check_preemption(engine(policy="edf", preempt="edf-displace",
+                                    clock=lambda: 0, **kw), prompts,
+                             toks["a"], new=FAMILY_NEW)
+        if key in ("d", "e"):
+            row["requests_equal_bf16"] = sum(toks[key][u] == toks["a"][u]
+                                             for u in toks["a"])
+            log(f"  ({key}) {row['requests_equal_bf16']} of {len(prompts)} "
+                f"requests emit (a)'s bf16 tokens whole; weights "
+                f"{row['param_bytes']:,} B")
+            row["teacher_forced"] = quantized_vs_references(
+                torch, np, dev, bundle, model, max(prompts, key=len), kw,
+                None)
+        if key == "a":
+            # the same reading with nothing quantized: how far rounding
+            # alone moves the logits through 28 routed layers
+            row["teacher_forced_vs_plain"] = check_logits(
+                "bf16 on K3 vs the plain versions", *teacher_forced_logits(
+                    torch, np, dev, bundle, model, max(prompts, key=len),
+                    want={"tags": ("reference",)}), None)
+        torch.cuda.empty_cache()
+        rows.append(row)
+    rows[-1]["reduced_card_vs_cpu"] = reduced_moe_card_vs_cpu(torch, np, dev)
+    summaries = [phase_summary(torch, f"phase 15 {MOE_ARCH}", t0, rows)]
+    del model, engine
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE2_ARCH), n_layers=MOE2_LAYERS)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(dev).manual_seed(1))
+    engine = family_engine(dev, bundle, model)
+    prompts = family_workload(np, cfg.vocab, 32, 16, 512)
+    rows2 = []
+    for key, kw in (("a", exact), ("b", {})):
+        eng, row, toks[f"q{key}"] = family_run(
+            torch, np, dev, engine, prompts,
+            f"{MOE2_ARCH} {MOE2_LAYERS} layers run ({key})", kw,
+            {"decode_attention": MOE2_LAYERS})
+        row["model"] += f", {MOE2_LAYERS} of 48 layers"
+        launches[f"{MOE2_ARCH} ({key})"] = {
+            k: n for k, n in row["launches"].items() if n}
+        if key == "a":
+            profile_decode(torch, np, eng, row)
+            eager_twin(torch, np, dev, engine(**kw), prompts, row,
+                       toks["qa"], new=FAMILY_NEW)
+            engines["a"] = eng
+        else:
+            row["vs_exact"] = {**bucketed_vs_exact(
+                torch, np, engines.pop("a"), eng, prompts),
+                **moe_masked_witness(torch, np, model, cfg,
+                                     eng.bucket_table, prompts),
+                **tokens_equal("(b) against (a)", toks["qb"], toks["qa"])}
+        del eng
+        rows2.append(row)
+    summaries.append(phase_summary(torch, f"phase 15 {MOE2_ARCH}", t0,
+                                   rows2))
+    del model, engine
+    torch.cuda.empty_cache()
+    return rows + rows2, summaries, launches
+
+
+def vlm_serving(torch, np, dev):
+    """Phase 16: PaliGemma-3B at full width in bfloat16 with seeded patch
+    embeddings: (a) bucketed, (b) ``prefill_chunk=128``, (c) bucketed
+    and paged with blocks of 16, (d) bucketed with an int8 KV cache.
+    The family keeps reference attention on every path, as in the JAX
+    package: each run launches no kernel (counted and traced); (c)
+    emits (a)'s tokens; (b) against one-shot prefill
+    (``vlm_chunked_vs_oneshot``); (d) against the bf16 engine
+    (``quantized_vs_references``) and its tokens against (a)'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = get_model(get_config(VLM_ARCH))
+    model = bundle.init(torch.Generator(dev).manual_seed(2))
+    engine = family_engine(dev, bundle, model)
+    vocab = bundle.cfg.vocab
+    # one-shot prompts keep vision prefix + bucket within 512 positions
+    # (the prefill's query-chunked attention takes multiples of 512 past
+    # that, as the JAX package's); the chunked run takes longer ones
+    short = family_workload(np, vocab, 33, 16, 257)
+    runs = {"a": ({}, short),
+            "b": ({"prefill_buckets": False, "prefill_chunk": CHUNK},
+                  family_workload(np, vocab, 34, 100, 600)),
+            "c": ({"kv_block": PAGED_BLOCK}, short),
+            "d": ({"kv_dtype": "int8"}, short)}
+    rows, toks, launches = [], {}, {}
+    for key, (kw, prompts) in runs.items():
+        eng, row, toks[key] = family_run(torch, np, dev, engine, prompts,
+                                         f"{VLM_ARCH} run ({key})", kw, {})
+        launches[f"{VLM_ARCH} ({key})"] = sum(row["launches"].values())
+        if key == "a":
+            profile_decode(torch, np, eng, row)
+        del eng
+        if key == "a":
+            eager_twin(torch, np, dev, engine(**kw), prompts, row, toks[key],
+                       new=FAMILY_NEW)
+        if key == "b":
+            row["vs_oneshot"] = vlm_chunked_vs_oneshot(
+                torch, np, bundle.cfg, engine, prompts)
+        if key == "d":
+            row["vs_bf16"] = tokens_equal("(d) against (a)", toks["d"],
+                                          toks["a"])
+            i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+            row["teacher_forced"] = quantized_vs_references(
+                torch, np, dev, bundle, model, prompts[i], kw,
+                INT8_VS_BF16_RTOL, extras=family_extras(np, bundle.cfg, i))
+        torch.cuda.empty_cache()
+        rows.append(row)
+    same_tokens("(c) against (a)", toks["c"], toks["a"])
+    log("  no kernel launched on any run: vlm decodes on reference "
+        "attention, as in the JAX package")
+    summary = phase_summary(torch, f"phase 16 {VLM_ARCH}", t0, rows)
+    del model, engine
+    torch.cuda.empty_cache()
+    return rows, [summary], launches
+
+
+def audio_serving(torch, np, dev):
+    """Phase 17: Whisper-large-v3 at full width in bfloat16 with seeded
+    frame embeddings (1500 frames): (a) exact, its replays bit-equal to
+    an eager engine; then an EDF displacement (checkpointed: the
+    checkpoint carries the cross K/V) emits the uninterrupted tokens.
+    No kernel on the path (counted and traced)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = get_model(get_config(AUDIO_ARCH))
+    model = bundle.init(torch.Generator(dev).manual_seed(3))
+    engine = family_engine(dev, bundle, model)
+    prompts = family_workload(np, bundle.cfg.vocab, 35, 4, 64)
+    eng, row, toks = family_run(torch, np, dev, engine, prompts,
+                                f"{AUDIO_ARCH} run (a)", {}, {})
+    profile_decode(torch, np, eng, row)
+    del eng
+    eager_twin(torch, np, dev, engine(), prompts, row, toks,
+               new=FAMILY_NEW)
+    check_preemption(engine(policy="edf", preempt="edf-displace",
+                            clock=lambda: 0), prompts, toks, new=FAMILY_NEW)
+    summary = phase_summary(torch, f"phase 17 {AUDIO_ARCH}", t0, [row])
+    del model, engine
+    torch.cuda.empty_cache()
+    return [row], [summary]
+
+
+def dequantized_copy(torch, qmodel, cfg, dev):
+    """A float model of ``qmodel``'s class holding its dequantized
+    weights (``lm_quant.dequant_leaf``) and its float ones."""
+    from repro_torch.models import lm_quant
+    from repro_torch.models.registry import empty_model
+
+    out = empty_model(cfg, dev)
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            leaf = qmodel
+            for part in name.split("."):
+                leaf = getattr(leaf, part)
+            if lm_quant.is_qleaf(leaf):
+                leaf = lm_quant.dequant_leaf(leaf, p.dtype)
+            p.copy_(leaf)
+    return out
+
+
+def quantized_recurrent_serving(torch, np, dev):
+    """Phase 18: Mamba2-780m and Zamba2-1.2B at full width, int8 and int4
+    weight-only (the embedding, and Zamba2's shared block, quantized, as
+    in the JAX package): one-shot prefill with the scan on K8 (one launch
+    per Mamba layer per prefill, nothing else), then the same requests
+    through a float engine over the dequantized weights: the same
+    tokens.  The int8 run's replays bit-equal to an eager engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    rows, summaries, launches = [], [], {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = get_model(get_config(arch))
+        model = bundle.init(torch.Generator(dev).manual_seed(4))
+        engine = family_engine(dev, bundle, model)
+        layers, vocab = bundle.cfg.n_layers, bundle.cfg.vocab
+        prompts = recurrent_workload(np, vocab, 36, N_FAMILY, 0, 0, True)
+        arch_rows = []
+        for wd in ("int8", "int4"):
+            kw = {"weight_dtype": wd}
+            eng = engine(**kw)
+            row, toks = serve_main(torch, np, dev, eng, prompts,
+                                   f"{arch} {wd} weights", new=FAMILY_NEW)
+            want = dict.fromkeys(row["launches"], 0)
+            want["ssd_scan"] = layers * row["prefills"]
+            if row["launches"] != want:
+                raise AssertionError(f"{arch} {wd}: launches "
+                                     f"{row['launches']}, expected {want}")
+            launches[f"{arch} {wd}"] = want["ssd_scan"]
+            row["model"] = f"{arch} bfloat16 serving, {wd} weights"
+            if wd == "int8":
+                profile_decode(torch, np, eng, row)
+            fengine = family_engine(dev, bundle, dequantized_copy(
+                torch, eng.params, bundle.cfg, dev))
+            del eng
+            _, ftoks = serve_lm(torch, np, dev, fengine(), prompts,
+                                new=FAMILY_NEW)
+            same_tokens(f"{arch} {wd}: a float engine on the dequantized "
+                        f"weights", ftoks, toks)
+            del fengine
+            if wd == "int8":
+                eager_twin(torch, np, dev, engine(**kw), prompts, row, toks,
+                           new=FAMILY_NEW)
+            torch.cuda.empty_cache()
+            arch_rows.append(row)
+        summaries.append(phase_summary(torch, f"phase 18 {arch}", t0,
+                                       arch_rows))
+        rows += arch_rows
+        del model, engine
+        torch.cuda.empty_cache()
+    return rows, summaries, launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2731,6 +3520,10 @@ def main() -> int:
                              f"steps of {n_layers} layers)")
     launches["decode_attention"] = want["decode_attention"]
     profile_decode(torch, np, eng, serve_row)
+    # the bf16 drift of bucketed against exact-length prefill on a dense
+    # model, beside phase 15's on the MoE ones
+    serve_row["bucketed_vs_exact"] = bucketed_vs_exact(
+        torch, np, engine(prefill_buckets=False), eng, prompts)
     del eng
     eager_twin(torch, np, dev, engine(), prompts, serve_row, served)
     check_preemption(engine(policy="edf", preempt="edf-displace",
@@ -2823,6 +3616,28 @@ def main() -> int:
     for name in want:
         launches[name] = sum(path[name] for path in micro_paths.values())
 
+    phase("phase 15: DeepSeek-MoE-16B full width and depth, bfloat16, and "
+          "Qwen3-MoE-30B-A3B full width, through the ServingEngine (main "
+          "path)")
+    moe_rows, summaries, family_launches = moe_serving(torch, np, dev)
+    model_rows.extend(moe_rows)
+    phase("phase 16: PaliGemma-3B full width, bfloat16, through the "
+          "ServingEngine (main path)")
+    vlm_rows, vlm_summary, vlm_launches = vlm_serving(torch, np, dev)
+    model_rows.extend(vlm_rows)
+    summaries += vlm_summary
+    phase("phase 17: Whisper-large-v3 full width, bfloat16, through the "
+          "ServingEngine (main path)")
+    audio_rows, audio_summary = audio_serving(torch, np, dev)
+    model_rows.extend(audio_rows)
+    summaries += audio_summary
+    phase("phase 18: Mamba2-780m and Zamba2-1.2B full width, int8 and int4 "
+          "weights, through the ServingEngine (main path)")
+    rq_rows, rq_summaries, rq_launches = quantized_recurrent_serving(
+        torch, np, dev)
+    model_rows.extend(rq_rows)
+    summaries += rq_summaries
+
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
         for r in rows:                       # aliases: kernel_ms, max_err
@@ -2884,12 +3699,24 @@ def main() -> int:
         f"{SSM_ARCH} one-shot": ssm_launches["a"],
         f"{SSM_ARCH} prefill_chunk={CHUNK}": ssm_launches["b"],
         f"{HYBRID_ARCH} one-shot": hybrid_launches["a"],
-        f"{HYBRID_ARCH} prefill_chunk={CHUNK}": hybrid_launches["b"]}
+        f"{HYBRID_ARCH} prefill_chunk={CHUNK}": hybrid_launches["b"],
+        **{f"{run} weights (phase 18)": n for run, n in rq_launches.items()}}
+    # phase 15's runs: each kernel's launches on each MoE run (the VLM
+    # and Whisper runs launch none, asserted)
+    for kern in kernels:
+        runs = {f"{run} (phase 15)": counts[kern["name"]]
+                for run, counts in family_launches.items()
+                if kern["name"] in counts}
+        if runs:
+            kern.setdefault("launches_on_runs", {}).update(runs)
+    if any(vlm_launches.values()):
+        raise AssertionError(f"vlm launched kernels: {vlm_launches}")
     cap = [(r["model"], r["capture_s"], r.get("graph_pool_bytes"))
            for r in model_rows if "capture_s" in r]
     log(f"capture cost: {sum(c[1] for c in cap):.2f} s over "
         f"{len(cap)} models and engines; graph pools "
         + ", ".join(f"{m} {b:,} B" for m, _, b in cap if b is not None))
+    log(json.dumps({"phases": summaries}))
     log(json.dumps({"models": model_rows}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

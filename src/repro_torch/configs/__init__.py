@@ -1,10 +1,10 @@
 """Architecture config registry of the port (``--arch <id>``).
 
-The four dense architectures, Mamba2-780m (ssm) and Zamba2-1.2B
-(hybrid), each copied value for value from the JAX package's config
-(``CONFIG`` the published widths, ``REDUCED`` the smoke-test variant).
-The four configs of the other families (MoE, VLM, audio) come with
-their families.
+The ten architectures of the JAX package, six families: four dense,
+two MoE (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), Mamba2-780m (ssm),
+Zamba2-1.2B (hybrid), PaliGemma-3B (vlm) and Whisper-large-v3 (audio),
+each copied value for value from the JAX package's config (``CONFIG``
+the published widths, ``REDUCED`` the smoke-test variant).
 """
 
 from __future__ import annotations
@@ -19,7 +19,11 @@ _MODULES: Dict[str, str] = {
     "mamba2-780m": "mamba2_780m",
     "qwen3-32b": "qwen3_32b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "yi-6b": "yi_6b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "paligemma-3b": "paligemma_3b",
+    "whisper-large-v3": "whisper_large_v3",
     "zamba2-1.2b": "zamba2_1_2b",
 }
 

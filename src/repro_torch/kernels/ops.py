@@ -302,6 +302,10 @@ class CudaAttention:
 # vendor-tag registration for the serving path (§4.8 at pod scale)
 # ---------------------------------------------------------------------------
 
+# the families whose decode attention runs on K3/K4/K7 (the JAX
+# package's Pallas decode ops take the same two)
+KERNEL_DECODE_FAMILIES = ("dense", "moe")
+
 @register_op(OpCode.SERVING_PREFILL, tag="cuda")
 class CudaServingPrefill:
     """Pod-scale prefill whose SSD scan runs on the ssd_scan kernel (K8)
@@ -313,11 +317,7 @@ class CudaServingPrefill:
 
     @staticmethod
     def prepare(ctx, op):
-        # imported here: the kernels sit beneath the serving package
-        from repro_torch.serving.ops import RECURRENT_FAMILIES
-        recurrent = ctx.bundle.cfg.family in RECURRENT_FAMILIES
-        return PrepareResult(output_specs=[], op_data={
-            "kw": {"ssd_impl": ssd_chunked_kernel} if recurrent else {}})
+        return PrepareResult(output_specs=[], op_data=_scan_hook(ctx))
 
     @staticmethod
     def eval(ctx, op, inputs):
@@ -326,6 +326,37 @@ class CudaServingPrefill:
                                   cache_len=op.params["cache_len"],
                                   window=op.params.get("window"),
                                   **ctx.op_data["kw"])
+
+
+def _scan_hook(ctx) -> dict:
+    """op_data ``{"kw": ...}``: the prefill keyword that puts the SSD scan
+    on K8 for the recurrent families, none for the others."""
+    # imported here: the kernels sit beneath the serving package
+    from repro_torch.serving.ops import RECURRENT_FAMILIES
+    recurrent = ctx.bundle.cfg.family in RECURRENT_FAMILIES
+    return {"kw": {"ssd_impl": ssd_chunked_kernel} if recurrent else {}}
+
+
+@register_op(OpCode.SERVING_PREFILL_Q, tag="cuda")
+class CudaServingPrefillQ:
+    """Quantized prefill with ``CudaServingPrefill``'s scan hook: the
+    float prefill over the dequantized model, its SSD scan on K8 for the
+    quantized recurrent families (the JAX package has no Pallas
+    quantized prefill, and there the reference one runs its Pallas-free
+    scan; without this op the ``"cuda"`` chain would run the plain scan
+    too).  The family gate is the reference's."""
+
+    @staticmethod
+    def prepare(ctx, op):
+        from repro_torch.serving.ops import _quant_family_gate
+        od = _quant_family_gate(ctx.bundle.cfg, op)
+        od.update(_scan_hook(ctx))
+        return PrepareResult(output_specs=[], op_data=od)
+
+    @staticmethod
+    def eval(ctx, op, inputs):
+        from repro_torch.serving.ops import prefill_q
+        return prefill_q(ctx, op, inputs, **ctx.op_data["kw"])
 
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK_STATE, tag="cuda")
@@ -350,14 +381,17 @@ class CudaServingPrefillChunkState:
 @register_op(OpCode.SERVING_DECODE, tag="cuda")
 class CudaServingDecode:
     """Pod-scale decode step whose per-layer attention runs on the
-    decode_attention kernel (K3) for the dense family.  prepare()
-    inspects the family once at engine init and bakes the choice into
-    op_data; any other family falls back to the bundle's reference
-    decode, the per-kernel fallback the tag chain promises."""
+    decode_attention kernel (K3) for the dense and moe families (the
+    MoE block's expert products stay matmuls, as the JAX package runs
+    them outside any Pallas kernel).  prepare() inspects the family once
+    at engine init and bakes the choice into op_data; any other family
+    (vlm, audio, the recurrent ones) runs the bundle's reference decode,
+    the per-kernel fallback the tag chain promises, as in the JAX
+    package."""
 
     @staticmethod
     def prepare(ctx, op):
-        use_kernel = ctx.bundle.cfg.family == "dense"
+        use_kernel = ctx.bundle.cfg.family in KERNEL_DECODE_FAMILIES
         return PrepareResult(output_specs=[],
                              op_data={"use_kernel": use_kernel})
 
@@ -378,65 +412,74 @@ class CudaServingDecode:
 @register_op(OpCode.SERVING_DECODE_PAGED, tag="cuda")
 class CudaServingDecodePaged:
     """Pod-scale paged decode step whose per-layer attention walks each
-    slot's block table on the paged_decode_attention kernel (K4).  Only
-    the dense family is ported; prepare() refuses the others and a block
-    size the kernel does not take, once, at engine init."""
+    slot's block table on the paged_decode_attention kernel (K4) for the
+    dense and moe families; vlm shares the paged step with reference
+    attention, as in the JAX package.  prepare() refuses the families
+    the reference refuses and a block size the kernel does not take,
+    once, at engine init."""
 
     @staticmethod
     def prepare(ctx, op):
         # imported here: the kernels sit beneath the serving package
-        from repro_torch.serving.ops import PAGED_FEATURE, _dense_only
-        _dense_only(ctx.bundle.cfg, PAGED_FEATURE)
-        check_block_size(op.params["kv_block"])
-        return PrepareResult(output_specs=[])
+        from repro_torch.serving.ops import (PAGED_FAMILIES, PAGED_FEATURE,
+                                             family_gate)
+        scale = family_gate(ctx.bundle.cfg, PAGED_FEATURE, PAGED_FAMILIES)
+        use_kernel = ctx.bundle.cfg.family in KERNEL_DECODE_FAMILIES
+        if use_kernel:
+            check_block_size(op.params["kv_block"])
+        return PrepareResult(output_specs=[], op_data={
+            "scale": scale, "use_kernel": use_kernel})
 
     @staticmethod
     def eval(ctx, op, inputs):
         params, pool, tables, tokens, lengths = inputs
         from repro_torch.models import lm
         # no window= here, as in the reference paged decode
-        return lm.lm_decode_paged(params, ctx.bundle.cfg, pool, tables,
-                                  tokens, lengths,
-                                  attn_impl=paged_decode_attention)
+        return lm.lm_decode_paged(
+            params, ctx.bundle.cfg, pool, tables, tokens, lengths,
+            embed_scale=ctx.op_data["scale"],
+            attn_impl=(paged_decode_attention if ctx.op_data["use_kernel"]
+                       else None))
 
 
 @register_op(OpCode.SERVING_DECODE_Q, tag="cuda")
 class CudaServingDecodeQ:
-    """Quantized decode step on the kernels, dense family only: with
-    quantized weights the MLP's three matmuls run on K5 (int8) or K6
-    (int4), and attention runs on K7 (paged, int8 KV), K4 (paged, float
-    KV) or K3 (contiguous, over the dequantized float32 cache when the
-    KV is int8).  prepare() refuses the other families and a block size
-    the paged kernels do not take, once, at engine init.  There is no
-    ``"cuda"`` SERVING_PREFILL_Q, as the JAX package has no Pallas one:
-    prefill is bound by operations, and the reference quantized prefill
-    is the choice there."""
+    """Quantized decode step on the kernels for the dense and moe
+    families: with quantized weights every dense MLP's three matmuls
+    (DeepSeek's first block included) run on K5 (int8) or K6 (int4), and
+    attention runs on K7 (paged, int8 KV), K4 (paged, float KV) or K3
+    (contiguous, over the dequantized float32 cache when the KV is
+    int8); a MoE layer's experts run on its dequantized weights, as in
+    the JAX package.  vlm takes the quantized LM step with reference
+    attention and MLP, and the recurrent families the reference
+    quantized decode, as in the JAX package.  prepare() refuses what
+    the reference refuses and a block size the paged kernels do not
+    take, once, at engine init."""
 
     @staticmethod
     def prepare(ctx, op):
         # imported here: the kernels sit beneath the serving package
         from repro_torch.serving.ops import _quant_family_gate
         od = _quant_family_gate(ctx.bundle.cfg, op)
-        if od["paged"]:
+        od["use_kernel"] = ctx.bundle.cfg.family in KERNEL_DECODE_FAMILIES
+        if od["paged"] and od["use_kernel"]:
             check_block_size(op.params["kv_block"])
         # an int8-KV-only engine keeps float weights: nothing to dequantize
-        od["use_mm"] = od["weight_dtype"] in ("int8", "int4")
+        od["use_mm"] = (od["use_kernel"]
+                        and od["weight_dtype"] in ("int8", "int4"))
         return PrepareResult(output_specs=[], op_data=od)
 
     @staticmethod
     def eval(ctx, op, inputs):
-        from repro_torch.models import lm_quant
-        cfg, od = ctx.bundle.cfg, ctx.op_data
-        mm = dequant_matmul if od["use_mm"] else None
-        if od["paged"]:
-            params, pool, tables, tokens, lengths = inputs
-            attn = (quant_paged_decode_attention if od["kv_q"]
-                    else paged_decode_attention)
-            return lm_quant.lm_decode_paged_q(
-                params, cfg, pool, tables, tokens, lengths, kv_q=od["kv_q"],
-                attn_impl=attn, mlp_impl=mm)
-        params, cache, tokens, lengths = inputs
-        attn = decode_attention_f32_cache if od["kv_q"] else decode_attention
-        return lm_quant.lm_decode_q(params, cfg, cache, tokens, lengths,
-                                    kv_q=od["kv_q"], attn_impl=attn,
-                                    mlp_impl=mm)
+        from repro_torch.serving.ops import decode_q
+        od = ctx.op_data
+        attn = None
+        if od["use_kernel"]:
+            if od["paged"]:
+                attn = (quant_paged_decode_attention if od["kv_q"]
+                        else paged_decode_attention)
+            else:
+                attn = (decode_attention_f32_cache if od["kv_q"]
+                        else decode_attention)
+        return decode_q(ctx, op, inputs, attn_impl=attn,
+                        mlp_impl=dequant_matmul if od["use_mm"] else None)

@@ -4,10 +4,12 @@ reference path on the CPU (reduced widths are the default).
 
 Batched-request serving through the ``ServingEngine`` (continuous
 batching, arena-budgeted KV or recurrent state): build the model of any
-ported family (dense, ``--arch mamba2-780m`` for ssm, ``--arch
-zamba2-1.2b`` for hybrid) from seeded random weights, submit a workload
-of prompts, run the engine to completion, and print per-request latency
-and the throughput summary (with the engine's program counts).  The
+of the six families (dense, ``--arch deepseek-moe-16b`` for moe,
+``mamba2-780m`` for ssm, ``zamba2-1.2b`` for hybrid, ``paligemma-3b``
+for vlm, ``whisper-large-v3`` for audio) from seeded random weights,
+submit a workload of prompts (with seeded patch or frame embeddings for
+vlm and audio), run the engine to completion, and print per-request
+latency and the throughput summary (with the engine's program counts).  The
 per-token streaming front-end (``--stream`` in the JAX package) comes
 with the overlapped decode loop (ROADMAP queue 1, slice 6).
 """
@@ -40,16 +42,27 @@ def _build_engine(args) -> ServingEngine:
 
 
 def _workload(cfg, args) -> List[Dict[str, Any]]:
-    """The demo prompt mix: random prompts from ``--seed``."""
+    """The demo prompt mix: random prompts from ``--seed`` (plus the
+    vision or audio extras the multimodal families need), as the JAX
+    package's."""
     rng = np.random.default_rng(args.seed)
     reqs = []
     for uid in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2,
                                 args.prompt_len + 1))
+        extras = None
+        if cfg.family == "vlm":
+            extras = {"vision": rng.normal(
+                0, 1, (cfg.n_vision_tokens, cfg.d_vision)
+            ).astype(np.float32)}
+        elif cfg.family == "audio":
+            extras = {"frames": rng.normal(
+                0, 0.1, (cfg.n_audio_ctx, cfg.d_model)
+            ).astype(np.float32)}
         reqs.append(dict(
             uid=uid,
             tokens=rng.integers(0, cfg.vocab - 2, plen).astype(np.int32),
-            max_new_tokens=args.max_new))
+            max_new_tokens=args.max_new, extras=extras))
     return reqs
 
 

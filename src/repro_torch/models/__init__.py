@@ -1,8 +1,9 @@
-"""Pod-path models of the port: the dense decoder-only LM (``lm``), the
-Mamba-2 LM (``ssm``), the Zamba2 hybrid (``hybrid``), their config
-schema and primitives (``common``) and the family registry."""
+"""Pod-path models of the port: the decoder-only LM, dense and MoE
+(``lm``), PaliGemma on it (``vlm``), Whisper (``encdec``), the Mamba-2 LM
+(``ssm``), the Zamba2 hybrid (``hybrid``), their config schema and
+primitives (``common``) and the family registry."""
 
 from .common import ModelConfig
-from .registry import ModelBundle, get_model
+from .registry import ModelBundle, get_model, params_from_jax
 
-__all__ = ["ModelBundle", "ModelConfig", "get_model"]
+__all__ = ["ModelBundle", "ModelConfig", "get_model", "params_from_jax"]

@@ -93,6 +93,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return y * gamma.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Normalise in float32, cast back to x's dtype, then scale and
+    shift."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
 def rope_cos_sin(positions: torch.Tensor, dim: int, base: float,
                  dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

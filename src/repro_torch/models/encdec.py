@@ -1,0 +1,331 @@
+"""Whisper-large-v3 backbone [arXiv:2212.04356]: an encoder-decoder
+transformer with LayerNorm, GELU MLPs, sinusoidal encoder positions,
+learned decoder positions and cross-attention in every decoder layer.
+
+The port's counterpart of ``repro.models.encdec``.  The mel spectrogram
+and the conv frontend are a stub, as there: a request carries
+precomputed frame embeddings (B, n_audio_ctx, d_model).  No RoPE; the
+attention projections have biases on q, v and out (not k).
+
+Prefill encodes the frames once and stages every decoder layer's cross
+K/V in the cache beside the self-attention rings, ``{k, v}`` (L, B, KH,
+C, dh) and ``{cross_k, cross_v}`` (L, B, KH, T, dh), batch on axis 1 —
+so a slot checkpoint carries the cross K/V with the rings.  Decode
+writes the rings in place (the values of the JAX package's one-hot
+blend) and reads the staged cross K/V.
+
+The frames are cast to the model's dtype, as PaliGemma's patches are:
+the JAX package runs them in their own dtype, and float32 frames on a
+bfloat16 model stop its decoder scan with a carry-dtype error, so where
+the JAX package runs (frames in the model's dtype) the two agree.  The
+JAX package's activation-sharding hooks (``shard_act``,
+``shard_logits``) are the identity on one device and are left out.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.executor import resolve_device
+
+from . import lm
+from .common import ModelConfig, dense_init, layer_norm
+
+Cache = Dict[str, torch.Tensor]
+
+DEC_MAX_POS = 8192          # learned decoder positions (ring past this)
+
+
+class BiasedAttention(nn.Module):
+    """wq (D,H,dh) + bq (H,dh), wk (D,KH,dh), wv (D,KH,dh) + bv (KH,dh),
+    wo (H,dh,D) + bo (D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+        self.wq = lm._param((d, h, dh), dtype, device)
+        self.bq = lm._param((h, dh), dtype, device)
+        self.wk = lm._param((d, kh, dh), dtype, device)
+        self.wv = lm._param((d, kh, dh), dtype, device)
+        self.bv = lm._param((kh, dh), dtype, device)
+        self.wo = lm._param((h, dh, d), dtype, device)
+        self.bo = lm._param((d,), dtype, device)
+
+
+class BiasedMLP(nn.Module):
+    """wi (D,F) + bi (F), wo (F,D) + bo (D), GELU between."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.wi = lm._param((d, f), dtype, device)
+        self.bi = lm._param((f,), dtype, device)
+        self.wo = lm._param((f, d), dtype, device)
+        self.bo = lm._param((d,), dtype, device)
+
+
+def _norm_pair(module: nn.Module, name: str, d: int, dtype, device) -> None:
+    setattr(module, f"{name}_g", lm._param((d,), dtype, device))
+    setattr(module, f"{name}_b", lm._param((d,), dtype, device))
+
+
+class EncoderLayer(nn.Module):
+    """ln1 → self-attention (bidirectional), ln2 → MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.attn = BiasedAttention(cfg, dtype, device)
+        self.mlp = BiasedMLP(cfg, dtype, device)
+        for name in ("ln1", "ln2"):
+            _norm_pair(self, name, cfg.d_model, dtype, device)
+
+
+class DecoderLayer(nn.Module):
+    """ln1 → causal self-attention, lnx → cross-attention, ln2 → MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.attn = BiasedAttention(cfg, dtype, device)
+        self.xattn = BiasedAttention(cfg, dtype, device)
+        self.mlp = BiasedMLP(cfg, dtype, device)
+        for name in ("ln1", "lnx", "ln2"):
+            _norm_pair(self, name, cfg.d_model, dtype, device)
+
+
+class EncDecLM(nn.Module):
+    """Whisper's parameters: token embedding (V_pad, D) (tied to the
+    head), learned decoder positions (DEC_MAX_POS, D), the encoder and
+    decoder layers and their final norms.  Built empty on ``device``
+    (the card by default); ``init_encdec`` or ``registry.params_from_jax``
+    fills it."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        dtype, d = cfg.torch_dtype(), cfg.d_model
+        self.cfg = cfg
+        self.embed = lm._param((lm.padded_vocab(cfg), d), dtype, device)
+        self.dec_pos = lm._param((DEC_MAX_POS, d), dtype, device)
+        self.encoder = nn.ModuleList(EncoderLayer(cfg, dtype, device)
+                                     for _ in range(cfg.n_encoder_layers))
+        self.decoder = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+                                     for _ in range(cfg.n_layers))
+        _norm_pair(self, "enc_final", d, dtype, device)
+        _norm_pair(self, "final", d, dtype, device)
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> EncDecLM:
+    """Seeded random weights on ``gen.device`` by the JAX
+    ``init_encdec``'s rules, each layer's leaf drawn on its own with its
+    input width as fan-in (as ``lm.init_lm``); biases 0, norm gains 1."""
+    model = EncDecLM(cfg, gen.device)
+    dtype = cfg.torch_dtype()
+    h, dh = cfg.n_heads, cfg.dh
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.endswith("_g"):
+                p.fill_(1)
+            elif leaf.startswith("b") or leaf.endswith("_b"):
+                p.zero_()
+            elif leaf == "embed":
+                p.copy_(dense_init(gen, p.shape, 0.02, dtype))
+            elif leaf == "dec_pos":
+                p.copy_(dense_init(gen, p.shape, 0.01, dtype))
+            elif leaf == "wo" and ".mlp." in name:
+                p.copy_(dense_init(gen, p.shape, 1.0 / math.sqrt(cfg.d_ff),
+                                   dtype))
+            elif leaf == "wo":
+                p.copy_(dense_init(gen, p.shape, 1.0 / math.sqrt(h * dh),
+                                   dtype))
+            else:
+                p.copy_(dense_init(gen, p.shape, dtype=dtype))
+    return model
+
+
+def encdec_empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                       dtype: torch.dtype, device) -> Cache:
+    ring = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.dh)
+    cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.n_audio_ctx, cfg.dh)
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, shape in (("k", ring), ("v", ring),
+                                ("cross_k", cross), ("cross_v", cross))}
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def sinusoids(length: int, channels: int, dtype=torch.float32,
+              device=None) -> torch.Tensor:
+    lt = math.log(10000.0) / (channels // 2 - 1)
+    inv = torch.exp(-lt * torch.arange(channels // 2, dtype=torch.float32,
+                                       device=device))
+    ang = torch.arange(length, dtype=torch.float32,
+                       device=device)[:, None] * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1).to(dtype)
+
+
+def _qkv(p: BiasedAttention, x: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq) + p.bq
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv) + p.bv
+    return q, k, v
+
+
+def _out(p: BiasedAttention, out: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bqhk,hkd->bqd", out, p.wo) + p.bo
+
+
+def _mlp(p: BiasedMLP, x: torch.Tensor) -> torch.Tensor:
+    h = F.gelu(torch.einsum("bsd,df->bsf", x, p.wi) + p.bi,
+               approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, p.wo) + p.bo
+
+
+def _encoder_attn(p: BiasedAttention, cfg: ModelConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention over all frames, one einsum."""
+    q, k, v = _qkv(p, x)
+    b, s, h, dh = q.shape
+    kh = cfg.n_kv_heads
+    qg = q.reshape(b, s, kh, h // kh, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    w = torch.softmax(logits / math.sqrt(dh), dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(b, s, h, dh)
+    return _out(p, out)
+
+
+def _cross_attn(p: BiasedAttention, cfg: ModelConfig, x: torch.Tensor,
+                enc_k: torch.Tensor, enc_v: torch.Tensor, *,
+                chunk: int = 512) -> torch.Tensor:
+    """x (B,S,D) over the staged enc_k/v (B,KH,T,dh); queries in chunks
+    of ``chunk`` when S is a multiple of it (each query row's softmax is
+    its own, so the chunking only bounds the (chunk,T) logits)."""
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q = (torch.einsum("bsd,dhk->bshk", x, p.wq) + p.bq).reshape(
+        b, s, kh, h // kh, dh)
+
+    def attend(qc):
+        logits = torch.einsum("bqkgd,bktd->bkgqt", qc.float(),
+                              enc_k.float())
+        w = torch.softmax(logits / math.sqrt(dh), dim=-1).to(x.dtype)
+        return torch.einsum("bkgqt,bktd->bqkgd", w, enc_v)
+
+    step = chunk if s > chunk and s % chunk == 0 else s
+    out = torch.cat([attend(q[:, i:i + step]) for i in range(0, s, step)],
+                    dim=1).reshape(b, s, h, dh)
+    return _out(p, out)
+
+
+def _ln(x: torch.Tensor, module: nn.Module, name: str) -> torch.Tensor:
+    return layer_norm(x, getattr(module, f"{name}_g"),
+                      getattr(module, f"{name}_b"))
+
+
+def encode(model: EncDecLM, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames (B,T,D), the stub frontend's output -> (B,T,D)."""
+    frames = frames.to(cfg.torch_dtype())
+    t, d = frames.shape[1:]
+    x = frames + sinusoids(t, d, frames.dtype, frames.device)[None]
+    for layer in model.encoder:
+        x = x + _encoder_attn(layer.attn, cfg, _ln(x, layer, "ln1"))
+        x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
+    return _ln(x, model, "enc_final")
+
+
+def _embed_dec(model: EncDecLM, tokens: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    return (F.embedding(tokens, model.embed)
+            + F.embedding(positions % DEC_MAX_POS, model.dec_pos))
+
+
+def _logits(model: EncDecLM, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,vd->bsv", _ln(x, model, "final"), model.embed)
+
+
+def encdec_prefill(model: EncDecLM, cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor],
+                   cache_len: Optional[int] = None, *,
+                   window: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Cache]:
+    """batch: ``frames`` (B,T,D) + ``tokens`` (B,S) -> (last-token logits,
+    cache {k, v, cross_k, cross_v}): the self-attention rings of C =
+    ``cache_len`` (or S) positions and every decoder layer's cross
+    K/V."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    enc = encode(model, cfg, frames)
+    b, s = tokens.shape
+    c = cache_len or s
+    x = _embed_dec(model, tokens, torch.arange(s, device=tokens.device)[None])
+    ring = (cfg.n_layers, b, cfg.n_kv_heads, c, cfg.dh)
+    ks, vs, xks, xvs = [], [], [], []
+    for layer in model.decoder:
+        xa = layer.xattn
+        ek = torch.einsum("btd,dhk->bhtk", enc, xa.wk)
+        ev = (torch.einsum("btd,dhk->bhtk", enc, xa.wv)
+              + xa.bv[None, :, None])
+        q, k, v = _qkv(layer.attn, _ln(x, layer, "ln1"))
+        att = lm.chunked_attention(q, k, v, cfg, window=window)
+        x = x + _out(layer.attn, att)
+        x = x + _cross_attn(xa, cfg, _ln(x, layer, "lnx"), ek, ev)
+        x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
+        for dst, src in ((ks, k), (vs, v)):
+            one = src.new_zeros(ring[1:])
+            lm._to_cache(one, src)
+            dst.append(one)
+        xks.append(ek)
+        xvs.append(ev)
+    logits = _logits(model, x[:, -1:])[:, 0]
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                    "cross_k": torch.stack(xks),
+                    "cross_v": torch.stack(xvs)}
+
+
+def _decode_self_attn(p: BiasedAttention, cfg: ModelConfig, x: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor,
+                      lengths: torch.Tensor) -> torch.Tensor:
+    """The biased twin of ``lm.decode_attention_block``: the new token's
+    K/V written at ring slot ``lengths % C``, in place, then attention
+    over the first ``min(lengths + 1, C)`` positions."""
+    b = x.shape[0]
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    c = ck.shape[2]
+    q, k, v = _qkv(p, x)
+    rows = torch.arange(b, device=x.device)
+    slot = lengths % c
+    ck[rows, :, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, :, slot] = v[:, 0].to(cv.dtype)
+    n_valid = torch.clamp(lengths + 1, max=c)
+    qg = q[:, 0].reshape(b, kh, h // kh, dh)
+    logits = (torch.einsum("bkgd,bkcd->bkgc", qg.float(), ck.float())
+              / math.sqrt(dh))
+    valid = (torch.arange(c, device=x.device)[None, None, None, :]
+             < n_valid[:, None, None, None])
+    logits = logits.masked_fill(~valid, lm.NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgc,bkcd->bkgd", w, cv).reshape(b, 1, h, dh)
+    return _out(p, out)
+
+
+def encdec_decode(model: EncDecLM, cfg: ModelConfig, cache: Cache,
+                  tokens: torch.Tensor, lengths: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step.  tokens (B,1); lengths (B,) absolute positions;
+    the rings are updated in place, the cross K/V only read.  Returns
+    (logits (B,V_pad), cache)."""
+    x = _embed_dec(model, tokens, lengths[:, None])
+    for i, layer in enumerate(model.decoder):
+        x = x + _decode_self_attn(layer.attn, cfg, _ln(x, layer, "ln1"),
+                                  cache["k"][i], cache["v"][i], lengths)
+        x = x + _cross_attn(layer.xattn, cfg, _ln(x, layer, "lnx"),
+                            cache["cross_k"][i], cache["cross_v"][i])
+        x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
+    return _logits(model, x)[:, 0], cache

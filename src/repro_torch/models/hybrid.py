@@ -20,7 +20,7 @@ package's vendor decode does for this family.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,7 +41,7 @@ class HybridLM(nn.Module):
     """Zamba2's parameters: embedding (V_pad, D), one MambaBlock per
     layer, the shared ``lm.DenseBlock``, final norm and (untied) head.
     Built empty on ``device`` (the card by default); ``init_hybrid_lm``
-    or ``hybrid_params_from_jax`` fills it."""
+    or ``registry.params_from_jax`` fills it."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -74,27 +74,6 @@ def init_hybrid_lm(gen: torch.Generator, cfg: ModelConfig) -> HybridLM:
         if not cfg.tie_embeddings:
             model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0.02,
                                            dtype))
-    return model
-
-
-def hybrid_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                           device="cuda") -> HybridLM:
-    """The JAX ``init_hybrid_lm`` tree (leaves as numpy arrays) as the
-    port's ``HybridLM`` on ``device`` (the card by default), leaf for
-    leaf."""
-    model = HybridLM(cfg, device)
-    shared = tree["shared"]
-    with torch.no_grad():
-        ssm.put_leaf(model.embed, tree["embed"])
-        ssm.put_leaf(model.final_norm, tree["final_norm"])
-        if not cfg.tie_embeddings:
-            ssm.put_leaf(model.lm_head, tree["lm_head"])
-        ssm.put_mamba_layers(model, tree["blocks"])
-        ssm.put_leaf(model.shared.ln1, shared["ln1"])
-        ssm.put_leaf(model.shared.ln2, shared["ln2"])
-        for part in ("attn", "mlp"):
-            for name, param in getattr(model.shared, part).named_parameters():
-                ssm.put_leaf(param, shared[part][name])
     return model
 
 

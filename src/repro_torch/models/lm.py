@@ -1,12 +1,15 @@
-"""Decoder-only LM, dense family — the pod-path model.
+"""Decoder-only LM, dense and MoE families — the pod-path model.
 
-The port's counterpart of the dense path of ``repro.models.lm``: Yi-6B,
-Phi-3-mini, Phi-4-mini and Qwen3 (``qk_norm``).  Parameters keep the JAX
-package's layouts (``wq`` (D,H,dh), ``wo`` (H,dh,D), ``wi`` (D,F), …) so
-``params_from_jax`` copies them leaf for leaf; they live in one
-``DenseLM`` module holding one ``DenseBlock`` per layer where the JAX
-package stacks a leading ``L`` dim and scans.  The steps are plain
-functions on tensors, as in the JAX package:
+The port's counterpart of ``repro.models.lm``: Yi-6B, Phi-3-mini,
+Phi-4-mini and Qwen3 (``qk_norm``), the MoE models DeepSeek-MoE-16B (a
+dense first block, shared experts) and Qwen3-MoE-30B-A3B, and PaliGemma's
+Gemma decoder (``models.vlm``).  Parameters keep the JAX package's
+layouts (``wq`` (D,H,dh), ``wo`` (H,dh,D), ``wi`` (D,F), the experts'
+``wi`` (E,D,F), …) so ``registry.params_from_jax`` copies them leaf for
+leaf; they live in one ``DenseLM`` module holding one ``DenseBlock`` or
+``MoEBlock`` per layer (and DeepSeek's ``first_block``) where the JAX
+package stacks a leading ``L`` dim and scans.  The steps are plain functions on
+tensors, as in the JAX package:
 
   * ``lm_prefill`` — a prompt through every layer, causal (+window)
     query-chunked attention, emitting last-token logits and a KV cache
@@ -23,9 +26,15 @@ functions on tensors, as in the JAX package:
     chunk at a host start offset into a slot's cache or its blocks,
     written in place.
 
+The MoE block (``moe_block``) is the JAX package's single-device
+capacity dispatch: top-k routing, a per-expert queue of ``moe_capacity``
+slots, every expert's matmuls over its slots (so a step reads every
+expert's weights), and the combine back to tokens.  The expert-parallel
+``moe_block_ep`` of the JAX package needs a device mesh, which the port
+does not have yet: it always takes this path.
+
 The decode steps read ``lengths`` (and the block tables) on the device
 and take no branch on a device value, so they never wait for the device.
-MoE comes with a later slice.
 """
 
 from __future__ import annotations
@@ -81,78 +90,145 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """wi (D,F), wg (D,F) for gated activations, wo (F,D)."""
+    """wi (D,F), wg (D,F) for gated activations, wo (F,D); F is
+    ``d_ff`` (the config's by default), and ``lead`` dims go in front
+    (the experts' (E,D,F))."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 d_ff: Optional[int] = None, lead: Tuple[int, ...] = ()):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        self.wi = _param((d, f), dtype, device)
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        self.wi = _param((*lead, d, f), dtype, device)
         if cfg.act in GATED_ACTS:
-            self.wg = _param((d, f), dtype, device)
-        self.wo = _param((f, d), dtype, device)
+            self.wg = _param((*lead, d, f), dtype, device)
+        self.wo = _param((*lead, f, d), dtype, device)
 
 
 class DenseBlock(nn.Module):
-    """One pre-norm transformer layer: ln1 → attention, ln2 → MLP."""
+    """One pre-norm transformer layer: ln1 → attention, ln2 → MLP (of
+    width ``d_ff``, the config's by default)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 d_ff: Optional[int] = None):
+        super().__init__()
+        self.ln1 = _param((cfg.d_model,), dtype, device)
+        self.ln2 = _param((cfg.d_model,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device, d_ff)
+
+
+class MoE(nn.Module):
+    """The MoE feed-forward: ``router`` (D,E) float32, ``experts`` an
+    MLP of (E,D,F)/(E,F,D) at F = moe_d_ff, and, with shared experts,
+    ``shared`` one MLP of width n_shared_experts · moe_d_ff."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        self.router = _param((cfg.d_model, e), torch.float32, device)
+        self.experts = MLP(cfg, dtype, device, f, lead=(e,))
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, dtype, device, cfg.n_shared_experts * f)
+
+
+class MoEBlock(nn.Module):
+    """One pre-norm MoE layer: ln1 → attention, ln2 → MoE."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), dtype, device)
         self.ln2 = _param((cfg.d_model,), dtype, device)
         self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        self.moe = MoE(cfg, dtype, device)
 
 
 class DenseLM(nn.Module):
-    """The dense LM's parameters: embedding (V_pad, D), one DenseBlock
-    per layer, final norm and (untied) head (D, V_pad).  Built empty
-    on ``device`` (the card by default; raises without one — pass
-    ``"cpu"`` for the CPU); ``init_lm`` or ``params_from_jax`` fills
-    it."""
+    """The LM's parameters: embedding (V_pad, D), one layer per
+    ``layers`` entry (DenseBlock, or MoEBlock for a config with experts),
+    final norm and (untied) head (D, V_pad); with
+    ``first_layer_dense_ff`` (DeepSeek) a ``first_block`` DenseBlock of
+    that MLP width runs before ``layers`` (which then hold n_layers - 1
+    MoE layers); for the vlm family the vision ``projector`` (d_vision,
+    D).  Built empty on ``device`` (the card by default; raises without
+    one — pass ``"cpu"`` for the CPU); ``init_lm`` or
+    ``registry.params_from_jax`` fills it."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.n_experts or cfg.first_layer_dense_ff:
-            raise ValueError(f"{cfg.arch_id}: DenseLM holds the dense "
-                             f"family only")
         device = resolve_device(device)
         dtype, vp, d = cfg.torch_dtype(), padded_vocab(cfg), cfg.d_model
         self.cfg = cfg
         self.embed = _param((vp, d), dtype, device)
         self.final_norm = _param((d,), dtype, device)
-        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        n_moe = cfg.n_layers - (1 if cfg.first_layer_dense_ff else 0)
+        if cfg.n_experts:
+            self.layers = nn.ModuleList(MoEBlock(cfg, dtype, device)
+                                        for _ in range(n_moe))
+        else:
+            self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device)
+                                        for _ in range(cfg.n_layers))
+        if cfg.first_layer_dense_ff:
+            self.first_block = DenseBlock(cfg, dtype, device,
+                                          cfg.first_layer_dense_ff)
         if not cfg.tie_embeddings:
             self.lm_head = _param((d, vp), dtype, device)
+        if cfg.family == "vlm":
+            self.projector = _param((cfg.d_vision, d), dtype, device)
+
+
+def blocks(model):
+    """The model's layers in cache order: DeepSeek's ``first_block``
+    (cache layer 0), then ``layers``.  A generator, so a dequantizing
+    view (``lm_quant.dequant_params``) holds one layer's float weights at
+    a time."""
+    first = getattr(model, "first_block", None)
+    if first is not None:
+        yield first
+    yield from model.layers
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> DenseLM:
     """Seeded random weights on ``gen.device``, following the JAX
-    ``init_lm``'s rules leaf by leaf: ``dense_init``'s 1/sqrt(fan-in)
-    with fan-in = shape[0], and the explicit scales of ``wo`` and the
-    embeddings.  The JAX package applies the rule to leaves stacked as
-    (L, …), so its fan-in there is L and its attention nearly one-hot
-    (ROADMAP queue 3); the port draws each layer's leaf on its own, so
-    its fan-in is the leaf's input width."""
+    ``init_lm``'s rules leaf by leaf: ``dense_init``'s 1/sqrt(fan-in),
+    and the explicit scales of ``wo``, the router and the embeddings.
+    The JAX package applies the rule to leaves stacked as (L, …) with
+    fan-in = shape[0], so its fan-in there is L and its attention nearly
+    one-hot (ROADMAP queue 3); the port draws each layer's leaf on its
+    own, with the leaf's input width as its fan-in (D for the experts'
+    (E,D,F))."""
     dtype = cfg.torch_dtype()
     model = DenseLM(cfg, gen.device)
     with torch.no_grad():
         model.embed.copy_(dense_init(gen, model.embed.shape, 0.02, dtype))
         model.final_norm.fill_(1)
-        for blk in model.layers:
+        for blk in blocks(model):
             init_dense_block(gen, blk, cfg)
         if not cfg.tie_embeddings:
             model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0.02,
                                            dtype))
+        if cfg.family == "vlm":
+            model.projector.copy_(dense_init(
+                gen, model.projector.shape, 1.0 / math.sqrt(cfg.d_vision),
+                dtype))
     return model
 
 
-def init_dense_block(gen: torch.Generator, blk: DenseBlock,
+def _init_mlp(gen: torch.Generator, m: MLP, cfg: ModelConfig) -> None:
+    dtype = m.wi.dtype
+    d, f = m.wi.shape[-2:]
+    m.wi.copy_(dense_init(gen, m.wi.shape, 1.0 / math.sqrt(d), dtype))
+    m.wo.copy_(dense_init(gen, m.wo.shape, 1.0 / math.sqrt(f), dtype))
+    if cfg.act in GATED_ACTS:
+        m.wg.copy_(dense_init(gen, m.wg.shape, 1.0 / math.sqrt(d), dtype))
+
+
+def init_dense_block(gen: torch.Generator, blk: nn.Module,
                      cfg: ModelConfig) -> None:
-    """One layer's seeded weights by ``init_lm``'s rules (the hybrid
-    family's shared block is drawn by them too)."""
+    """One layer's seeded weights (a DenseBlock or a MoEBlock) by
+    ``init_lm``'s rules (the hybrid family's shared block is drawn by
+    them too)."""
     dtype = blk.ln1.dtype
-    h, dh, f = cfg.n_heads, cfg.dh, cfg.d_ff
+    h, dh = cfg.n_heads, cfg.dh
     blk.ln1.fill_(1)
     blk.ln2.fill_(1)
     a = blk.attn
@@ -162,11 +238,13 @@ def init_dense_block(gen: torch.Generator, blk: DenseBlock,
     if cfg.qk_norm:
         a.q_norm.fill_(1)
         a.k_norm.fill_(1)
-    m = blk.mlp
-    m.wi.copy_(dense_init(gen, m.wi.shape, dtype=dtype))
-    m.wo.copy_(dense_init(gen, m.wo.shape, 1.0 / math.sqrt(f), dtype))
-    if cfg.act in GATED_ACTS:
-        m.wg.copy_(dense_init(gen, m.wg.shape, dtype=dtype))
+    if isinstance(blk, MoEBlock):
+        blk.moe.router.copy_(dense_init(gen, blk.moe.router.shape, 0.02))
+        _init_mlp(gen, blk.moe.experts, cfg)
+        if cfg.n_shared_experts:
+            _init_mlp(gen, blk.moe.shared, cfg)
+    else:
+        _init_mlp(gen, blk.mlp, cfg)
 
 
 def _from_numpy(a: Any, dtype: torch.dtype) -> torch.Tensor:
@@ -176,35 +254,45 @@ def _from_numpy(a: Any, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dtype)      # a writable copy
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cuda") -> DenseLM:
-    """The JAX ``init_lm`` tree (leaves as numpy arrays, per-layer leaves
-    stacked on a leading L dim) as the port's ``DenseLM`` on ``device``
-    (the card by default, as ``DenseLM``), leaf for leaf, so both
-    packages compute with the same weights."""
-    dtype = cfg.torch_dtype()
-    model = DenseLM(cfg, device)
-    blocks = tree["blocks"]
+# the port's per-layer ModuleList -> the JAX tree's stacked subtree
+_STACKS = {"layers": "blocks"}
 
-    def put(param: nn.Parameter, value) -> None:
-        value = _from_numpy(value, dtype)
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"shape {tuple(value.shape)} != "
-                             f"{tuple(param.shape)}")
-        param.copy_(value)
 
+def jax_leaf(tree: Dict[str, Any], name: str):
+    """(node, index): where the port's parameter ``name`` sits in a JAX
+    parameter tree whose per-layer leaves are stacked on a leading L
+    dim — ``layers.3.attn.wq`` is ``tree["blocks"]["attn"]["wq"]`` at
+    index 3, ``decoder.1.xattn.wq`` is ``tree["decoder"]["xattn"]["wq"]``
+    at 1, ``first_block.mlp.wi`` is ``tree["first_block"]["mlp"]["wi"]``
+    at 0 (a stack of one), ``embed`` is ``tree["embed"]`` (index None).
+    The node may be a quantized leaf's dict (``lm_quant``)."""
+    parts = name.split(".")
+    index = None
+    if len(parts) > 1 and parts[1].isdigit():
+        index = int(parts[1])
+        parts = [_STACKS.get(parts[0], parts[0])] + parts[2:]
+    elif parts[0] == "first_block":
+        index = 0
+    node = tree
+    for key in parts:
+        node = node[key]
+    return node, index
+
+
+def load_jax_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree (leaves as numpy arrays, per-layer
+    leaves stacked on a leading L dim) into ``model``'s parameters, leaf
+    for leaf (``jax_leaf``), each in its parameter's dtype; shapes must
+    match.  Returns the model."""
     with torch.no_grad():
-        put(model.embed, tree["embed"])
-        put(model.final_norm, tree["final_norm"])
-        if not cfg.tie_embeddings:
-            put(model.lm_head, tree["lm_head"])
-        for i, blk in enumerate(model.layers):
-            put(blk.ln1, blocks["ln1"][i])
-            put(blk.ln2, blocks["ln2"][i])
-            for name, param in blk.attn.named_parameters():
-                put(param, blocks["attn"][name][i])
-            for name, param in blk.mlp.named_parameters():
-                put(param, blocks["mlp"][name][i])
+        for name, param in model.named_parameters():
+            node, i = jax_leaf(tree, name)
+            value = _from_numpy(node if i is None else np.asarray(node)[i],
+                                param.dtype)
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)} != "
+                                 f"{tuple(param.shape)}")
+            param.copy_(value)
     return model
 
 
@@ -231,14 +319,16 @@ def _proj_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      cfg: ModelConfig, *, window: Optional[int] = None,
+                      cfg: ModelConfig, *, prefix_len: int = 0,
+                      window: Optional[int] = None,
                       chunk: int = 512) -> torch.Tensor:
-    """Causal (+sliding-window) attention, O(S·chunk) logits.
+    """Causal (+prefix, +sliding-window) attention, O(S·chunk) logits.
 
-    q (B,S,H,dh); k,v (B,S,KH,dh).  Returns (B,S,H,dh).  Logits are
-    float32, masked to -1e30, and the softmax weights are cast to v's
-    dtype before P·V, as the JAX package does.  S must be a multiple of
-    the chunk (min(chunk, S)), as there."""
+    q (B,S,H,dh); k,v (B,S,KH,dh).  Returns (B,S,H,dh).  The first
+    ``prefix_len`` positions (a VLM's vision prefix) are visible to every
+    query.  Logits are float32, masked to -1e30, and the softmax weights
+    are cast to v's dtype before P·V, as the JAX package does.  S must be
+    a multiple of the chunk (min(chunk, S)), as there."""
     b, s, h, dh = q.shape
     g = h // k.shape[2]
     chunk = min(chunk, s)
@@ -256,6 +346,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = (qc.float() @ kxf.transpose(-1, -2)) * scale
         qpos = start + torch.arange(chunk, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
+        if prefix_len:
+            mask = mask | (kpos[None, :] < prefix_len)
         if window is not None:
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
         logits = logits.masked_fill(~mask, NEG_INF)
@@ -383,6 +475,8 @@ def _gate(act: str, g: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) through wi/wg/wo; the experts' (E,D,F) weights take x
+    (G,E,C,D), one matmul per expert, as the JAX package's ``gecd,edf``."""
     hidden = x @ p.wi
     if cfg.act in GATED_ACTS:
         hidden = _gate(cfg.act, x @ p.wg) * hidden
@@ -393,12 +487,162 @@ def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# FFN — MoE (per-group capacity dispatch, Switch-style)
+# ---------------------------------------------------------------------------
+
+# data shards of the JAX package's default mesh layout: the port has no
+# mesh, so this is its one value
+MOE_DATA_SHARDS = 16
+
+
+def moe_groups(n_tokens: int) -> int:
+    """Group count for capacity dispatch: one group per data shard when
+    groups stay usefully large, else a single global group."""
+    if n_tokens >= 16 * 1024:
+        return MOE_DATA_SHARDS
+    return 1
+
+
+def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    c = int(math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor
+                      / cfg.n_experts))
+    return max(4, -(-c // 4) * 4)          # >=4, multiple of 4
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last axis in
+    ``jax.lax.top_k``'s order: descending, the lower index first among
+    equal values.  A stable descending sort, sliced: ``torch.topk``
+    promises no order among ties on the card."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(router_logits: torch.Tensor, cfg: ModelConfig, capacity: int,
+           n_valid=None, eff_capacity=None):
+    """``moe_dispatch``'s work, plus each (token, k) pair's slot (G,T·K):
+    its expert·C + queue position, or E·C (the overflow bin) where it is
+    dropped."""
+    g, t, e = router_logits.shape
+    k = cfg.top_k
+    experts = torch.arange(e, device=router_logits.device)
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    top_w, top_ids = top_k(probs, k)                          # (G,T,K)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    # load-balance auxiliary loss (Switch):  E * sum_e f_e * p_e
+    density = (top_ids[..., :1] == experts).float().mean(dim=1)   # (G,E)
+    aux = (density * probs.mean(dim=1)).sum(-1).mean() * e
+    flat_ids = top_ids.reshape(g, t * k)
+    flat_w = top_w.reshape(g, t * k)
+    # position of each (token, k) within its expert's queue
+    onehot = (flat_ids[..., None] == experts).int()               # (G,TK,E)
+    pos = (onehot.cumsum(dim=1) - 1).gather(-1, flat_ids[..., None])[..., 0]
+    token_of = torch.arange(t * k, device=router_logits.device) // k
+    if n_valid is not None:
+        cap_eff = capacity if eff_capacity is None else eff_capacity
+        keep = (pos < cap_eff) & (token_of[None, :] < n_valid)
+    else:
+        keep = pos < capacity
+    slot = torch.where(keep, flat_ids * capacity + pos, e * capacity)
+    # token ids into slots (default T = the dummy token), the overflow
+    # bin last and sliced off, as in the JAX package
+    dispatch = torch.full((g, e * capacity + 1), t, dtype=torch.int64,
+                          device=router_logits.device)
+    dispatch.scatter_(1, slot, token_of.expand(g, -1))
+    combine = torch.zeros((g, e * capacity + 1), dtype=torch.float32,
+                          device=router_logits.device)
+    combine.scatter_(1, slot, flat_w)
+    return dispatch[:, :-1], combine[:, :-1], aux, slot
+
+
+def moe_dispatch(router_logits: torch.Tensor, cfg: ModelConfig,
+                 capacity: int, n_valid=None, eff_capacity=None):
+    """router_logits (G,T,E) -> (dispatch (G,E·C) int64 token ids [T =
+    none], combine (G,E·C) float32 weights, aux_loss scalar), the JAX
+    ``moe_dispatch``'s values (its ids are int32).
+
+    Capacity-stable masked mode (bucketed MoE prefill): with ``n_valid``
+    / ``eff_capacity`` (int32 scalar tensors), T is a right-padded token
+    count and ``capacity`` the bucket's: tokens at positions >=
+    ``n_valid`` are dropped and real ones keep only queue positions <
+    ``eff_capacity``, so the kept set and every kept token's position are
+    those of the unpadded dispatch at the true length.  One program per
+    bucket, the routing of the true length."""
+    dispatch, combine, aux, _ = _route(router_logits, cfg, capacity,
+                                       n_valid, eff_capacity)
+    return dispatch, combine, aux
+
+
+def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, n_valid=None,
+              eff_capacity=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,D) -> (y (B,S,D), aux_loss): the single-device capacity
+    dispatch of the JAX ``moe_block``.  Each expert's matmuls run over
+    its C slots, the empty ones on a zero row; every expert's weights are
+    read, whatever the routing.
+
+    The combine is the JAX package's scatter-add of the weighted slot
+    rows onto their tokens, made deterministic: each token gathers its K
+    slot rows in ascending slot order (the dropped ones from a zero row
+    last) and sums them one by one, the order in which a serial
+    scatter-add visits them.  No atomics, so a run on the card repeats
+    bit for bit.  ``n_valid`` / ``eff_capacity``: the masked mode of
+    ``moe_dispatch`` (single group only)."""
+    b, s, d = x.shape
+    t_all = b * s
+    g = moe_groups(t_all)
+    if n_valid is not None and g != 1:
+        raise ValueError("capacity-stable masked dispatch requires the "
+                         "single-group layout (got %d groups)" % g)
+    t, e, k = t_all // g, cfg.n_experts, cfg.top_k
+    xg = x.reshape(g, t, d)
+    cap = moe_capacity(cfg, t)
+    logits = xg.float() @ p.router
+    dispatch, combine, aux, slot = _route(logits, cfg, cap, n_valid,
+                                          eff_capacity)
+    # a zero token row for the empty slots
+    xpad = torch.cat([xg, xg.new_zeros(g, 1, d)], dim=1)
+    xe = xpad.gather(1, dispatch[..., None].expand(-1, -1, d))
+    ye = mlp_block(p.experts, cfg, xe.view(g, e, cap, d))
+    ye = ye.reshape(g, e * cap, d) * combine[..., None].to(ye.dtype)
+    # each token's slot rows, ascending; the overflow bin is a zero row
+    yz = torch.cat([ye, ye.new_zeros(g, 1, d)], dim=1)
+    rows = slot.view(g, t, k).sort(dim=-1).values.view(g, t * k)
+    parts = yz.gather(1, rows[..., None].expand(-1, -1, d)).view(g, t, k, d)
+    y = parts[:, :, 0]
+    for j in range(1, k):
+        y = y + parts[:, :, j]
+    if cfg.n_shared_experts:
+        y = y + mlp_block(p.shared, cfg, xg)
+    return y.reshape(b, s, d), aux
+
+
+def ffn(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
+        n_valid=None, moe_cap=None) -> torch.Tensor:
+    """A layer's feed-forward on x (B,S,D): its MoE block (the aux loss
+    dropped; ``n_valid`` / ``moe_cap`` the masked dispatch) or its MLP."""
+    moe = getattr(blk, "moe", None)
+    if moe is not None:
+        return moe_block(moe, cfg, x, n_valid=n_valid,
+                         eff_capacity=moe_cap)[0]
+    return mlp_block(blk.mlp, cfg, x)
+
+
+# ---------------------------------------------------------------------------
 # embedding and head
 # ---------------------------------------------------------------------------
 
 def embed_tokens(model: DenseLM, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, model.embed)
+
+
+def scale_embed(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
+    """x times the embedding scale (Gemma's sqrt(d_model)) rounded to
+    x's dtype first, as the JAX package's ``x * jnp.asarray(scale,
+    x.dtype)``; None leaves x as it is."""
+    if scale is None:
+        return x
+    return x * float(torch.tensor(scale, dtype=x.dtype))
 
 
 def lm_logits(model: DenseLM, cfg: ModelConfig,
@@ -435,36 +679,60 @@ def _to_cache(dst: torch.Tensor, k: torch.Tensor) -> None:
 
 def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
                cache_len: Optional[int] = None, *,
-               window: Optional[int] = None
-               ) -> Tuple[torch.Tensor, Cache]:
+               window: Optional[int] = None, prefix_len: int = 0,
+               prefix_embed: Optional[torch.Tensor] = None,
+               embed_scale: Optional[float] = None,
+               n_valid=None, moe_cap=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> (last-token logits (B,V_pad), cache dict).
 
     cache layout: k/v (L, B, KH, C, dh) ring-indexed by absolute pos,
-    C = ``cache_len`` or S."""
-    x = embed_tokens(model, cfg, tokens)
+    C = ``cache_len`` or S.  ``prefix_embed`` (B,P,D) goes in front of
+    the (``embed_scale``-scaled) token embeddings — a VLM's vision prefix
+    — and ``prefix_len`` positions attend bidirectionally.
+    ``n_valid`` / ``moe_cap`` (int32 scalar tensors) are the
+    capacity-stable bucketed-MoE mode: S is a right-padded bucket,
+    ``n_valid`` the true token count and ``moe_cap`` its expert capacity
+    (``moe_dispatch``), so one program serves a bucket."""
+    x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     cache = empty_cache(cfg, b, cache_len or s, x.dtype, x.device)
-    for i, blk in enumerate(model.layers):
+    for i, blk in enumerate(blocks(model)):
         x = prefill_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
-                          window=window)
+                          window=window, prefix_len=prefix_len,
+                          n_valid=n_valid, moe_cap=moe_cap)
     logits = lm_logits(model, cfg, x[:, -1:])[:, 0]
     return logits, cache
 
 
-def prefill_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
+def prefill_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                   ck: torch.Tensor, cv: torch.Tensor, *,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  window: Optional[int] = None, prefix_len: int = 0,
+                  n_valid=None, moe_cap=None) -> torch.Tensor:
     """One transformer layer over a whole prompt x (B,S,D) at positions
     0..S-1, its K/V written into ck/cv (B,KH,C,dh) (``_to_cache``).
     Returns x after the layer."""
+    h = prefill_attention(blk, cfg, x, ck, cv, window=window,
+                          prefix_len=prefix_len)
+    return h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps),
+                   n_valid=n_valid, moe_cap=moe_cap)
+
+
+def prefill_attention(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor, *,
+                      window: Optional[int] = None,
+                      prefix_len: int = 0) -> torch.Tensor:
+    """``prefill_layer``'s attention half: x plus the attention output
+    (the residual stream that goes into the layer's feed-forward)."""
     positions = torch.arange(x.shape[1], device=x.device)
     xin = rms_norm(x, blk.ln1, cfg.norm_eps)
     q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
-    out = chunked_attention(q, k, v, cfg, window=window)
-    h = x + _out_proj(blk.attn, out)
+    out = chunked_attention(q, k, v, cfg, prefix_len=prefix_len,
+                            window=window)
     _to_cache(ck, k)
     _to_cache(cv, v)
-    return h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    return x + _out_proj(blk.attn, out)
 
 
 def check_chunk_fits(start: int, s: int, capacity: int) -> None:
@@ -489,7 +757,8 @@ def chunk_offset(start, s: int, capacity: int,
 
 def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
                      tokens: torch.Tensor, start, *,
-                     window: Optional[int] = None) -> Cache:
+                     window: Optional[int] = None,
+                     embed_scale: Optional[float] = None) -> Cache:
     """One prompt CHUNK through the backbone: tokens (B,S) take absolute
     positions ``start .. start+S`` of a cache {k,v} (L,B,KH,C,dh) that
     already holds every earlier position.  Each layer writes the chunk's
@@ -499,12 +768,14 @@ def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
     cache; no logits (the engine hands the last prompt token to decode).
     ``start`` is an int32 scalar tensor, as in the JAX package, so one
     program serves every chunk (a host int is checked and converted,
-    ``chunk_offset``); ``start + S <= C`` (no ring wrap)."""
-    x = embed_tokens(model, cfg, tokens)
+    ``chunk_offset``); ``start + S <= C`` (no ring wrap).
+    ``embed_scale``: the vlm family's (the first chunk, through the
+    ordinary prefill, carried its vision prefix)."""
+    x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     s, c = x.shape[1], cache["k"].shape[3]
     start = chunk_offset(start, s, c, x.device)
     positions = start + torch.arange(s, device=x.device)
-    for i, blk in enumerate(model.layers):
+    for i, blk in enumerate(blocks(model)):
         x, _, _ = _chunk_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
                                positions, window)
     return cache
@@ -512,8 +783,8 @@ def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
 
 def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
                            table_row: torch.Tensor, tokens: torch.Tensor,
-                           start, *,
-                           window: Optional[int] = None) -> Cache:
+                           start, *, window: Optional[int] = None,
+                           embed_scale: Optional[float] = None) -> Cache:
     """Paged twin of ``lm_prefill_chunk`` for one slot: pool {k,v}
     (L,P,KH,BS,dh), table_row (T,) its block ids in logical order.  The
     JAX package gathers the whole slot (all layers) to a contiguous
@@ -521,16 +792,16 @@ def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
     back; here each layer gathers its own (1,KH,T·BS,dh) view, runs the
     same layer math on it, and writes only the chunk's rows back into
     the pool, in place.  The values are the JAX function's: the rest of
-    the slot is written back unchanged there.  ``start`` as in
-    ``lm_prefill_chunk``."""
-    x = embed_tokens(model, cfg, tokens)
+    the slot is written back unchanged there.  ``start`` and
+    ``embed_scale`` as in ``lm_prefill_chunk``."""
+    x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     s = x.shape[1]
     bs, t = pool["k"].shape[3], table_row.shape[0]
     start = chunk_offset(start, s, t * bs, x.device)
     positions = start + torch.arange(s, device=x.device)
     idx = table_row.long()
     phys, off = idx[positions // bs], positions % bs
-    for i, blk in enumerate(model.layers):
+    for i, blk in enumerate(blocks(model)):
         pk, pv = pool["k"][i], pool["v"][i]
         kh, dh = pk.shape[1], pk.shape[3]
         ck = pk[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
@@ -541,7 +812,7 @@ def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
     return pool
 
 
-def _chunk_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
+def _chunk_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                  ck: torch.Tensor, cv: torch.Tensor, positions: torch.Tensor,
                  window: Optional[int]):
     """One layer of a prompt chunk: x (B,S,D) at ``positions`` (S,), a
@@ -567,25 +838,26 @@ def _chunk_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
     logits = logits.masked_fill(~mask, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(vx.dtype)
     h = x + _out_proj(p, (w @ vx).transpose(1, 2))
-    x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    x = h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
     return x, k, v
 
 
 def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
               tokens: torch.Tensor, lengths: torch.Tensor, *,
+              embed_scale: Optional[float] = None,
               attn_impl=None) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens (B,1); lengths (B,) absolute positions;
     cache {k,v}: (L,B,KH,C,dh), updated in place.  Returns (logits
     (B,V_pad), cache).  ``attn_impl`` plumbs a vendor attention kernel
     into every layer's decode_attention_block (§4.8)."""
-    x = embed_tokens(model, cfg, tokens)
-    for i, blk in enumerate(model.layers):
+    x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
+    for i, blk in enumerate(blocks(model)):
         x = decode_layer(blk, cfg, x, cache["k"][i], cache["v"][i], lengths,
                          attn_impl=attn_impl)
     return lm_logits(model, cfg, x)[:, 0], cache
 
 
-def decode_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
+def decode_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                  ck: torch.Tensor, cv: torch.Tensor, lengths: torch.Tensor,
                  *, attn_impl=None) -> torch.Tensor:
     """One transformer layer of a decode step: x (B,1,D), its K/V ring
@@ -595,24 +867,25 @@ def decode_layer(blk: DenseBlock, cfg: ModelConfig, x: torch.Tensor,
     att, _, _ = decode_attention_block(blk.attn, cfg, xin, ck, cv, lengths,
                                        attn_impl=attn_impl)
     h = x + att
-    return h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    return h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
 
 
 def lm_decode_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
                     tables: torch.Tensor, tokens: torch.Tensor,
                     lengths: torch.Tensor, *,
+                    embed_scale: Optional[float] = None,
                     attn_impl=None) -> Tuple[torch.Tensor, Cache]:
     """One decode step over the paged KV pool.  tokens (B,1); lengths
     (B,); tables (B,T) int32; pool {k,v}: (L,P,KH,BS,dh), updated in
     place.  Returns (logits (B,V_pad), pool).  The tables and lengths are
     read on the device, so mapping blocks between steps changes values
     only, and the step never waits for the device."""
-    x = embed_tokens(model, cfg, tokens)
-    for i, blk in enumerate(model.layers):
+    x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
+    for i, blk in enumerate(blocks(model)):
         xin = rms_norm(x, blk.ln1, cfg.norm_eps)
         att, _, _ = paged_decode_attention_block(
             blk.attn, cfg, xin, pool["k"][i], pool["v"][i], tables, lengths,
             attn_impl=attn_impl)
         h = x + att
-        x = h + mlp_block(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+        x = h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
     return lm_logits(model, cfg, x)[:, 0], pool

@@ -19,7 +19,15 @@ vector (``quantize_kv_heads``): the cache grows two scale leaves
 (``k_scale``/``v_scale``, the cache's shape without the head dim) and
 only the new token's K/V are quantized each step, written in place, so
 a cache round trip (checkpoint and restore, paged scatter) is exact.
-Only the dense family is ported.
+
+Every family but audio quantizes its weights (the JAX package's
+``WEIGHT_QUANT_FAMILIES``): ``quantize_lm_params`` walks any model.  The
+MoE experts' (E,D,F) leaves quantize per expert and output channel; the
+router stays float32 (routing is discrete, and quantizing it would flip
+choices for no memory).  A Mamba layer's projections are not in
+``QUANT_KEYS``, so the recurrent families quantize their embedding (and
+Zamba2 its shared block), as in the JAX package, and decode on the float
+steps over ``dequant_params``.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ from repro_torch.core.quantize import (INT4_MAX, INT4_MIN, INT8_MAX, INT8_MIN,
 
 from .common import ModelConfig, rms_norm
 from .lm import (GATED_ACTS, Cache, DenseLM, _decode_attend, _from_numpy,
-                 _gate, _out_proj, _proj_qkv, decode_attention_block,
-                 embed_tokens, mlp_block, paged_decode_attention_block)
+                 _gate, _out_proj, _proj_qkv, blocks, decode_attention_block,
+                 embed_tokens, jax_leaf, mlp_block, moe_block,
+                 paged_decode_attention_block, scale_embed)
+from .registry import empty_model
 
 # The weight matrices worth quantizing; norm gains stay float
 QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "wg",
@@ -78,7 +88,7 @@ def _quantize_leaf(w: torch.Tensor, bits: int) -> QWeight:
     return QWeight(q, scales, int4=False)
 
 
-def _leaves(model: DenseLM):
+def _leaves(model: nn.Module):
     """(owning module, name, qualified name, parameter) of every weight."""
     for prefix, mod in list(model.named_modules()):
         for name, p in list(mod.named_parameters(recurse=False)):
@@ -95,18 +105,19 @@ def _put(mod: nn.Module, name: str, value) -> None:
         setattr(mod, name, nn.Parameter(value, requires_grad=False))
 
 
-def quantize_lm_params(model: DenseLM, cfg: ModelConfig,
-                       weight_dtype: str) -> DenseLM:
-    """``model`` -> a new ``DenseLM`` on the same device with every
-    ``QUANT_KEYS`` matrix replaced by its ``QWeight`` (the others
-    copied).  An odd output-channel count falls back to int8 for that
-    leaf (int4 packs channel pairs).  ``model`` is left as it was."""
+def quantize_lm_params(model: nn.Module, cfg: ModelConfig,
+                       weight_dtype: str) -> nn.Module:
+    """``model`` (any family's but audio's) -> a new model of its class
+    on the same device with every ``QUANT_KEYS`` matrix replaced by its
+    ``QWeight`` (the others copied), one leaf at a time.  An odd
+    output-channel count falls back to int8 for that leaf (int4 packs
+    channel pairs).  ``model`` is left as it was."""
     if weight_dtype not in WEIGHT_DTYPES:
         raise ValueError(
             f"weight_dtype {weight_dtype!r} not in {WEIGHT_DTYPES}")
     bits = 8 if weight_dtype == "int8" else 4
     src = dict(model.named_parameters())
-    out = DenseLM(cfg, device="meta")
+    out = type(model)(cfg, device="meta")
     with torch.no_grad():
         for mod, name, full, _ in _leaves(out):
             val = src[full]
@@ -118,20 +129,17 @@ def quantize_lm_params(model: DenseLM, cfg: ModelConfig,
     return out
 
 
-def qparams_from_jax(tree: Dict, cfg: ModelConfig, device="cuda") -> DenseLM:
-    """The JAX ``quantize_lm_params`` tree (leaves as numpy arrays,
-    per-layer leaves stacked on a leading L dim, quantized leaves as
-    ``{"q8"|"q4", "qs"}`` dicts) as the port's quantized ``DenseLM`` on
-    ``device`` (the card by default), leaf for leaf."""
+def qparams_from_jax(tree: Dict, cfg: ModelConfig,
+                     device="cuda") -> nn.Module:
+    """The JAX ``quantize_lm_params`` tree of any family but audio
+    (leaves as numpy arrays, per-layer leaves stacked on a leading L dim,
+    quantized leaves as ``{"q8"|"q4", "qs"}`` dicts) as the port's
+    quantized model on ``device`` (the card by default), leaf for leaf
+    (``lm.jax_leaf``)."""
     device = resolve_device(device)
-    out = DenseLM(cfg, device="meta")
+    out = empty_model(cfg, device="meta")
     for mod, name, full, p in _leaves(out):
-        parts = full.split(".")
-        node, i = tree, None
-        if parts[0] == "layers":
-            node, i, parts = tree["blocks"], int(parts[1]), parts[2:]
-        for key in parts:
-            node = node[key]
+        node, i = jax_leaf(tree, full)
         pick = (lambda a: np.asarray(a)) if i is None else \
             (lambda a: np.asarray(a)[i])
         if isinstance(node, dict):
@@ -145,7 +153,7 @@ def qparams_from_jax(tree: Dict, cfg: ModelConfig, device="cuda") -> DenseLM:
                                  f"!= {tuple(want)}")
             _put(mod, name, QWeight(q.to(device), qs.to(device), int4))
         else:
-            value = _from_numpy(pick(node), cfg.torch_dtype())
+            value = _from_numpy(pick(node), p.dtype)
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{full}: shape {tuple(value.shape)} != "
                                  f"{tuple(p.shape)}")
@@ -289,7 +297,7 @@ def paged_decode_attention_block_q(p, cfg: ModelConfig, x: torch.Tensor,
 # quantized decode steps (mirror lm_decode / lm_decode_paged)
 # ---------------------------------------------------------------------------
 
-def embed_tokens_q(model: DenseLM, cfg: ModelConfig,
+def embed_tokens_q(model: nn.Module, cfg: ModelConfig,
                    tokens: torch.Tensor) -> torch.Tensor:
     """The tokens' embedding rows, each dequantized on its own."""
     e = model.embed
@@ -332,13 +340,20 @@ def mlp_block_q(p: nn.Module, cfg: ModelConfig, x: torch.Tensor,
 def _decode_q(model: DenseLM, cfg: ModelConfig, x: torch.Tensor, kv,
               attend, mlp_impl) -> torch.Tensor:
     """The layer loop of both quantized decode steps: ``kv(i)`` is layer
-    i's cache leaves, ``attend(p, xin, leaves)`` its attention."""
+    i's cache leaves, ``attend(p, xin, leaves)`` its attention.  A dense
+    layer's MLP (DeepSeek's first block included) goes through
+    ``mlp_block_q``; a MoE layer's block runs on its dequantized weights,
+    as in the JAX package."""
     dt = cfg.torch_dtype()
-    for i, blk in enumerate(model.layers):
+    for i, blk in enumerate(blocks(model)):
         xin = rms_norm(x, blk.ln1, cfg.norm_eps)
         h = x + attend(dequant_params(blk.attn, dt), xin, kv(i))[0]
-        x = h + mlp_block_q(blk.mlp, cfg, rms_norm(h, blk.ln2, cfg.norm_eps),
-                            mm=mlp_impl)
+        hin = rms_norm(h, blk.ln2, cfg.norm_eps)
+        moe = getattr(blk, "moe", None)
+        if moe is not None:
+            x = h + moe_block(dequant_params(moe, dt), cfg, hin)[0]
+        else:
+            x = h + mlp_block_q(blk.mlp, cfg, hin, mm=mlp_impl)
     return lm_logits_q(model, cfg, x)[:, 0]
 
 
@@ -348,15 +363,16 @@ def _kv_keys(kv_q: bool):
 
 def lm_decode_q(model: DenseLM, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor, lengths: torch.Tensor, *,
-                attn_impl=None, mlp_impl=None, kv_q: bool = False
-                ) -> Tuple[torch.Tensor, Cache]:
+                embed_scale=None, attn_impl=None, mlp_impl=None,
+                kv_q: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Quantized twin of ``lm.lm_decode``: ``model`` is the quantized
     model (or a float one, for an int8-KV-only engine); each layer's
     attention weights dequantize inside the loop.  With ``kv_q`` the
     cache is the 4-leaf int8 layout of ``quantize_cache`` and
     ``attn_impl`` gets the contiguous signature over the dequantized
-    float32 cache.  The cache is updated in place."""
-    x = embed_tokens_q(model, cfg, tokens)
+    float32 cache.  The cache is updated in place.  ``embed_scale``:
+    the vlm family's, as in ``lm.lm_decode``."""
+    x = scale_embed(embed_tokens_q(model, cfg, tokens), embed_scale)
     block = decode_attention_block_q if kv_q else decode_attention_block
 
     def attend(p, xin, leaves):
@@ -369,14 +385,14 @@ def lm_decode_q(model: DenseLM, cfg: ModelConfig, cache: Cache,
 
 def lm_decode_paged_q(model: DenseLM, cfg: ModelConfig, pool: Cache,
                       tables: torch.Tensor, tokens: torch.Tensor,
-                      lengths: torch.Tensor, *, attn_impl=None,
-                      mlp_impl=None, kv_q: bool = False
+                      lengths: torch.Tensor, *, embed_scale=None,
+                      attn_impl=None, mlp_impl=None, kv_q: bool = False
                       ) -> Tuple[torch.Tensor, Cache]:
     """Quantized twin of ``lm.lm_decode_paged``.  With ``kv_q`` the pool
     is the 4-leaf int8 layout and ``attn_impl`` is the int8 block-table
     kernel (raw pool and scales, dequantized inside).  The pool is
     updated in place."""
-    x = embed_tokens_q(model, cfg, tokens)
+    x = scale_embed(embed_tokens_q(model, cfg, tokens), embed_scale)
     block = (paged_decode_attention_block_q if kv_q
              else paged_decode_attention_block)
 

@@ -30,7 +30,7 @@ tokens or a multiple of 128, and longer ones go through
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +40,7 @@ from torch import nn
 from repro_torch.core.executor import resolve_device
 
 from .common import ModelConfig, dense_init, rms_norm
-from .lm import (NEG_INF, _from_numpy, _param, embed_tokens, lm_logits,
-                 padded_vocab)
+from .lm import NEG_INF, _param, embed_tokens, lm_logits, padded_vocab
 
 Cache = Dict[str, torch.Tensor]
 
@@ -75,7 +74,7 @@ class SSMLM(nn.Module):
     """The pure-SSM LM's parameters: embedding (V_pad, D), one MambaBlock
     per layer, final norm and (untied) head (D, V_pad).  Built empty on
     ``device`` (the card by default; raises without one — pass ``"cpu"``
-    for the CPU); ``init_ssm_lm`` or ``ssm_params_from_jax`` fills it."""
+    for the CPU); ``init_ssm_lm`` or ``registry.params_from_jax`` fills it."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -134,38 +133,6 @@ def init_ssm_lm(gen: torch.Generator, cfg: ModelConfig) -> SSMLM:
         if not cfg.tie_embeddings:
             model.lm_head.copy_(dense_init(gen, model.lm_head.shape, 0.02,
                                            dtype))
-    return model
-
-
-def put_leaf(param: nn.Parameter, value: Any) -> None:
-    """Copy one numpy leaf of a JAX tree into ``param`` (shapes must
-    match)."""
-    value = _from_numpy(value, param.dtype)
-    if tuple(value.shape) != tuple(param.shape):
-        raise ValueError(f"shape {tuple(value.shape)} != "
-                         f"{tuple(param.shape)}")
-    param.copy_(value)
-
-
-def put_mamba_layers(model: nn.Module, blocks: Dict[str, Any]) -> None:
-    """The JAX tree's stacked ``blocks`` (leaves (L, …)) into the model's
-    MambaBlocks, leaf for leaf."""
-    for i, blk in enumerate(model.layers):
-        for name, param in blk.named_parameters():
-            put_leaf(param, blocks[name][i])
-
-
-def ssm_params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                        device="cuda") -> SSMLM:
-    """The JAX ``init_ssm_lm`` tree (leaves as numpy arrays) as the port's
-    ``SSMLM`` on ``device`` (the card by default), leaf for leaf."""
-    model = SSMLM(cfg, device)
-    with torch.no_grad():
-        put_leaf(model.embed, tree["embed"])
-        put_leaf(model.final_norm, tree["final_norm"])
-        if not cfg.tie_embeddings:
-            put_leaf(model.lm_head, tree["lm_head"])
-        put_mamba_layers(model, tree["blocks"])
     return model
 
 

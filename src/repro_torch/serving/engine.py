@@ -48,11 +48,16 @@ docs/PREEMPTION.md):
     (FIFO / priority-with-aging / EDF / per-tenant WFQ) picks which
     queued request takes a free slot.  Policies reorder the Python
     queue only.
-  * **bucketed prefill** — prompt lengths are quantized to power-of-two
-    buckets (``BucketTable``): the prompt is right-padded to its
-    bucket.  Decode masks the cache by per-slot length and the first
-    decode steps overwrite the padded rows, so decoded tokens are
-    identical to the exact-length path.
+  * **bucketed prefill** (dense, vlm, moe) — prompt lengths are
+    quantized to power-of-two buckets (``BucketTable``): the prompt is
+    right-padded to its bucket.  Decode masks the cache by per-slot
+    length and the first decode steps overwrite the padded rows, so
+    decoded tokens are those of the exact-length path (bit for bit where
+    a matmul's rounding does not depend on its row count, as on the CPU;
+    in bf16 on the card the padded shapes may round otherwise); a moe prefill
+    also carries the true length and its expert capacity as int32
+    tensors in static buffers (``lm.moe_dispatch``'s masked mode), so the
+    routing is the true length's and one program serves a bucket.
   * **preemption** (``preempt=``) — when every slot is busy and the
     queue holds a tighter request, a ``PreemptionPolicy`` picks a
     running victim; its KV rows and (length, next token, budget) are
@@ -70,21 +75,29 @@ docs/PREEMPTION.md):
     preempted slot's checkpoint carries its block ids, not its KV.
   * **quantized serving** (``weight_dtype=``, ``kv_dtype=``) — int8 or
     packed-int4 weights, quantized once at construction (the resident
-    model is the quantized one), and/or an int8 KV cache with one
-    float32 scale per head vector, contiguous or paged; prefill and
-    decode resolve ``SERVING_PREFILL_Q`` / ``SERVING_DECODE_Q``.  Not
-    with ``prefill_chunk`` (the chunk steps write float KV rows).
+    model is the quantized one; every family but audio), and/or an int8
+    KV cache with one float32 scale per head vector, contiguous or paged
+    (dense, moe, vlm); prefill and decode resolve ``SERVING_PREFILL_Q``
+    / ``SERVING_DECODE_Q``.  Not with ``prefill_chunk`` (the chunk steps
+    write float KV rows).
   * **recurrent families** (ssm: Mamba-2, hybrid: Zamba2) — the slot
     cache is the conv window and SSD state (plus hybrid's shared-attention
     KV), batch on axis 1, written in place by the decode step; prefill is
     exact-length (no buckets), and ``prefill_chunk=`` carries the state
     from chunk to chunk through ``SERVING_PREFILL_CHUNK_STATE``, the first
     chunk seeded from an empty cache.  The ``"cuda"`` prefill ops run the
-    SSD scan on K8.  Not paged, and not quantized yet.
+    SSD scan on K8.  Not paged; quantized weight-only.
+  * **vlm and audio** — a request's ``extras`` (PaliGemma's ``vision``
+    patch embeddings, Whisper's ``frames``) go to its prefill through
+    static buffers.  The vision prefix takes the first cache positions
+    of the slot (its ``room`` is left out of the buckets and the
+    chunks); Whisper's cache carries the cross K/V its prefill staged,
+    so a checkpoint restores it with the rings.
 
-Mesh sharding and the overlapped decode loop are refused at
-construction with ``NotImplementedError`` naming the ROADMAP slice that
-brings each.
+The JAX engine's families refuse the same fast paths here, with the
+same ``UnsupportedFamilyError``.  Mesh sharding and the overlapped
+decode loop are refused at construction with ``NotImplementedError``
+naming the ROADMAP slice that brings each.
 """
 
 from __future__ import annotations
@@ -111,7 +124,7 @@ from repro_torch.models.registry import ModelBundle
 from . import ops as serving_ops  # registers tag="reference" serving ops
 from .errors import UnsupportedFamilyError
 from .ops import (CHUNKED_FAMILIES, KV_QUANT_FAMILIES, PAGED_FAMILIES,
-                  RECURRENT_FAMILIES)
+                  RECURRENT_FAMILIES, WEIGHT_QUANT_FAMILIES)
 from .scheduling import (PreemptionPolicy, SchedulingPolicy, get_policy,
                          get_preemption)
 
@@ -124,16 +137,14 @@ PREFILL_PROGRAMS = 16
 
 # BUCKETED: decode masks the KV cache by per-slot length, so
 # right-padded (bucketed) prefill gives the tokens of exact-length
-# prefill.  The JAX engine also buckets vlm and moe, which the port
-# does not have yet.
-BUCKETED_FAMILIES = ("dense",)
+# prefill; moe qualifies through the capacity-stable masked dispatch.
+# Not ssm/hybrid: their state integrates every position, padded or not.
+BUCKETED_FAMILIES = ("dense", "vlm", "moe")
 
 # engine options of the JAX engine that later slices of the port bring
 _NOT_PORTED = {
     "mesh": "mesh-sharded serving, ROADMAP queue 1, slice 8, item 15",
     "overlap": "overlapped decode, ROADMAP queue 1, slice 6, item 13",
-    "quantized_recurrent": "quantized ssm and hybrid serving, ROADMAP "
-                           "queue 1, slice 5, item 12",
 }
 
 
@@ -156,6 +167,7 @@ class Request:
     deadline_us: Optional[int] = None   # absolute host time, EDF key
     arrival_us: Optional[int] = None    # stamped at submit()
     tenant: str = ""                    # WFQ quota label
+    extras: Optional[Dict[str, np.ndarray]] = None   # vision / frames
 
 
 @dataclasses.dataclass
@@ -244,7 +256,7 @@ class ServingEngine:
     """One model, ``max_slots`` concurrent sequences, on ``device``
     (``"cuda"`` by default; raises without a card — pass ``"cpu"`` for
     the plain reference path on the CPU).  ``params`` is the model
-    module from ``bundle.init`` or ``lm.params_from_jax``, on that
+    module from ``bundle.init`` or ``models.params_from_jax``, on that
     device.
 
     ``prefill_chunk``: None/False/0 = off, True = the bucket table's
@@ -308,6 +320,11 @@ class ServingEngine:
                     self.cfg.family, "bucketed prefill",
                     supported=BUCKETED_FAMILIES)
             self.bucket_table = prefill_buckets
+        # capacity-stable MoE bucketing: every prefill of a bucketed moe
+        # engine carries the true length and its capacity (static int32
+        # buffers, so a bucket stays one program)
+        self._moe_masked = (self.cfg.family == "moe"
+                            and self.bucket_table is not None)
         self.chunk_tokens = 0
         self._recurrent_chunk = False
         if prefill_chunk:
@@ -337,16 +354,15 @@ class ServingEngine:
                 raise ValueError(
                     f"kv_dtype must be one of {lm_quant.KV_DTYPES} or None, "
                     f"got {kv_dtype!r}")
+            if self.cfg.family not in WEIGHT_QUANT_FAMILIES:
+                raise UnsupportedFamilyError(
+                    self.cfg.family, "quantized serving (SERVING_*_Q)",
+                    supported=WEIGHT_QUANT_FAMILIES)
             if kv_dtype and self.cfg.family not in KV_QUANT_FAMILIES:
                 raise UnsupportedFamilyError(
                     self.cfg.family, "int8 KV cache (requires a dense "
                                      "(KH, C, dh) cache layout)",
                     supported=KV_QUANT_FAMILIES)
-            if self.cfg.family in RECURRENT_FAMILIES:
-                raise NotImplementedError(
-                    f"weight_dtype={weight_dtype!r}: "
-                    f"{_NOT_PORTED['quantized_recurrent']} is not in the "
-                    f"PyTorch port yet")
             if self.chunk_tokens:
                 raise ValueError(
                     "prefill_chunk does not compose with quantized "
@@ -460,6 +476,14 @@ class ServingEngine:
         # into and out of
         self._prefill_tokens = torch.zeros((1, cache_len), dtype=torch.int64,
                                            device=self.device)
+        # a request's extras, each in a static buffer per (name, shape,
+        # dtype); a bucketed moe prefill's true length and capacity
+        self._extras: Dict[Any, torch.Tensor] = {}
+        if self._moe_masked:
+            self._n_valid = torch.zeros((), dtype=torch.int32,
+                                        device=self.device)
+            self._moe_cap = torch.zeros((), dtype=torch.int32,
+                                        device=self.device)
         if self.chunk_tokens:
             self._chunk_tokens = torch.zeros((1, self.chunk_tokens),
                                              dtype=torch.int64,
@@ -516,12 +540,16 @@ class ServingEngine:
             raise RuntimeError("a step returned a new cache or pool instead "
                                "of updating the bound one in place")
 
-    def _run_prefill(self, prompt: np.ndarray):
+    def _run_prefill(self, prompt: np.ndarray, extras=None,
+                     true_len: Optional[int] = None):
         """One prefill of ``prompt`` (host tokens) through the program of
         its length, the tokens written into the first ``len(prompt)`` of
         the static token buffer (grown, and the prefill programs
-        dropped, for a prompt longer than the cache).  The returned cache
-        is valid until the next prefill."""
+        dropped, for a prompt longer than the cache), a request's
+        ``extras`` into their static buffers, and on a bucketed moe
+        engine the true length ``true_len`` (by default the prompt's)
+        and its expert capacity into theirs.
+        The returned cache is valid until the next prefill."""
         s = len(prompt)
         if s > self._prefill_tokens.shape[1]:
             self._prefill.clear()
@@ -529,7 +557,22 @@ class ServingEngine:
                 (1, s), dtype=torch.int64, device=self.device)
         toks = self._prefill_tokens[:, :s]
         toks.copy_(torch.from_numpy(prompt[None].astype(np.int64)))
-        return self._prefill((self.params, {"tokens": toks}))
+        batch = {"tokens": toks}
+        if self._moe_masked:
+            true_len = s if true_len is None else true_len
+            self._n_valid.fill_(true_len)
+            self._moe_cap.fill_(lm.moe_capacity(self.cfg, true_len))
+            batch["n_valid"], batch["moe_cap"] = self._n_valid, self._moe_cap
+        for name, value in (extras or {}).items():
+            value = torch.from_numpy(np.asarray(value)[None])
+            key = (name, tuple(value.shape), value.dtype)
+            if key not in self._extras:
+                self._extras[key] = torch.empty(value.shape,
+                                                dtype=value.dtype,
+                                                device=self.device)
+            batch[name] = self._extras[key]
+            batch[name].copy_(value)
+        return self._prefill((self.params, batch))
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -579,12 +622,16 @@ class ServingEngine:
         the cache stay at exact length (the ring-wrap case)."""
         s = len(tokens)
         padded = self.bucket_table.fit(s)
-        if padded is None or padded > self.cache_len:
+        if padded is None or padded > self.cache_len - self._vis():
             return tokens                   # over-cap: exact length
         self.bucket_table.bucket(s)         # committed: count the hit
         if padded == s:
             return tokens
         return np.concatenate([tokens, np.zeros(padded - s, tokens.dtype)])
+
+    def _vis(self) -> int:
+        """Cache positions the vision prefix takes (vlm only)."""
+        return self.cfg.n_vision_tokens if self.cfg.family == "vlm" else 0
 
     # -- paged KV: block accounting --------------------------------------
 
@@ -593,8 +640,8 @@ class ServingEngine:
         least the one row activation maps), capped at the ring capacity.
         Reserved (not mapped) at admission so on-demand growth can never
         fail mid-decode."""
-        rows = min(len(req.tokens) - 1 + max(req.max_new_tokens, 1),
-                   self.cache_len)
+        rows = min(self._vis() + len(req.tokens) - 1
+                   + max(req.max_new_tokens, 1), self.cache_len)
         return max(1, -(-rows // self.kv_block))
 
     def _paged_admissible(self, req: Request) -> bool:
@@ -663,7 +710,8 @@ class ServingEngine:
         """Hand a prefilled (or restored) request to the decode loop:
         write its cache rows and the slot bookkeeping the decode step
         reads.  The keyword overrides are the restore path."""
-        last_pos = len(req.tokens) - 1 if length is None else length
+        last_pos = (len(req.tokens) - 1 + self._vis() if length is None
+                    else length)
         tok = int(req.tokens[-1]) if cur_token is None else cur_token
         if self.paged:
             # cover everything written so far PLUS the position the next
@@ -694,7 +742,8 @@ class ServingEngine:
             prompt = np.asarray(req.tokens[:-1])
             if self.bucket_table is not None:
                 prompt = self._padded_prompt(prompt)
-            _, cache1 = self._run_prefill(prompt)
+            _, cache1 = self._run_prefill(prompt, req.extras,
+                                          len(req.tokens) - 1)
             self.last_step["prefill_tokens"].append(len(prompt))
             self.policy.charge(req.tenant, 1.0)
         else:   # single-token prompt: the slot starts from a fresh cache
@@ -719,7 +768,8 @@ class ServingEngine:
         m = len(req.tokens) - 1
         if m <= self.chunk_tokens:
             return False
-        return -(-m // self.chunk_tokens) * self.chunk_tokens <= self.cache_len
+        return (self._vis() + -(-m // self.chunk_tokens) * self.chunk_tokens
+                <= self.cache_len)
 
     def _start_chunked(self, req: Request, slot: int) -> None:
         """Admit a long prompt into a slot in PREFILLING state: run the
@@ -738,13 +788,13 @@ class ServingEngine:
             return
         t0 = time.perf_counter()
         first = np.asarray(req.tokens[:self.chunk_tokens])
-        _, cache1 = self._run_prefill(first)
+        _, cache1 = self._run_prefill(first, req.extras)
         self.last_step["prefill_tokens"].append(len(first))
         self.policy.charge(req.tenant, 1.0)
         if self.paged:
             # page the first chunk in now; later chunks write the pool
             # directly through the paged chunk op
-            self._ensure_blocks(slot, min(len(first) - 1,
+            self._ensure_blocks(slot, min(self._vis() + len(first) - 1,
                                           self.cache_len - 1))
             self._scatter_slot_cache(slot, cache1)
             cache1 = None
@@ -775,7 +825,7 @@ class ServingEngine:
         if real < self.chunk_tokens:
             tok = np.concatenate(
                 [tok, np.zeros(self.chunk_tokens - real, tok.dtype)])
-        start = cs.done
+        start = cs.done + self._vis()
         lm.check_chunk_fits(start, self.chunk_tokens, self.cache_len)
         self._chunk_tokens.copy_(torch.from_numpy(tok[None].astype(np.int64)))
         self._chunk_start.fill_(start)

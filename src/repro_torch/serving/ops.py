@@ -31,11 +31,9 @@ serving analogue of the paper's reference kernels.  The kernel library
 attention (and quantized MLP) run on the kernels; ``ServingEngine``
 resolves through the tag priority chain (``("cuda", "reference")``), so
 a kernel shadows the reference per op — the ``TAGS="cmsis-nn"`` build
-mechanism at pod scale (§4.7–4.8).  The dense, ssm and hybrid families
-are ported; the KV-offset chunk and the paged ops take the dense family
-only and refuse the others with ``UnsupportedFamilyError`` where the
-JAX package refuses them (ssm, hybrid) or the port lacks them (vlm,
-moe).
+mechanism at pod scale (§4.7–4.8).  Every family is served; each op
+refuses, with ``UnsupportedFamilyError``, exactly the families the JAX
+package's refuses.
 
 The contract mirrors the micro C-API: ``prepare(ctx, op)`` runs once at
 engine init (it may inspect the model family and bake decisions into
@@ -44,7 +42,8 @@ engine init (it may inspect the model family and bake decisions into
 
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Optional
 
 from repro_torch.core.op_resolver import PrepareResult, register_op
 from repro_torch.core.schema import OpCode
@@ -52,14 +51,20 @@ from repro_torch.models import hybrid, lm, lm_quant, ssm
 
 from .errors import UnsupportedFamilyError
 
-# families each fast path supports (the engine mirrors these).  The JAX
-# package also chunks vlm and pages vlm and moe, which the port does not
-# have yet.  CHUNKED: dense through the KV-offset chunk op, ssm/hybrid
-# through the recurrent-state one; PAGED needs the dense (KH, C, dh) ring.
-CHUNKED_FAMILIES = ("dense", "ssm", "hybrid")
+# families each fast path supports (the engine mirrors these), the JAX
+# package's.  CHUNKED: dense/vlm through the KV-offset chunk op, ssm/
+# hybrid through the recurrent-state one; not moe, whose expert capacity
+# depends on the tokens integrated so far.  PAGED and the int8 KV cache
+# need the dense (KH, C, dh) ring.  Weight quantization takes every
+# family but audio.
+CHUNKED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 RECURRENT_FAMILIES = ("ssm", "hybrid")
-PAGED_FAMILIES = ("dense",)
-KV_QUANT_FAMILIES = ("dense",)
+PAGED_FAMILIES = ("dense", "moe", "vlm")
+KV_QUANT_FAMILIES = ("dense", "moe", "vlm")
+WEIGHT_QUANT_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+# the families whose KV-offset chunks are token-identical to one-shot
+# prefill (the chunk ops' gate)
+KV_CHUNK_FAMILIES = ("dense", "vlm")
 
 
 class ServingContext:
@@ -105,13 +110,15 @@ class RefServingDecode:
                                  window=op.params.get("window"))
 
 
-def _dense_only(cfg, feature: str) -> None:
-    """The family gate of the KV-offset chunk and the paged ops: a dense
-    (KH, C, dh) ring cache (the JAX package also chunks vlm and pages vlm
-    and moe, which come with a later slice)."""
-    if cfg.family != "dense":
+def family_gate(cfg, feature: str, supported) -> Optional[float]:
+    """The prepare() gate of an op serving ``supported`` families only:
+    raises ``UnsupportedFamilyError`` for the others, and returns the
+    token-embedding scale the family's LM steps take: Gemma's
+    sqrt(d_model) for vlm, else None."""
+    if cfg.family not in supported:
         raise UnsupportedFamilyError(cfg.family, feature,
-                                     supported=("dense",))
+                                     supported=supported)
+    return math.sqrt(cfg.d_model) if cfg.family == "vlm" else None
 
 
 PAGED_FEATURE = "paged KV (requires a dense (KH, C, dh) cache layout)"
@@ -123,19 +130,24 @@ class RefServingPrefillChunk:
     offset through ``lm_prefill_chunk``, updating the request's batch=1
     cache in place (no logits: the engine hands the last prompt token to
     decode).  The offset is an int32 scalar tensor, passed through, so
-    one captured program serves every chunk."""
+    one captured program serves every chunk.  dense and vlm (its
+    embedding scale baked at prepare; the first chunk, through the
+    ordinary prefill, carried the vision prefix); moe cannot chunk
+    (expert capacity depends on the tokens integrated so far) and the
+    recurrent families chunk through SERVING_PREFILL_CHUNK_STATE."""
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
-        _dense_only(ctx.bundle.cfg,
-                    "KV-offset chunked prefill (SERVING_PREFILL_CHUNK)")
-        return PrepareResult(output_specs=[])
+        scale = family_gate(ctx.bundle.cfg, "KV-offset chunked prefill "
+                            "(SERVING_PREFILL_CHUNK)", KV_CHUNK_FAMILIES)
+        return PrepareResult(output_specs=[], op_data={"scale": scale})
 
     @staticmethod
     def eval(ctx: ServingContext, op, inputs):
         params, cache, tokens, start = inputs
         return lm.lm_prefill_chunk(params, ctx.bundle.cfg, cache, tokens,
-                                   start, window=op.params.get("window"))
+                                   start, window=op.params.get("window"),
+                                   embed_scale=ctx.op_data["scale"])
 
 
 @register_op(OpCode.SERVING_DECODE_PAGED, tag="reference")
@@ -143,18 +155,20 @@ class RefServingDecodePaged:
     """Reference paged decode macro-kernel: one fused step over the
     shared block pool through ``lm_decode_paged``, whose attention
     gathers each slot's blocks back to a contiguous view and runs the
-    contiguous reference math — the oracle for the cuda-tagged twin."""
+    contiguous reference math — the oracle for the cuda-tagged twin.
+    dense, moe and vlm (its embedding scale baked at prepare)."""
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
-        _dense_only(ctx.bundle.cfg, PAGED_FEATURE)
-        return PrepareResult(output_specs=[])
+        scale = family_gate(ctx.bundle.cfg, PAGED_FEATURE, PAGED_FAMILIES)
+        return PrepareResult(output_specs=[], op_data={"scale": scale})
 
     @staticmethod
     def eval(ctx: ServingContext, op, inputs):
         params, pool, tables, tokens, lengths = inputs
         return lm.lm_decode_paged(params, ctx.bundle.cfg, pool, tables,
-                                  tokens, lengths)
+                                  tokens, lengths,
+                                  embed_scale=ctx.op_data["scale"])
 
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK_PAGED, tag="reference")
@@ -162,20 +176,24 @@ class RefServingPrefillChunkPaged:
     """Reference paged chunked-prefill macro-kernel: one prompt chunk of
     ONE slot straight into the pool through ``lm_prefill_chunk_paged``,
     token-identical to the contiguous chunked path; the table row and
-    the int32 start offset are device tensors, passed through."""
+    the int32 start offset are device tensors, passed through.  The
+    contiguous chunk op's families (moe's cache pages, but its routing
+    cannot chunk)."""
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
-        _dense_only(ctx.bundle.cfg,
-                    "paged chunked prefill (SERVING_PREFILL_CHUNK_PAGED)")
-        return PrepareResult(output_specs=[])
+        scale = family_gate(ctx.bundle.cfg, "paged chunked prefill "
+                            "(SERVING_PREFILL_CHUNK_PAGED)",
+                            KV_CHUNK_FAMILIES)
+        return PrepareResult(output_specs=[], op_data={"scale": scale})
 
     @staticmethod
     def eval(ctx: ServingContext, op, inputs):
         params, pool, table_row, tokens, start = inputs
         return lm.lm_prefill_chunk_paged(params, ctx.bundle.cfg, pool,
                                          table_row, tokens, start,
-                                         window=op.params.get("window"))
+                                         window=op.params.get("window"),
+                                         embed_scale=ctx.op_data["scale"])
 
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK_STATE, tag="reference")
@@ -225,13 +243,22 @@ def prefill_chunk_state(ctx: ServingContext, op, inputs, ssd_impl=None):
 # ---------------------------------------------------------------------------
 
 def _quant_family_gate(cfg, op) -> dict:
-    """The prepare() gate of the quantized serving ops: refuses the
-    families the port does not quantize (all but dense; the JAX package
-    also quantizes moe, vlm, ssm and hybrid) and bakes the layout into
-    op_data."""
-    _dense_only(cfg, "quantized serving (SERVING_*_Q)")
-    return {"kv_q": bool(op.params.get("kv_q")),
-            "paged": bool(op.params.get("paged")),
+    """The prepare() gate of the quantized serving ops: refuses audio,
+    an int8 KV cache without a (KH, C, dh) ring and paging where the
+    float paged ops refuse it, and bakes the layout into op_data:
+    ``lm_path`` (dense, moe, vlm: the quantized LM steps) or not (ssm,
+    hybrid: the float steps over the dequantized model), and the vlm
+    embedding scale."""
+    kv_q, paged = bool(op.params.get("kv_q")), bool(op.params.get("paged"))
+    scale = family_gate(cfg, "quantized serving (SERVING_*_Q)",
+                        WEIGHT_QUANT_FAMILIES)
+    if kv_q:
+        family_gate(cfg, "int8 KV cache (requires a dense (KH, C, dh) "
+                         "cache layout)", KV_QUANT_FAMILIES)
+    if paged:
+        family_gate(cfg, PAGED_FEATURE, PAGED_FAMILIES)
+    return {"kv_q": kv_q, "paged": paged, "scale": scale,
+            "lm_path": cfg.family in KV_QUANT_FAMILIES,
             "weight_dtype": op.params.get("weight_dtype")}
 
 
@@ -250,14 +277,21 @@ class RefServingPrefillQ:
 
     @staticmethod
     def eval(ctx: ServingContext, op, inputs):
-        params, batch = inputs
-        fp = lm_quant.dequant_params(params, ctx.bundle.cfg.torch_dtype())
-        logits, cache = ctx.bundle.prefill(fp, batch,
-                                           cache_len=op.params["cache_len"],
-                                           window=op.params.get("window"))
-        if ctx.op_data["kv_q"]:
-            cache = lm_quant.quantize_cache(cache)
-        return logits, cache
+        return prefill_q(ctx, op, inputs)
+
+
+def prefill_q(ctx: ServingContext, op, inputs, **kw):
+    """The body of SERVING_PREFILL_Q; ``kw`` goes to the bundle's
+    prefill (the ``"cuda"`` op passes the recurrent families' scan
+    hook)."""
+    params, batch = inputs
+    fp = lm_quant.dequant_params(params, ctx.bundle.cfg.torch_dtype())
+    logits, cache = ctx.bundle.prefill(fp, batch,
+                                       cache_len=op.params["cache_len"],
+                                       window=op.params.get("window"), **kw)
+    if ctx.op_data["kv_q"]:
+        cache = lm_quant.quantize_cache(cache)
+    return logits, cache
 
 
 @register_op(OpCode.SERVING_DECODE_Q, tag="reference")
@@ -265,7 +299,9 @@ class RefServingDecodeQ:
     """Reference quantized decode: one step over the quantized model
     through ``lm_decode_q`` or, paged, ``lm_decode_paged_q`` (each
     layer's weights dequantized inside the loop), contiguous or paged
-    and with or without the int8 KV cache as op_data says."""
+    and with or without the int8 KV cache as op_data says; the recurrent
+    families (weight-only) run the bundle's float decode over
+    ``dequant_params``."""
 
     @staticmethod
     def prepare(ctx: ServingContext, op) -> PrepareResult:
@@ -274,11 +310,26 @@ class RefServingDecodeQ:
 
     @staticmethod
     def eval(ctx: ServingContext, op, inputs):
-        cfg, kv_q = ctx.bundle.cfg, ctx.op_data["kv_q"]
-        if ctx.op_data["paged"]:
-            params, pool, tables, tokens, lengths = inputs
-            return lm_quant.lm_decode_paged_q(params, cfg, pool, tables,
-                                              tokens, lengths, kv_q=kv_q)
-        params, cache, tokens, lengths = inputs
+        return decode_q(ctx, op, inputs)
+
+
+def decode_q(ctx: ServingContext, op, inputs, attn_impl=None,
+             mlp_impl=None):
+    """The body of SERVING_DECODE_Q with the kernel hooks (None: the
+    plain math): ``attn_impl`` the attention of the step's layout,
+    ``mlp_impl`` the dequant matmul."""
+    cfg, od = ctx.bundle.cfg, ctx.op_data
+    if od["paged"]:
+        params, pool, tables, tokens, lengths = inputs
+        return lm_quant.lm_decode_paged_q(
+            params, cfg, pool, tables, tokens, lengths,
+            embed_scale=od["scale"], kv_q=od["kv_q"], attn_impl=attn_impl,
+            mlp_impl=mlp_impl)
+    params, cache, tokens, lengths = inputs
+    if od["lm_path"]:
         return lm_quant.lm_decode_q(params, cfg, cache, tokens, lengths,
-                                    kv_q=kv_q)
+                                    embed_scale=od["scale"], kv_q=od["kv_q"],
+                                    attn_impl=attn_impl, mlp_impl=mlp_impl)
+    fp = lm_quant.dequant_params(params, cfg.torch_dtype())
+    return ctx.bundle.decode(fp, cache, tokens, lengths,
+                             window=op.params.get("window"))

@@ -6,6 +6,9 @@ the JAX engine under both tag chains; then the port's own identities
 keeps its decode row on the garbage block) and the argument guards.
 Inputs come from numpy seeds; each check states its tolerance."""
 
+import dataclasses
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,19 +16,25 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import repro.kernels  # noqa: F401  (registers the "pallas" tag)
 from repro.configs import get_config as jax_get_config
+from repro.core.op_resolver import MicroMutableOpResolver as JaxResolver
+from repro.core.schema import OpDef as JaxOpDef
 from repro.kernels.decode_attention import (decode_attention_pallas,
                                             paged_decode_attention_pallas)
 from repro.models import get_model as jax_get_model
 from repro.models import lm as jax_lm
+from repro.models.common import ModelConfig as JaxModelConfig
 from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxServingEngine
+from repro.serving import UnsupportedFamilyError as JaxUnsupportedFamilyError
+from repro.serving import ops as jax_serving_ops
 
 import repro_torch.kernels  # noqa: F401  (registers the "cuda" tag)
 from repro_torch.configs import get_config
 from repro_torch.core.op_resolver import MicroMutableOpResolver
 from repro_torch.core.schema import OpCode, OpDef
-from repro_torch.models import get_model, lm
+from repro_torch.models import get_model, lm, params_from_jax
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import ModelBundle
 from repro_torch.serving import (Request, ServingEngine,
@@ -85,7 +94,7 @@ def models():
         jcfg = jax_get_config(arch, reduced=True)
         params = jax_lm.init_lm(jax.random.PRNGKey(0), jcfg)
         cfg = get_config(arch, reduced=True)
-        out[arch] = (jcfg, params, cfg, lm.params_from_jax(
+        out[arch] = (jcfg, params, cfg, params_from_jax(
             jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 
@@ -353,15 +362,35 @@ def test_prefill_chunk_argument_validation(models):
     ("cuda", OpCode.SERVING_DECODE_PAGED)])
 @pytest.mark.parametrize("family", ["vlm", "moe"])
 def test_chunk_and_paged_ops_refuse_other_families(tag, code, family):
-    """The chunk and paged ops are dense-only in the port; vlm and moe
-    are refused at prepare with ``UnsupportedFamilyError``, as
-    ``get_model`` refuses them."""
+    """The chunk and paged ops take vlm and moe exactly where the JAX
+    package's (reference, or Pallas for ``"cuda"``) take them: both page
+    vlm and moe and chunk vlm; moe's chunks are refused at prepare with
+    ``UnsupportedFamilyError`` naming the same feature and supported
+    families."""
     cfg = ModelConfig(arch_id="x", family=family, n_layers=1, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=128, vocab=128)
     bundle = ModelBundle(cfg, None, None, None, None)
+    params = {"window": None, "kv_block": 16}
     reg = MicroMutableOpResolver((tag,)).add_many([code]).resolve(code)
     assert reg.tag == tag
-    with pytest.raises(UnsupportedFamilyError, match=family):
+    jtag = {"cuda": "pallas"}.get(tag, tag)
+    # the two packages number their opcodes alike
+    jcode = code
+    jreg = JaxResolver((jtag,)).add_many([jcode]).resolve(jcode)
+    assert jreg.tag == jtag
+    jctx = jax_serving_ops.ServingContext(
+        SimpleNamespace(cfg=JaxModelConfig(**dataclasses.asdict(cfg))))
+    try:
+        jreg.prepare(jctx, JaxOpDef(jcode, (), (), params=params))
+    except JaxUnsupportedFamilyError as jerr:
+        with pytest.raises(UnsupportedFamilyError, match=family) as err:
+            reg.prepare(serving_ops.ServingContext(bundle),
+                        OpDef(code, (), (), params=params))
+        assert (err.value.feature, err.value.supported) == \
+            (jerr.feature, jerr.supported)
+        assert (family, code) in {("moe", OpCode.SERVING_PREFILL_CHUNK),
+                                  ("moe",
+                                   OpCode.SERVING_PREFILL_CHUNK_PAGED)}
+    else:
         reg.prepare(serving_ops.ServingContext(bundle),
-                    OpDef(code, (), (), params={"window": None,
-                                                "kv_block": 16}))
+                    OpDef(code, (), (), params=params))

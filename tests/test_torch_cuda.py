@@ -1224,3 +1224,94 @@ def test_ragged_pool_on_card_bit_equal_and_memory_flat(cuda):
     assert capture_count(pool.program("fc")) == 1
     assert capture_count(pool.program("hw")) == 1
     assert pool.program("fc").captures == pool.program("hw").captures == 1
+
+
+# ---------------------------------------------------------------------------
+# the moe, vlm and audio families, and quantized recurrent serving
+# ---------------------------------------------------------------------------
+
+def test_moe_block_on_card_matches_cpu_and_repeats(cuda):
+    """DeepSeek-MoE-16B reduced (float32): the MoE block on the card
+    within 1e-5 of the CPU's largest output, and two calls bit-equal (the
+    combine gathers and sums in a fixed order, no atomics)."""
+    from repro_torch.models import lm
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    model = get_model(cfg).init(torch.Generator().manual_seed(0))
+    x = torch.randn(4, 33, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    moe = model.layers[0].moe
+    want, _ = lm.moe_block(moe, cfg, x)
+    moe.to(cuda)
+    got, _ = lm.moe_block(moe, cfg, x.to(cuda))
+    again, _ = lm.moe_block(moe, cfg, x.to(cuda))
+    assert torch.equal(got, again)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err <= 1e-5
+
+
+def _family_extras(cfg, uid):
+    rng = np.random.default_rng(100 + uid)
+    if cfg.family == "vlm":
+        return {"vision": rng.normal(0, 1, (cfg.n_vision_tokens,
+                                            cfg.d_vision)).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.normal(0, 1, (cfg.n_audio_ctx,
+                                            cfg.d_model)).astype(np.float32)}
+    return None
+
+
+# arch -> engine keywords; the kernel each decode step launches per layer
+FAMILY_CASES = {
+    "deepseek-moe-16b": [({}, "decode_attention"),
+                         ({"prefill_buckets": False, "kv_block": 8},
+                          "paged_decode_attention"),
+                         ({"weight_dtype": "int8", "kv_dtype": "int8",
+                           "kv_block": 8}, "paged_decode_attention_q")],
+    "qwen3-moe-30b-a3b": [({}, "decode_attention")],
+    "paligemma-3b": [({}, None), ({"prefill_chunk": 8}, None)],
+    "whisper-large-v3": [({}, None)],
+    "mamba2-780m": [({"weight_dtype": "int4"}, None)],
+}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CASES))
+def test_reduced_family_engines_on_card_match_cpu(cuda, arch):
+    """The moe, vlm and audio families and quantized Mamba-2 reduced
+    (float32): the engine on the card emits the CPU engine's greedy
+    tokens; moe's decode steps launch their attention kernel once per
+    layer, vlm's and Whisper's launch none (reference attention, as in
+    the JAX package), quantized Mamba-2's prefill runs its scan on K8."""
+    from repro_torch.kernels import _build
+    cfg = get_config(arch, reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab - 2, n).astype(np.int32)
+               for n in (21, 13, 30, 1, 9)]
+    cache_len = 64 + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    for kw, kernel in FAMILY_CASES[arch]:
+        outs = []
+        for dev in ("cpu", cuda):
+            before = dict(_build.launches)
+            eng = ServingEngine(bundle, model.to(dev), max_slots=2,
+                                cache_len=cache_len, device=dev, **kw)
+            for uid, p in enumerate(prompts):
+                eng.submit(Request(uid=uid, tokens=p, max_new_tokens=12,
+                                   extras=_family_extras(cfg, uid)))
+            steps = prefills = 0
+            while True:
+                more = eng.step()
+                steps += eng.last_step["decoded"]
+                prefills += len(eng.last_step["prefill_tokens"])
+                if not more:
+                    break
+            outs.append({u: r.output for u, r in eng.results.items()})
+        assert outs[0] == outs[1], kw
+        new = {k: n - before[k] for k, n in _build.launches.items()
+               if n != before[k]}
+        if kernel is not None:
+            assert new.get(kernel) == cfg.n_layers * steps, (kw, new)
+        elif cfg.family == "ssm":
+            assert new == {"ssd_scan": cfg.n_layers * prefills}, new
+        else:
+            assert new == {}, (kw, new)

@@ -44,7 +44,7 @@ from repro_torch.core import (AllOpsResolver, ArenaPool, MicroInterpreter,
                               MicroModel, capture_count, disable_capture,
                               export)
 from repro_torch.core.executor import BucketTable
-from repro_torch.models import get_model, lm, ssm
+from repro_torch.models import get_model, params_from_jax
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.engine import PREFILL_PROGRAMS
 
@@ -98,11 +98,9 @@ def models():
         jbundle = jax_get_model(jax_get_config(arch, reduced=True))
         params = jbundle.init(jax.random.PRNGKey(0))
         cfg = get_config(arch, reduced=True)
-        from_jax = (ssm.ssm_params_from_jax if cfg.family == "ssm"
-                    else lm.params_from_jax)
         out[arch] = (jbundle, params, get_model(cfg),
-                     from_jax(jax.tree.map(np.asarray, params), cfg,
-                              device="cpu"))
+                     params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                     device="cpu"))
     return out
 
 

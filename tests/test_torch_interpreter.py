@@ -390,7 +390,7 @@ def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
     from repro_torch.configs import get_config
     from repro_torch.core import (AllocationPlan, ArenaPool, TwoStackArena,
                                   plan_model)
-    from repro_torch.models import lm
+    from repro_torch.models import lm, params_from_jax
     cfg = get_config("yi-6b", reduced=True)
     # a JAX init_lm tree of zeros (per-layer leaves stacked on L): only
     # where it lands matters
@@ -410,8 +410,8 @@ def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
                 conv_model, resolver, TwoStackArena(1 << 20))),
         "ArenaPool": (ArenaPool, lambda: ArenaPool()),
         "DenseLM": (lm.DenseLM, lambda: lm.DenseLM(cfg).embed),
-        "params_from_jax": (lm.params_from_jax,
-                            lambda: lm.params_from_jax(tree, cfg).embed),
+        "params_from_jax": (params_from_jax,
+                            lambda: params_from_jax(tree, cfg).embed),
     }[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():

@@ -1,6 +1,6 @@
 """The dense LM of the port against the JAX package's, on the same
 weights (the JAX ``init_lm`` tree carried across by
-``lm.params_from_jax``) and the same numpy-seeded tokens, for the four
+``params_from_jax``) and the same numpy-seeded tokens, for the four
 dense architectures at their reduced (float32) widths: prefill logits
 and KV cache, four decode steps with the reference attention and with
 the decode-attention hook, the primitives, the configs and the seeded
@@ -25,8 +25,9 @@ from repro.models import lm as jax_lm
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import ops
-from repro_torch.models import common, get_model, lm
+from repro_torch.models import common, get_model, lm, params_from_jax
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.registry import FAMILIES
 from repro_torch.serving import UnsupportedFamilyError
 
 ARCHS = ["yi-6b", "phi3-mini-3.8b", "phi4-mini-3.8b", "qwen3-32b"]
@@ -75,7 +76,7 @@ def models():
         jcfg = jax_get_config(arch, reduced=True)
         params = jax_lm.init_lm(jax.random.PRNGKey(0), jcfg)
         cfg = get_config(arch, reduced=True)
-        out[arch] = (jcfg, params, cfg, lm.params_from_jax(
+        out[arch] = (jcfg, params, cfg, params_from_jax(
             jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 
@@ -92,8 +93,10 @@ def _close_cache(got, want):
                                    atol=CACHE_RTOL * np.abs(w).max())
 
 
-# the ported configs: the dense ones and the recurrent families' two
-CONFIG_ARCHS = ARCHS + ["mamba2-780m", "zamba2-1.2b"]
+# the ported configs: every architecture of the JAX package
+CONFIG_ARCHS = ARCHS + ["mamba2-780m", "zamba2-1.2b", "deepseek-moe-16b",
+                        "qwen3-moe-30b-a3b", "paligemma-3b",
+                        "whisper-large-v3"]
 
 
 @pytest.mark.parametrize("arch", CONFIG_ARCHS)
@@ -205,8 +208,13 @@ def test_init_lm_follows_the_jax_init_rules(arch):
 
 
 def test_get_model_refuses_unported_families():
-    cfg = ModelConfig(arch_id="moe-smoke", family="moe", n_layers=2,
+    """Every family of the JAX package is ported; a family outside them
+    is refused with the typed error naming the six."""
+    cfg = ModelConfig(arch_id="rnn-smoke", family="rnn", n_layers=2,
                       d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-                      vocab=128, n_experts=4, top_k=2, moe_d_ff=32)
-    with pytest.raises(UnsupportedFamilyError, match="moe"):
+                      vocab=128)
+    with pytest.raises(UnsupportedFamilyError, match="rnn") as err:
         get_model(cfg)
+    assert err.value.supported == FAMILIES
+    for arch in list_archs():
+        assert get_model(get_config(arch)).cfg.arch_id == arch

@@ -31,7 +31,7 @@ from repro_torch.core.executor import PagedKVPool
 from repro_torch.core.schema import OpCode
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode_attention as K4
-from repro_torch.models import get_model, lm
+from repro_torch.models import get_model, lm, params_from_jax
 from repro_torch.serving import Request, ServingEngine
 
 ARCHS = ["yi-6b", "phi3-mini-3.8b", "phi4-mini-3.8b", "qwen3-32b"]
@@ -277,7 +277,7 @@ def models():
         jcfg = jax_get_config(arch, reduced=True)
         params = jax_lm.init_lm(jax.random.PRNGKey(0), jcfg)
         cfg = get_config(arch, reduced=True)
-        out[arch] = (jcfg, params, cfg, lm.params_from_jax(
+        out[arch] = (jcfg, params, cfg, params_from_jax(
             jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 

@@ -40,7 +40,7 @@ from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.core.schema import OpCode, OpDef
 from repro_torch.kernels import ops
-from repro_torch.models import get_model, lm, lm_quant
+from repro_torch.models import get_model, lm_quant, params_from_jax
 from repro_torch.serving import (Request, ServingEngine,
                                  UnsupportedFamilyError)
 from repro_torch.serving import ops as serving_ops
@@ -104,7 +104,7 @@ def models():
         jcfg = jax_get_config(arch, reduced=True)
         params = jax_lm.init_lm(jax.random.PRNGKey(0), jcfg)
         cfg = get_config(arch, reduced=True)
-        out[arch] = (jcfg, params, cfg, lm.params_from_jax(
+        out[arch] = (jcfg, params, cfg, params_from_jax(
             jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 
@@ -253,7 +253,10 @@ def test_quant_engine_tokens_match_jax(models, arch, wd, kd, bs, tags):
     eng = ServingEngine(get_model(cfg), model, max_slots=SLOTS,
                         cache_len=CACHE_LEN, tags=tags, device="cpu", **kw)
     assert eng.resolver.resolve(OpCode.SERVING_DECODE_Q).tag == tags[0]
-    assert eng.resolver.resolve(OpCode.SERVING_PREFILL_Q).tag == "reference"
+    # the "cuda" quantized prefill is the reference one for dense: its
+    # scan hook serves the recurrent families only
+    assert eng.resolver.resolve(OpCode.SERVING_PREFILL_Q).tag == tags[0]
+    assert eng._prefill.fn.args[0].op_data.get("kw", {}) == {}
     _submit(eng, Request, cfg.vocab)
     got = eng.run()
     assert _outputs(got) == want
@@ -392,7 +395,7 @@ def test_quantized_refusals(models):
                params={"paged": True, "kv_q": True, "kv_block": 24})
     with pytest.raises(UnsupportedFamilyError, match="quantized"):
         serving_ops._quant_family_gate(
-            dataclasses.replace(cfg, family="moe"), op)
+            dataclasses.replace(cfg, family="audio"), op)
     with pytest.raises(ValueError, match="block size 24"):
         engine(kv_dtype="int8", kv_block=24, cache_len=48)
     with pytest.raises(ValueError, match="block size 24"):

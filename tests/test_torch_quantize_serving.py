@@ -30,7 +30,7 @@ from repro_torch.core import quantize as Q
 from repro_torch.kernels import dequant_matmul as K56
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_decode_attention_q as K7
-from repro_torch.models import lm, lm_quant
+from repro_torch.models import lm_quant, params_from_jax
 
 ARCHS = ["yi-6b", "phi3-mini-3.8b", "phi4-mini-3.8b", "qwen3-32b"]
 # float32 plain versions against the JAX wrappers: another summation
@@ -134,7 +134,7 @@ def models():
         jcfg = jax_get_config(arch, reduced=True)
         params = jax_lm.init_lm(jax.random.PRNGKey(0), jcfg)
         cfg = get_config(arch, reduced=True)
-        out[arch] = (jcfg, params, cfg, lm.params_from_jax(
+        out[arch] = (jcfg, params, cfg, params_from_jax(
             jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 
@@ -214,7 +214,7 @@ def test_odd_channels_fall_back_to_int8():
                                d_ff=45)
     cfg = dataclasses.replace(get_config("yi-6b", reduced=True), d_ff=45)
     params = jax_lm.init_lm(jax.random.PRNGKey(1), jcfg)
-    model = lm.params_from_jax(jax.tree.map(np.asarray, params), cfg,
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg,
                                device="cpu")
     ours = lm_quant.quantize_lm_params(model, cfg, "int4")
     blk = ours.layers[0]

@@ -1,5 +1,5 @@
 """The slice as a whole: the port's ServingEngine on the CPU against the
-JAX package's, on the same weights (``lm.params_from_jax``) and the same
+JAX package's, on the same weights (``params_from_jax``) and the same
 numpy-seeded requests, for the four dense architectures at their reduced
 widths.  The port's engine runs both of its tag chains — ``("cuda",
 "reference")``, whose decode goes through the decode-attention wrapper
@@ -29,7 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.executor import BucketTable
 from repro_torch.core.schema import OpCode
 from repro_torch.launch import serve
-from repro_torch.models import get_model, lm
+from repro_torch.models import get_model, params_from_jax
 from repro_torch.serving import (Request, ServingEngine, StreamEvent,
                                  scheduling)
 
@@ -85,7 +85,7 @@ def models():
         jbundle = jax_get_model(jax_get_config(arch, reduced=True))
         params = jbundle.init(jax.random.PRNGKey(0))
         cfg = get_config(arch, reduced=True)
-        out[arch] = (jbundle, params, get_model(cfg), lm.params_from_jax(
+        out[arch] = (jbundle, params, get_model(cfg), params_from_jax(
             jax.tree.map(np.asarray, params), cfg, device="cpu"))
     return out
 

@@ -38,7 +38,7 @@ from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as K8
-from repro_torch.models import get_model, hybrid, ssm
+from repro_torch.models import get_model, hybrid, params_from_jax, ssm
 
 # tests/test_kernels.py's bound for the SSD scan against its oracle
 SSD_ATOL, SSD_RTOL = 5e-4, 1e-3
@@ -236,9 +236,8 @@ def models():
         params = jax_get_model(jcfg).init(jax.random.PRNGKey(0))
         cfg = get_config(arch, reduced=True)
         tree = jax.tree.map(np.asarray, params)
-        from_jax = (ssm.ssm_params_from_jax if cfg.family == "ssm"
-                    else hybrid.hybrid_params_from_jax)
-        out[arch] = jcfg, params, cfg, from_jax(tree, cfg, device="cpu")
+        out[arch] = jcfg, params, cfg, params_from_jax(tree, cfg,
+                                                   device="cpu")
     return out
 
 

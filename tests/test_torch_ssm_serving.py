@@ -1,8 +1,7 @@
 """The slice as a whole: the port's ServingEngine serving the recurrent
 families on the CPU against the JAX package's engine, on the same weights
-(``ssm_params_from_jax`` / ``hybrid_params_from_jax``) and the same
-numpy-seeded requests, for Mamba2-780m and Zamba2-1.2B at their reduced
-widths.  The port's engine runs both of its tag chains — ``("cuda",
+(``params_from_jax``) and the same numpy-seeded requests, for Mamba2-780m
+and Zamba2-1.2B at their reduced widths.  The port's engine runs both of its tag chains — ``("cuda",
 "reference")``, whose prefill and prefill-chunk steps go through the SSD
 scan kernel's wrapper (its plain version on the CPU), and
 ``("reference",)`` — against the JAX engine's ``("pallas", "reference")``
@@ -32,7 +31,7 @@ from repro_torch.core.schema import OpCode, OpDef
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ssd_scan as K8
 from repro_torch.launch import serve
-from repro_torch.models import get_model, hybrid, ssm
+from repro_torch.models import get_model, params_from_jax
 from repro_torch.serving import (RECURRENT_FAMILIES, Request, ServingEngine,
                                  UnsupportedFamilyError)
 from repro_torch.serving import ops as serving_ops
@@ -66,11 +65,9 @@ def models():
         jbundle = jax_get_model(jax_get_config(arch, reduced=True))
         params = jbundle.init(jax.random.PRNGKey(0))
         cfg = get_config(arch, reduced=True)
-        from_jax = (ssm.ssm_params_from_jax if cfg.family == "ssm"
-                    else hybrid.hybrid_params_from_jax)
         out[arch] = (jbundle, params, get_model(cfg),
-                     from_jax(jax.tree.map(np.asarray, params), cfg,
-                              device="cpu"))
+                     params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                     device="cpu"))
     return out
 
 
@@ -218,8 +215,10 @@ def test_typed_refusals_match_jax(models):
         with pytest.raises(UnsupportedFamilyError, match=family):
             serving_ops.RefServingPrefillChunk.prepare(
                 serving_ops.ServingContext(models[arch][2]), op)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(models, arch, weight_dtype="int8")
+        # quantized weights are served (weight-only, as in the JAX
+        # engine): the quantized ops resolve at construction
+        eng = _engine(models, arch, weight_dtype="int8")
+        assert eng.resolver.resolve(OpCode.SERVING_DECODE_Q).tag == "cuda"
 
 
 @pytest.mark.parametrize("tag", ["reference", "cuda"])
