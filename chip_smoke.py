@@ -3,9 +3,10 @@
 NVIDIA GPU — the micro interpreter (single, batched and ragged
 dispatch), dense-LM serving (contiguous, paged and quantized),
 recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
-serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper —
-with every CUDA kernel of those paths held against its plain PyTorch
-version.
+serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper,
+the overlapped decode loop, the multi-tenant host, the replica router,
+the streaming server and the profiler — with every CUDA kernel of those
+paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -57,7 +58,7 @@ Phases — any failure raises and the script exits non-zero:
      bounds, the least operations on the CUDA cores in float32 and on
      the tensor cores in bf16; no single library call computes the
      scan.
-  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12, 13, 14, 15-18) runs
+  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12, 13, 14, 15-23) runs
   inside ``main_path``: every launch count set to 0 just before it, the
   device traced by torch.profiler over it, and after it each kernel's
   launches counted in the trace (by the device function one launch of
@@ -224,8 +225,41 @@ Phases — any failure raises and the script exits non-zero:
   18. Mamba2-780m and Zamba2-1.2B at full width, int8 and int4 weights:
      K8 once per Mamba layer per prefill and nothing else; a float engine
      on the dequantized weights emits the same tokens.
-  Each of phases 15-18 logs its seconds, its replayed and eager decode
-  step medians and its peak device memory.
+  19. Yi-6B (phase 7's weights, drawn again from its seed) with
+     ``overlap=True``, contiguous (K3) and paged with ``kv_block=16``
+     (K4): phase 7's tokens, request for request; every uid's
+     StreamEvents in order, each once, one final; one decode and one
+     argmax program; a forced evict after a drain, then the restore,
+     emits no duplicate and drops no token.  Then, in turns on warm
+     engines, the median tick (host clock around ``step()``) sync and
+     overlapped, and each one's device ms per step and busy share.
+  20. one ``MultiTenantHost`` arena: Yi-6B (``overlap=True``), a ragged
+     fc_stack int8 tenant (K1, 16 lanes) and the streaming hotword
+     (exact), through ``run_all`` 3 times: phase 7's tokens, every micro
+     output bit-equal to its request alone through a ``MicroInterpreter``
+     on the card, the arena's usage the tenants' persistents stacked with
+     the largest scratch, device memory flat from the second run on; K1
+     launched once per int8 FC op per fc wave; then an EDF lane
+     preemption on a host of its own restores bit-identically.
+  21. two Yi-6B replicas sharing the weight module, each with its own KV
+     (``add_replicated_model``, ``overlap=True``), 12 requests under
+     round-robin, least-loaded and locality (swapped in mid-serve):
+     one sync engine's tokens each time, no new capture, no uid lost or
+     duplicated.
+  22. a ``StreamingServer`` over an overlapped engine, phase 7's requests
+     submitted from the main thread and consumed by a thread each:
+     phase 7's tokens, programs captured on the loop thread; on the warm
+     engine each request's TTFT and inter-token latency (mean, median,
+     max), the loop's median and longest ticks and the cyclic
+     collector's pauses, and ``shutdown()`` ends an unfinished stream
+     with an error.
+  23. ``MicroProfiler`` on vww int8 and fc_stack int8 (``"cuda"`` tags):
+     per-op µs, the bottleneck (a convolution on vww), the per-op sum
+     against the replayed invoke, K1 launched per FC op per call; and
+     ``measure_compile_and_step`` on a fresh Yi-6B decode program: the
+     first call (eager run and capture) against a replay.
+  Each of phases 15-23 logs its seconds and its peak device memory
+  (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
   K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
   15's new shapes: K3, K4 and K7 at DeepSeek's (4, 16, 16, 2048, 128)
@@ -2179,15 +2213,23 @@ def kernel_of(name: str):
     return None
 
 
-def trace_launches(prof):
-    """Each kernel's launches in a torch.profiler trace of the device,
-    read from the trace's raw records (``key_averages`` would build an
-    event object for each of the run's ~10^5 launches)."""
+# marker kernels main_path launches around a traced run, by a function of
+# their own (no path computes a Bessel function): i0e before the run, i1e
+# after it
+LEAD_MARKER, TRAIL_MARKER = "i0e", "i1e"
+
+
+def trace_records(prof):
+    """(each kernel's launches, the lead-in markers, the trailing markers)
+    in a torch.profiler trace of the device, read from the trace's raw
+    records (``key_averages`` would build an event object for each of the
+    run's ~10^5 launches)."""
     from torch.autograd import DeviceType
 
     from repro_torch.kernels import _build
 
     counts = dict.fromkeys(_build.launches, 0)
+    lead = trail = 0
     names = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
@@ -2195,45 +2237,91 @@ def trace_launches(prof):
         name = e.name()
         if name not in names:
             names[name] = kernel_of(name)
-        if names[name] is not None:
-            counts[names[name]] += 1
-    return counts
+            if names[name] is None:
+                names[name] = (LEAD_MARKER if LEAD_MARKER in name else
+                               TRAIL_MARKER if TRAIL_MARKER in name else None)
+        kind = names[name]
+        if kind == LEAD_MARKER:
+            lead += 1
+        elif kind == TRAIL_MARKER:
+            trail += 1
+        elif kind is not None:
+            counts[kind] += 1
+    return counts, lead, trail
 
 
+def trace_launches(prof):
+    """Each kernel's launches in a torch.profiler trace of the device."""
+    return trace_records(prof)[0]
+
+
+# The trace keeps only the device records whose timestamps fall inside its
+# window on the host clock, and the records at its edges can come back with
+# timestamps hundreds of ms off, so those are dropped (on the H100 machine:
+# in many traces the records of its first ~0.5 s, and now and then one at
+# its end; the markers' counts in each phase's log line show it).  A lead-in of marker kernels, one every
+# TRACE_TICK_S for TRACE_LEAD_S, lets the timestamps settle before the main
+# path starts; TRACE_TRAIL_S of trailing markers, then TRACE_MARGIN_S idle,
+# close the window.  The lead-in's last TRACE_SETTLED markers and every
+# trailing one must be in the trace, so a run the window did not cover is
+# named as such.
+TRACE_LEAD_S, TRACE_TRAIL_S, TRACE_TICK_S = 1.5, 0.25, 0.01
 TRACE_MARGIN_S = 0.25
+TRACE_SETTLED = 10
+
+
+def trace_markers(torch, probe, fn, seconds: float) -> int:
+    """``fn(probe)`` launched and waited for once every ``TRACE_TICK_S``
+    over ``seconds``; returns how many were launched."""
+    n, end = 0, time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        fn(probe)
+        torch.cuda.synchronize()
+        n += 1
+        time.sleep(TRACE_TICK_S)
+    return n
 
 
 @contextlib.contextmanager
 def main_path(torch, what: str):
     """Drive a main path inside the block: every launch count is set to
     0 just before it and the device is traced by torch.profiler over
-    it.  After it, each kernel's launches counted in the trace must
-    equal its wrapper's count (``_build.launches``: the eager launches
-    plus what each replay's capture recorded); the yielded dict is
-    filled with the traced counts."""
+    it, between a lead-in and a tail of marker kernels.  After it, the
+    trace must hold the lead-in's last markers and every trailing one,
+    and each kernel's launches counted in the trace must equal its
+    wrapper's count (``_build.launches``: the eager launches plus what
+    each replay's capture recorded); the yielded dict is filled with the
+    traced counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
 
     traced = {}
-    for name in _build.launches:
-        _build.launches[name] = 0
+    probe = torch.ones(1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the trace keeps the device records inside its window on the
-        # host clock: margins on both sides keep the first and the last
-        # kernels of the run in it
-        time.sleep(TRACE_MARGIN_S)
+        n_lead = trace_markers(torch, probe, torch.special.i0e, TRACE_LEAD_S)
+        for name in _build.launches:
+            _build.launches[name] = 0
         yield traced
         torch.cuda.synchronize()
+        counted = dict(_build.launches)
+        n_trail = trace_markers(torch, probe, torch.special.i1e,
+                                TRACE_TRAIL_S)
         time.sleep(TRACE_MARGIN_S)
-    counted = dict(_build.launches)
-    traced.update(trace_launches(prof))
+    counts, lead, trail = trace_records(prof)
+    traced.update(counts)
+    if lead < TRACE_SETTLED or lead > n_lead or trail != n_trail:
+        raise AssertionError(
+            f"{what}: the trace holds {lead} of the {n_lead} lead-in markers "
+            f"(at least the last {TRACE_SETTLED} needed) and {trail} of the "
+            f"{n_trail} trailing ones: its window did not cover the run")
     if traced != counted:
         raise AssertionError(f"{what}: launches in the trace {traced}, the "
                              f"wrappers counted {counted}")
     log(f"  launches on {what}, traced on the device (equal to the "
         f"wrappers' counts): "
-        + ", ".join(f"{k} {n}" for k, n in traced.items() if n))
+        + ", ".join(f"{k} {n}" for k, n in traced.items() if n)
+        + f"; lead-in markers traced {lead} of {n_lead}")
 
 
 def teacher_forced_logits(torch, np, dev, bundle, model, prompt, want=None,
@@ -3398,6 +3486,747 @@ def quantized_recurrent_serving(torch, np, dev):
     return rows, summaries, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 19-23: overlapped decode, the multi-tenant host, the replica
+# router, the streaming server and the profiler (Yi-6B)
+# ---------------------------------------------------------------------------
+
+# the host's arena: Yi-6B's 4 x 2048 bfloat16 KV is 1 GiB a replica
+HOST_ARENA_BYTES = 4 << 30
+HOST_MAX_PROMPT = 512
+# the host's micro tenants: the fc_stack int8 ragged bucket on K1 and the
+# streaming hotword (exact lowering: bit-equal to a lone invoke); its
+# lane-preemption check runs the hotword alone on two lanes
+HOST_FC_LANES, HOST_HW_LANES = 16, 4
+HOST_FC_REQUESTS, HOST_HW_REQUESTS = 40, 12
+HOST_RUNS = 3
+# the router's workload: phase 7's 8 requests and 4 more
+N_ROUTED = 12
+PROFILE_WARMUP, PROFILE_ITERS = 2, 10
+
+
+def check_streams(label, events, outputs, runs: int = 1) -> None:
+    """Each uid's StreamEvents over ``runs`` runs of the same uids: in
+    each run, indices 0, 1, ... with no gap and no repeat, the tokens its
+    output, exactly one final and it the last."""
+    per = {}
+    for ev in events:
+        per.setdefault(ev.uid, []).append(ev)
+    if sorted(per) != sorted(outputs):
+        raise AssertionError(f"{label}: events for uids {sorted(per)}, "
+                             f"outputs for {sorted(outputs)}")
+    for uid, evs in per.items():
+        n = len(outputs[uid])
+        if len(evs) != runs * n:
+            raise AssertionError(f"{label}: uid {uid} has {len(evs)} events "
+                                 f"for {runs} x {n} tokens")
+        for r in range(runs):
+            run = evs[r * n:(r + 1) * n]
+            if ([e.index for e in run] != list(range(n))
+                    or [e.token for e in run] != outputs[uid]
+                    or [e.final for e in run] != [False] * (n - 1) + [True]):
+                raise AssertionError(f"{label}: uid {uid}'s events break "
+                                     f"the in-order exactly-once contract")
+
+
+def tick_ms(torch, eng, prompts, new=SERVE_NEW):
+    """Every request through ``eng``, host clock around each ``step()``
+    and nothing else (an overlapped step returns with the next step in
+    flight); returns (ms of the ticks that decoded and ran no prefill,
+    the tokens)."""
+    from repro_torch.serving import Request
+
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=new))
+    ms = []
+    while True:
+        t0 = time.perf_counter()
+        more = eng.step()
+        dt = (time.perf_counter() - t0) * 1e3
+        if eng.last_step["decoded"] and not eng.last_step["prefill_tokens"]:
+            ms.append(dt)
+        if not more:
+            break
+    torch.cuda.synchronize()
+    return ms, {u: eng.results[u].output for u in range(len(prompts))}
+
+
+def evict_midstream(eng, prompts, served) -> None:
+    """Phase 19: the requests through the overlapped ``eng``; six ticks
+    in, one decoding request is evicted (after a drain) and later
+    restored: every request emits phase 7's tokens, each token once, in
+    order."""
+    from repro_torch.serving import Request
+
+    events = []
+    eng.on_token = events.append
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=SERVE_NEW))
+    for _ in range(6):
+        eng.step()
+    eng.drain()
+    victim = next(s for s in range(eng.max_slots) if eng.active[s])
+    uid = eng.slot_meta[victim].uid
+    done = len(eng.results[uid].output)
+    eng._evict(victim)
+    res = eng.run()
+    outs = {u: r.output for u, r in res.items()}
+    if res[uid].preemptions != 1 or outs != served:
+        raise AssertionError(f"overlapped evict/restore: request {uid} "
+                             f"preempted {res[uid].preemptions} times, "
+                             f"tokens {outs} != {served}")
+    check_streams("overlapped evict/restore", events, outs)
+    eng.on_token = None
+    log(f"  forced evict of request {uid} after {done} tokens, then its "
+        f"restore: phase 7's tokens, every event once and in order")
+
+
+def overlapped_decode(torch, np, dev, engine, prompts, served, n_layers):
+    """Phase 19: ``overlap=True`` on a contiguous engine (K3) and a paged
+    one (K4): phase 7's tokens, the StreamEvent contract, one decode and
+    one argmax program, a forced mid-stream evict/restore; then the tick
+    (host clock around ``step()``) sync against overlapped, in turns on
+    warm engines, and each one's device time per step and busy share."""
+    from repro_torch.core import capture_count
+
+    rows, launches = [], {}
+    for label, kw, kname in (
+            ("contiguous", {}, "decode_attention"),
+            ("paged", {"kv_block": PAGED_BLOCK}, "paged_decode_attention")):
+        events = []
+        eng = engine(overlap=True, on_token=events.append, **kw)
+        row, toks = serve_main(torch, np, dev, eng, prompts,
+                               f"the overlapped {label} decode (phase 19)")
+        same_tokens(f"overlapped {label} vs phase 7", toks, served)
+        check_streams(f"overlapped {label}", events, toks, runs=2)
+        want = dict.fromkeys(row["launches"], 0)
+        want[kname] = n_layers * row["decode_steps"]
+        if row["launches"] != want:
+            raise AssertionError(f"overlapped {label}: launches "
+                                 f"{row['launches']}, expected {want}")
+        launches[f"phase 19 overlapped {label}"] = (kname, want[kname])
+        programs = {n: capture_count(p) for n, p in eng.programs().items()}
+        if programs["decode"] != 1 or programs["argmax"] != 1:
+            raise AssertionError(f"overlapped {label}: programs {programs}")
+        eng.on_token = None
+        evict_midstream(eng, prompts, served)
+        sync = engine(**kw)
+        tick_ms(torch, sync, prompts)               # captures its programs
+        ticks = {"sync": [], "overlap": []}
+        for which in ("sync", "overlap", "overlap", "sync"):
+            ms, got = tick_ms(torch, sync if which == "sync" else eng,
+                              prompts)
+            same_tokens(f"timed {which} {label}", got, served)
+            ticks[which] += ms
+        med = {k: statistics.median(v) for k, v in ticks.items()}
+        sync_row = {"median_decode_step_ms": med["sync"]}
+        profile_decode(torch, np, sync, sync_row)
+        row["median_decode_step_ms"] = med["overlap"]
+        profile_decode(torch, np, eng, row)
+        row.update({
+            "model": f"{LM_ARCH} bfloat16 serving, overlap, {label}",
+            "tick_ms_sync": med["sync"], "tick_ms_overlap": med["overlap"],
+            "ticks": {k: len(v) for k, v in ticks.items()},
+            "sync_device_ms_per_decode_step":
+                sync_row["device_ms_per_decode_step"],
+            "sync_device_busy_share": sync_row["device_busy_share"],
+            "programs": programs})
+        log(f"  {label}: median tick {med['sync']:.3f} ms sync, "
+            f"{med['overlap']:.3f} ms overlapped ({len(ticks['sync'])} and "
+            f"{len(ticks['overlap'])} ticks, in turns); device "
+            f"{sync_row['device_ms_per_decode_step']:.3f} ms a step sync, "
+            f"{row['device_ms_per_decode_step']:.3f} ms overlapped; busy "
+            f"{100 * sync_row['device_busy_share']:.1f}% sync, "
+            f"{100 * row['device_busy_share']:.1f}% overlapped; {kname} "
+            f"{want[kname]} launches")
+        rows.append(row)
+        del eng, sync
+    return rows, launches
+
+
+def micro_models():
+    """(fc_stack int8, streaming hotword float) micro models."""
+    from repro_torch.apps.models import (build_fc_stack, build_hotword,
+                                         representative_dataset)
+    from repro_torch.core import MicroModel, export
+
+    gb = build_fc_stack()
+    return (MicroModel(export(gb, representative_dataset(gb),
+                              quantize_int8=True)),
+            MicroModel(export(build_hotword())))
+
+
+def lone_interpreter(dev, model, res):
+    """A MicroInterpreter of ``model`` on the card, for requests alone."""
+    from repro_torch.core import MicroInterpreter
+
+    return MicroInterpreter(model, res, MicroInterpreter.required_arena_size(
+        model, res), device=dev)
+
+
+def input_shape(model):
+    return tuple(model.tensor(model.inputs[0]).shape)
+
+
+def alone_outputs(it, frames):
+    """A request's outputs through the MicroInterpreter ``it`` alone,
+    from its initial variable state."""
+    it.reset_variable_tensors()
+    out = []
+    for f in frames:
+        it.set_input(0, f)
+        it.invoke()
+        out.append(it.output(0).copy())
+    return out
+
+
+def micro_bit_equal(np, it, reqs, results, label) -> int:
+    """Every micro request's outputs bit-equal to it alone through the
+    interpreter ``it``; returns the frames compared."""
+    n = 0
+    for uid, frames in reqs.items():
+        got = results[uid]
+        if not got.done or got.steps != len(frames):
+            raise AssertionError(f"{label} request {uid}: done {got.done}, "
+                                 f"{got.steps} of {len(frames)} steps")
+        for a, b in zip(got.outputs, alone_outputs(it, frames)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{label} request {uid} differs from "
+                                     f"its run alone")
+            n += 1
+    return n
+
+
+def tenant_arena(model, res):
+    """A micro tenant's (persistent, head, temp high water) bytes, planned
+    alone in an arena of its own."""
+    from repro_torch.core import TwoStackArena, plan_model
+
+    probe = TwoStackArena(1 << 30)
+    plan_model(model, res, host_arena=probe, device="cpu")
+    u = probe.usage()
+    return u.persistent, u.nonpersistent, u.temp_high_water
+
+
+def multitenant_host(torch, np, dev, bundle, model, prompts, served,
+                     n_layers):
+    """Phase 20: one ``MultiTenantHost`` arena holding Yi-6B
+    (``overlap=True``), a ragged fc_stack int8 micro tenant (K1, 16
+    lanes) and the streaming hotword, driven through ``run_all``
+    ``HOST_RUNS`` times: phase 7's tokens, micro outputs bit-equal to
+    each request alone, the arena's usage the tenants' persistents
+    stacked with the largest scratch, device memory flat from the second
+    run on; then an EDF lane preemption on a host of its own."""
+    from repro_torch.core import AllOpsResolver, OpCode
+    from repro_torch.core.arena import align_up
+    from repro_torch.serving import MultiTenantHost, Request
+    from repro_torch.serving.host import _scratch_bytes
+
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    fc, hw = micro_models()
+    alone = {"fc": lone_interpreter(dev, fc, res),
+             "hw": lone_interpreter(dev, hw, res)}
+    host = MultiTenantHost(HOST_ARENA_BYTES, device=dev)
+    eng = host.add_model(LM_ARCH, bundle, model, max_slots=SERVE_SLOTS,
+                         cache_len=SERVE_CACHE, max_prompt=HOST_MAX_PROMPT,
+                         overlap=True)
+    host.add_ragged_micro("fc", fc, res, lanes=HOST_FC_LANES)
+    host.add_ragged_micro("hw", hw, res, lanes=HOST_HW_LANES, exact=True)
+    rng = np.random.default_rng(20)
+    fc_reqs = {i: [rng.normal(0, 1, input_shape(fc)).astype(np.float32)]
+               for i in range(HOST_FC_REQUESTS)}
+    hw_reqs = {i: [rng.normal(0, 1, input_shape(hw)).astype(np.float32)
+                   for _ in range(1 + i % 4)]
+               for i in range(HOST_HW_REQUESTS)}
+    n_fc = sum(op.opcode == OpCode.FULLY_CONNECTED
+               and fc.tensor(op.inputs[0]).dtype == "int8"
+               for op in fc.operators)
+    fc_bucket = host.ragged._buckets["fc"]
+
+    def run():
+        for uid, p in enumerate(prompts):
+            host.submit(LM_ARCH, Request(uid=uid, tokens=p,
+                                         max_new_tokens=SERVE_NEW))
+        for name, reqs in (("fc", fc_reqs), ("hw", hw_reqs)):
+            for uid, frames in reqs.items():
+                host.submit_micro(name, uid, [[f] for f in frames])
+        t0 = time.perf_counter()
+        out = host.run_all()
+        wall = time.perf_counter() - t0
+        gc.collect()
+        return wall, out, torch.cuda.memory_allocated()
+
+    def check(out) -> int:
+        """The run's tokens and micro outputs; returns the frames
+        compared (each request alone, outside the counted run)."""
+        toks = {u: r.output for u, r in out[LM_ARCH].items()}
+        same_tokens("the host's Yi-6B tenant vs phase 7", toks, served)
+        return (micro_bit_equal(np, alone["fc"], fc_reqs,
+                                host.micro_results["fc"], "fc")
+                + micro_bit_equal(np, alone["hw"], hw_reqs,
+                                  host.micro_results["hw"], "hotword"))
+
+    dispatches = fc_bucket.dispatch_count
+    with main_path(torch, "the multi-tenant host (phase 20)") as traced:
+        runs = [run()]
+    fc_waves = fc_bucket.dispatch_count - dispatches
+    frames = check(runs[0][1])
+    if traced["quant_matmul"] != n_fc * fc_waves:
+        raise AssertionError(f"phase 20: K1 launched "
+                             f"{traced['quant_matmul']} times for {fc_waves} "
+                             f"fc waves of {n_fc} int8 FC ops")
+    k3 = traced["decode_attention"]
+    if not k3 or k3 % n_layers or any(
+            n for k, n in traced.items()
+            if k not in ("quant_matmul", "decode_attention")):
+        raise AssertionError(f"phase 20: launches {traced}")
+    for _ in range(HOST_RUNS - 1):
+        runs.append(run())
+        check(runs[-1][1])
+    memory = [m for _, _, m in runs]
+    if len(set(memory[1:])) != 1:
+        raise AssertionError(f"phase 20: device memory after each run_all "
+                             f"{memory}, not flat from the second")
+    # the arena: each tenant's persistents stacked, the head section the
+    # largest micro plan, the temp high water the largest scratch
+    tenants = [tenant_arena(m, res) for m in (fc, hw)]
+    want = (eng.arena.usage().capacity,
+            align_up(eng.kv_bytes) + sum(t[0] for t in tenants),
+            max(t[1] for t in tenants),
+            max([_scratch_bytes(bundle, HOST_MAX_PROMPT)]
+                + [t[2] for t in tenants]))
+    u = host.usage()
+    got = (u.capacity, u.persistent, u.nonpersistent, u.temp_high_water)
+    if got != want:
+        raise AssertionError(f"phase 20: arena (capacity, persistent, head, "
+                             f"temp) {got}, the tenants' {want}")
+    preempt = lane_preemption(np, dev, hw, res, alone["hw"])
+    row = {"model": f"{LM_ARCH} + fc_stack int8 + hotword on one host",
+           "runs": HOST_RUNS, "run_all_s": [w for w, _, _ in runs],
+           "micro_frames_bit_equal": frames,
+           "memory_bytes_after_run_all": memory,
+           "arena": dict(zip(("capacity", "persistent", "nonpersistent",
+                              "temp_high_water"), got)),
+           "launches": traced, "fc_waves": fc_waves,
+           "lane_preemption": preempt}
+    log(f"  {HOST_RUNS} run_all: {', '.join(f'{w:.2f}' for w, _, _ in runs)}"
+        f" s; Yi-6B tokens equal phase 7's and {frames} micro frames "
+        f"bit-equal to each request alone, each run; device memory "
+        f"{memory[1]:,} B from the second run on; arena persistent "
+        f"{u.persistent:,} B (KV {eng.kv_bytes:,} + micro "
+        f"{sum(t[0] for t in tenants):,}), head {u.nonpersistent:,} B, temp "
+        f"{u.temp_high_water:,} B (the Yi-6B scratch); K1 "
+        f"{traced['quant_matmul']} = {n_fc} x {fc_waves} waves")
+    return row, {"quant_matmul": traced["quant_matmul"],
+                 "decode_attention": k3}
+
+
+def lane_preemption(np, dev, hw, res, alone) -> dict:
+    """Phase 20's EDF lane preemption: two 6-frame hotword monopolizers
+    hold both lanes; a one-frame request with a deadline displaces one
+    (snapshot + retire), which later restores: every request's outputs
+    bit-equal to it alone."""
+    from repro_torch.serving import MultiTenantHost
+
+    rng = np.random.default_rng(21)
+    frame = lambda: rng.normal(0, 1, input_shape(hw)).astype(np.float32)
+    host = MultiTenantHost(64 << 20, policy="edf", preempt="edf-displace",
+                           clock=lambda: 0, device=dev)
+    host.add_ragged_micro("hw", hw, res, lanes=2, exact=True,
+                          bucket_lanes=False)
+    reqs = {0: [frame() for _ in range(6)], 1: [frame() for _ in range(6)]}
+    for uid, frames in reqs.items():
+        host.submit_micro("hw", uid, [[f] for f in frames], arrival_us=0)
+    host.micro_step()
+    host.micro_step()
+    reqs[2] = [frame()]
+    host.submit_micro("hw", 2, [reqs[2]], deadline_us=50, arrival_us=0)
+    host.micro_step()
+    out = host.micro_results["hw"]
+    if not out[2].done or out[0].preemptions + out[1].preemptions != 1:
+        raise AssertionError("phase 20: the deadline request did not "
+                             "displace a lane")
+    while host.micro_step():
+        pass
+    n = micro_bit_equal(np, alone, reqs, out, "preempted hotword")
+    victim = 0 if out[0].preemptions else 1
+    log(f"  EDF lane preemption: request {victim} snapshotted after 2 of 6 "
+        f"frames for the deadline request, restored; {n} frames bit-equal "
+        f"to each request alone")
+    return {"victim": victim, "frames_bit_equal": n}
+
+
+def replica_router(torch, np, dev, engine, bundle, model, prompts, served,
+                   n_layers):
+    """Phase 21: two Yi-6B replicas sharing the one weight module, each
+    with its own KV (``add_replicated_model``, ``overlap=True``), serve
+    12 requests under each routing policy: every policy emits one
+    synchronous engine's tokens; a policy swap mid-serve adds no capture;
+    no uid is lost or duplicated."""
+    from repro_torch.core import capture_count
+    from repro_torch.serving import MultiTenantHost, Request
+
+    rng = np.random.default_rng(70)
+    routed = prompts + [rng.integers(0, bundle.cfg.vocab - 2, int(n))
+                        .astype(np.int32)
+                        for n in rng.integers(16, 513, N_ROUTED - N_SERVE)]
+    _, base = tick_ms(torch, engine(), routed)
+    if {u: base[u] for u in range(N_SERVE)} != served:
+        raise AssertionError("phase 21: the sync engine's first 8 requests "
+                             "differ from phase 7's")
+    host = MultiTenantHost(HOST_ARENA_BYTES, device=dev)
+    router = host.add_replicated_model(
+        LM_ARCH, bundle, model, replicas=2, max_slots=SERVE_SLOTS,
+        cache_len=SERVE_CACHE, max_prompt=HOST_MAX_PROMPT, overlap=True)
+    if any(e.params is not model for e in router.replicas):
+        raise AssertionError("phase 21: the replicas do not share the "
+                             "weight module")
+    events = []
+    router.set_on_token(events.append)
+    row = {"model": f"{LM_ARCH} x 2 replicas behind a ReplicaRouter",
+           "requests": N_ROUTED, "policies": {}}
+    traced = {}
+
+    def programs():
+        return [(capture_count(e._decode), capture_count(e._argmax))
+                for e in router.replicas]
+
+    for k, policy in enumerate(("round-robin", "least-loaded", "locality")):
+        uid0 = 100 * k
+        events.clear()
+        t0 = time.perf_counter()
+        ctx = (main_path(torch, "the replica router (phase 21)")
+               if k == 0 else contextlib.nullcontext(traced))
+        with ctx as traced:
+            if k == 2:
+                # the swap lands mid-serve: half the requests in flight
+                router.set_routing("least-loaded")
+                for i in range(N_ROUTED // 2):
+                    router.submit(Request(uid=uid0 + i, tokens=routed[i],
+                                          max_new_tokens=SERVE_NEW))
+                for _ in range(4):
+                    router.step()
+                before = programs()
+                router.set_routing(policy)
+                rest = range(N_ROUTED // 2, N_ROUTED)
+            else:
+                router.set_routing(policy)
+                rest = range(N_ROUTED)
+            for i in rest:
+                router.submit(Request(uid=uid0 + i, tokens=routed[i],
+                                      max_new_tokens=SERVE_NEW))
+            out = host.run_all()[LM_ARCH]
+        wall = time.perf_counter() - t0
+        uids = set(range(uid0, uid0 + N_ROUTED))
+        held = [u for e in router.replicas for u in e.results if u in uids]
+        if sorted(held) != sorted(uids) or any(
+                router.routed[u] != i for i, e in enumerate(router.replicas)
+                for u in e.results if u in uids):
+            raise AssertionError(f"phase 21 {policy}: uids held {held}")
+        toks = {u - uid0: out[u].output for u in uids}
+        same_tokens(f"routed {policy} vs one sync engine", toks, base)
+        check_streams(f"routed {policy}", events,
+                      {u: out[u].output for u in uids})
+        if k == 2 and programs() != before:
+            raise AssertionError(f"phase 21: the policy swap captured: "
+                                 f"{before} -> {programs()}")
+        row["policies"][policy] = {
+            "wall_s": wall, "per_replica": [
+                sum(u in uids for u in e.results) for e in router.replicas]}
+    if programs() != [(1, 1), (1, 1)]:
+        raise AssertionError(f"phase 21: programs {programs()}")
+    k3 = traced["decode_attention"]
+    if not k3 or k3 % n_layers or any(
+            n for k, n in traced.items() if k != "decode_attention"):
+        raise AssertionError(f"phase 21: launches {traced}")
+    row.update({"launches": dict(traced), "migrations": router.migrations,
+                "programs": programs()})
+    log(f"  {N_ROUTED} requests under round-robin, least-loaded and "
+        f"locality (swapped in mid-serve): one sync engine's tokens each "
+        f"time, no uid lost or duplicated, {router.migrations} queue "
+        f"migrations, decode and argmax one program a replica; per replica "
+        + "; ".join(f"{p} {v['per_replica']} in {v['wall_s']:.2f} s"
+                    for p, v in row["policies"].items()))
+    return row, k3
+
+
+def streaming_server(torch, np, dev, engine, prompts, served, n_layers):
+    """Phase 22: a ``StreamingServer`` over an overlapped engine serves
+    phase 7's requests, submitted from the main thread and each consumed
+    by a thread of its own: the streamed tokens are phase 7's; the
+    engine's programs are captured on the loop thread.  The traced run
+    counts; a second server on the same (now warm) engine gives each
+    request's TTFT and mean inter-token latency, and then its
+    ``shutdown()`` must unblock a stream it leaves unfinished."""
+    import threading
+
+    from repro_torch.core import capture_count
+    from repro_torch.launch.serve import StreamingServer
+    from repro_torch.serving import default_clock
+
+    eng = engine(overlap=True)
+    ticks = []
+
+    def timed_step():
+        """The engine's step, its host-clock span recorded with whether
+        requests were queued and whether it decoded without a prefill."""
+        t0 = time.perf_counter()
+        more = type(eng).step(eng)
+        ticks.append((t0, time.perf_counter(), bool(eng.queue),
+                      eng.last_step["decoded"]
+                      and not eng.last_step["prefill_tokens"]))
+        return more
+
+    def serve(long_tail):
+        server = StreamingServer(eng).start()
+        got, t_sub, errors = {}, {}, []
+
+        def consume(uid):
+            try:
+                got[uid] = list(server.stream(uid, timeout=300))
+            except RuntimeError as e:
+                errors.append((uid, str(e)))
+        threads = []
+        for uid, p in enumerate(prompts):
+            t_sub[uid] = default_clock()
+            server.submit(p, max_new_tokens=SERVE_NEW, uid=uid)
+            threads.append(threading.Thread(target=consume, args=(uid,)))
+            threads[-1].start()
+        for th in threads:
+            th.join(timeout=300)
+        cut = None
+        if long_tail:
+            # a request whose budget outlasts the server: shutdown() must
+            # end its stream with an error, not leave its consumer waiting
+            cut = server.submit(prompts[0], max_new_tokens=SERVE_CACHE // 2,
+                                uid=len(prompts))
+            th = threading.Thread(target=consume, args=(cut,))
+            th.start()
+            while eng.results.get(cut) is None or \
+                    len(eng.results[cut].output) < 4:
+                time.sleep(0.01)
+            threads.append(th)
+        server.shutdown()
+        for th in threads:
+            th.join(timeout=60)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("phase 22: a consumer still waits")
+        toks = {u: [e.token for e in got[u]] for u in range(len(prompts))}
+        same_tokens("streamed vs phase 7", toks, served)
+        check_streams("streamed", [e for u in sorted(got) for e in got[u]],
+                      {u: eng.results[u].output for u in got})
+        if long_tail and not (len(errors) == 1 and errors[0][0] == cut
+                              and "shut down" in errors[0][1]):
+            raise AssertionError(f"phase 22: shutdown left {errors}")
+        return {u: ((got[u][0].t_us - t_sub[u]) / 1e3,
+                    np.diff([e.t_us for e in got[u]]) / 1e3)
+                for u in range(len(prompts))}
+
+    with main_path(torch, "the streaming server (phase 22)") as traced:
+        serve(long_tail=False)
+    programs = {n: capture_count(p) for n, p in eng.programs().items()}
+    if programs["decode"] != 1 or programs["argmax"] != 1:
+        raise AssertionError(f"phase 22: programs {programs}")
+    k3 = traced["decode_attention"]
+    if not k3 or k3 % n_layers:
+        raise AssertionError(f"phase 22: launches {traced}")
+    # the timed run's cyclic-collector pauses (ms, generation)
+    pauses = []
+
+    def on_gc(when, info):
+        if when == "start":
+            on_gc.t0 = time.perf_counter()
+        else:
+            pauses.append(((time.perf_counter() - on_gc.t0) * 1e3,
+                           info["generation"]))
+    eng.step = timed_step
+    gc.callbacks.append(on_gc)
+    try:
+        lat = serve(long_tail=True)
+    finally:
+        gc.callbacks.remove(on_gc)
+        del eng.step
+    # the loop's decode ticks without a prefill, with requests queued
+    # behind the slots and without, and the loop's time between ticks
+    spans = {q: [(b - a) * 1e3 for a, b, qd, dec in ticks if dec and qd == q]
+             for q in (True, False)}
+    gaps = [(ticks[i + 1][0] - ticks[i][1]) * 1e3
+            for i in range(len(ticks) - 1)]
+    tick = {f"median_tick_ms_{'queued' if q else 'no_queue'}":
+            statistics.median(v) if v else None for q, v in spans.items()}
+    tick["median_gap_ms"] = statistics.median(gaps)
+    tick["max_gap_ms"] = max(gaps)
+    # the longest ticks: ms, requests queued, prefill tokens run
+    longest = sorted(((b - a) * 1e3, qd, not dec) for a, b, qd, dec in ticks)
+    row = {"model": f"{LM_ARCH} bfloat16 through a StreamingServer",
+           "requests": len(prompts), "launches": dict(traced),
+           "programs": programs,
+           "ttft_ms": [lat[u][0] for u in sorted(lat)],
+           "mean_itl_ms": [float(lat[u][1].mean()) for u in sorted(lat)],
+           "median_itl_ms": [float(np.median(lat[u][1])) for u in sorted(lat)],
+           "max_itl_ms": [float(lat[u][1].max()) for u in sorted(lat)],
+           "longest_ticks": [{"ms": ms, "queued": qd, "prefill_or_idle": pi}
+                             for ms, qd, pi in longest[-4:]],
+           "gc_pauses": {"n": len(pauses),
+                         "total_ms": sum(p for p, _ in pauses),
+                         "max_ms": max((p for p, _ in pauses), default=0.0),
+                         "gen2": sum(g == 2 for _, g in pauses)}, **tick}
+    log("  phase 7's tokens streamed to 8 consumer threads, programs "
+        f"{programs} captured on the loop thread; shutdown() ended an "
+        "unfinished stream with an error; TTFT / ITL mean, median, max ms: "
+        + ", ".join(f"{t:.1f}/{i.mean():.2f},{np.median(i):.2f},{i.max():.1f}"
+                    for t, i in lat.values())
+        + "; loop ticks (decode, no prefill) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in tick.items()
+                    if v is not None)
+        + "; longest ticks ms " + ", ".join(f"{ms:.1f}" for ms, _, _ in
+                                            longest[-4:])
+        + f"; cyclic collector {len(pauses)} pauses, "
+        f"{row['gc_pauses']['total_ms']:.1f} ms in all, longest "
+        f"{row['gc_pauses']['max_ms']:.1f} ms")
+    return row, k3
+
+
+def profiles(torch, np, dev, engine):
+    """Phase 23: ``MicroProfiler`` on vww int8 and fc_stack int8 under the
+    ``"cuda"`` tag chain (per-op µs, the bottleneck, the per-op sum
+    against the replayed invoke; K1 launches = (warm-up + timed) x the
+    int8 FC ops, per-op and invoked), then ``measure_compile_and_step``
+    on a fresh Yi-6B engine's decode program: capture against replay.
+    The profiles run traced for the counts, then again untraced for the
+    times reported (the trace slows every launch)."""
+    from repro_torch.apps.models import (build_fc_stack, build_vww,
+                                         representative_dataset)
+    from repro_torch.core import (AllOpsResolver, MicroInterpreter,
+                                  MicroModel, OpCode, export)
+    from repro_torch.core.profiler import (MicroProfiler,
+                                           measure_compile_and_step)
+
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    cases = {}
+    for name, build in (("vww int8", build_vww),
+                        ("fc_stack int8", build_fc_stack)):
+        gb = build()
+        m = MicroModel(export(gb, representative_dataset(gb),
+                              quantize_int8=True))
+        it = MicroInterpreter(m, res, MicroInterpreter.required_arena_size(
+            m, res), device=dev)
+        xs = [np.random.default_rng(23).normal(
+            0, 1, gb.tensors[t].shape).astype(np.float32) for t in gb.inputs]
+        n_fc = sum(op.opcode == OpCode.FULLY_CONNECTED
+                   and m.tensor(op.inputs[0]).dtype == "int8"
+                   for op in m.operators)
+        cases[name] = (it, xs, n_fc, len(m.operators))
+
+    def profile_all():
+        reps = {}
+        for name, (it, xs, _, n_ops) in cases.items():
+            rep = MicroProfiler.profile(it, xs, warmup=PROFILE_WARMUP,
+                                        iters=PROFILE_ITERS)
+            if len(rep.per_op) != n_ops or rep.device != it.device:
+                raise AssertionError(f"phase 23 {name}: {len(rep.per_op)} "
+                                     f"ops profiled on {rep.device}")
+            reps[name] = rep
+        return reps
+
+    with main_path(torch, "the profiler (phase 23)") as traced:
+        profile_all()
+    want_k1 = sum(2 * (PROFILE_WARMUP + PROFILE_ITERS) * n_fc
+                  for _, _, n_fc, _ in cases.values())
+    # the reported times: the same profiles again, untraced
+    out = {}
+    for name, rep in profile_all().items():
+        out[name] = {"per_op_us": {f"{p.index} {p.op_name}": p.wall_us
+                                   for p in rep.per_op},
+                     "by_op_type_us": rep.by_op_type(),
+                     "bottleneck": rep.bottleneck(),
+                     "per_op_sum_us": rep.eager_total_us,
+                     "replayed_invoke_us": rep.fused_total_us}
+        log(rep.render())
+    eng = engine()
+    timing = measure_compile_and_step(
+        eng._decode, (eng.params, eng.cache, eng.cur_tokens, eng.lengths),
+        iters=PROFILE_ITERS)
+    if "CONV" not in out["vww int8"]["bottleneck"]:
+        raise AssertionError(f"phase 23: vww's bottleneck "
+                             f"{out['vww int8']['bottleneck']}")
+    if traced["quant_matmul"] != want_k1:
+        raise AssertionError(f"phase 23: K1 launched "
+                             f"{traced['quant_matmul']} times, expected "
+                             f"{want_k1}")
+    out["yi-6b decode program"] = {
+        "first_call_s": timing.compile_us / 1e6,
+        "replay_ms": timing.step_us / 1e3, "replays": timing.iters}
+    log(f"  Yi-6B decode program: first call (eager run + capture) "
+        f"{timing.compile_us / 1e6:.3f} s, replay median "
+        f"{timing.step_us / 1e3:.3f} ms over {timing.iters}")
+    return {"model": "MicroProfiler and measure_compile_and_step",
+            "profiles": out, "launches": dict(traced)}, dict(traced)
+
+
+def serving_layers(torch, np, dev, served):
+    """Phases 19-23 on Yi-6B at full width in bfloat16, its weights drawn
+    again from phase 7's seed (``served`` are phase 7's tokens).  Returns
+    the rows, the phases' summaries and each new run's launches by
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    bundle = get_model(get_config(LM_ARCH))
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    prompts = serving_workload(np, bundle.cfg.vocab)
+    engine = family_engine(dev, bundle, model)
+    n_layers = bundle.cfg.n_layers
+    rows, summaries, runs = [], [], {}
+
+    def summary(label, t0, new_rows):
+        info = {"phase": label, "seconds": time.perf_counter() - t0,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        log(f"  {label}: {info['seconds']:.1f} s, peak device memory "
+            f"{info['peak_memory_bytes'] / 2**30:.2f} GiB")
+        summaries.append(info)
+        rows.extend(new_rows)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    phase("phase 19: overlapped decode, contiguous (K3) and paged (K4) "
+          "(main path)")
+    ov_rows, ov_launches = overlapped_decode(torch, np, dev, engine, prompts,
+                                             served, n_layers)
+    for run, (kname, n) in ov_launches.items():
+        runs.setdefault(kname, {})[run] = n
+    summary("phase 19 overlapped decode", t0, ov_rows)
+    t0 = time.perf_counter()
+    phase("phase 20: MultiTenantHost, Yi-6B + fc_stack int8 + hotword on "
+          "one arena (main path)")
+    host_row, host_launches = multitenant_host(torch, np, dev, bundle, model,
+                                               prompts, served, n_layers)
+    for kname, n in host_launches.items():
+        runs.setdefault(kname, {})["phase 20 host"] = n
+    summary("phase 20 host", t0, [host_row])
+    t0 = time.perf_counter()
+    phase("phase 21: ReplicaRouter, two Yi-6B replicas (main path)")
+    router_row, k3 = replica_router(torch, np, dev, engine, bundle, model,
+                                    prompts, served, n_layers)
+    runs.setdefault("decode_attention", {})["phase 21 router"] = k3
+    summary("phase 21 router", t0, [router_row])
+    t0 = time.perf_counter()
+    phase("phase 22: StreamingServer (main path)")
+    stream_row, k3 = streaming_server(torch, np, dev, engine, prompts,
+                                      served, n_layers)
+    runs["decode_attention"]["phase 22 streaming server"] = k3
+    summary("phase 22 streaming server", t0, [stream_row])
+    t0 = time.perf_counter()
+    phase("phase 23: MicroProfiler and measure_compile_and_step (main path)")
+    prof_row, prof_launches = profiles(torch, np, dev, engine)
+    runs.setdefault("quant_matmul", {})["phase 23 profiler"] = \
+        prof_launches["quant_matmul"]
+    summary("phase 23 profiler", t0, [prof_row])
+    del model, engine
+    torch.cuda.empty_cache()
+    return rows, summaries, runs
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3637,6 +4466,10 @@ def main() -> int:
         torch, np, dev)
     model_rows.extend(rq_rows)
     summaries += rq_summaries
+    layer_rows, layer_summaries, layer_runs = serving_layers(torch, np, dev,
+                                                             served)
+    model_rows.extend(layer_rows)
+    summaries += layer_summaries
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
@@ -3709,6 +4542,10 @@ def main() -> int:
                 if kern["name"] in counts}
         if runs:
             kern.setdefault("launches_on_runs", {}).update(runs)
+    # phases 19-23's runs: K1's, K3's and K4's launches on each
+    for kern in kernels:
+        kern.setdefault("launches_on_runs", {}).update(
+            layer_runs.get(kern["name"], {}))
     if any(vlm_launches.values()):
         raise AssertionError(f"vlm launched kernels: {vlm_launches}")
     cap = [(r["model"], r["capture_s"], r.get("graph_pool_bytes"))

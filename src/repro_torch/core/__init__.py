@@ -7,10 +7,11 @@ from . import quantize  # keep the module visible as repro_torch.core.quantize
 from .arena import ArenaOverflowError, TwoStackArena
 from .executor import (AllocationPlan, ArenaPool, BucketTable,
                        CapturedProgram, CompiledPlan, GraphPool,
-                       InterpreterPool, LaneCheckpoint, LaneState,
+                       InflightStep, InterpreterPool, LaneCheckpoint,
+                       LaneState,
                        PagedKVPool, RaggedInterpreterPool, SharedArenaState,
-                       capture_count, disable_capture, plan_model,
-                       required_arena_size)
+                       TokenReadback, capture_count, disable_capture,
+                       plan_model, required_arena_size)
 from .exporter import export, fold_constants, strip_training_ops
 from .exporter import quantize as quantize_graph
 from .graph_builder import GraphBuilder
@@ -27,9 +28,10 @@ __all__ = [
     "ArenaOverflowError", "TwoStackArena", "export", "fold_constants",
     "quantize", "quantize_graph", "strip_training_ops", "GraphBuilder",
     "MicroInterpreter", "AllocationPlan", "ArenaPool", "BucketTable",
-    "CapturedProgram", "CompiledPlan", "GraphPool", "InterpreterPool",
-    "LaneCheckpoint", "LaneState", "PagedKVPool", "RaggedInterpreterPool",
-    "SharedArenaState", "capture_count", "disable_capture",
+    "CapturedProgram", "CompiledPlan", "GraphPool", "InflightStep",
+    "InterpreterPool", "LaneCheckpoint", "LaneState", "PagedKVPool",
+    "RaggedInterpreterPool", "SharedArenaState", "TokenReadback",
+    "capture_count", "disable_capture",
     "plan_model", "required_arena_size", "BufferRequest",
     "GreedyMemoryPlanner", "LinearMemoryPlanner", "MemoryPlan",
     "OfflineMemoryPlanner", "AllOpsResolver", "MicroMutableOpResolver",

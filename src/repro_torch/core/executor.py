@@ -58,11 +58,17 @@ levels; the serving engine pads prompts to them (bucketed prefill).
 **Paged KV accounting.**  ``PagedKVPool`` hands out the physical blocks
 of the serving engine's paged KV pool (reserve at admission, map on
 growth, release at retirement).
+
+**Deferred readback.**  ``InflightStep`` is a dispatched decode step the
+host has not read yet, and ``TokenReadback`` the two pinned host buffers
+its tokens come back through, in turn — the overlapped serving loop's
+(``ServingEngine(overlap=True)``).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -529,11 +535,22 @@ class CapturedProgram:
             static[i] = self._outs[okey]
         before = dict(_build.launches)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):
-            res, _ = tree_flatten(self.fn(*args))
-            for i in copied:
-                static[i].copy_(res[i])
-            del res
+        # no cyclic collection during the capture: a program that only a
+        # reference cycle still holds would have its graph freed by it,
+        # and freeing a graph while another is captured invalidates that
+        # capture (the cycle goes at the next collection after it)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool.handle,
+                                  stream=pool.stream):
+                res, _ = tree_flatten(self.fn(*args))
+                for i in copied:
+                    static[i].copy_(res[i])
+                del res
+        finally:
+            if collecting:
+                gc.enable()
         recorded = {k: n - before[k] for k, n in _build.launches.items()
                     if n != before[k]}
         _add_launches(recorded, -1)
@@ -1467,3 +1484,77 @@ class PagedKVPool:
         self._reserved -= reserved
         if len(self._free) > self.usable_blocks:
             raise RuntimeError("pool accounting corrupted")
+
+
+# ---------------------------------------------------------------------------
+# overlapped decode: a dispatched step whose tokens the host has not read
+# ---------------------------------------------------------------------------
+
+@dataclass
+class InflightStep:
+    """One dispatched-but-unread decode step — the deferred-readback
+    record behind the overlapped serving loop (docs/STREAMING.md).
+
+    Launches are asynchronous: a replayed step returns while the card
+    works.  An ``InflightStep`` pins what the host needs to interpret the
+    step LATER: the device token tensor, the pinned host buffer a
+    non-blocking copy of those tokens lands in, the CUDA event recorded
+    after that copy on the stream the step ran on, and the dispatch-time
+    ``(slot, result, request)`` snapshot — slot bookkeeping may change
+    between dispatch and readback (a slot retires, a request is
+    admitted), and the tokens belong to the slots as they were at
+    dispatch.  On the CPU there is no event: the copy is done when it
+    returns.
+
+    ``host_fetch`` is the single blocking point: it waits for the event
+    and reads the buffer, at which moment the step is no longer in
+    flight."""
+
+    tokens: torch.Tensor                # device tokens, one per slot
+    slots: List[Tuple[int, Any, Any]]   # (slot, result, request) at dispatch
+    host: torch.Tensor                  # pinned host copy of ``tokens``
+    event: Optional[Any] = None         # torch.cuda.Event after the copy
+    dispatch_s: float = 0.0             # host-side dispatch cost (timings)
+
+    def host_fetch(self) -> np.ndarray:
+        """Wait until the step's tokens are in host memory and return a
+        numpy copy of them."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().copy()
+
+
+class TokenReadback:
+    """The host side of overlapped decode's readback: two pinned host
+    buffers of ``n`` tokens, each with its CUDA event, used in turn.
+
+    Two steps are alive at once — step i+1 is dispatched before step i is
+    read — so step i+1's copy must land in the other buffer than step
+    i's, or it could overwrite step i's tokens before the host reads
+    them.  A buffer is written again two launches later, after waiting
+    for its own event, so no buffer is rewritten while a non-blocking
+    copy into it may still be pending.  On the CPU the buffers are plain
+    tensors and the copy is synchronous.  Making the pinned buffers or
+    the events raises where the card cannot; nothing falls back."""
+
+    def __init__(self, n: int, dtype: torch.dtype, device: torch.device):
+        card = device.type == "cuda"
+        self._host = [torch.zeros(n, dtype=dtype, pin_memory=card)
+                      for _ in range(2)]
+        self._events = [torch.cuda.Event() if card else None
+                        for _ in range(2)]
+        self._next = 0
+
+    def launch(self, tokens: torch.Tensor,
+               slots: List[Tuple[int, Any, Any]],
+               dispatch_s: float = 0.0) -> InflightStep:
+        """Copy ``tokens`` into the next buffer behind the work already
+        on the current stream, record its event, and return the step."""
+        i, self._next = self._next, self._next ^ 1
+        host, event = self._host[i], self._events[i]
+        if event is not None:
+            event.synchronize()         # the copy of two launches ago
+        host.copy_(tokens.reshape(-1), non_blocking=event is not None)
+        if event is not None:
+            event.record()
+        return InflightStep(tokens, slots, host, event, dispatch_s)

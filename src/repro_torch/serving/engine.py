@@ -94,10 +94,39 @@ docs/PREEMPTION.md):
     chunks); Whisper's cache carries the cross K/V its prefill staged,
     so a checkpoint restores it with the rings.
 
+A last one overlaps the host with the device (docs/STREAMING.md):
+
+  * **overlapped decode** (``overlap=True``; every family but audio,
+    ``STREAMING_FAMILIES``) — readback is deferred ONE step: the engine
+    dispatches decode step i+1 before it reads step i's tokens, so the
+    host's bookkeeping for step i runs while step i+1 computes.  Greedy
+    sampling moves onto the device (``_argmax``, a program of its own
+    that writes ``cur_tokens`` in place), so step i+1's input tokens
+    never pass through the host; step i's tokens come back through a
+    non-blocking copy into one of two pinned host buffers and an event
+    (``TokenReadback``).  The decode program is the one sync mode runs,
+    and the tokens are the same.  Every ``on_token`` event is emitted in
+    order and exactly once, across preemption and restore too, because
+    every snapshot path drains the step in flight first.
+
+    The stream-ordering rule that keeps this right: the engine updates
+    the cache or pool, the block table, ``lengths`` and ``cur_tokens`` IN
+    PLACE (the JAX engine's functional updates act on the in-flight
+    step's output instead).  The decode replay, the argmax, every host
+    write to a program input (admission, a prefill's insert or scatter, a
+    block-table entry, a restore) and the token copy with its event all
+    go on the caller's current stream, in program order, so each write
+    lands after the step in flight, as JAX's data flow orders it: a slot
+    that retires one step late and is admitted again gets its prefilled
+    rows after that step's wasted write for the retired request.  Moving
+    the decode onto a side stream would need every such writer to wait
+    on it.  Block-table growth at dispatch writes single entries (no
+    host-to-device copy, which would wait for the step in flight).
+
 The JAX engine's families refuse the same fast paths here, with the
-same ``UnsupportedFamilyError``.  Mesh sharding and the overlapped
-decode loop are refused at construction with ``NotImplementedError``
-naming the ROADMAP slice that brings each.
+same ``UnsupportedFamilyError``.  Mesh sharding is refused at
+construction with ``NotImplementedError`` naming the ROADMAP slice that
+brings it.
 """
 
 from __future__ import annotations
@@ -112,7 +141,8 @@ import torch
 
 from repro_torch.core.arena import TwoStackArena, align_up
 from repro_torch.core.executor import (BucketTable, CapturedProgram,
-                                       GraphPool, PagedKVPool, capture_count,
+                                       GraphPool, InflightStep, PagedKVPool,
+                                       TokenReadback, capture_count,
                                        resolve_device)
 from repro_torch.core.interpreter import setup_device
 from repro_torch.core.op_resolver import MicroMutableOpResolver
@@ -140,11 +170,16 @@ PREFILL_PROGRAMS = 16
 # prefill; moe qualifies through the capacity-stable masked dispatch.
 # Not ssm/hybrid: their state integrates every position, padded or not.
 BUCKETED_FAMILIES = ("dense", "vlm", "moe")
+# STREAMING: families qualified for the overlapped decode loop
+# (``overlap=True``).  Not "audio": the encoder-decoder path (cross K/V
+# staged at admission) has not been qualified for deferred readback, as
+# in the JAX engine.
+STREAMING_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
-# engine options of the JAX engine that later slices of the port bring
+# the engine option of the JAX engine that a later slice of the port
+# brings
 _NOT_PORTED = {
     "mesh": "mesh-sharded serving, ROADMAP queue 1, slice 8, item 15",
-    "overlap": "overlapped decode, ROADMAP queue 1, slice 6, item 13",
 }
 
 
@@ -241,6 +276,15 @@ class _ChunkState:
     done: int
 
 
+def _greedy(vocab: int, logits: torch.Tensor,
+            cur: torch.Tensor) -> torch.Tensor:
+    """The ``_argmax`` program: ``ServingEngine._sample``'s tokens (the
+    true ``vocab``, float32, first maximum on ties), written into ``cur``
+    (the engine's ``cur_tokens``) on the device."""
+    cur.copy_(logits[:, :vocab].float().argmax(dim=-1, keepdim=True))
+    return cur
+
+
 def _cache_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -267,7 +311,9 @@ class ServingEngine:
     slot at full length plus the garbage block.  ``weight_dtype``:
     None, ``"int8"`` or ``"int4"`` (the model is quantized once, here;
     ``params`` itself is left as it was); ``kv_dtype``: None or
-    ``"int8"``."""
+    ``"int8"``.  ``overlap``: the overlapped decode loop (the module
+    docstring); ``on_token``: a ``StreamEvent`` callback, called for each
+    emitted token in both modes."""
 
     def __init__(self, bundle: ModelBundle, params: torch.nn.Module, *,
                  max_slots: int = 4, cache_len: int = 256,
@@ -282,11 +328,10 @@ class ServingEngine:
                  weight_dtype: Any = None, kv_dtype: Any = None,
                  mesh: Any = None, overlap: bool = False,
                  on_token: Any = None, device="cuda"):
-        for name, value in (("mesh", mesh), ("overlap", overlap)):
-            if value:
-                raise NotImplementedError(
-                    f"{name}={value!r}: {_NOT_PORTED[name]} is not in "
-                    f"the PyTorch port yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh={mesh!r}: {_NOT_PORTED['mesh']} is not in the "
+                f"PyTorch port yet")
         self.device = resolve_device(device)
         setup_device(self.device)
         self.bundle = bundle
@@ -301,7 +346,13 @@ class ServingEngine:
         self.policy: SchedulingPolicy = get_policy(policy)
         self.preempt: Optional[PreemptionPolicy] = get_preemption(preempt)
         self.clock = clock if clock is not None else default_clock
+        self.overlap = bool(overlap)
+        if self.overlap and self.cfg.family not in STREAMING_FAMILIES:
+            raise UnsupportedFamilyError(self.cfg.family,
+                                         "overlapped (async) decode",
+                                         supported=STREAMING_FAMILIES)
         self.on_token = on_token
+        self._inflight: Optional[InflightStep] = None
         # prefill_buckets: None/True = auto (on for length-masked-decode
         # families, when the cache holds at least the smallest bucket),
         # False = off, or a BucketTable
@@ -426,9 +477,10 @@ class ServingEngine:
         self._chunking: Dict[int, _ChunkState] = {}
         self._ckpt: Dict[int, SlotCheckpoint] = {}
         # what the last step() did: prefill token counts, chunk
-        # dispatches, decode dispatch
+        # dispatches, decode dispatch, tokens emitted
         self.last_step: Dict[str, Any] = {"prefill_tokens": [],
-                                          "chunks": 0, "decoded": False}
+                                          "chunks": 0, "decoded": False,
+                                          "processed": 0}
 
         # --- steps resolved at init, like interpreter prepare ----------
         prefill_code = OpCode.SERVING_PREFILL
@@ -466,6 +518,23 @@ class ServingEngine:
             max_signatures=PREFILL_PROGRAMS)
         self._decode = CapturedProgram(self._bind(decode_code, decode_params),
                                        name="decode", pool=self.graph_pool)
+        # overlap mode's device-side greedy sampler: a program of its own,
+        # so the decode program stays the one sync mode runs
+        # (capture_count(self._decode) == 1 either way).  It reads the
+        # decode's logits from a static buffer (made at the first
+        # overlapped step: the decode program's first call returns its
+        # eager result, later calls its own output buffers) and writes
+        # cur_tokens in place.  Its function holds the vocab, not the
+        # engine: a program that references its engine would put the
+        # engine in a reference cycle, freed by the cyclic collector at
+        # any later allocation, and a graph freed while another is being
+        # captured invalidates that capture
+        self._argmax = CapturedProgram(
+            functools.partial(_greedy, self.cfg.vocab), name="argmax",
+            pool=self.graph_pool)
+        self._logits: Optional[torch.Tensor] = None
+        self._readback = (TokenReadback(max_slots, torch.int64, self.device)
+                          if self.overlap else None)
         self._prefill_chunk = (CapturedProgram(
             self._bind(chunk_code, {"window": window}), name="chunk",
             pool=self.graph_pool) if self.chunk_tokens else None)
@@ -523,10 +592,13 @@ class ServingEngine:
                 if self._prefill_chunk is not None else 0)
 
     def programs(self) -> Dict[str, CapturedProgram]:
-        """The engine's programs by name (decode, prefill, chunk)."""
+        """The engine's programs by name (decode, prefill, chunk, and
+        argmax on an overlapped engine)."""
         progs = {"decode": self._decode, "prefill": self._prefill}
         if self._prefill_chunk is not None:
             progs["chunk"] = self._prefill_chunk
+        if self.overlap:
+            progs["argmax"] = self._argmax
         return progs
 
     @staticmethod
@@ -610,7 +682,9 @@ class ServingEngine:
     def extract_slot_state(self, slot: int) -> Dict[str, torch.Tensor]:
         """Slot ``slot``'s cache rows (KV, or the recurrent state exactly
         as the decode step left it) as a batch=1 cache of CPU copies — the
-        state-EXTRACTION hook a ``SlotCheckpoint`` carries."""
+        state-EXTRACTION hook a ``SlotCheckpoint`` carries.  Drains the
+        step in flight first."""
+        self.drain()
         return {name: full[:, slot:slot + 1].to("cpu", copy=True)
                 for name, full in self.cache.items()}
 
@@ -875,7 +949,10 @@ class ServingEngine:
         chunked-prefill cache + progress for a PREFILLING slot, the KV
         rows + (length, next token, budget) for a DECODING one; on a
         paged engine the block ids instead of any KV.  The slot itself
-        is untouched — pair with ``_evict``."""
+        is untouched — pair with ``_evict``.  On an overlapped engine the
+        step in flight is drained first, so the captured (length, token,
+        budget) triple is the one after its emission."""
+        self.drain()
         if slot in self._chunking:
             cs = self._chunking[slot]
             if self.paged:
@@ -905,7 +982,10 @@ class ServingEngine:
     def _evict(self, slot: int) -> Request:
         """Preempt the request running (or prefilling) in ``slot``:
         checkpoint it, free the slot, and put the request back on the
-        queue (its checkpoint is picked up at re-admission)."""
+        queue (its checkpoint is picked up at re-admission).  Drains the
+        step in flight first: callers picking a victim must choose AFTER
+        the drain (a retirement it settles may free the slot)."""
+        self.drain()
         if slot in self._chunking:
             req = self._chunking[slot].req
             ckpt = self.snapshot_slot(slot)
@@ -975,15 +1055,18 @@ class ServingEngine:
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy tokens: argmax over the true vocab in float32, first
-        maximum on ties — the one device-to-host read of a step."""
+        maximum on ties — the one device-to-host read of a sync step."""
         return (logits[:, :self.cfg.vocab].float().argmax(dim=-1)
                 .cpu().numpy())
 
     def _emit(self, res: RequestResult, tok: int, final: bool) -> None:
         """Append + stream one token — the single place a token becomes
-        visible, so the output list, the TTFT stamp and the ``on_token``
-        StreamEvent agree by construction."""
+        visible, in both modes, so the output list, the TTFT stamp and
+        the ``on_token`` StreamEvent agree by construction (in order,
+        exactly once: every snapshot path drains first, so it captures
+        the state after emission)."""
         res.output.append(tok)
+        self.last_step["processed"] += 1
         now = self.clock()
         if res.first_token_us is None:
             res.first_token_us = now
@@ -992,6 +1075,112 @@ class ServingEngine:
                                       index=len(res.output) - 1,
                                       token=tok, t_us=now, final=final))
 
+    def _retire(self, slot: int) -> None:
+        """Free a finished slot (and, paged, its blocks)."""
+        self.slot_req[slot].done = True
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        self.slot_meta[slot] = None
+        if self.paged:
+            self._release_slot_blocks(slot)
+
+    def _grow_blocks(self, slot: int) -> None:
+        """Map the block the next decode step's ring write lands in
+        (covered by the admission-time reservation) and write the slot's
+        new decode-table entries in place, one fill each: no host-to-
+        device copy, which would wait for an overlapped step in flight."""
+        blocks = self._slot_blocks[slot]
+        before = len(blocks)
+        self._ensure_blocks(slot, int(self._len_host[slot]) % self.cache_len)
+        for j in range(before, len(blocks)):
+            self.block_tables[slot, j] = blocks[j]
+
+    def _run_decode(self) -> torch.Tensor:
+        """One replay of the decode program over every slot; it updates
+        the cache or pool in place.  Returns the logits."""
+        if self.paged:
+            logits, kv = self._decode(
+                (self.params, self.kv_pool, self.block_tables,
+                 self.cur_tokens, self.lengths))
+            self._check_in_place(kv, self.kv_pool)
+        else:
+            logits, kv = self._decode(
+                (self.params, self.cache, self.cur_tokens, self.lengths))
+            self._check_in_place(kv, self.cache)
+        return logits
+
+    # -- overlapped decode (docs/STREAMING.md) --------------------------
+
+    def drain(self) -> None:
+        """Settle the overlapped loop's step in flight, if any: wait for
+        its tokens and run its host bookkeeping (emission, retirement,
+        budget and quota charges).  Public because anything doing
+        checkpoint surgery from outside — tests, the router, a server
+        shutting down — must see consistent slot state first; every
+        internal snapshot and evict path calls it.  A no-op on a sync
+        engine or with nothing in flight."""
+        step, self._inflight = self._inflight, None
+        if step is not None:
+            self._finish_inflight(step)
+
+    def _finish_inflight(self, step: InflightStep) -> None:
+        """Host half of a dispatched decode step: fetch its tokens and
+        interpret them against the DISPATCH-TIME slot snapshot.  A slot
+        that retired after the dispatch (its budget or EOS is learned one
+        step late) is skipped: its extra decode was wasted device work
+        whose KV write is overwritten before the slot's next activation
+        (or lands on the paged garbage block or a released block that a
+        later owner writes before reading), and its token is dropped."""
+        t0 = time.perf_counter()
+        toks = step.host_fetch()
+        wait = time.perf_counter() - t0
+        eos = self.cfg.vocab - 1
+        for slot, res, req in step.slots:
+            if res.done or self.slot_req[slot] is not res:
+                continue        # retired between dispatch and readback
+            res.decode_s += step.dispatch_s + wait
+            self.policy.charge(req.tenant, 1.0)
+            tok = int(toks[slot])
+            self.slot_budget[slot] -= 1
+            self._cur_host[slot, 0] = tok
+            done = self.slot_budget[slot] <= 0 or tok == eos
+            self._emit(res, tok, final=done)
+            if done:
+                self._retire(slot)
+
+    def _dispatch_overlapped(self) -> None:
+        """Dispatch one decode step WITHOUT reading it back, then settle
+        the PREVIOUS step while the device works.  The argmax program
+        writes ``cur_tokens`` on the device, so step i+1's inputs never
+        pass through the host; the only wait, for step i's tokens,
+        overlaps the device running step i+1."""
+        pend = ({s for s, _, _ in self._inflight.slots}
+                if self._inflight is not None else set())
+        if self.paged:
+            # grow at DISPATCH time from the host length mirror; a slot
+            # whose budget is spent once the step in flight lands is
+            # skipped (its write goes to the garbage block, and mapping
+            # would overdraw its reservation)
+            for slot in range(self.max_slots):
+                if self.active[slot] and \
+                        self.slot_budget[slot] - (slot in pend) > 0:
+                    self._grow_blocks(slot)
+        t0 = time.perf_counter()
+        logits = self._run_decode()
+        if self._logits is None:
+            self._logits = torch.empty_like(logits)
+        self._logits.copy_(logits)
+        toks = self._argmax(self._logits, self.cur_tokens)
+        self.lengths += 1
+        self._len_host += 1
+        self.last_step["decoded"] = True
+        prev, self._inflight = self._inflight, self._readback.launch(
+            toks, [(s, self.slot_req[s], self.slot_meta[s])
+                   for s in range(self.max_slots) if self.active[s]],
+            time.perf_counter() - t0)
+        if prev is not None:
+            self._finish_inflight(prev)
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> bool:
@@ -999,12 +1188,20 @@ class ServingEngine:
         admit (policy order, displacing a running victim when the
         preemption policy says so; on a paged engine only while the
         pool can reserve the pick's worst case), then one fused decode
-        step over the slots.  Returns True if work remains."""
+        step over the slots — on an overlapped engine dispatched, with
+        the previous step's tokens emitted behind it.  Returns True if
+        work remains."""
         self.last_step = {"prefill_tokens": [], "chunks": 0,
-                          "decoded": False}
+                          "decoded": False, "processed": 0}
         for slot in list(self._chunking):
             self._advance_chunk(slot)
         if self.queue:
+            if self.overlap and self.preempt is not None:
+                # settle the step in flight before any admission or
+                # displacement decision: a victim's checkpoint must hold
+                # the state after emission, and a retirement in flight
+                # may free the slot the queue needs
+                self.drain()
             now = self.clock()
             for slot in range(self.max_slots):
                 if self.queue and not self.active[slot] \
@@ -1042,20 +1239,24 @@ class ServingEngine:
                     slot = running[vi][0]
                     self._evict(slot)
                     self._admit(cand, slot)
+        if self.overlap and self.active.any() \
+                and self._inflight is not None:
+            pend = {s for s, _, _ in self._inflight.slots}
+            if all(self.slot_budget[s] - (s in pend) <= 0
+                   for s in range(self.max_slots) if self.active[s]):
+                # every active slot's budget is spent once the step in
+                # flight lands: drain instead of dispatching a step whose
+                # every token would be dropped
+                self.drain()
         if not self.active.any():
-            return bool(self.queue or self._chunking)
+            self.drain()
+            return bool(self.active.any() or self.queue or self._chunking)
+        if self.overlap:
+            self._dispatch_overlapped()
+            return bool(self.active.any() or self.queue or self._chunking
+                        or self._inflight is not None)
         t0 = time.perf_counter()
-        # the decode program updates the cache or pool in place
-        if self.paged:
-            logits, kv = self._decode(
-                (self.params, self.kv_pool, self.block_tables,
-                 self.cur_tokens, self.lengths))
-            self._check_in_place(kv, self.kv_pool)
-        else:
-            logits, kv = self._decode(
-                (self.params, self.cache, self.cur_tokens, self.lengths))
-            self._check_in_place(kv, self.cache)
-        toks = self._sample(logits)
+        toks = self._sample(self._run_decode())
         dt = time.perf_counter() - t0
         self.last_step["decoded"] = True
         self.lengths += 1
@@ -1073,20 +1274,11 @@ class ServingEngine:
             done = self.slot_budget[slot] <= 0 or tok == eos
             self._emit(res, tok, final=done)
             if done:
-                res.done = True
-                self.active[slot] = False
-                self.slot_req[slot] = None
-                self.slot_meta[slot] = None
-                if self.paged:
-                    self._release_slot_blocks(slot)
+                self._retire(slot)
             elif self.paged:
                 # grow on demand: map the block the NEXT decode step's
-                # ring write lands in (covered by the reservation)
-                before = len(self._slot_blocks[slot])
-                self._ensure_blocks(
-                    slot, int(self._len_host[slot]) % self.cache_len)
-                if len(self._slot_blocks[slot]) != before:
-                    self._sync_table_row(slot)
+                # ring write lands in
+                self._grow_blocks(slot)
         self.cur_tokens.copy_(torch.from_numpy(self._cur_host))
         return bool(self.active.any() or self.queue or self._chunking)
 

@@ -1,8 +1,8 @@
 """Latency-aware scheduling policies for the serving engine.
 
 A copy of the JAX package's ``repro.serving.scheduling`` (which imports
-no JAX): the admission and preemption policies, without the replica
-routing policies, which come with the replica router.
+no JAX): the admission and preemption policies, and the replica routing
+policies the ``ReplicaRouter`` (``serving.router``) consults.
 
 WHICH request enters a free slot next is the one degree of freedom the
 engine leaves to the host.  Policy decisions are host-side: a policy
@@ -37,6 +37,7 @@ with exactly the tokens of an uninterrupted run.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 _INF = float("inf")
@@ -332,6 +333,138 @@ def get_policy(policy: Union[str, SchedulingPolicy, None]
     except KeyError:
         raise ValueError(f"unknown scheduling policy {policy!r}; "
                          f"have {sorted(_POLICIES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# routing policies (docs/ARCHITECTURE.md §9, docs/SCHEDULING.md §6)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaLoad:
+    """One replica's host-visible load snapshot at route time: queued
+    requests, busy slots (decoding + mid-chunked-prefill), the
+    replica's total slot count, and the remaining-token ``backlog``.
+    Built by ``ReplicaRouter.loads()`` from plain host bookkeeping —
+    reading it never synchronizes a device."""
+
+    queued: int
+    active: int
+    slots: int
+    # remaining decode tokens across queued + active + mid-prefill
+    # requests — the COST-aware load key.  Request count is blind to
+    # heterogeneous service times (a 16-token monopolizer weighs the
+    # same as a 4-token deadline request), which is exactly how
+    # join-the-shortest-queue degenerates to round-robin on a
+    # heavy-tail mix; token backlog sees the difference.
+    backlog: int = 0
+
+    @property
+    def depth(self) -> int:
+        """Total outstanding request count at the replica (queued +
+        active) — the tiebreak load key behind ``backlog``."""
+        return self.queued + self.active
+
+
+class RoutingPolicy:
+    """Decides WHICH engine replica a fresh arrival is submitted to —
+    the route-time sibling of ``SchedulingPolicy`` (which decides
+    admission order WITHIN a replica's queue).  Same contract: a
+    routing decision is host-side Python over load snapshots; it never
+    sees a traced value, so swapping routing policies at runtime
+    (``ReplicaRouter.set_routing``) never recompiles anything.
+
+    Subclasses implement ``route(loads, req, home)`` returning the
+    replica index to submit to.  ``home`` is the index of the replica
+    holding the request's preemption checkpoint/KV, or None for a
+    fresh request: policies MAY ignore it (round-robin does — that is
+    exactly its p99 penalty), but the ``ReplicaRouter`` itself never
+    migrates checkpointed work regardless of policy, so ignoring
+    ``home`` costs performance, never correctness."""
+
+    name = "round-robin"
+
+    def route(self, loads: Sequence[ReplicaLoad], req,
+              home: Optional[int] = None) -> int:
+        """Replica index for ``req`` given per-replica ``loads``;
+        ``home`` names the replica holding its checkpoint (or None)."""
+        raise NotImplementedError
+
+
+class RoundRobinRouting(RoutingPolicy):
+    """Cycle through replicas in submission order — the load-blind
+    baseline.  Under heterogeneous service times (a long monopolizer
+    on one replica) it keeps feeding the busy replica while others
+    idle, which is the queueing delay the load-aware policies beat."""
+
+    name = "round-robin"
+
+    def __init__(self) -> None:
+        self._next = 0
+
+    def route(self, loads: Sequence[ReplicaLoad], req,
+              home: Optional[int] = None) -> int:
+        """The next replica in cyclic order, ignoring load and home."""
+        i = self._next % len(loads)
+        self._next += 1
+        return i
+
+
+class LeastLoadedRouting(RoutingPolicy):
+    """Route to the replica with the smallest remaining-token
+    ``backlog`` (ties broken by request depth, then replica index) —
+    join-the-shortest-WORKLOAD rather than shortest queue, because a
+    count-based key cannot tell a monopolizer from a deadline-class
+    request.  Load-aware but locality-blind: it reads only the
+    snapshot, never ``home``."""
+
+    name = "least-loaded"
+
+    def route(self, loads: Sequence[ReplicaLoad], req,
+              home: Optional[int] = None) -> int:
+        """Index of the least-backlogged replica (stable on ties)."""
+        return min(range(len(loads)),
+                   key=lambda i: (loads[i].backlog, loads[i].depth, i))
+
+
+class LocalityRouting(RoutingPolicy):
+    """Least-loaded with continuation stickiness: a request whose
+    KV/checkpoint is parked at a replica (``home``) goes HOME —
+    re-prefilling elsewhere would pay the full prompt again and strand
+    the checkpoint — and only fresh requests load-balance through the
+    ``inner`` policy (least-loaded by default)."""
+
+    name = "locality"
+
+    def __init__(self, inner: Union[str, RoutingPolicy, None] = None):
+        self.inner = get_routing(inner if inner is not None
+                                 else "least-loaded")
+
+    def route(self, loads: Sequence[ReplicaLoad], req,
+              home: Optional[int] = None) -> int:
+        """``home`` when the request has one, else the inner policy."""
+        if home is not None:
+            return home
+        return self.inner.route(loads, req, None)
+
+
+_ROUTING = {p.name: p for p in (RoundRobinRouting, LeastLoadedRouting,
+                                LocalityRouting)}
+
+
+def get_routing(policy: Union[str, RoutingPolicy, None]) -> RoutingPolicy:
+    """Resolve a routing argument: an instance passes through, a name
+    (``"round-robin"``/``"least-loaded"``/``"locality"``) constructs
+    the default instance, None means round-robin (the baseline, like
+    FIFO for admission)."""
+    if policy is None:
+        return RoundRobinRouting()
+    if isinstance(policy, RoutingPolicy):
+        return policy
+    try:
+        return _ROUTING[policy]()
+    except KeyError:
+        raise ValueError(f"unknown routing policy {policy!r}; "
+                         f"have {sorted(_ROUTING)}") from None
 
 
 _PREEMPTION = {p.name: p for p in (PreemptionPolicy, EDFDisplacePolicy)}

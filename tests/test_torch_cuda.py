@@ -1315,3 +1315,123 @@ def test_reduced_family_engines_on_card_match_cpu(cuda, arch):
             assert new == {"ssd_scan": cfg.n_layers * prefills}, new
         else:
             assert new == {}, (kw, new)
+
+
+@pytest.mark.parametrize("kv_block", [None, 16], ids=["contiguous", "paged"])
+def test_overlap_two_pinned_buffers_equal_sync(cuda, kv_block):
+    """The overlapped loop on the card over 64+ decode steps, with budgets
+    that retire slots one step late and more requests than slots, so
+    freed slots are admitted again while a step is in flight: the tokens
+    are the sync engine's, request for request, and the two pinned
+    readback buffers alternate (a single shared one would let step i+1's
+    copy overwrite step i's tokens before they are read)."""
+    bundle, model = _reduced("yi-6b")
+    model = model.to(cuda)
+    rng = np.random.default_rng(22)
+    reqs = [(rng.integers(0, bundle.cfg.vocab - 2, int(n)).astype(np.int32),
+             int(k))
+            for n, k in zip(rng.integers(2, 40, 16), rng.integers(1, 32, 16))]
+
+    late = []
+
+    def run(**kw):
+        eng = ServingEngine(bundle, model, max_slots=3, cache_len=64,
+                            kv_block=kv_block, device=cuda, **kw)
+        admit = eng._admit
+
+        def watched(req, slot):
+            # an admission into a slot whose retired request the step in
+            # flight was dispatched with
+            step = eng._inflight
+            late.append(step is not None and any(
+                s == slot and res.done for s, res, _ in step.slots))
+            admit(req, slot)
+        eng._admit = watched
+        for uid, (toks, new) in enumerate(reqs):
+            eng.submit(Request(uid=uid, tokens=toks, max_new_tokens=new))
+        steps = 0
+        while eng.step():
+            steps += eng.last_step["decoded"]
+        return eng, steps, {u: r.output for u, r in eng.results.items()}
+
+    _, _, want = run()
+    eng, steps, got = run(overlap=True)
+    assert steps >= 64 and any(late)
+    assert got == want
+    assert capture_count(eng._decode) == capture_count(eng._argmax) == 1
+    hosts = eng._readback._host
+    assert len(hosts) == 2 and all(h.is_pinned() for h in hosts)
+    assert hosts[0].data_ptr() != hosts[1].data_ptr()
+    if kv_block:
+        assert eng.pool.free_blocks() == eng.pool.usable_blocks
+
+
+def test_streaming_server_captures_on_the_loop_thread(cuda):
+    """A StreamingServer's engine is captured on the server's loop thread
+    (the only thread that touches CUDA while it runs) and streams the
+    sync engine's tokens; shutdown() ends an unfinished stream."""
+    import threading
+
+    from repro_torch.launch.serve import StreamingServer
+
+    bundle, model = _reduced("qwen3-32b")
+    model = model.to(cuda)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, bundle.cfg.vocab - 2, int(n)).astype(np.int32)
+               for n in rng.integers(4, 20, 4)]
+    sync = ServingEngine(bundle, model, max_slots=2, cache_len=64,
+                         device=cuda)
+    for uid, p in enumerate(prompts):
+        sync.submit(Request(uid=uid, tokens=p, max_new_tokens=6))
+    want = {u: r.output for u, r in sync.run().items()}
+
+    eng = ServingEngine(bundle, model, max_slots=2, cache_len=64,
+                        overlap=True, device=cuda)
+    threads = set()
+    decode = eng._decode.fn
+
+    def traced_decode(*args):
+        threads.add(threading.current_thread().name)
+        return decode(*args)
+    eng._decode.fn = traced_decode
+    server = StreamingServer(eng).start()
+    try:
+        for uid, p in enumerate(prompts):
+            server.submit(p, max_new_tokens=6, uid=uid)
+        got = {uid: [ev.token for ev in server.stream(uid, timeout=120)]
+               for uid in range(len(prompts))}
+        cut = server.submit(prompts[0], max_new_tokens=2000)
+    finally:
+        server.shutdown()
+    assert got == want
+    assert threads == {"serving-loop"}
+    assert eng._decode.captures == capture_count(eng._argmax) == 1
+    res = server.result(cut)
+    if res is None or not res.done:
+        with pytest.raises(RuntimeError, match="shut down"):
+            list(server.stream(cut, timeout=5.0))
+
+
+def test_capture_with_a_program_cycle_pending(cuda):
+    """A captured program that only a reference cycle holds (as an engine
+    whose program is its bound method is) is freed by the cyclic
+    collector, never in the middle of another program's capture, which
+    freeing a graph would invalidate: with the collector at its most
+    eager, every new capture still succeeds and replays."""
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for i in range(3):
+            holder = {}
+            holder["self"] = holder
+            holder["program"] = CapturedProgram(lambda t: t * 2, name="cycle")
+            holder["program"](x)
+            assert holder["program"].captures == 1
+            del holder                      # only the cycle holds it now
+            fresh = CapturedProgram(lambda t, i=i: t + i, name="fresh")
+            assert torch.equal(fresh(x), x + i)     # eager run + capture
+            assert torch.equal(fresh(x), x + i)     # replay
+            assert fresh.captures == 1
+    finally:
+        gc.set_threshold(*thresholds)

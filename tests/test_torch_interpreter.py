@@ -383,15 +383,24 @@ def test_default_device_is_cuda(conv_model, resolver):
 
 @pytest.mark.parametrize("entry", ["plan_model", "AllocationPlan.build",
                                    "ArenaPool", "DenseLM",
-                                   "params_from_jax"])
+                                   "params_from_jax", "MultiTenantHost",
+                                   "StreamingServer", "MicroProfiler"])
 def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
-    """The executor's and the LM's entry points default to the card too,
-    and raise without one rather than plan or allocate on the CPU."""
+    """The executor's, the LM's and the serving layer's entry points
+    default to the card too, and raise without one rather than plan or
+    allocate on the CPU: the host's micro pools, the engine a
+    StreamingServer drives, and the interpreter MicroProfiler times (its
+    report names the device it ran on)."""
     from repro_torch.configs import get_config
     from repro_torch.core import (AllocationPlan, ArenaPool, TwoStackArena,
                                   plan_model)
-    from repro_torch.models import lm, params_from_jax
+    from repro_torch.core.profiler import MicroProfiler
+    from repro_torch.launch.serve import StreamingServer
+    from repro_torch.models import get_model, lm, params_from_jax
+    from repro_torch.serving import MultiTenantHost, ServingEngine
     cfg = get_config("yi-6b", reduced=True)
+    card = "cuda" if torch.cuda.is_available() else "cpu"
+    x = np.zeros(conv_model.tensor(conv_model.inputs[0]).shape, np.float32)
     # a JAX init_lm tree of zeros (per-layer leaves stacked on L): only
     # where it lands matters
     blk = lm.DenseLM(cfg, device="cpu").layers[0]
@@ -412,6 +421,14 @@ def test_every_entry_point_defaults_to_cuda(entry, conv_model, resolver):
         "DenseLM": (lm.DenseLM, lambda: lm.DenseLM(cfg).embed),
         "params_from_jax": (params_from_jax,
                             lambda: params_from_jax(tree, cfg).embed),
+        "MultiTenantHost": (MultiTenantHost,
+                            lambda: MultiTenantHost(1 << 20).ragged.pool),
+        "StreamingServer": (ServingEngine, lambda: StreamingServer(
+            ServingEngine(get_model(cfg), lm.DenseLM(cfg, device=card),
+                          max_slots=1, cache_len=16)).engine),
+        "MicroProfiler": (MicroInterpreter, lambda: MicroProfiler.profile(
+            MicroInterpreter(conv_model, resolver, 1 << 20), [x], warmup=0,
+            iters=1)),
     }[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():

@@ -371,7 +371,8 @@ def test_quantization_shrinks_the_footprint(models):
 
 def test_quantized_refusals(models):
     """Unknown dtypes and chunked prefill with quantization raise
-    ValueError; mesh and overlap stay unported; the quantized ops refuse
+    ValueError; mesh stays unported (overlap composes with quantized
+    serving, as in the JAX engine); the quantized ops refuse
     the families the port does not quantize, and the cuda decode a block
     size its kernels do not take."""
     _, _, cfg, model = models["yi-6b"]
@@ -388,9 +389,9 @@ def test_quantized_refusals(models):
         engine(weight_dtype="int8", prefill_chunk=8)
     with pytest.raises(ValueError, match="prefill_chunk"):
         engine(kv_dtype="int8", prefill_chunk=8)
-    for option, value in (("mesh", object()), ("overlap", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine(weight_dtype="int8", **{option: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine(weight_dtype="int8", mesh=object())
+    assert engine(weight_dtype="int8", overlap=True).overlap
     op = OpDef(OpCode.SERVING_DECODE_Q, (), (),
                params={"paged": True, "kv_q": True, "kv_block": 24})
     with pytest.raises(UnsupportedFamilyError, match="quantized"):

@@ -212,11 +212,18 @@ def test_on_token_streams_every_token_in_order():
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("overlap", True)])
 def test_unported_options_raise(option, value):
+    """``mesh=`` is refused, naming the ROADMAP slice that brings it.
+    ``overlap=`` is ported: it constructs alone, and with ``mesh=`` the
+    mesh refusal still stands."""
     cfg = get_config("yi-6b", reduced=True)
     bundle = get_model(cfg)
     model = bundle.init(torch.Generator().manual_seed(0))
+    kw = {option: value}
+    if option == "overlap":
+        assert ServingEngine(bundle, model, device="cpu", **kw).overlap
+        kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(bundle, model, device="cpu", **{option: value})
+        ServingEngine(bundle, model, device="cpu", **kw)
 
 
 def test_engine_device_checks():
