@@ -5,8 +5,8 @@ dispatch), dense-LM serving (contiguous, paged and quantized),
 recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
 serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper,
 the overlapped decode loop, the multi-tenant host, the replica router,
-the streaming server and the profiler — with every CUDA kernel of those
-paths held against its plain PyTorch version.
+the streaming server, the profiler and the calibration cost model — with
+every CUDA kernel of those paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -58,7 +58,7 @@ Phases — any failure raises and the script exits non-zero:
      bounds, the least operations on the CUDA cores in float32 and on
      the tensor cores in bf16; no single library call computes the
      scan.
-  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12, 13, 14, 15-23) runs
+  Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12, 13, 14, 15-24) runs
   inside ``main_path``: every launch count set to 0 just before it, the
   device traced by torch.profiler over it, and after it each kernel's
   launches counted in the trace (by the device function one launch of
@@ -258,7 +258,34 @@ Phases — any failure raises and the script exits non-zero:
      against the replayed invoke, K1 launched per FC op per call; and
      ``measure_compile_and_step`` on a fresh Yi-6B decode program: the
      first call (eager run and capture) against a replay.
-  Each of phases 15-23 logs its seconds and its peak device memory
+  24. the calibration cost model: (a) Yi-6B (phase 7's weights) at 4
+     slots x 2048, calibrated untraced through the real programs on 64
+     prompt lengths (phase 7's 8 among them) with chunks (0, 128, 256),
+     decode slots (1, 2, 4), paged blocks (8, 16, 32, 64), precisions
+     fp32/fp32, int8/int8, int4/int8, fc_stack int8 lanes (1, 2, 4, 8,
+     16) and replicas (1, 2) at a target that needs two: every
+     candidate's compile (eager run + capture) and step, the solved
+     configuration against the default table's expected time, the
+     calibration's seconds, peak memory and counted launches (K1, K3,
+     K4, K5, K6); the profile saved to the port's cache and loaded back
+     equal.  (b) ``ServingEngine.from_profile`` serves the 64 prompts (8
+     new tokens) as a main path: tokens bit-equal to an engine configured
+     by hand with the same table, chunk and block; prefill programs =
+     ``predicted_compiles``, a chunk program exactly when a request was
+     chunked; K3 (K4 with a solved ``kv_block``) traced = counted; memory
+     flat on the second pass; phase 7's layer-0 K/V check; tokens equal
+     to phase 7's counted; the median decode tick and the summed prefill
+     ms beside the default engine's.  A ``MultiTenantHost(profile=)``
+     with two Yi-6B tenants (sharing the profile's table and chunk) and
+     fc_stack int8 at the profile's lane width serves through ``run_all``
+     as a main path: the from-profile engine's tokens, micro outputs
+     bit-equal to each request alone, K1 and K3 traced = counted.  (c)
+     Mamba2-780m calibrated at full width on levels inside the one-shot
+     contract and chunks (0, 128), then served from its profile: K8
+     traced = counted, tokens bit-equal to the hand-configured engine.
+     (d) the profile from (a) makes ``from_profile`` on a CPU engine
+     raise, and a CPU profile (reduced Yi-6B) does on the card.
+  Each of phases 15-24 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
   K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
@@ -268,7 +295,7 @@ Phases — any failure raises and the script exits non-zero:
   A JSON line of phases 15-18's summaries, one of the models, one
   listing the kernels (K1-K8; K1's and K2's launches summed over phases
   3-4, 13 and 14, with each path's count; K3-K8 with their launches on
-  phases 15 and 18's runs), then the last line ``{"ok": true,
+  phases 15, 18 and 19-24's runs), then the last line ``{"ok": true,
   "device": {...}}``.
 """
 
@@ -4164,8 +4191,402 @@ def profiles(torch, np, dev, engine):
             "profiles": out, "launches": dict(traced)}, dict(traced)
 
 
+# phase 24: the calibration cost model.  Yi-6B is calibrated on
+# CAL_REQUESTS prompt lengths (phase 7's prompts first, the rest drawn
+# from its 16-512 range), every calibrate() option on: the chunk sizes,
+# decode slots, paged blocks, precisions, micro lanes and replica counts
+# below; then served from the profile, CAL_NEW tokens a request
+CAL_REQUESTS, CAL_NEW = 64, 8
+CAL_CHUNKS = (0, 128, 256)
+CAL_SLOTS = (1, 2, 4)
+CAL_BLOCKS = (8, 16, 32, 64)
+CAL_QUANT = (("fp32", "fp32"), ("int8", "int8"), ("int4", "int8"))
+CAL_LANES = (1, 2, 4, 8, 16)
+# the micro demand the lane width is solved for: the widest candidate's
+# lanes busy on every one of CAL_REQUESTS ticks (one tick would weigh
+# each width's capture against a single dispatch)
+CAL_LANE_DEMAND = (CAL_LANES[-1],) * CAL_REQUESTS
+CAL_REPLICAS = (1, 2)
+# a decode throughput one replica of 4 slots cannot give and two can, for
+# a measured 4-slot step of 6-12 ms (phase 7's replay takes ~9)
+CAL_TARGET_TOK_PER_US = 1.5 * SERVE_SLOTS / 9000.0
+# Mamba2-780m's measured levels, each inside the one-shot contract
+# (S % min(128, S) == 0), and its chunk sizes
+SSM_CAL_LEVELS = (64, 128, 256, 384, 512)
+SSM_CAL_CHUNKS = (0, 128)
+# fc_stack int8 requests through the host's micro tenant
+CAL_FC_REQUESTS = 24
+
+
+def calibration_workload(np, vocab):
+    """Phase 7's prompts, then seeded prompts of 16-512 tokens up to
+    ``CAL_REQUESTS``."""
+    rng = np.random.default_rng(24)
+    more = [rng.integers(0, vocab - 2, int(n)).astype(np.int32)
+            for n in rng.integers(16, 513, CAL_REQUESTS - N_SERVE)]
+    return serving_workload(np, vocab) + more
+
+
+def log_profile(prof) -> None:
+    """Every measured candidate and the solved configuration."""
+    from repro_torch.core.costmodel import solve_precision
+
+    def line(label, costs, key):
+        log(f"  {label}: " + "; ".join(
+            f"{getattr(c, key)} {c.compile_us / 1e3:.1f}/"
+            f"{c.step_us / 1e3:.3f}" for c in costs)
+            + "  (compile ms / step ms)")
+    line("prefill levels", prof.bucket_costs, "length")
+    line("chunk sizes", prof.chunk_costs, "chunk")
+    line("decode slots", prof.decode_costs, "slots")
+    line("paged blocks", prof.block_costs, "block")
+    line("micro lanes", prof.lane_costs, "lanes")
+    if prof.quant_costs:
+        log("  precisions: " + "; ".join(
+            f"{q.weight_dtype}/{q.kv_dtype} {q.compile_us / 1e3:.1f}/"
+            f"{q.step_us / 1e3:.3f} ms, {q.hbm_bytes:,} B"
+            for q in prof.quant_costs))
+        pick = solve_precision(prof.quant_costs)
+        log(f"  solve_precision (no bounds: the smallest footprint): "
+            f"{pick.weight_dtype}/{pick.kv_dtype}")
+    log(f"  solved: levels {prof.bucket_levels}, prefill_chunk "
+        f"{prof.prefill_chunk}, kv_block {prof.kv_block}, micro_lanes "
+        f"{prof.micro_lanes}, replicas {prof.replicas}; predicted prefill "
+        f"programs {prof.predicted_compiles}; expected "
+        f"{prof.expected_us / 1e3:.1f} ms against the default table's "
+        f"{prof.default_expected_us / 1e3:.1f} ms (feasible "
+        f"{prof.feasible}); meta {prof.meta}")
+
+
+def profile_row(prof) -> dict:
+    """The profile's fields for the models line."""
+    from repro_torch.core.costmodel import solve_precision
+
+    d = json.loads(prof.to_json())
+    if prof.quant_costs:
+        pick = solve_precision(prof.quant_costs)
+        d["solve_precision"] = [pick.weight_dtype, pick.kv_dtype]
+    return d
+
+
+def calibrate_counted(torch, fn):
+    """``fn()`` (a calibration, untraced) with every launch count set to
+    0 just before it; returns (its result, the launches counted, its
+    seconds, the peak device memory over it)."""
+    from repro_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in _build.launches:
+        _build.launches[name] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (out, {k: n for k, n in _build.launches.items() if n}, seconds,
+            torch.cuda.max_memory_allocated())
+
+
+def cost_model(torch, np, dev, bundle, model, served):
+    """Phase 24: the calibration cost model on the card.  (a) calibrate
+    Yi-6B (phase 7's weights) untraced, every option on; save the profile
+    to the port's cache and load it back.  (b) ``from_profile`` serves
+    the calibrated workload as a main path: tokens bit-equal to an engine
+    configured by hand with the same table, chunk and block, prefill
+    programs = ``predicted_compiles``, K3 or K4 launches traced = counted,
+    memory flat, phase 7's layer-0 K/V check; a ``MultiTenantHost``
+    with the profile, two Yi-6B tenants sharing its table and fc_stack
+    int8 at the profile's lane width, through ``run_all``.  (c) calibrate
+    Mamba2-780m on levels inside the one-shot contract and serve from its
+    profile (K8).  (d) the profile never crosses devices.  Returns (rows,
+    the phase's summary, each run's launches by kernel)."""
+    from repro_torch.apps.models import build_fc_stack, representative_dataset
+    from repro_torch.configs import get_config
+    from repro_torch.core import (AllOpsResolver, BucketTable, MicroModel,
+                                  OpCode, calibrate, export,
+                                  load_cached_profile, save_cached_profile)
+    from repro_torch.models import get_model
+    from repro_torch.serving import MultiTenantHost, Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg, n_layers = bundle.cfg, bundle.cfg.n_layers
+    prompts = calibration_workload(np, cfg.vocab)
+    lengths = [len(p) for p in prompts]
+    res = AllOpsResolver(tags=("cuda", "reference"))
+    gb = build_fc_stack()
+    fc = MicroModel(export(gb, representative_dataset(gb),
+                           quantize_int8=True))
+    runs, rows = {}, []
+
+    # (a) the calibration, untraced
+    prof, cal_launches, cal_s, cal_peak = calibrate_counted(
+        torch, lambda: calibrate(
+            bundle, model, lengths, cache_len=SERVE_CACHE, seed=24,
+            chunk_candidates=CAL_CHUNKS, decode_slots=CAL_SLOTS,
+            block_candidates=CAL_BLOCKS, new_tokens=CAL_NEW,
+            quant_candidates=CAL_QUANT, lane_candidates=CAL_LANES,
+            lane_demand=CAL_LANE_DEMAND, micro=(fc, res),
+            replica_candidates=CAL_REPLICAS,
+            target_tokens_per_us=CAL_TARGET_TOK_PER_US, device=dev))
+    log(f"  (a) {cfg.arch_id} calibrated in {cal_s:.1f} s, peak device "
+        f"memory {cal_peak / 2**30:.2f} GiB; launches counted (untraced) "
+        + ", ".join(f"{k} {n}" for k, n in cal_launches.items()))
+    log_profile(prof)
+    for name, n in cal_launches.items():
+        runs.setdefault(name, {})["phase 24 (a) calibration"] = n
+    want_meta = {"device": "cuda",
+                 "device_name": torch.cuda.get_device_name(dev)}
+    if not prof.matches_device(dev) or \
+            {k: prof.meta[k] for k in want_meta} != want_meta:
+        raise AssertionError(f"phase 24: profile meta {prof.meta}")
+    if prof.replicas != 2 or prof.micro_lanes not in CAL_LANES or \
+            prof.kv_block not in CAL_BLOCKS:
+        raise AssertionError(f"phase 24: replicas {prof.replicas}, "
+                             f"micro_lanes {prof.micro_lanes}, kv_block "
+                             f"{prof.kv_block}")
+    for name in ("quant_matmul", "decode_attention", "paged_decode_attention",
+                 "dequant_matmul", "dequant_matmul_i4"):
+        if not cal_launches.get(name):
+            raise AssertionError(f"phase 24 (a): {name} never launched")
+    path = save_cached_profile(prof)
+    loaded = load_cached_profile(prof.model_key)
+    if loaded is None or loaded.to_json() != prof.to_json() or \
+            loaded != prof:
+        raise AssertionError("phase 24: the cached profile differs")
+    log(f"  saved to the port's profile cache ({Path(path).relative_to(ROOT)}"
+        f") and loaded back equal")
+    rows.append({"model": f"{cfg.arch_id} calibration profile",
+                 "seconds": cal_s, "peak_memory_bytes": cal_peak,
+                 "launches_counted": cal_launches,
+                 "profile": profile_row(prof)})
+
+    # (b) served from the profile
+    engine = family_engine(dev, bundle, model)
+    eng = ServingEngine.from_profile(bundle, model, loaded,
+                                     max_slots=SERVE_SLOTS, device=dev)
+    if (eng.bucket_table != prof.bucket_table()
+            or eng.chunk_tokens != prof.prefill_chunk
+            or eng.kv_block != prof.kv_block):
+        raise AssertionError("phase 24: from_profile did not apply the "
+                             "profile")
+    kernel = "paged_decode_attention" if prof.kv_block else \
+        "decode_attention"
+    srow, toks = serve_main(torch, np, dev, eng, prompts,
+                            "the from-profile engine (phase 24 (b))",
+                            new=CAL_NEW)
+    want = dict.fromkeys(srow["launches"], 0)
+    want[kernel] = n_layers * srow["decode_steps"]
+    if srow["launches"] != want:
+        raise AssertionError(f"phase 24 (b): launches {srow['launches']}, "
+                             f"expected {want}")
+    runs.setdefault(kernel, {})["phase 24 (b) from profile"] = \
+        srow["launches"][kernel]
+    chunked = any(eng.chunk_tokens and len(p) - 1 > eng.chunk_tokens
+                  and -(-(len(p) - 1) // eng.chunk_tokens)
+                  * eng.chunk_tokens <= SERVE_CACHE for p in prompts)
+    if eng.prefill_compiles() != prof.predicted_compiles or \
+            eng.chunk_compiles() != int(chunked):
+        raise AssertionError(f"phase 24: {eng.prefill_compiles()} prefill "
+                             f"programs (predicted "
+                             f"{prof.predicted_compiles}), "
+                             f"{eng.chunk_compiles()} chunk programs")
+    log(f"  prefill programs {eng.prefill_compiles()} = predicted_compiles; "
+        f"chunk programs {eng.chunk_compiles()}; buckets hit "
+        f"{eng.bucket_table.buckets()}")
+    kv = bucketed_vs_exact(torch, np, engine(prefill_buckets=False), eng,
+                           prompts[:N_SERVE])
+    phase7 = tokens_equal(
+        "the from-profile engine's first tokens vs phase 7's",
+        {u: toks[u] for u in range(N_SERVE)},
+        {u: served[u][:CAL_NEW] for u in range(N_SERVE)})
+    del eng
+    hand = engine(prefill_buckets=BucketTable.from_levels(
+        prof.bucket_levels), prefill_chunk=prof.prefill_chunk or None,
+        kv_block=prof.kv_block or None)
+    hrow, hand_toks = serve_lm(torch, np, dev, hand, prompts, new=CAL_NEW)
+    same_tokens("the from-profile engine vs one configured by hand",
+                toks, hand_toks)
+    del hand
+    default = engine()
+    cold, _ = serve_lm(torch, np, dev, default, prompts, new=CAL_NEW)
+    drow, _ = serve_lm(torch, np, dev, default, prompts, new=CAL_NEW)
+    del default
+    torch.cuda.empty_cache()
+
+    def numbers(r):
+        return {"median_decode_tick_ms": r["median_decode_step_ms"],
+                "prefill_ms_sum": sum(r["prefill_ms"]),
+                "prefill_programs": r["programs"]["prefill"]}
+    # cold: each configuration's first pass, its captures included (what
+    # the solver's objective prices); warm: a second pass, none
+    compare = {"cold": {"from_profile": numbers(hrow),
+                        "default": numbers(cold)},
+               "warm": {"from_profile": numbers(srow),
+                        "default": numbers(drow)}}
+    for when, pair in compare.items():
+        a, b = pair["from_profile"], pair["default"]
+        log(f"  {when}, untraced, the same {len(prompts)} requests: median "
+            f"decode tick {a['median_decode_tick_ms']:.3f} ms from the "
+            f"profile vs {b['median_decode_tick_ms']:.3f} ms default; "
+            f"prefill ms summed {a['prefill_ms_sum']:.1f} vs "
+            f"{b['prefill_ms_sum']:.1f} ({a['prefill_programs']} vs "
+            f"{b['prefill_programs']} prefill programs)")
+    rows.append({"model": f"{cfg.arch_id} served from its profile",
+                 "serving": srow, "layer0_kv": kv, "vs_phase7": phase7,
+                 "vs_default": compare, "hand_configured_tokens_equal": True})
+
+    # (b) the host: the profile's table shared by two Yi-6B tenants, the
+    # fc_stack tenant at the profile's lane width
+    alone = lone_interpreter(dev, fc, res)
+    host = MultiTenantHost(HOST_ARENA_BYTES, profile=loaded, device=dev)
+    engines = [host.add_model(name, bundle, model, max_slots=SERVE_SLOTS,
+                              cache_len=SERVE_CACHE,
+                              max_prompt=HOST_MAX_PROMPT)
+               for name in ("yi-a", "yi-b")]
+    host.add_ragged_micro("fc", fc, res, lanes=prof.micro_lanes,
+                          bucket_lanes=False)
+    if any(e.bucket_table is not host.prompt_buckets
+           or e.chunk_tokens != prof.prefill_chunk for e in engines) or \
+            host.prompt_buckets != prof.bucket_table():
+        raise AssertionError("phase 24: the host's tenants do not share the "
+                             "profile's table and chunk")
+    rng = np.random.default_rng(24)
+    fc_reqs = {i: [rng.normal(0, 1, input_shape(fc)).astype(np.float32)]
+               for i in range(CAL_FC_REQUESTS)}
+    for uid, p in enumerate(prompts):
+        host.submit("yi-a", Request(uid=uid, tokens=p,
+                                    max_new_tokens=CAL_NEW))
+    for uid, p in enumerate(prompts[:N_SERVE]):
+        host.submit("yi-b", Request(uid=uid, tokens=p,
+                                    max_new_tokens=CAL_NEW))
+    for uid, frames in fc_reqs.items():
+        host.submit_micro("fc", uid, [[f] for f in frames])
+    n_fc = sum(op.opcode == OpCode.FULLY_CONNECTED
+               and fc.tensor(op.inputs[0]).dtype == "int8"
+               for op in fc.operators)
+    bucket = host.ragged._buckets["fc"]
+    waves = bucket.dispatch_count
+    with main_path(torch, "the host from the profile (phase 24 (b))") \
+            as traced:
+        out = host.run_all()
+    waves = bucket.dispatch_count - waves
+    same_tokens("the host's first Yi-6B tenant vs the from-profile engine",
+                {u: r.output for u, r in out["yi-a"].items()}, toks)
+    same_tokens("the host's second Yi-6B tenant vs the from-profile engine",
+                {u: r.output for u, r in out["yi-b"].items()},
+                {u: toks[u] for u in range(N_SERVE)})
+    frames = micro_bit_equal(np, alone, fc_reqs, host.micro_results["fc"],
+                             "fc")
+    k3 = traced["decode_attention"]
+    if traced["quant_matmul"] != n_fc * waves or not k3 or k3 % n_layers \
+            or any(n for k, n in traced.items()
+                   if k not in ("quant_matmul", "decode_attention")):
+        raise AssertionError(f"phase 24 host: launches {traced} ({waves} fc "
+                             f"waves of {n_fc} int8 FC ops)")
+    runs.setdefault("quant_matmul", {})["phase 24 (b) host"] = \
+        traced["quant_matmul"]
+    runs.setdefault("decode_attention", {})["phase 24 (b) host"] = k3
+    log(f"  host: both Yi-6B tenants on the profile's table "
+        f"{host.prompt_buckets.levels} and chunk {prof.prefill_chunk}, "
+        f"fc_stack at {prof.micro_lanes} lanes ({waves} waves, {frames} "
+        f"frames bit-equal to each request alone)")
+    rows.append({"model": "MultiTenantHost from the profile",
+                 "tenants": ["yi-a", "yi-b", "fc"],
+                 "levels": host.prompt_buckets.levels,
+                 "chunk": prof.prefill_chunk, "micro_lanes": prof.micro_lanes,
+                 "fc_waves": waves, "micro_frames_bit_equal": frames,
+                 "launches": traced})
+    del host, engines
+    torch.cuda.empty_cache()
+
+    # (c) a recurrent calibration: Mamba2-780m
+    sbundle = get_model(get_config(SSM_ARCH))
+    smodel = sbundle.init(torch.Generator(dev).manual_seed(0))
+    sprompts = recurrent_workload(np, sbundle.cfg.vocab, 24, N_SERVE, 0, 0,
+                                  True)
+    sprof, s_launches, s_s, s_peak = calibrate_counted(
+        torch, lambda: calibrate(
+            sbundle, smodel, [len(p) for p in sprompts],
+            cache_len=SERVE_CACHE, seed=24, candidate_levels=SSM_CAL_LEVELS,
+            chunk_candidates=SSM_CAL_CHUNKS, device=dev))
+    log(f"  (c) {SSM_ARCH} calibrated in {s_s:.1f} s, peak device memory "
+        f"{s_peak / 2**30:.2f} GiB; launches counted (untraced) "
+        + ", ".join(f"{k} {n}" for k, n in s_launches.items()))
+    log_profile(sprof)
+    if not s_launches.get("ssd_scan"):
+        raise AssertionError("phase 24 (c): K8 never launched")
+    runs.setdefault("ssd_scan", {})["phase 24 (c) calibration"] = \
+        s_launches["ssd_scan"]
+    seng = ServingEngine.from_profile(sbundle, smodel, sprof,
+                                      max_slots=SERVE_SLOTS, device=dev)
+    if seng.bucket_table is not None or \
+            seng.chunk_tokens != sprof.prefill_chunk:
+        raise AssertionError("phase 24 (c): from_profile did not apply the "
+                             "profile")
+    s_row, s_toks = serve_main(torch, np, dev, seng, sprompts,
+                               "the recurrent from-profile engine "
+                               "(phase 24 (c))", new=CAL_NEW)
+    want = dict.fromkeys(s_row["launches"], 0)
+    want["ssd_scan"] = sbundle.cfg.n_layers * (s_row["prefills"]
+                                               + s_row["chunk_steps"])
+    if s_row["launches"] != want or not want["ssd_scan"]:
+        raise AssertionError(f"phase 24 (c): launches {s_row['launches']}, "
+                             f"expected {want}")
+    runs["ssd_scan"]["phase 24 (c) from profile"] = want["ssd_scan"]
+    del seng
+    shand = ServingEngine(sbundle, smodel, max_slots=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE,
+                          prefill_chunk=sprof.prefill_chunk or None,
+                          device=dev)
+    _, shand_toks = serve_lm(torch, np, dev, shand, sprompts, new=CAL_NEW)
+    same_tokens(f"the {SSM_ARCH} from-profile engine vs one configured by "
+                f"hand", s_toks, shand_toks)
+    del shand, smodel
+    torch.cuda.empty_cache()
+    rows.append({"model": f"{SSM_ARCH} calibration profile", "seconds": s_s,
+                 "peak_memory_bytes": s_peak,
+                 "launches_counted": s_launches,
+                 "profile": profile_row(sprof), "serving": s_row})
+    # (d) the profile never crosses devices: the card's on the CPU ...
+    refusals = []
+    try:
+        ServingEngine.from_profile(bundle, model, loaded,
+                                   max_slots=SERVE_SLOTS, device="cpu")
+    except ValueError as e:
+        refusals.append(str(e))
+    # ... and a CPU calibration (reduced Yi-6B) on the card
+    rcfg = get_config(LM_ARCH, reduced=True)
+    rbundle = get_model(rcfg)
+    cpu_model = rbundle.init(torch.Generator("cpu").manual_seed(0))
+    cpu_prof = calibrate(rbundle, cpu_model, [6, 9, 17, 30] * 2,
+                         cache_len=64, candidate_levels=(8, 16, 32, 64),
+                         chunk_candidates=(0, 8), iters=2, device="cpu")
+    if cpu_prof.meta.get("device") != "cpu" or cpu_prof.matches_device(dev):
+        raise AssertionError(f"phase 24: CPU profile meta {cpu_prof.meta}")
+    try:
+        ServingEngine.from_profile(
+            rbundle, rbundle.init(torch.Generator(dev).manual_seed(0)),
+            cpu_prof, max_slots=2, device=dev)
+    except ValueError as e:
+        refusals.append(str(e))
+    if len(refusals) != 2 or not all("measured on" in r for r in refusals):
+        raise AssertionError(f"phase 24 (d): refusals {refusals}")
+    log("  (d) refused: " + " | ".join(r[:110] for r in refusals))
+
+    rows.append({"model": "profiles across devices", "refusals": refusals,
+                 "cpu_profile_meta": cpu_prof.meta})
+    info = {"phase": "phase 24 cost model",
+            "seconds": time.perf_counter() - t_phase,
+            "calibration_seconds": {cfg.arch_id: cal_s, SSM_ARCH: s_s},
+            "calibration_peak_memory_bytes": {cfg.arch_id: cal_peak,
+                                              SSM_ARCH: s_peak},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    return rows, info, runs
+
+
 def serving_layers(torch, np, dev, served):
-    """Phases 19-23 on Yi-6B at full width in bfloat16, its weights drawn
+    """Phases 19-24 on Yi-6B at full width in bfloat16, its weights drawn
     again from phase 7's seed (``served`` are phase 7's tokens).  Returns
     the rows, the phases' summaries and each new run's launches by
     kernel."""
@@ -4222,7 +4643,22 @@ def serving_layers(torch, np, dev, served):
     runs.setdefault("quant_matmul", {})["phase 23 profiler"] = \
         prof_launches["quant_matmul"]
     summary("phase 23 profiler", t0, [prof_row])
-    del model, engine
+    del engine
+    torch.cuda.empty_cache()
+    phase("phase 24: the calibration cost model — calibrate, then serve "
+          "from the profile (main path)")
+    cal_rows, cal_info, cal_runs = cost_model(torch, np, dev, bundle, model,
+                                              served)
+    for kname, per_run in cal_runs.items():
+        runs.setdefault(kname, {}).update(per_run)
+    rows.extend(cal_rows)
+    summaries.append(cal_info)
+    log(f"  phase 24 cost model: {cal_info['seconds']:.1f} s (calibration "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in
+                    cal_info["calibration_seconds"].items())
+        + f"), peak device memory "
+        f"{cal_info['peak_memory_bytes'] / 2**30:.2f} GiB")
+    del model
     torch.cuda.empty_cache()
     return rows, summaries, runs
 

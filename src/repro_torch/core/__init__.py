@@ -5,6 +5,14 @@ quantization, and export toolchain."""
 from . import micro_ops  # registers the reference kernels on import
 from . import quantize  # keep the module visible as repro_torch.core.quantize
 from .arena import ArenaOverflowError, TwoStackArena
+from .costmodel import (BlockCost, BlockSolveResult, BucketCost,
+                        CalibrationProfile, ChunkCost, DecodeCost,
+                        EngineMeasurer, LaneCost, LaneSolveResult,
+                        MicroMeasurer, ReplicaCost, ReplicaSolveResult,
+                        SolveResult, calibrate, load_cached_profile,
+                        profile_cache_path, profile_model_key,
+                        save_cached_profile, solve, solve_block_size,
+                        solve_lanes, solve_replicas)
 from .executor import (AllocationPlan, ArenaPool, BucketTable,
                        CapturedProgram, CompiledPlan, GraphPool,
                        InflightStep, InterpreterPool, LaneCheckpoint,
@@ -38,4 +46,10 @@ __all__ = [
     "OpResolutionError", "register_op", "MicroModel", "OpCode",
     "QuantParams", "TensorDef", "TensorFlags", "model_to_source",
     "serialize_model",
+    "BucketCost", "CalibrationProfile", "ChunkCost", "EngineMeasurer",
+    "SolveResult", "calibrate", "profile_model_key", "solve",
+    "BlockCost", "BlockSolveResult", "DecodeCost", "solve_block_size",
+    "LaneCost", "LaneSolveResult", "MicroMeasurer", "ReplicaCost",
+    "ReplicaSolveResult", "solve_lanes", "solve_replicas",
+    "load_cached_profile", "profile_cache_path", "save_cached_profile",
 ]

@@ -1307,9 +1307,8 @@ class BucketTable:
         multiplied by ``granularity`` (default 2 — power-of-two
         buckets) until ``max_bucket``;
       * **explicit** (``levels=``): an arbitrary ascending level list,
-        such as a calibration cost model solves for from measured
-        per-bucket costs (the cost model's layout methods come with
-        it, ROADMAP queue 1, slice 7).
+        such as the calibration cost model (``core/costmodel.py``)
+        solves for from measured per-bucket costs.
 
     Its consumer in the port is bucketed prefill: ``ServingEngine``
     pads each prompt to its bucket, so prefill runs at O(#levels)
@@ -1356,6 +1355,35 @@ class BucketTable:
         self.max_bucket = lv[-1]
         self.hits: Dict[int, int] = {}
 
+    @classmethod
+    def from_levels(cls, levels: Sequence[int]) -> "BucketTable":
+        """A table with exactly these ascending levels — the layout a
+        calibration profile's solver emits."""
+        return cls(levels=levels)
+
+    def spec(self) -> Dict[str, Any]:
+        """JSON-serializable layout (``from_spec`` round-trips it
+        bit-identically) — how a ``CalibrationProfile`` persists the
+        solved table."""
+        return {"levels": list(self.levels)}
+
+    @classmethod
+    def from_spec(cls, spec: Dict[str, Any]) -> "BucketTable":
+        """Rebuild a table from ``spec()`` output (e.g. loaded from a
+        calibration profile JSON)."""
+        return cls(levels=spec["levels"])
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, BucketTable):
+            return NotImplemented
+        return self.levels == other.levels
+
+    def __hash__(self) -> int:
+        # levels are fixed at construction (only `hits` mutates), so
+        # hashing by layout keeps tables usable as dict/set members
+        # consistently with the layout equality above
+        return hash(tuple(self.levels))
+
     def __repr__(self) -> str:
         return f"BucketTable(levels={self.levels})"
 
@@ -1377,6 +1405,10 @@ class BucketTable:
                 f"size {n} exceeds max_bucket {self.max_bucket}")
         self.hits[b] = self.hits.get(b, 0) + 1
         return b
+
+    def buckets(self) -> List[int]:
+        """Buckets hit so far, ascending — the table's live layout."""
+        return sorted(self.hits)
 
 
 # ---------------------------------------------------------------------------

@@ -567,6 +567,67 @@ class ServingEngine:
             else:
                 self._chunk_cache = self._empty_cache(1, cache_len)
 
+    @classmethod
+    def from_profile(cls, bundle: ModelBundle, params: torch.nn.Module,
+                     profile: Any = None, **kw) -> "ServingEngine":
+        """Construct an engine from a ``CalibrationProfile``
+        (``repro_torch.core.costmodel``) instead of hand-picked constants:
+        the profile's solved bucket levels become the engine's
+        ``BucketTable``, its solved ``prefill_chunk`` the chunk size and
+        its ``kv_block`` the paged-KV block size, with no re-measurement.
+        ``cache_len`` defaults to the capacity the profile was calibrated
+        at.
+
+        The profile must match this model and cache capacity
+        (``profile.matches``) AND the device this engine runs on
+        (``profile.matches_device``; ``device=`` as for the constructor,
+        the card by default): a profile measured on another model, on the
+        CPU or on another card model is someone else's cost landscape and
+        is refused with a ``ValueError`` naming it.  Explicit keyword
+        arguments win over the profile (pass ``prefill_buckets=`` /
+        ``prefill_chunk=`` / ``kv_block=`` to pin them).
+
+        With ``profile=None`` the port's profile cache
+        (``costmodel.DEFAULT_PROFILE_DIR``, under ``build/``) is
+        consulted: a profile saved there for this model and cache_len
+        (``save_cached_profile``) is applied; none, or one measured on
+        another device, quietly falls back to the ordinary constructor
+        (a cache miss is not an error, unlike an explicitly passed
+        stale profile)."""
+        from repro_torch.core.costmodel import (device_identity,
+                                                load_cached_profile,
+                                                profile_model_key)
+        device = kw.get("device", "cuda")
+        if profile is None:
+            key = profile_model_key(bundle.cfg, kw.get("cache_len", 256))
+            profile = load_cached_profile(key)
+            if profile is not None and not profile.matches_device(device):
+                profile = None
+            if profile is None:
+                return cls(bundle, params, **kw)
+        kw.setdefault("cache_len", profile.cache_len)
+        if not profile.matches(bundle.cfg, kw["cache_len"]):
+            raise ValueError(
+                f"profile was calibrated for {profile.model_key!r}, "
+                f"not {profile_model_key(bundle.cfg, kw['cache_len'])!r}"
+                f" — re-calibrate (or share deliberately through "
+                f"MultiTenantHost(profile=...))")
+        if not profile.matches_device(device):
+            raise ValueError(
+                f"profile was measured on {profile.measured_on()!r}, but "
+                f"this engine runs on {device_identity(device)!r} — costs "
+                f"are hardware facts; re-calibrate on this device")
+        # each solved knob applies only where the family supports the
+        # fast path it drives (a profile calibrated on a bucketing
+        # family must not force buckets onto an ssm engine)
+        if bundle.cfg.family in BUCKETED_FAMILIES:
+            kw.setdefault("prefill_buckets", profile.bucket_table())
+        if bundle.cfg.family in CHUNKED_FAMILIES:
+            kw.setdefault("prefill_chunk", profile.prefill_chunk or None)
+        if profile.kv_block and bundle.cfg.family in PAGED_FAMILIES:
+            kw.setdefault("kv_block", profile.kv_block)
+        return cls(bundle, params, **kw)
+
     def _bind(self, code: OpCode, params: Dict[str, Any]):
         """Resolve ``code`` through the tag chain, run its prepare() once
         and return its eval bound to the prepared context and the op."""
@@ -615,13 +676,20 @@ class ServingEngine:
     def _run_prefill(self, prompt: np.ndarray, extras=None,
                      true_len: Optional[int] = None):
         """One prefill of ``prompt`` (host tokens) through the program of
-        its length, the tokens written into the first ``len(prompt)`` of
-        the static token buffer (grown, and the prefill programs
-        dropped, for a prompt longer than the cache), a request's
-        ``extras`` into their static buffers, and on a bucketed moe
-        engine the true length ``true_len`` (by default the prompt's)
-        and its expert capacity into theirs.
-        The returned cache is valid until the next prefill."""
+        its length, its inputs staged by ``_stage_prefill``.  The
+        returned cache is valid until the next prefill."""
+        return self._prefill((self.params, self._stage_prefill(
+            prompt, extras, true_len)))
+
+    def _stage_prefill(self, prompt: np.ndarray, extras=None,
+                       true_len: Optional[int] = None) -> Dict[str, Any]:
+        """The prefill program's batch for ``prompt`` (host tokens): the
+        tokens written into the first ``len(prompt)`` of the static token
+        buffer (grown, and the prefill programs dropped, for a prompt
+        longer than the cache), a request's ``extras`` into their static
+        buffers, and on a bucketed moe engine the true length
+        ``true_len`` (by default the prompt's) and its expert capacity
+        into theirs."""
         s = len(prompt)
         if s > self._prefill_tokens.shape[1]:
             self._prefill.clear()
@@ -644,7 +712,7 @@ class ServingEngine:
                                                 device=self.device)
             batch[name] = self._extras[key]
             batch[name].copy_(value)
-        return self._prefill((self.params, batch))
+        return batch
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -880,6 +948,20 @@ class ServingEngine:
         self._settle()
         self.results[req.uid].prefill_s += time.perf_counter() - t0
 
+    def _chunk_args(self):
+        """The chunk program's arguments, all at fixed addresses: the
+        model, the pool and the table row (paged) or the static batch=1
+        cache, the chunk's tokens and start, and (recurrent) its true
+        token count."""
+        if self.paged:
+            return (self.params, self.kv_pool, self._chunk_row,
+                    self._chunk_tokens, self._chunk_start)
+        if self._recurrent_chunk:
+            return (self.params, self._chunk_cache, self._chunk_tokens,
+                    self._chunk_start, self._chunk_real)
+        return (self.params, self._chunk_cache, self._chunk_tokens,
+                self._chunk_start)
+
     def _advance_chunk(self, slot: int) -> None:
         """Advance a PREFILLING slot by ONE chunk, one replay of the chunk
         program: the tokens, the offset ``start`` and the true token
@@ -911,9 +993,7 @@ class ServingEngine:
             self._ensure_blocks(slot, min(start + real - 1,
                                           self.cache_len - 1))
             self._chunk_row.copy_(torch.from_numpy(self._table_row(slot)))
-            out = self._prefill_chunk((self.params, self.kv_pool,
-                                       self._chunk_row, self._chunk_tokens,
-                                       self._chunk_start))
+            out = self._prefill_chunk(self._chunk_args())
             self._check_in_place(out, self.kv_pool)
         else:
             stage = self._chunk_cache
@@ -923,13 +1003,7 @@ class ServingEngine:
                 # the chunk's true token count rides along: the padded
                 # tail of a final chunk is an exact state no-op
                 self._chunk_real.fill_(real)
-                out = self._prefill_chunk(
-                    (self.params, stage, self._chunk_tokens,
-                     self._chunk_start, self._chunk_real))
-            else:
-                out = self._prefill_chunk(
-                    (self.params, stage, self._chunk_tokens,
-                     self._chunk_start))
+            out = self._prefill_chunk(self._chunk_args())
             self._check_in_place(out, stage)
             for name, t in cs.cache1.items():
                 t.copy_(stage[name])

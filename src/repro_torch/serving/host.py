@@ -63,8 +63,11 @@ Compile-once invariants this module maintains:
 
 The host runs on ``device`` (``"cuda"`` by default, raising without a
 card; ``"cpu"`` runs the plain reference path): its micro pools live
-there, and every engine it makes serves there.  ``profile=``
-(calibration profiles) is refused until the cost model is ported.
+there, and every engine it makes serves there.  ``profile=`` (a
+``CalibrationProfile``, ``core/costmodel.py``) gives every bucketed
+tenant the profile's solved table, one table shared by all, and every
+chunkable tenant its chunk size; a profile measured on another device
+than the host's is refused.
 """
 
 from __future__ import annotations
@@ -82,16 +85,11 @@ from repro_torch.core.op_resolver import MicroMutableOpResolver
 from repro_torch.core.schema import MicroModel
 from repro_torch.models.registry import ModelBundle
 
-from .engine import (BUCKETED_FAMILIES, Request, RequestResult,
-                     ServingEngine, default_clock)
+from .engine import (BUCKETED_FAMILIES, CHUNKED_FAMILIES, Request,
+                     RequestResult, ServingEngine, default_clock)
 from .router import ReplicaRouter
 from .scheduling import (PreemptionPolicy, SchedulingPolicy, get_policy,
                          get_preemption)
-
-# the host option of the JAX package that a later slice of the port brings
-_NOT_PORTED = {
-    "profile": "calibration profiles, ROADMAP queue 1, slice 7, item 14",
-}
 
 
 @dataclasses.dataclass
@@ -138,11 +136,12 @@ class MultiTenantHost:
     def __init__(self, arena_bytes: int, *, policy: Any = None,
                  clock=None, preempt: Any = None, profile: Any = None,
                  on_token: Any = None, device="cuda"):
-        if profile is not None:
-            raise NotImplementedError(
-                f"profile={profile!r}: {_NOT_PORTED['profile']} is not in "
-                f"the PyTorch port yet")
         self.device = resolve_device(device)
+        if profile is not None and not profile.matches_device(self.device):
+            raise ValueError(
+                f"profile was measured on {profile.measured_on()!r}, not on "
+                f"this host's {self.device} — costs are hardware facts; "
+                f"re-calibrate on this device")
         self.arena = TwoStackArena(arena_bytes)
         self.engines: Dict[str, ServingEngine] = {}
         self.routers: Dict[str, ReplicaRouter] = {}
@@ -163,8 +162,17 @@ class MultiTenantHost:
         self.on_token = on_token
         # the shared bucket tables: one for prompt lengths (engines
         # agree on prefill bucket boundaries), one for ragged lane
-        # counts (nearby tenants share ArenaPool free lists)
-        self.prompt_buckets = BucketTable(min_bucket=8, max_bucket=4096)
+        # counts (nearby tenants share ArenaPool free lists).  With a
+        # CalibrationProfile the prompt table is the profile's SOLVED
+        # layout, deliberately shared across every tenant (engines of
+        # other models reuse the layout, not the measurements); with
+        # no profile, it is the hand-picked pow2 default.
+        self.profile = profile
+        if profile is not None:
+            self.prompt_buckets = profile.bucket_table()
+        else:
+            self.prompt_buckets = BucketTable(min_bucket=8,
+                                              max_bucket=4096)
         self.lane_buckets = BucketTable(min_bucket=2, max_bucket=1024)
 
     def _make_engine(self, bundle: ModelBundle, params: Any, *,
@@ -173,17 +181,21 @@ class MultiTenantHost:
                      weight_dtype: Any = None, kv_dtype: Any = None
                      ) -> ServingEngine:
         """Build one tenant engine wired to the host's shared arena,
-        policy, clock, preemption, streaming sink, device and
+        policy, clock, preemption, profile, streaming sink, device and
         prompt-bucket table (family permitting), growing the shared
         scratch reservation to the new maximum — the construction path
         ``add_model`` and every ``add_replicated_model`` replica go
         through.  ``mesh`` goes to the engine, which refuses it."""
         bucketable = bundle.cfg.family in BUCKETED_FAMILIES
+        chunkable = bundle.cfg.family in CHUNKED_FAMILIES
         buckets = self.prompt_buckets if bucketable else False
+        chunk = (self.profile.prefill_chunk or None
+                 if self.profile is not None and chunkable else None)
         eng = ServingEngine(bundle, params, max_slots=max_slots,
                             cache_len=cache_len, arena=self.arena,
                             policy=self.policy, clock=self.clock,
                             prefill_buckets=buckets,
+                            prefill_chunk=chunk,
                             preempt=self.preempt, mesh=mesh,
                             overlap=overlap, on_token=self.on_token,
                             weight_dtype=weight_dtype, kv_dtype=kv_dtype,

@@ -1435,3 +1435,103 @@ def test_capture_with_a_program_cycle_pending(cuda):
             assert fresh.captures == 1
     finally:
         gc.set_threshold(*thresholds)
+
+
+def _calibrated(cuda, **kw):
+    """(bundle, model on the card, profile) of the reduced qwen3-32b
+    calibrated on the card through the real programs."""
+    from repro_torch.core import calibrate
+
+    bundle = get_model(get_config("qwen3-32b", reduced=True))
+    model = bundle.init(torch.Generator(cuda).manual_seed(0))
+    lengths = [5] * 6 + [7] * 4 + [9] * 4 + [41] * 2
+    prof = calibrate(bundle, model, lengths, cache_len=64, seed=0,
+                     candidate_levels=(8, 16, 40, 64),
+                     chunk_candidates=(0, 8), iters=3, device=cuda, **kw)
+    return bundle, model, prof, lengths
+
+
+def test_calibration_on_card_adds_one_capture_per_measurement(cuda):
+    """The card's measurer times every program through the engine's bound
+    buffers: each measurement is exactly one new capture of the program
+    it times (a second measurement of a captured shape adds none and
+    raises), the engines share the weight module, and the profile is the
+    card's."""
+    from repro_torch.core import EngineMeasurer
+
+    bundle = get_model(get_config("qwen3-32b", reduced=True))
+    model = bundle.init(torch.Generator(cuda).manual_seed(0))
+    m = EngineMeasurer(bundle, model, 64, seed=0, iters=3, device=cuda)
+    for L in (8, 16, 40):
+        m("prefill", L)
+    eng = m._engine(0)
+    assert capture_count(eng._prefill) == 3 and eng._prefill.captures == 3
+    with pytest.raises(RuntimeError, match="added 0 captures"):
+        m("prefill", 16)
+    for kind, size in (("chunk", 8), ("decode", 2), ("decode_paged", 16),
+                       ("decode_q:int8:int8", 2)):
+        t = m(kind, size)
+        assert t.compile_us > t.step_us > 0
+    assert m._engine(8)._prefill_chunk.captures == 1
+    for key in (("decode", 2), ("decode_paged", 16),
+                ("decode_q:int8:int8", 2)):
+        assert m._aux(*key)._decode.captures == 1
+    assert m._aux("decode", 2).params is model
+    m.close()
+    _, _, prof, _ = _calibrated(cuda)
+    assert prof.meta["device"] == "cuda"
+    assert prof.meta["device_name"] == torch.cuda.get_device_name(cuda)
+    assert prof.matches_device(cuda) and not prof.matches_device("cpu")
+
+
+def test_from_profile_on_card_equals_hand_configured(cuda):
+    """The engine built from a card profile is bit-equal to one configured
+    by hand with the same table and chunk, and captures exactly the
+    predicted prefill programs."""
+    from repro_torch.core import BucketTable
+
+    bundle, model, prof, lengths = _calibrated(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, bundle.cfg.vocab - 2, L).astype(np.int32)
+               for L in lengths]
+
+    def run(eng):
+        for uid, toks in enumerate(prompts):
+            eng.submit(Request(uid=uid, tokens=toks, max_new_tokens=3))
+        eng.run()
+        return {u: r.output for u, r in eng.results.items()}
+
+    tuned = ServingEngine.from_profile(bundle, model, prof, max_slots=2,
+                                       device=cuda)
+    hand = ServingEngine(bundle, model, max_slots=2, cache_len=64,
+                         prefill_buckets=BucketTable.from_levels(
+                             prof.bucket_levels),
+                         prefill_chunk=prof.prefill_chunk or None,
+                         device=cuda)
+    assert run(tuned) == run(hand)
+    assert tuned.prefill_compiles() == prof.predicted_compiles \
+        == hand.prefill_compiles()
+
+
+def test_card_profile_is_refused_by_a_cpu_engine(cuda):
+    """A profile measured on the card never configures a CPU engine, and
+    a CPU profile never configures a card engine."""
+    from repro_torch.core import calibrate
+
+    bundle, model, prof, lengths = _calibrated(cuda)
+    cpu_model = bundle.init(torch.Generator("cpu").manual_seed(0))
+    with pytest.raises(ValueError, match="measured on"):
+        ServingEngine.from_profile(bundle, cpu_model, prof, max_slots=2,
+                                   device="cpu")
+    cpu_prof = calibrate(bundle, cpu_model, lengths, cache_len=64,
+                         candidate_levels=(8, 64), chunk_candidates=(),
+                         iters=1, device="cpu")
+    with pytest.raises(ValueError, match="measured on"):
+        ServingEngine.from_profile(bundle, model, cpu_prof, max_slots=2,
+                                   device=cuda)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        with pytest.raises(RuntimeError, match="untraced"):
+            calibrate(bundle, model, lengths, cache_len=64,
+                      candidate_levels=(8,), chunk_candidates=(),
+                      device=cuda)

@@ -25,7 +25,8 @@ from repro.models import get_model as jax_get_model
 
 import repro_torch.kernels  # noqa: F401  (registers the "cuda" tag)
 from repro_torch.configs import get_config
-from repro_torch.core import (AllOpsResolver, MicroInterpreter, MicroModel,
+from repro_torch.core import (AllOpsResolver, CalibrationProfile,
+                              MicroInterpreter, MicroModel,
                               capture_count)
 from repro_torch.models import get_model, params_from_jax
 from repro_torch.serving import (MultiTenantHost, Request, ServingEngine,
@@ -380,12 +381,20 @@ def test_wfq_shares_converge_to_weights(blobs):
 
 
 def test_host_refusals_and_replicas(lms):
-    """``profile=`` is refused until the cost model is ported (naming its
-    ROADMAP item), ``mesh=`` reaches the engine, which refuses it; a
-    replicated tenant is a router over engines sharing one weight module,
-    each with its own KV in the shared arena."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MultiTenantHost(1 << 20, profile=object(), **CPU)
+    """``profile=`` is refused when it was measured on another device
+    than the host's (here a card's profile on a CPU host), ``mesh=``
+    reaches the engine, which refuses it; a replicated tenant is a router
+    over engines sharing one weight module, each with its own KV in the
+    shared arena."""
+    card = CalibrationProfile(
+        model_key="dense/qwen3-32b-smoke/L32", seed=0, cache_len=32,
+        bucket_levels=[8, 32], prefill_chunk=0, expected_us=0.0,
+        default_expected_us=0.0, max_dispatch_us=0.0, predicted_compiles=1,
+        feasible=True, prompt_lengths=[5], bucket_costs=[], chunk_costs=[],
+        meta={"torch": torch.__version__, "device": "cuda",
+              "device_name": "NVIDIA H100 80GB HBM3"})
+    with pytest.raises(ValueError, match="measured on"):
+        MultiTenantHost(1 << 20, profile=card, **CPU)
     _, _, bundle, model = lms["qwen3-32b"]
     host = MultiTenantHost(256 << 20, **CPU)
     with pytest.raises(NotImplementedError, match="item 15"):
