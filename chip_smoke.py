@@ -5,8 +5,9 @@ dispatch), dense-LM serving (contiguous, paged and quantized),
 recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
 serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper,
 the overlapped decode loop, the multi-tenant host, the replica router,
-the streaming server, the profiler and the calibration cost model — with
-every CUDA kernel of those paths held against its plain PyTorch version.
+the streaming server, the profiler, the calibration cost model and
+training — with every CUDA kernel of those paths held against its plain
+PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -285,18 +286,39 @@ Phases — any failure raises and the script exits non-zero:
      traced = counted, tokens bit-equal to the hand-configured engine.
      (d) the profile from (a) makes ``from_profile`` on a CPU engine
      raise, and a CPU profile (reduced Yi-6B) does on the card.
-  Each of phases 15-24 logs its seconds and its peak device memory
+  25. training: Yi-6B at full width with 8 of its 32 layers, bfloat16
+     (1.92 B parameters), seeded weights, on ``PackedLMDataset`` seed 0.
+     (a) 30 steps of 4 x 2048 tokens through ``make_train_step`` (remat,
+     a cosine schedule, one ``CapturedProgram``), the last 4 traced as a
+     main path (no kernel may launch): the loss falls by at least 0.5 and
+     stays finite, one capture, device memory flat from the second step;
+     median replayed step, tokens/s, MFU (PaLM's count over 989 TFLOP/s),
+     device ms a step, busy share and the top device records, peak
+     memory, losses and gradient norms.  (b) Run first: the first 3 steps
+     under ``disable_capture()`` from the same weights, their losses
+     within 1e-3 and the parameters within 2 x the summed lr + one bf16
+     ulp of the leaf's largest entry of the captured run's (the share
+     bit-equal printed).  (c) The final TrainState saved with
+     ``save_checkpoint`` under ``build/`` and restored onto the card,
+     every leaf bit-equal; bytes and seconds.  (d) The restored weights
+     served (main path, K3 traced = counted) with the trained weights'
+     tokens; the share of greedy tokens that are Markov successors and a
+     held-out batch's loss, trained and untrained.  (e) Every family
+     reduced in float32, 3 train steps on the card and on the CPU, the
+     card's state set to the CPU's before each (``FAMILY_ARCHS``'
+     tolerances).
+  Each of phases 15-25 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
   K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
   15's new shapes: K3, K4 and K7 at DeepSeek's (4, 16, 16, 2048, 128)
   bf16 (group 1), K5 and K6 at its first block's MLP, (4, 2048) x
   (2048, 10944) and (4, 10944) x (10944, 2048).
-  A JSON line of phases 15-18's summaries, one of the models, one
+  A JSON line of phases 15-25's summaries, one of the models, one
   listing the kernels (K1-K8; K1's and K2's launches summed over phases
   3-4, 13 and 14, with each path's count; K3-K8 with their launches on
-  phases 15, 18 and 19-24's runs), then the last line ``{"ok": true,
-  "device": {...}}``.
+  phases 15, 18, 19-24's and 25 (d)'s runs), then the last line
+  ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2309,8 +2331,22 @@ def trace_markers(torch, probe, fn, seconds: float) -> int:
     return n
 
 
+def trace_device_us(prof):
+    """(the summed device µs of every record in a torch.profiler trace of
+    the device but the markers, the µs by record name)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() == DeviceType.CUDA and LEAD_MARKER not in name
+                and TRAIL_MARKER not in name):
+            by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e3
+    return sum(by_name.values()), by_name
+
+
 @contextlib.contextmanager
-def main_path(torch, what: str):
+def main_path(torch, what: str, device_time=None):
     """Drive a main path inside the block: every launch count is set to
     0 just before it and the device is traced by torch.profiler over
     it, between a lead-in and a tail of marker kernels.  After it, the
@@ -2318,7 +2354,9 @@ def main_path(torch, what: str):
     and each kernel's launches counted in the trace must equal its
     wrapper's count (``_build.launches``: the eager launches plus what
     each replay's capture recorded); the yielded dict is filled with the
-    traced counts."""
+    traced counts.  A ``device_time`` dict gets the run's device µs
+    under ``"us"`` and by record name under ``"by_name"``
+    (``trace_device_us``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
@@ -2337,6 +2375,8 @@ def main_path(torch, what: str):
         time.sleep(TRACE_MARGIN_S)
     counts, lead, trail = trace_records(prof)
     traced.update(counts)
+    if device_time is not None:
+        device_time["us"], device_time["by_name"] = trace_device_us(prof)
     if lead < TRACE_SETTLED or lead > n_lead or trail != n_trail:
         raise AssertionError(
             f"{what}: the trace holds {lead} of the {n_lead} lead-in markers "
@@ -4585,6 +4625,472 @@ def cost_model(torch, np, dev, bundle, model, served):
     return rows, info, runs
 
 
+# ---------------------------------------------------------------------------
+# phase 25: training
+# ---------------------------------------------------------------------------
+
+# Yi-6B at full width, 8 of its 32 layers (the cut PERF.md §4 lists)
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 30
+# the schedule and clip tools/train_lr_scan.py chose (PERF.md §6):
+# a cosine from 2.5e-4 to 0.3 of it, no warm-up; the run's global norm
+# stays within 0.82-5.98 (NVIDIA H100 80GB HBM3, 700 W), so a clip of 10
+# never acts (the trainer's default 1.0 would scale the first steps by
+# ~1/6)
+TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_FLOOR = 2.5e-4, 0, 0.3
+TRAIN_MAX_GRAD_NORM = 10.0
+# the last steps run traced (device ms a step, busy share); the median
+# step is taken over the untraced replays before them
+TRAIN_TRACED = 4
+# the JAX package's bar (test_loss_decreases_on_markov_data)
+TRAIN_LOSS_DROP = 0.5
+EAGER_STEPS = 3
+# captured against eager, bf16: the embedding's backward accumulates with
+# atomics, so gradients may differ in their last bf16 bits; Adam's step
+# m/(sqrt(v) + 1e-8) of an element whose gradient is that close to 0 may
+# then differ by up to 2 lr a step (a flipped sign), and the bf16
+# parameter by one ulp of the leaf's largest entry; the losses, taken
+# over 8,192 tokens, within 1e-3
+EAGER_LOSS_RTOL = 1e-3
+TRAIN_PROMPT, TRAIN_NEW = 64, 16
+# (e) the six families reduced, float32, card against CPU, each step from
+# the same state: metrics within 1e-5 relative; moments (linear in the
+# gradient) within 1e-4 of each leaf's largest entry, as gradients; the
+# parameters within 1e-5 of each leaf's largest entry + lr / 2 (Adam's
+# step of an element whose gradient is within rounding of 0 is a fraction
+# of lr that rounding sets), and no more than 1% of a leaf's elements
+# (at least 1) beyond 1e-5 of its largest entry
+FAMILY_ARCHS = ("yi-6b", "deepseek-moe-16b", "mamba2-780m", "zamba2-1.2b",
+                "paligemma-3b", "whisper-large-v3")
+FAMILY_LR, FAMILY_STEPS = 1e-3, 3
+METRIC_RTOL, MOMENT_TOL, PARAM_TOL, PARAM_OUTLIERS = 1e-5, 1e-4, 1e-5, 1e-2
+
+
+def train_flops_per_token(cfg, model) -> float:
+    """PaLM's count (appendix B): 6 N + 12 L H dh S, N the parameters
+    but the embedding table; the remat recompute is not counted."""
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name != "embed")
+    return 6 * n + 12 * cfg.n_layers * cfg.n_heads * cfg.dh * TRAIN_SEQ
+
+
+def bits(torch, t):
+    """A tensor's bits as integers (bit-equality, -0.0 and NaNs
+    included)."""
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}
+                  .get(t.dtype, t.dtype))
+
+
+def train_step_fn(bundle, lr):
+    """Phase 25's train step: remat, one MoE group, its clip."""
+    from repro_torch.training import make_train_step
+
+    return make_train_step(bundle.loss, lr=lr,
+                           max_grad_norm=TRAIN_MAX_GRAD_NORM, remat=True,
+                           data_shards=1)
+
+
+def eager_steps(torch, np, dev, bundle, lr, batches):
+    """(b), run first: ``EAGER_STEPS`` steps under ``disable_capture()``
+    from the seed-0 weights; returns their losses and the parameters
+    after them, on the host."""
+    from repro_torch.core import capture_count, disable_capture
+    from repro_torch.training import init_train_state
+
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    state = init_train_state(model)
+    step = train_step_fn(bundle, lr)
+    losses = []
+    with disable_capture():
+        for batch in batches[:EAGER_STEPS]:
+            _, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    if capture_count(step.program):
+        raise AssertionError("an eager step recorded a signature")
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def eager_vs_captured(torch, eager_params, model, lrs):
+    """(b)'s comparison after the captured run's third step, leaf by leaf
+    on the device: the largest difference against its bound, and the
+    share of elements bit-equal."""
+    worst, equal, total = 0.0, 0, 0
+    lr_sum = sum(lrs[:EAGER_STEPS])
+    for name, p in model.named_parameters():
+        want = eager_params[name].to(p.device)
+        diff = float((p.float() - want.float()).abs().max())
+        bound = 2 * lr_sum + float(p.float().abs().max()) * 2.0 ** -7
+        if not diff <= bound:
+            raise AssertionError(f"(b) {name}: captured and eager differ by "
+                                 f"{diff} after {EAGER_STEPS} steps, bound "
+                                 f"{bound}")
+        worst = max(worst, diff / bound)
+        equal += int((bits(torch, p) == bits(torch, want)).sum())
+        total += p.numel()
+        del want
+    return worst, equal / total
+
+
+def successor_share(np, successors, prompts, outputs) -> float:
+    """The share of greedy tokens that follow their previous token in the
+    Markov source's table (an EOS or a padded-vocab token has no row)."""
+    hits = n = 0
+    for uid, out in outputs.items():
+        prev = int(prompts[uid][-1])
+        for tok in out:
+            n += 1
+            hits += prev < len(successors) and tok in successors[prev]
+            prev = int(tok)
+    return hits / n
+
+
+def serve_trained(torch, np, dev, bundle, params, prompts):
+    """Up to ``TRAIN_NEW`` greedy tokens for each prompt (an EOS ends a
+    request, as in the JAX engine) through a ``ServingEngine`` on
+    ``params`` under the default tags."""
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(bundle, params, max_slots=len(prompts),
+                        cache_len=2 * TRAIN_PROMPT, device=dev)
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=TRAIN_NEW))
+    out = {u: list(r.output) for u, r in eng.run().items()}
+    del eng
+    return out
+
+
+def carry_state(torch, dst, src) -> None:
+    """Copy a TrainState's parameters, moments and step into another's
+    tensors, in place (their addresses, the programs' inputs, stay)."""
+    with torch.no_grad():
+        for (_, d), (_, s_) in zip(dst.params.named_parameters(),
+                                   src.params.named_parameters()):
+            d.copy_(s_)
+        for mom in ("mu", "nu"):
+            for n, d in getattr(dst.opt, mom).items():
+                d.copy_(getattr(src.opt, mom)[n])
+        dst.opt.step.copy_(src.opt.step)
+
+
+def leaf_check(torch, label, got, want, tol, slack=0.0, outliers=None):
+    """``got`` against ``want`` (tensors by name): every element within
+    ``tol`` of the leaf's largest |entry| + ``slack``; with
+    ``outliers``, at most that share of a leaf's elements (at least 1)
+    beyond ``tol`` of it.  Returns the largest difference over the
+    leaf's largest entry."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].detach().float().cpu()
+        w = w.detach().float().cpu()
+        top = float(w.abs().max()) or 1.0
+        d = (g - w).abs()
+        if float(d.max()) > tol * top + slack:
+            raise AssertionError(f"{label} {name}: off by {float(d.max())} "
+                                 f"(largest entry {top}, bound "
+                                 f"{tol * top + slack})")
+        if outliers is not None:
+            n_out = int((d > tol * top).sum())
+            if n_out > max(outliers * d.numel(), 1):
+                raise AssertionError(f"{label} {name}: {n_out} of "
+                                     f"{d.numel()} elements beyond {tol} "
+                                     f"of the largest entry")
+        worst = max(worst, float(d.max()) / top)
+    return worst
+
+
+def family_train_card_vs_cpu(torch, np, dev):
+    """(e): each family's reduced float32 config, ``FAMILY_STEPS`` train
+    steps on the card (captured) and on the CPU, the card's state set to
+    the CPU's before each step; rows of the largest differences."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import capture_count
+    from repro_torch.core.executor import setup_device
+    from repro_torch.data import make_batches
+    from repro_torch.models import get_model
+    from repro_torch.training import init_train_state, make_train_step
+
+    setup_device(dev)
+    rows = []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        bundle = get_model(cfg)
+        cpu_model = bundle.init(torch.Generator().manual_seed(0))
+        states = {"cpu": init_train_state(cpu_model),
+                  "card": init_train_state(copy.deepcopy(cpu_model).to(dev))}
+        steps = {w: make_train_step(bundle.loss, lr=FAMILY_LR, remat=True,
+                                    data_shards=1) for w in states}
+        row = {"model": f"{cfg.arch_id} float32 train step card vs CPU",
+               "steps": FAMILY_STEPS, "metric_rel": 0.0, "moment": 0.0,
+               "param": 0.0}
+        for i, batch in enumerate(make_batches(cfg, 4, 32, FAMILY_STEPS)):
+            carry_state(torch, states["card"], states["cpu"])
+            _, want = steps["cpu"](states["cpu"], batch)
+            _, got = steps["card"](states["card"], batch)
+            for k, w in want.items():
+                rel = abs(float(got[k]) - float(w)) / max(abs(float(w)),
+                                                          1e-30)
+                if not rel <= METRIC_RTOL:
+                    raise AssertionError(f"(e) {arch} step {i} {k}: card "
+                                         f"{float(got[k])} CPU {float(w)}")
+                row["metric_rel"] = max(row["metric_rel"], rel)
+            c, g = states["cpu"], states["card"]
+            for mom in ("mu", "nu"):
+                row["moment"] = max(row["moment"], leaf_check(
+                    torch, f"(e) {arch} step {i} {mom}",
+                    getattr(g.opt, mom), getattr(c.opt, mom), MOMENT_TOL))
+            row["param"] = max(row["param"], leaf_check(
+                torch, f"(e) {arch} step {i}",
+                dict(g.params.named_parameters()),
+                dict(c.params.named_parameters()), PARAM_TOL,
+                slack=FAMILY_LR / 2, outliers=PARAM_OUTLIERS))
+        row["captures"] = capture_count(steps["card"].program)
+        if row["captures"] != 1:
+            raise AssertionError(f"(e) {arch}: {row['captures']} captures")
+        log(f"  (e) {cfg.arch_id}: {FAMILY_STEPS} steps card == CPU: metrics "
+            f"within {row['metric_rel']:.2e} rel, moments "
+            f"{row['moment']:.2e}, parameters {row['param']:.2e} of the "
+            f"leaf's largest entry; 1 capture")
+        rows.append(row)
+    return rows
+
+
+def training(torch, np, dev):
+    """Phase 25: Yi-6B at full width with ``TRAIN_LAYERS`` layers, bf16,
+    trained ``TRAIN_STEPS`` steps through the captured train step on the
+    packed Markov source; (b) its first steps eager; (c) checkpointed and
+    restored bit-equal; (d) the restored weights served on K3 (main
+    path); (e) each family reduced, card against CPU.  Returns (rows, the
+    phase's summary, K3's launches on (d))."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import capture_count
+    from repro_torch.data import PackedLMDataset
+    from repro_torch.models import get_model
+    from repro_torch.training import cosine_schedule, init_train_state
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    bundle = get_model(cfg)
+    t0 = time.perf_counter()
+    ds = PackedLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [ds.next_batch() for _ in range(TRAIN_STEPS)]
+    data_s = time.perf_counter() - t0
+    lr = cosine_schedule(TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_STEPS,
+                         TRAIN_FLOOR)
+    lrs = [float(lr(torch.tensor(i + 1))) for i in range(TRAIN_STEPS)]
+    row = {"model": f"{cfg.arch_id} {TRAIN_LAYERS} of 32 layers bf16 "
+                    f"training", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "lr": [TRAIN_PEAK_LR, TRAIN_WARMUP,
+                                        TRAIN_FLOOR],
+           "max_grad_norm": TRAIN_MAX_GRAD_NORM, "data_s": data_s}
+
+    # (b) first: the eager steps from the seed-0 weights, kept on the host
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses, eager_params = eager_steps(torch, np, dev, bundle, lr,
+                                             batches)
+
+    # (a) the captured run
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    state = init_train_state(model)
+    step = train_step_fn(bundle, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, mem, gnorms = [], [], [], []
+
+    def run(i):
+        t = time.perf_counter()
+        _, m = step(state, batches[i])
+        losses.append(float(m["loss"]))          # waits for the step
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        mem.append(torch.cuda.memory_allocated())
+
+    for i in range(TRAIN_STEPS - TRAIN_TRACED):
+        run(i)
+        if i == EAGER_STEPS - 1:
+            worst_b, equal_b = eager_vs_captured(torch, eager_params, model,
+                                                 lrs)
+    device = {}
+    with main_path(torch, "the train step (phase 25 (a))",
+                   device) as traced_train:
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS - TRAIN_TRACED, TRAIN_STEPS):
+            run(i)
+        traced_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TRACED
+    if any(traced_train.values()):
+        raise AssertionError(f"the train step launched kernels: "
+                             f"{traced_train}")
+    untraced = ms[1:TRAIN_STEPS - TRAIN_TRACED]
+    median = statistics.median(untraced)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops_per_token(cfg, model) * tokens
+    row.update({
+        "parameters": n_params, "first_step_ms": ms[0],
+        "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
+        "mfu": flops / (median / 1e3) / H100_BF16_OPS_PER_S,
+        "flops_per_step": flops,
+        "device_ms_per_step": device["us"] / 1e3 / TRAIN_TRACED,
+        "traced_step_ms": traced_ms,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "memory_after_step": mem, "losses": losses, "grad_norms": gnorms,
+        "captures": capture_count(step.program),
+        "capture_s": step.program.capture_s})
+    row["busy_share"] = row["device_ms_per_step"] / traced_ms
+    top = sorted(device["by_name"].items(), key=lambda kv: -kv[1])[:10]
+    row["top_device"] = [{"name": n[:80], "ms_per_step":
+                          us / 1e3 / TRAIN_TRACED} for n, us in top]
+    log(f"  (a) {n_params:,} parameters, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens (data {data_s:.1f} s): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; first step (eager run + "
+        f"capture) {ms[0]:.1f} ms, median replayed step {median:.2f} ms, "
+        f"{row['tokens_per_s']:,.0f} tokens/s, MFU "
+        f"{100 * row['mfu']:.1f}% ({flops / 1e12:.1f} TFLOP a step over "
+        f"989 TFLOP/s); traced: device {row['device_ms_per_step']:.2f} ms a "
+        f"step of {traced_ms:.2f} ({100 * row['busy_share']:.1f}% busy); "
+        f"peak memory {row['peak_memory_bytes'] / 2**30:.2f} GiB, after "
+        f"each step {sorted(set(mem))}; captures {row['captures']}")
+    log("  losses: " + " ".join(f"{x:.3f}" for x in losses))
+    log("  global gradient norms: " + " ".join(f"{x:.2f}" for x in gnorms))
+    log("  device ms a step, top records: " + "; ".join(
+        f"{t['name'][:60]} {t['ms_per_step']:.2f}" for t in row["top_device"]))
+    if row["captures"] != 1:
+        raise AssertionError(f"the train step captured {row['captures']} "
+                             f"programs for one batch shape")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] <= losses[0] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+                             f"fell by less than {TRAIN_LOSS_DROP}")
+    flat = mem[1:TRAIN_STEPS - TRAIN_TRACED]
+    if len(set(flat)) != 1:
+        raise AssertionError(f"device memory after the steps is not flat: "
+                             f"{mem}")
+    # (b)
+    for i, (e, c) in enumerate(zip(eager_losses, losses)):
+        if not abs(e - c) <= EAGER_LOSS_RTOL * abs(e):
+            raise AssertionError(f"(b) step {i}: eager loss {e}, captured "
+                                 f"{c}")
+    row["eager_losses"] = eager_losses
+    row["eager_vs_captured"] = {"worst_over_bound": worst_b,
+                                "bit_equal_share": equal_b}
+    log(f"  (b) {EAGER_STEPS} eager steps: losses "
+        + " ".join(f"{e:.5f}/{c:.5f}" for e, c in zip(eager_losses, losses))
+        + f" (eager/captured); parameters after them within "
+        f"{worst_b:.3f} of the bound (2 x summed lr + one bf16 ulp of "
+        f"the leaf's largest entry), {100 * equal_b:.4f}% bit-equal")
+    del eager_params
+
+    # (c) the final state checkpointed and restored
+    step.program.clear()
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = ROOT / "build" / "phase25_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = save_checkpoint(str(ckpt), TRAIN_STEPS, state)
+    save_s = time.perf_counter() - t0
+    files = list(Path(out).iterdir())
+    nbytes = sum(f.stat().st_size for f in files)
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(str(ckpt), TRAIN_STEPS, state, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    pairs = [(n, a, b) for (n, a), (_, b) in zip(
+        model.named_parameters(), restored.params.named_parameters())]
+    pairs += [(f"{mom} {n}", t, getattr(restored.opt, mom)[n])
+              for mom in ("mu", "nu") for n, t in getattr(state.opt,
+                                                          mom).items()]
+    pairs.append(("step", state.opt.step, restored.opt.step))
+    for n, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(bits(torch, a),
+                                                 bits(torch, b)):
+            raise AssertionError(f"(c) restored {n} is not bit-equal")
+    row["checkpoint"] = {"bytes": nbytes, "files": len(files),
+                         "save_s": save_s, "restore_s": restore_s,
+                         "leaves": len(pairs)}
+    log(f"  (c) checkpoint of the final TrainState: {nbytes:,} bytes in "
+        f"{len(files)} files, saved in {save_s:.1f} s, restored onto the "
+        f"card in {restore_s:.1f} s; {len(pairs)} leaves bit-equal")
+    del state
+    restored = restored.params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the restored weights served (main path), then the in-memory
+    # trained weights and the untrained ones
+    prompts = list(PackedLMDataset(cfg, 4, TRAIN_PROMPT,
+                                   seed=1).next_batch()["tokens"])
+    with main_path(torch, "serving the restored weights (phase 25 (d))"
+                   ) as traced:
+        served = serve_trained(torch, np, dev, bundle, restored, prompts)
+    if not traced["decode_attention"]:
+        raise AssertionError("(d) the restored weights were served without "
+                             "K3")
+    trained = serve_trained(torch, np, dev, bundle, model, prompts)
+    if served != trained:
+        raise AssertionError(f"(d) the restored weights served {served}, "
+                             f"the trained ones {trained}")
+    untrained = bundle.init(torch.Generator(dev).manual_seed(0))
+    fresh = serve_trained(torch, np, dev, bundle, untrained, prompts)
+    successors = ds.source.successors
+    held_out = {k: torch.from_numpy(v).to(dev) for k, v in PackedLMDataset(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=2).next_batch().items()}
+    with torch.no_grad():
+        held = {w: float(bundle.loss(m, held_out, remat=False,
+                                     data_shards=1)[0])
+                for w, m in (("trained", restored), ("untrained",
+                                                     untrained))}
+    eos = cfg.vocab - 1
+    counts = {w: (sum(len(o) for o in out.values()),
+                  sum(o.count(eos) for o in out.values()))
+              for w, out in (("trained", served), ("untrained", fresh))}
+    row["served"] = {
+        "prompts": len(prompts), "max_new_tokens": TRAIN_NEW,
+        "tokens_and_eos": counts,
+        "k3_launches": traced["decode_attention"],
+        "successor_share_trained": successor_share(np, successors, prompts,
+                                                   served),
+        "successor_share_untrained": successor_share(np, successors,
+                                                     prompts, fresh),
+        "held_out_loss": held}
+    log(f"  (d) restored weights served on K3 ({traced['decode_attention']} "
+        f"launches traced = counted), tokens equal to the in-memory trained "
+        f"weights'; greedy tokens (EOS among them, which ends a request): "
+        f"trained {counts['trained'][0]} ({counts['trained'][1]}), "
+        f"untrained {counts['untrained'][0]} ({counts['untrained'][1]}); "
+        f"Markov successors among them: trained "
+        f"{100 * row['served']['successor_share_trained']:.1f}%, untrained "
+        f"{100 * row['served']['successor_share_untrained']:.1f}%; loss on "
+        f"a held-out batch: restored {held['trained']:.4f}, untrained "
+        f"{held['untrained']:.4f}")
+    del restored
+    del model, untrained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e)
+    rows = [row] + family_train_card_vs_cpu(torch, np, dev)
+    summary = {"phase": "phase 25 training",
+               "seconds": time.perf_counter() - t_phase,
+               "peak_memory_bytes": row["peak_memory_bytes"]}
+    log(f"  phase 25 training: {summary['seconds']:.1f} s, peak device "
+        f"memory {summary['peak_memory_bytes'] / 2**30:.2f} GiB")
+    return rows, summary, traced["decode_attention"]
+
+
 def serving_layers(torch, np, dev, served):
     """Phases 19-24 on Yi-6B at full width in bfloat16, its weights drawn
     again from phase 7's seed (``served`` are phase 7's tokens).  Returns
@@ -4906,6 +5412,13 @@ def main() -> int:
                                                              served)
     model_rows.extend(layer_rows)
     summaries += layer_summaries
+    phase(f"phase 25: training — {LM_ARCH} full width, {TRAIN_LAYERS} "
+          f"layers, bfloat16, trained, checkpointed and served (main path)")
+    train_rows, train_summary, train_k3 = training(torch, np, dev)
+    model_rows.extend(train_rows)
+    summaries.append(train_summary)
+    layer_runs.setdefault("decode_attention", {})[
+        "phase 25 (d) restored weights"] = train_k3
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape

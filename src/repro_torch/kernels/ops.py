@@ -9,7 +9,11 @@ package's ``"pallas"`` tag is.
 
 Each wrapper runs its kernel's plain PyTorch version (``ref.py``) only
 for tensors on the CPU; for a CUDA tensor it launches the hand-written
-kernel or raises.  There is no fallback from one to the other.
+kernel or raises.  There is no fallback from one to the other.  A
+kernel launch has no backward, so a wrapper given a CUDA input that
+requires grad while grad is enabled raises (``NoBackwardError``) rather
+than launch and silently cut the gradient: the training path never
+reaches a kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +42,21 @@ from .ref import (decode_attention_ref, dequant_matmul_i4_ref,
 from .ssd_scan import check_chunk, ssd_scan_cuda
 
 
+class NoBackwardError(RuntimeError):
+    """A kernel wrapper was differentiated: its launch has no backward."""
+
+
+def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``NoBackwardError`` when grad is enabled and any of
+    ``tensors`` requires grad; called before a launch."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{name}: the kernel has no backward and would cut the "
+            f"gradient; call it under torch.no_grad() or on detached "
+            f"inputs (training runs the plain model steps)")
+
+
 # ---------------------------------------------------------------------------
 # quantized matmul
 # ---------------------------------------------------------------------------
@@ -50,6 +69,7 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     passed in when the weight is constant."""
     if x_q.device.type == "cpu":
         return quant_matmul_ref(x_q, w_q, bias_q, x_zp, scale, out_zp)
+    _no_backward("quant_matmul", x_q, w_q, bias_q, scale, wsum)
     n = w_q.shape[1]
     if wsum is None:
         wsum = w_q.sum(dim=0, dtype=torch.int32)
@@ -73,6 +93,7 @@ def dequant_matmul(x: torch.Tensor, wleaf) -> torch.Tensor:
     if x.device.type == "cpu":
         plain = dequant_matmul_i4_ref if wleaf.int4 else dequant_matmul_ref
         return plain(x, w, scale)
+    _no_backward("dequant_matmul", x, w, scale)
     kernel = dequant_matmul_i4_cuda if wleaf.int4 else dequant_matmul_cuda
     return kernel(x.contiguous(), w, scale)
 
@@ -87,6 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,H,S,D), k/v (B,KH,S,D) -> (B,H,S,D)."""
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window, scale=scale)
+    _no_backward("flash_attention", q, k, v)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 scale=scale)
 
@@ -99,6 +121,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths,
                                     window=window, scale=scale)
+    _no_backward("decode_attention", q, k_cache, v_cache)
     return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
                                  lengths.to(torch.int32).contiguous(),
                                  window=window, scale=scale)
@@ -116,6 +139,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
                                           window=window, scale=scale)
+    _no_backward("paged_decode_attention", q, k_pool, v_pool)
     return paged_decode_attention_cuda(
         q.contiguous(), k_pool, v_pool, tables.to(torch.int32).contiguous(),
         lengths.to(torch.int32).contiguous(), window=window, scale=scale)
@@ -138,6 +162,8 @@ def quant_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_decode_attention_q_ref(q, k_pool, v_pool, k_scales,
                                             v_scales, tables, lengths,
                                             window=window, scale=scale)
+    _no_backward("paged_decode_attention_q", q, k_pool, v_pool, k_scales,
+                 v_scales)
     return paged_decode_attention_q_cuda(
         q.contiguous(), k_pool, v_pool, k_scales.float(), v_scales.float(),
         tables.to(torch.int32).contiguous(),
@@ -185,6 +211,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     check_chunk(chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    _no_backward("ssd_scan", x, dt, A, B, C, D, h0)
     f32 = lambda t: None if t is None else t.float().contiguous()
     return ssd_scan_cuda(x.contiguous(), f32(dt), f32(A), B.contiguous(),
                          C.contiguous(), f32(D), chunk=chunk, h0=f32(h0))

@@ -4,6 +4,8 @@
 primitives (``common``) and the family registry."""
 
 from .common import ModelConfig
-from .registry import ModelBundle, get_model, params_from_jax
+from .registry import (BatchSpec, ModelBundle, get_model, params_from_jax,
+                       params_to_jax)
 
-__all__ = ["ModelBundle", "ModelConfig", "get_model", "params_from_jax"]
+__all__ = ["BatchSpec", "ModelBundle", "ModelConfig", "get_model",
+           "params_from_jax", "params_to_jax"]

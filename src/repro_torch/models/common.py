@@ -132,6 +132,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B,S,V) upcast to float32, cross-entropy against labels
+    (B,S): the JAX function's steps — a detached max, a hand-rolled
+    logsumexp, and the gold logit picked by a mask on the vocab index —
+    then the mean over the ``mask``-weighted positions (at least 1)."""
+    logits = logits.float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    logz = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(iota == labels[..., None], logits, 0.0).sum(dim=-1)
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                scale: Optional[float] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:

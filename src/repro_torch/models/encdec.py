@@ -12,7 +12,8 @@ K/V in the cache beside the self-attention rings, ``{k, v}`` (L, B, KH,
 C, dh) and ``{cross_k, cross_v}`` (L, B, KH, T, dh), batch on axis 1 —
 so a slot checkpoint carries the cross K/V with the rings.  Decode
 writes the rings in place (the values of the JAX package's one-hot
-blend) and reads the staged cross K/V.
+blend) and reads the staged cross K/V.  ``encdec_loss`` is the training
+loss over the decoder's token labels.
 
 The frames are cast to the model's dtype, as PaliGemma's patches are:
 the JAX package runs them in their own dtype, and float32 frames on a
@@ -24,6 +25,7 @@ JAX package's activation-sharding hooks (``shard_act``,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -219,7 +221,11 @@ def _cross_attn(p: BiasedAttention, cfg: ModelConfig, x: torch.Tensor,
         return torch.einsum("bkgqt,bktd->bqkgd", w, enc_v)
 
     step = chunk if s > chunk and s % chunk == 0 else s
-    out = torch.cat([attend(q[:, i:i + step]) for i in range(0, s, step)],
+    # differentiated, each chunk is rematerialized, as the JAX function
+    # checkpoints its chunk scan
+    remat = step < s and torch.is_grad_enabled() and q.requires_grad
+    out = torch.cat([lm.checkpointed(attend, q[:, i:i + step]) if remat
+                     else attend(q[:, i:i + step]) for i in range(0, s, step)],
                     dim=1).reshape(b, s, h, dh)
     return _out(p, out)
 
@@ -229,16 +235,59 @@ def _ln(x: torch.Tensor, module: nn.Module, name: str) -> torch.Tensor:
                       getattr(module, f"{name}_b"))
 
 
-def encode(model: EncDecLM, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames (B,T,D), the stub frontend's output -> (B,T,D)."""
+def encode(model: EncDecLM, cfg: ModelConfig, frames: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
+    """frames (B,T,D), the stub frontend's output -> (B,T,D); ``remat``
+    rematerializes each encoder layer."""
     frames = frames.to(cfg.torch_dtype())
     t, d = frames.shape[1:]
     x = frames + sinusoids(t, d, frames.dtype, frames.device)[None]
     for layer in model.encoder:
-        x = x + _encoder_attn(layer.attn, cfg, _ln(x, layer, "ln1"))
-        x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
+        fn = functools.partial(_encoder_layer, layer, cfg)
+        x = lm.checkpointed(fn, x) if remat else fn(x)
     return _ln(x, model, "enc_final")
+
+
+def _encoder_layer(layer: EncoderLayer, cfg: ModelConfig,
+                   x: torch.Tensor) -> torch.Tensor:
+    x = x + _encoder_attn(layer.attn, cfg, _ln(x, layer, "ln1"))
+    return x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
+
+
+def _enc_kv(xa: BiasedAttention, enc: torch.Tensor):
+    """One decoder layer's cross K/V (B,KH,T,dh) from the encoder
+    output."""
+    ek = torch.einsum("btd,dhk->bhtk", enc, xa.wk)
+    ev = torch.einsum("btd,dhk->bhtk", enc, xa.wv) + xa.bv[None, :, None]
+    return ek, ev
+
+
+def _decoder_layer(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
+                   ek: torch.Tensor, ev: torch.Tensor, *,
+                   window: Optional[int] = None):
+    """One decoder layer over a whole sequence x (B,S,D) at positions
+    0..S-1: causal self-attention, cross-attention over ek/ev, MLP.
+    Returns (x after the layer, its self-attention k, v (B,S,KH,dh))."""
+    q, k, v = _qkv(layer.attn, _ln(x, layer, "ln1"))
+    x = x + _out(layer.attn, lm.chunked_attention(q, k, v, cfg,
+                                                  window=window))
+    x = x + _cross_attn(layer.xattn, cfg, _ln(x, layer, "lnx"), ek, ev)
+    return x + _mlp(layer.mlp, _ln(x, layer, "ln2")), k, v
+
+
+def _decoder_fwd(model: EncDecLM, cfg: ModelConfig, x: torch.Tensor,
+                 enc: torch.Tensor, *, window: Optional[int] = None,
+                 remat: bool = False) -> torch.Tensor:
+    """The decoder over a whole sequence x (B,S,D) against the encoder
+    output; ``remat`` rematerializes each layer.  Returns the hidden
+    states before the final norm."""
+    for layer in model.decoder:
+        ek, ev = _enc_kv(layer.xattn, enc)
+
+        def fn(h, layer=layer, ek=ek, ev=ev):
+            return _decoder_layer(layer, cfg, h, ek, ev, window=window)[0]
+        x = lm.checkpointed(fn, x) if remat else fn(x)
+    return x
 
 
 def _embed_dec(model: EncDecLM, tokens: torch.Tensor,
@@ -268,15 +317,8 @@ def encdec_prefill(model: EncDecLM, cfg: ModelConfig,
     ring = (cfg.n_layers, b, cfg.n_kv_heads, c, cfg.dh)
     ks, vs, xks, xvs = [], [], [], []
     for layer in model.decoder:
-        xa = layer.xattn
-        ek = torch.einsum("btd,dhk->bhtk", enc, xa.wk)
-        ev = (torch.einsum("btd,dhk->bhtk", enc, xa.wv)
-              + xa.bv[None, :, None])
-        q, k, v = _qkv(layer.attn, _ln(x, layer, "ln1"))
-        att = lm.chunked_attention(q, k, v, cfg, window=window)
-        x = x + _out(layer.attn, att)
-        x = x + _cross_attn(xa, cfg, _ln(x, layer, "lnx"), ek, ev)
-        x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
+        ek, ev = _enc_kv(layer.xattn, enc)
+        x, k, v = _decoder_layer(layer, cfg, x, ek, ev, window=window)
         for dst, src in ((ks, k), (vs, v)):
             one = src.new_zeros(ring[1:])
             lm._to_cache(one, src)
@@ -329,3 +371,18 @@ def encdec_decode(model: EncDecLM, cfg: ModelConfig, cache: Cache,
                             cache["cross_k"][i], cache["cross_v"][i])
         x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
     return _logits(model, x)[:, 0], cache
+
+
+def encdec_loss(model: EncDecLM, cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor], *, remat: bool = True,
+                data_shards: int = 16):
+    """batch: frames (B,T,D), tokens (B,S), labels (B,S).  Returns (loss,
+    {"ce_loss"}); ``remat`` rematerializes each encoder and decoder
+    layer, as the JAX ``encdec_loss`` does."""
+    enc = encode(model, cfg, batch["frames"], remat=remat)
+    tokens = batch["tokens"]
+    x = _embed_dec(model, tokens,
+                   torch.arange(tokens.shape[1], device=tokens.device)[None])
+    h = _decoder_fwd(model, cfg, x, enc, remat=remat)
+    loss = lm.masked_ce(_logits(model, h), batch["labels"])
+    return loss, {"ce_loss": loss}

@@ -15,7 +15,9 @@ Layer schedule for n_layers=38, every=6:
 
 The prefill steps take ``ssd_impl=`` (the scan hook, see
 ``models.ssm``); decode keeps the reference attention, as the JAX
-package's vendor decode does for this family.
+package's vendor decode does for this family.  ``hybrid_loss`` trains on
+the plain scan, with each Mamba layer rematerialized under ``remat``
+(the JAX package's inner checkpoint; the shared block is not).
 """
 
 from __future__ import annotations
@@ -160,3 +162,25 @@ def hybrid_decode(model: HybridLM, cfg: ModelConfig, cache: Cache,
             x = lm.decode_layer(model.shared, cfg, x, cache["attn_k"][app],
                                 cache["attn_v"][app], lengths)
     return lm.lm_logits(model, cfg, x)[:, 0], cache
+
+
+def hybrid_backbone(model: HybridLM, cfg: ModelConfig, x: torch.Tensor, *,
+                    remat: bool = False,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Embedded input x (B,S,D) through the Mamba layers, the shared
+    block after every ``shared_attn_every`` of them."""
+    for i, blk in enumerate(model.layers):
+        x = ssm.mamba_layer(blk, cfg, x, remat=remat)
+        if _shared_after(cfg, i) is not None:
+            x = lm._layer_fwd(model.shared, cfg, x, window=window)[0]
+    return x
+
+
+def hybrid_loss(model: HybridLM, cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor], *, remat: bool = True,
+                data_shards: int = 16):
+    """batch: tokens, labels (B,S).  Returns (loss, {"ce_loss"})."""
+    x = lm.embed_tokens(model, cfg, batch["tokens"])
+    h = hybrid_backbone(model, cfg, x, remat=remat)
+    loss = lm.masked_ce(lm.lm_logits(model, cfg, h), batch["labels"])
+    return loss, {"ce_loss": loss}

@@ -35,22 +35,33 @@ does not have yet: it always takes this path.
 
 The decode steps read ``lengths`` (and the block tables) on the device
 and take no branch on a device value, so they never wait for the device.
+
+Training: ``lm_loss`` runs ``lm_backbone`` (``_layer_fwd`` per layer,
+each one rematerialized under ``remat=True`` through
+``torch.utils.checkpoint``, as the JAX package checkpoints its scan
+body) into the float32 cross-entropy; ``chunked_attention``
+rematerializes each query chunk whenever it is differentiated, as the
+JAX function checkpoints its chunk body, so backward never holds the
+(B,H,S,S) softmax weights.  No kernel wrapper is on this path: a
+kernel launch has no backward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
 
-from .common import (ModelConfig, apply_rope, dense_init, rms_norm,
-                     rope_cos_sin)
+from .common import (ModelConfig, apply_rope, cross_entropy_loss, dense_init,
+                     rms_norm, rope_cos_sin)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -258,14 +269,14 @@ def _from_numpy(a: Any, dtype: torch.dtype) -> torch.Tensor:
 _STACKS = {"layers": "blocks"}
 
 
-def jax_leaf(tree: Dict[str, Any], name: str):
-    """(node, index): where the port's parameter ``name`` sits in a JAX
-    parameter tree whose per-layer leaves are stacked on a leading L
-    dim — ``layers.3.attn.wq`` is ``tree["blocks"]["attn"]["wq"]`` at
-    index 3, ``decoder.1.xattn.wq`` is ``tree["decoder"]["xattn"]["wq"]``
-    at 1, ``first_block.mlp.wi`` is ``tree["first_block"]["mlp"]["wi"]``
-    at 0 (a stack of one), ``embed`` is ``tree["embed"]`` (index None).
-    The node may be a quantized leaf's dict (``lm_quant``)."""
+def jax_key(name: str) -> Tuple[str, Optional[int]]:
+    """(flat key, index): where the port's parameter ``name`` sits in a
+    JAX parameter tree whose per-layer leaves are stacked on a leading L
+    dim — ``layers.3.attn.wq`` is ``blocks/attn/wq`` at index 3,
+    ``decoder.1.xattn.wq`` is ``decoder/xattn/wq`` at 1,
+    ``first_block.mlp.wi`` is ``first_block/mlp/wi`` at 0 (a stack of
+    one), ``embed`` is ``embed`` (index None).  The flat key is the JAX
+    checkpoint's key path of the leaf."""
     parts = name.split(".")
     index = None
     if len(parts) > 1 and parts[1].isdigit():
@@ -273,10 +284,33 @@ def jax_leaf(tree: Dict[str, Any], name: str):
         parts = [_STACKS.get(parts[0], parts[0])] + parts[2:]
     elif parts[0] == "first_block":
         index = 0
+    return "/".join(parts), index
+
+
+def jax_leaf(tree: Dict[str, Any], name: str):
+    """(node, index): the port's parameter ``name`` in a nested JAX
+    parameter tree (``jax_key``).  The node may be a quantized leaf's
+    dict (``lm_quant``)."""
+    key, index = jax_key(name)
     node = tree
-    for key in parts:
-        node = node[key]
+    for part in key.split("/"):
+        node = node[part]
     return node, index
+
+
+def jax_layout(named: Iterable[Tuple[str, torch.Tensor]]
+               ) -> Dict[str, Tuple[List[torch.Tensor], bool]]:
+    """The inverse of ``jax_key`` over named tensors (a model's
+    parameters, or anything keyed by their names): each JAX flat key
+    with its tensors in layer order and whether the JAX leaf stacks them
+    on a leading L dim."""
+    out: Dict[str, Tuple[Dict[int, torch.Tensor], bool]] = {}
+    for name, t in named:
+        key, index = jax_key(name)
+        parts, stacked = out.setdefault(key, ({}, index is not None))
+        parts[0 if index is None else index] = t
+    return {key: ([parts[i] for i in sorted(parts)], stacked)
+            for key, (parts, stacked) in out.items()}
 
 
 def load_jax_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
@@ -318,6 +352,16 @@ def _proj_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in backward
+    (``jax.checkpoint``): non-reentrant, so gradients reach the tensors
+    ``fn`` closes over, and without saving RNG state (nothing on the
+    training path draws random numbers, and a CUDA-graph capture may not
+    read the generator)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       cfg: ModelConfig, *, prefix_len: int = 0,
                       window: Optional[int] = None,
@@ -328,7 +372,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``prefix_len`` positions (a VLM's vision prefix) are visible to every
     query.  Logits are float32, masked to -1e30, and the softmax weights
     are cast to v's dtype before P·V, as the JAX package does.  S must be
-    a multiple of the chunk (min(chunk, S)), as there."""
+    a multiple of the chunk (min(chunk, S)), as there.  When q is
+    differentiated each chunk is rematerialized (``checkpointed``), as
+    the JAX function checkpoints its chunk body: backward keeps no
+    chunk's float32 logits."""
     b, s, h, dh = q.shape
     g = h // k.shape[2]
     chunk = min(chunk, s)
@@ -340,9 +387,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vx = (v.repeat_interleave(g, dim=2) if g > 1 else v).transpose(1, 2)
     kxf = kx.float()
     kpos = torch.arange(s, device=q.device)
-    outs = []
-    for start in range(0, s, chunk):
-        qc = q[:, start:start + chunk].transpose(1, 2)     # (B,H,c,dh)
+
+    def attend(qc, start):                                 # (B,H,c,dh)
         logits = (qc.float() @ kxf.transpose(-1, -2)) * scale
         qpos = start + torch.arange(chunk, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
@@ -352,7 +398,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
         logits = logits.masked_fill(~mask, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
-        outs.append((w @ vx).transpose(1, 2))             # (B,c,H,dh)
+        return (w @ vx).transpose(1, 2)                    # (B,c,H,dh)
+
+    grad = torch.is_grad_enabled() and q.requires_grad
+    outs = []
+    for start in range(0, s, chunk):
+        qc = q[:, start:start + chunk].transpose(1, 2)
+        outs.append(checkpointed(attend, qc, start) if grad
+                    else attend(qc, start))
     return torch.cat(outs, dim=1)
 
 
@@ -490,16 +543,13 @@ def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # FFN — MoE (per-group capacity dispatch, Switch-style)
 # ---------------------------------------------------------------------------
 
-# data shards of the JAX package's default mesh layout: the port has no
-# mesh, so this is its one value
-MOE_DATA_SHARDS = 16
-
-
-def moe_groups(n_tokens: int) -> int:
+def moe_groups(n_tokens: int, data_shards: int = 16) -> int:
     """Group count for capacity dispatch: one group per data shard when
-    groups stay usefully large, else a single global group."""
+    groups stay usefully large, else a single global group.  The default
+    is the JAX package's mesh layout; the trainer passes 1, the host
+    mesh's."""
     if n_tokens >= 16 * 1024:
-        return MOE_DATA_SHARDS
+        return data_shards
     return 1
 
 
@@ -573,7 +623,8 @@ def moe_dispatch(router_logits: torch.Tensor, cfg: ModelConfig,
     return dispatch, combine, aux
 
 
-def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, n_valid=None,
+def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
+              data_shards: int = 16, n_valid=None,
               eff_capacity=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,D) -> (y (B,S,D), aux_loss): the single-device capacity
     dispatch of the JAX ``moe_block``.  Each expert's matmuls run over
@@ -585,11 +636,12 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, n_valid=None,
     slot rows in ascending slot order (the dropped ones from a zero row
     last) and sums them one by one, the order in which a serial
     scatter-add visits them.  No atomics, so a run on the card repeats
-    bit for bit.  ``n_valid`` / ``eff_capacity``: the masked mode of
-    ``moe_dispatch`` (single group only)."""
+    bit for bit.  ``data_shards``: ``moe_groups``'.  ``n_valid`` /
+    ``eff_capacity``: the masked mode of ``moe_dispatch`` (single group
+    only)."""
     b, s, d = x.shape
     t_all = b * s
-    g = moe_groups(t_all)
+    g = moe_groups(t_all, data_shards)
     if n_valid is not None and g != 1:
         raise ValueError("capacity-stable masked dispatch requires the "
                          "single-group layout (got %d groups)" % g)
@@ -725,14 +777,24 @@ def prefill_attention(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                       prefix_len: int = 0) -> torch.Tensor:
     """``prefill_layer``'s attention half: x plus the attention output
     (the residual stream that goes into the layer's feed-forward)."""
+    h, k, v = _self_attention(blk, cfg, x, window=window,
+                              prefix_len=prefix_len)
+    _to_cache(ck, k)
+    _to_cache(cv, v)
+    return h
+
+
+def _self_attention(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
+                    window: Optional[int] = None, prefix_len: int = 0):
+    """ln1 → causal (+prefix, +window) attention over x (B,S,D) at
+    positions 0..S-1.  Returns (x + the attention output, k, v
+    (B,S,KH,dh))."""
     positions = torch.arange(x.shape[1], device=x.device)
     xin = rms_norm(x, blk.ln1, cfg.norm_eps)
     q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
     out = chunked_attention(q, k, v, cfg, prefix_len=prefix_len,
                             window=window)
-    _to_cache(ck, k)
-    _to_cache(cv, v)
-    return x + _out_proj(blk.attn, out)
+    return x + _out_proj(blk.attn, out), k, v
 
 
 def check_chunk_fits(start: int, s: int, capacity: int) -> None:
@@ -889,3 +951,61 @@ def lm_decode_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
         h = x + att
         x = h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
     return lm_logits(model, cfg, x)[:, 0], pool
+
+
+# ---------------------------------------------------------------------------
+# training: the loss
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
+               prefix_len: int = 0, window: Optional[int] = None,
+               data_shards: int = 16):
+    """One layer over a whole sequence x (B,S,D), no cache.  Returns (x
+    after the layer, its MoE aux loss or None)."""
+    h = _self_attention(blk, cfg, x, window=window, prefix_len=prefix_len)[0]
+    hin = rms_norm(h, blk.ln2, cfg.norm_eps)
+    moe = getattr(blk, "moe", None)
+    if moe is not None:
+        y, aux = moe_block(moe, cfg, hin, data_shards)
+        return h + y, aux
+    return h + mlp_block(blk.mlp, cfg, hin), None
+
+
+def lm_backbone(model: DenseLM, cfg: ModelConfig, x: torch.Tensor, *,
+                prefix_len: int = 0, window: Optional[int] = None,
+                remat: bool = False, data_shards: int = 16):
+    """Embedded input x (B,S,D) -> (hidden (B,S,D), aux loss: the MoE
+    layers' sum, float32).  ``remat`` rematerializes each of ``layers``
+    (the JAX package's scan body; DeepSeek's first block runs before the
+    scan, plain)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in blocks(model):
+        fn = functools.partial(_layer_fwd, blk, cfg, prefix_len=prefix_len,
+                               window=window, data_shards=data_shards)
+        scanned = blk is not getattr(model, "first_block", None)
+        x, aux = checkpointed(fn, x) if remat and scanned else fn(x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The families' loss: cross-entropy over the positions whose label
+    is >= 0 (label -1 masks a pad or the position after an EOS)."""
+    mask = (labels >= 0).float()
+    return cross_entropy_loss(logits, torch.clamp(labels, min=0), mask)
+
+
+def lm_loss(model: DenseLM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, data_shards: int = 16):
+    """batch: tokens (B,S) int, labels (B,S) int (-1 = masked).  Returns
+    (loss, {"ce_loss", "aux_loss"}); with experts the loss adds 0.01 ×
+    the aux loss, as the JAX ``lm_loss`` does."""
+    x = embed_tokens(model, cfg, batch["tokens"])
+    h, aux = lm_backbone(model, cfg, x, remat=remat,
+                         data_shards=data_shards)
+    loss = masked_ce(lm_logits(model, cfg, h), batch["labels"])
+    metrics = {"ce_loss": loss, "aux_loss": aux}
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    return loss, metrics

@@ -5,9 +5,15 @@ of the six families (dense, moe, ssm, hybrid, vlm, audio) resolves to a
 ``ModelBundle`` exposing:
 
   init(generator) -> params (an ``nn.Module`` on the generator's device)
+  loss(params, batch, *, remat, data_shards) -> (loss, metrics)
   prefill(params, batch, cache_len, window) -> (logits, cache)
   decode(params, cache, tokens, lengths, window) -> (logits, cache)
   empty_cache(batch, cache_len, dtype, device) -> cache dict
+  batch_shapes(mode, batch, seq) -> {name: BatchSpec(shape, dtype)}
+
+``loss`` is the family's training loss, its metrics the JAX package's
+keys (``ce_loss``; ``aux_loss`` for dense and MoE); ``make_batch``
+draws concrete inputs of ``batch_shapes``' specs.
 
 MoE shares the dense bundle (``models.lm``), as in the JAX package; its
 prefill reads the batch's ``n_valid``/``moe_cap`` (the capacity-stable
@@ -19,12 +25,23 @@ also takes ``ssd_impl=``, the scan hook of ``models.ssm``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.executor import resolve_device
 
 from . import encdec, hybrid, lm, ssm, vlm
 from .common import ModelConfig
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+class BatchSpec(NamedTuple):
+    """One model input's shape and dtype (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +51,37 @@ class ModelBundle:
     prefill: Callable
     decode: Callable
     empty_cache: Callable
+    loss: Optional[Callable] = None
+    batch_shapes: Optional[Callable] = None
+
+    def make_batch(self, rng: np.random.Generator, mode: str, batch: int,
+                   seq: int, device="cuda") -> Dict[str, torch.Tensor]:
+        """Concrete random inputs matching ``batch_shapes`` on ``device``
+        (the card by default), drawn from ``rng`` as the JAX package
+        draws them: token ids in [0, vocab), ``lengths`` in [1, seq),
+        floats from a standard normal."""
+        device = resolve_device(device)
+        out = {}
+        for name, spec in self.batch_shapes(mode, batch, seq).items():
+            if spec.dtype.is_floating_point:
+                arr = rng.normal(0, 1, spec.shape)
+            elif name == "lengths":
+                arr = rng.integers(1, seq, spec.shape)
+            else:
+                arr = rng.integers(0, self.cfg.vocab, spec.shape)
+            out[name] = torch.as_tensor(arr).to(device=device,
+                                                dtype=spec.dtype)
+        return out
+
+
+def _tok_shapes(mode: str, batch: int, seq: int) -> Dict[str, BatchSpec]:
+    if mode == "train":
+        return {"tokens": BatchSpec((batch, seq), torch.int32),
+                "labels": BatchSpec((batch, seq), torch.int32)}
+    if mode == "prefill":
+        return {"tokens": BatchSpec((batch, seq), torch.int32)}
+    return {"tokens": BatchSpec((batch, 1), torch.int32),
+            "lengths": BatchSpec((batch,), torch.int32)}
 
 
 def _kv_cache(cfg: ModelConfig):
@@ -57,7 +105,10 @@ def _dense_bundle(cfg: ModelConfig) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, init=lambda gen: lm.init_lm(gen, cfg),
                        prefill=prefill, decode=decode,
-                       empty_cache=_kv_cache(cfg))
+                       empty_cache=_kv_cache(cfg),
+                       loss=lambda params, batch, **kw: lm.lm_loss(
+                           params, cfg, batch, **kw),
+                       batch_shapes=_tok_shapes)
 
 
 def _ssm_bundle(cfg: ModelConfig) -> ModelBundle:
@@ -73,7 +124,10 @@ def _ssm_bundle(cfg: ModelConfig) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, init=lambda gen: ssm.init_ssm_lm(gen, cfg),
                        prefill=prefill, decode=decode,
-                       empty_cache=empty_cache)
+                       empty_cache=empty_cache,
+                       loss=lambda params, batch, **kw: ssm.ssm_loss(
+                           params, cfg, batch, **kw),
+                       batch_shapes=_tok_shapes)
 
 
 def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
@@ -93,7 +147,10 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(cfg=cfg,
                        init=lambda gen: hybrid.init_hybrid_lm(gen, cfg),
                        prefill=prefill, decode=decode,
-                       empty_cache=empty_cache)
+                       empty_cache=empty_cache,
+                       loss=lambda params, batch, **kw: hybrid.hybrid_loss(
+                           params, cfg, batch, **kw),
+                       batch_shapes=_tok_shapes)
 
 
 def _vlm_bundle(cfg: ModelConfig) -> ModelBundle:
@@ -103,9 +160,20 @@ def _vlm_bundle(cfg: ModelConfig) -> ModelBundle:
     def decode(params, cache, tokens, lengths, window=None):
         return vlm.vlm_decode(params, cfg, cache, tokens, lengths)
 
+    p, dv = cfg.n_vision_tokens, cfg.d_vision
+
+    def batch_shapes(mode, b, s):
+        base = _tok_shapes(mode, b, max(s - p, 1))
+        if mode in ("train", "prefill"):
+            base["vision"] = BatchSpec((b, p, dv), cfg.torch_dtype())
+        return base
+
     return ModelBundle(cfg=cfg, init=lambda gen: lm.init_lm(gen, cfg),
                        prefill=prefill, decode=decode,
-                       empty_cache=_kv_cache(cfg))
+                       empty_cache=_kv_cache(cfg),
+                       loss=lambda params, batch, **kw: vlm.vlm_loss(
+                           params, cfg, batch, **kw),
+                       batch_shapes=batch_shapes)
 
 
 def _audio_bundle(cfg: ModelConfig) -> ModelBundle:
@@ -120,10 +188,20 @@ def _audio_bundle(cfg: ModelConfig) -> ModelBundle:
         return encdec.encdec_empty_cache(cfg, batch, cache_len, dtype,
                                          device)
 
+    def batch_shapes(mode, b, s):
+        base = _tok_shapes(mode, b, s)
+        if mode in ("train", "prefill"):
+            base["frames"] = BatchSpec((b, cfg.n_audio_ctx, cfg.d_model),
+                                       cfg.torch_dtype())
+        return base
+
     return ModelBundle(cfg=cfg,
                        init=lambda gen: encdec.init_encdec(gen, cfg),
                        prefill=prefill, decode=decode,
-                       empty_cache=empty_cache)
+                       empty_cache=empty_cache,
+                       loss=lambda params, batch, **kw: encdec.encdec_loss(
+                           params, cfg, batch, **kw),
+                       batch_shapes=batch_shapes)
 
 
 _BUILDERS = {"dense": _dense_bundle, "moe": _dense_bundle,
@@ -152,3 +230,32 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda"):
     leaves stacked on a leading L dim) as the port's model on
     ``device`` (the card by default), leaf for leaf."""
     return lm.load_jax_tree(empty_model(cfg, device), tree)
+
+
+def jax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+    """Tensors keyed by the port's parameter names (a model's parameters,
+    or its gradients or moments under the same names) as a JAX-layout
+    tree of numpy arrays: nested dicts, per-layer leaves stacked on a
+    leading L dim (``lm.jax_layout``).  bfloat16 comes back widened to
+    float32 (exact: numpy has no bfloat16)."""
+    tree: Dict = {}
+    for key, (parts, stacked) in lm.jax_layout(named).items():
+        arrs = [t.detach().to("cpu", torch.float32 if t.dtype ==
+                              torch.bfloat16 else t.dtype).numpy()
+                for t in parts]
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.stack(arrs) if stacked else arrs[0]
+    return tree
+
+
+def params_to_jax(model, cfg: ModelConfig) -> Dict:
+    """The inverse of ``params_from_jax``: ``model``'s parameters as the
+    JAX package's parameter tree for ``cfg`` (numpy leaves,
+    ``jax_tree``)."""
+    if getattr(model, "cfg", cfg) != cfg:
+        raise ValueError(f"the model is a {model.cfg.arch_id}, not a "
+                         f"{cfg.arch_id}")
+    return jax_tree(model.named_parameters())

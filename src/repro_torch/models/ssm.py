@@ -15,7 +15,9 @@ dim and scans.  The steps are plain functions on tensors:
     batch=1 cache, written in place: the padded tail is an exact no-op
     (its dt is 0, and the conv window ends at the last real token);
   * ``ssm_decode`` — one token per sequence, O(1) in the context: the
-    conv window and the state are updated in place.
+    conv window and the state are updated in place;
+  * ``ssm_loss`` — the training loss through ``ssm_backbone``, always on
+    the plain ``ssd_chunked`` (K8 has no backward).
 
 The chunked scan is ``ssd_chunked`` (plain PyTorch); the prefill steps
 take ``ssd_impl=`` in its place, the vendor-kernel hook (§4.8) through
@@ -40,7 +42,8 @@ from torch import nn
 from repro_torch.core.executor import resolve_device
 
 from .common import ModelConfig, dense_init, rms_norm
-from .lm import NEG_INF, _param, embed_tokens, lm_logits, padded_vocab
+from .lm import (NEG_INF, _param, checkpointed, embed_tokens, lm_logits,
+                 masked_ce, padded_vocab)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -382,3 +385,31 @@ def ssm_decode(model: SSMLM, cfg: ModelConfig, cache: Cache,
         x, cache["conv"][i], cache["state"][i] = mamba_decode_block(
             blk, cfg, x, cache["conv"][i], cache["state"][i])
     return lm_logits(model, cfg, x)[:, 0], cache
+
+
+def ssm_backbone(model: SSMLM, cfg: ModelConfig, x: torch.Tensor, *,
+                 remat: bool = False) -> torch.Tensor:
+    """Embedded input x (B,S,D) through every Mamba layer on the plain
+    scan; ``remat`` rematerializes each layer."""
+    for blk in model.layers:
+        x = mamba_layer(blk, cfg, x, remat=remat)
+    return x
+
+
+def mamba_layer(blk: MambaBlock, cfg: ModelConfig, x: torch.Tensor, *,
+                remat: bool = False) -> torch.Tensor:
+    """One Mamba layer of the training forward (no cache), rematerialized
+    under ``remat``."""
+    def fn(h):
+        return mamba_block(blk, cfg, h)[0]
+    return checkpointed(fn, x) if remat else fn(x)
+
+
+def ssm_loss(model: SSMLM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+             *, remat: bool = True, data_shards: int = 16):
+    """batch: tokens, labels (B,S).  Returns (loss, {"ce_loss"});
+    ``data_shards`` is not used (no MoE), as in the JAX package."""
+    x = embed_tokens(model, cfg, batch["tokens"])
+    h = ssm_backbone(model, cfg, x, remat=remat)
+    loss = masked_ce(lm_logits(model, cfg, h), batch["labels"])
+    return loss, {"ce_loss": loss}

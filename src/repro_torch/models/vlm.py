@@ -9,6 +9,7 @@ everything after it are real.  Gemma's details: GeGLU MLP, MQA (one KV
 head), RoPE, tied embeddings, token embeddings scaled by sqrt(d_model).
 The parameters are an ``lm.DenseLM`` with its ``projector``; the vision
 tokens take the first cache positions, so decode ``lengths`` count them.
+``vlm_loss`` trains over the text positions only.
 """
 
 from __future__ import annotations
@@ -43,3 +44,20 @@ def vlm_decode(model: lm.DenseLM, cfg: ModelConfig, cache: lm.Cache,
     vision prefix."""
     return lm.lm_decode(model, cfg, cache, tokens, lengths,
                         embed_scale=math.sqrt(cfg.d_model))
+
+
+def vlm_loss(model: lm.DenseLM, cfg: ModelConfig,
+             batch: Dict[str, torch.Tensor], *, remat: bool = True,
+             data_shards: int = 16):
+    """batch: vision (B,P,d_vision), tokens (B,S), labels (B,S).  The
+    projected vision prefix goes in front of the scaled token embeddings
+    and attends bidirectionally; the loss is over the text positions
+    only.  Returns (loss, {"ce_loss"})."""
+    p = cfg.n_vision_tokens
+    xt = lm.scale_embed(lm.embed_tokens(model, cfg, batch["tokens"]),
+                        math.sqrt(cfg.d_model))
+    xv = batch["vision"].to(xt.dtype) @ model.projector
+    h, _ = lm.lm_backbone(model, cfg, torch.cat([xv, xt], dim=1),
+                          prefix_len=p, remat=remat, data_shards=data_shards)
+    loss = lm.masked_ce(lm.lm_logits(model, cfg, h[:, p:]), batch["labels"])
+    return loss, {"ce_loss": loss}

@@ -1535,3 +1535,61 @@ def test_card_profile_is_refused_by_a_cpu_engine(cuda):
             calibrate(bundle, model, lengths, cache_len=64,
                       candidate_levels=(8,), chunk_candidates=(),
                       device=cuda)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "deepseek-moe-16b",
+                                  "mamba2-780m", "whisper-large-v3"])
+def test_train_step_replay_equals_eager(cuda, arch):
+    """A reduced float32 train step, captured (one CUDA graph, replayed
+    from the second call) against the same step eager under
+    ``disable_capture()``, 3 steps from the same weights and batches:
+    metrics within 1e-5 relative, every parameter within 1e-5 of its
+    leaf's largest entry + lr / 2 and no more than 1% of a leaf's
+    elements (at least 1) beyond 1e-5 of it (Adam's step of an element
+    whose gradient is within rounding of 0 is a fraction of lr that the
+    rounding sets, as in tests/test_torch_training.py)."""
+    import copy
+
+    from repro_torch.data import make_batches
+    from repro_torch.training import init_train_state, make_train_step
+
+    lr = 1e-3
+    cfg = get_config(arch, reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator(cuda).manual_seed(0))
+    states = [init_train_state(model),
+              init_train_state(copy.deepcopy(model))]
+    steps = [make_train_step(bundle.loss, lr=lr, remat=True, data_shards=1)
+             for _ in states]
+    for batch in make_batches(cfg, 4, 32, 3, seed=0):
+        _, got = steps[0](states[0], batch)
+        with disable_capture():
+            _, want = steps[1](states[1], batch)
+        for k, w in want.items():
+            assert abs(float(got[k]) - float(w)) <= \
+                1e-5 * max(abs(float(w)), 1e-30), k
+    assert capture_count(steps[0].program) == 1
+    assert capture_count(steps[1].program) == 0
+    for (n, p), (_, q) in zip(states[0].params.named_parameters(),
+                              states[1].params.named_parameters()):
+        d = (p - q).abs()
+        top = float(q.abs().max()) or 1.0
+        assert float(d.max()) <= 1e-5 * top + lr / 2, n
+        assert int((d > 1e-5 * top).sum()) <= max(1e-2 * d.numel(), 1), n
+
+
+def test_kernel_wrapper_refuses_a_differentiated_cuda_input(cuda):
+    """A kernel launch has no backward: with grad enabled, a CUDA input
+    that requires grad is refused before the launch; detached, it
+    launches."""
+    q = torch.randn(2, 8, 64, device=cuda, requires_grad=True)
+    kc = torch.randn(2, 2, 128, 64, device=cuda)
+    lengths = torch.tensor([5, 100], dtype=torch.int32, device=cuda)
+    before = K3.launches
+    with pytest.raises(ops.NoBackwardError, match="decode_attention"):
+        ops.decode_attention(q, kc, kc, lengths)
+    assert K3.launches == before
+    with torch.no_grad():
+        out = ops.decode_attention(q, kc, kc, lengths)
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1 and out.shape == (2, 8, 64)
