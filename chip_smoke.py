@@ -5,9 +5,9 @@ dispatch), dense-LM serving (contiguous, paged and quantized),
 recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
 serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper,
 the overlapped decode loop, the multi-tenant host, the replica router,
-the streaming server, the profiler, the calibration cost model and
-training — with every CUDA kernel of those paths held against its plain
-PyTorch version.
+the streaming server, the profiler, the calibration cost model,
+training and mesh-sharded serving — with every CUDA kernel of those
+paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -58,7 +58,17 @@ Phases — any failure raises and the script exits non-zero:
      within atol 5e-4 / rtol 1e-3 (bf16 y: one bf16 ulp besides); two
      bounds, the least operations on the CUDA cores in float32 and on
      the tensor cores in bf16; no single library call computes the
-     scan.
+     scan.  K3 and K4 in the forms a 2-rank mesh runs them
+     (``check_sharded_decode_attention``): Yi-6B's cache, bf16 and f32,
+     split into the halves of its rows (K3) or of every 16-row block of
+     the permuted table (K4, blocks of 8), each half with its clamped
+     lengths (row counts) and ``return_lse``: each half against its plain
+     version, a half with no valid row 0 and -inf, the merged halves
+     against the unsplit kernel (f32 within 1e-5, bf16 within
+     ``BF16_ATOL``), the lse launch's output bit-equal to the
+     argument-free one's; and both timed at a rank's ``heads`` share
+     (4, 16, 2, 2048, 128) and half rows, beside the plain version, the
+     bound and SDPA.
   Each main path (phases 3-4, 7, 9, 10 (a)-(c), 12, 13, 14, 15-24) runs
   inside ``main_path``: every launch count set to 0 just before it, the
   device traced by torch.profiler over it, and after it each kernel's
@@ -124,9 +134,10 @@ Phases — any failure raises and the script exits non-zero:
      paged engine: every request finishes, and the longest prompt's K/V
      rows after chunked prefill agree with one-shot prefill's at layer 0
      within one bfloat16 ulp of each row's largest entry.
-  10. the quantized serving main path: the phase-7 model quantized on the
-     card by the engine and the phase-7 requests, counts set to 0 just
-     before each run, through (a) ``weight_dtype="int8",
+  10. the quantized serving main path: Yi-6B at full width with 16 of its
+     32 layers (``QUANT_LAYERS``), quantized on the card by the engine,
+     and the phase-7 requests, counts set to 0 just before each run,
+     through (a) ``weight_dtype="int8",
      kv_dtype="int8"`` contiguous (K5 launched 3 x 32 times a decode
      step, K3 32 times over the dequantized cache), (b) the same with
      ``kv_block=16`` (K7 32 times a step, K3 and K4 never; tokens equal
@@ -140,7 +151,8 @@ Phases — any failure raises and the script exits non-zero:
      displacement on (b) emits (b)'s tokens; the largest |logit|
      difference from the bf16 engine over 16 teacher-forced steps, for
      (a) within 0.25 of the largest |logit| (``INT8_VS_BF16_RTOL``), for
-     int4 reported; and how many greedy tokens equal phase 7's.
+     int4 reported; and how many greedy tokens equal the bf16 engine's
+     on the same 16 layers.
   11. Mamba2-780m at full width in float32 (3.1 GB): 4 seeded prompts
      (512, 128, 77 and 384 tokens) through ``ssm_prefill`` with the scan
      on K8 and on the plain ``ssd_chunked``: conv windows, SSD states and
@@ -149,16 +161,18 @@ Phases — any failure raises and the script exits non-zero:
      of 128 from an empty cache, K8 with the carried state as h0, a
      padded final chunk) gives the one-shot cache within it.
   12. the recurrent serving main path, bfloat16, counts set to 0 just
-     before each run: ``ServingEngine(get_model(mamba2-780m), ...,
+     before each run, at full width with ``RECURRENT_LAYERS`` (24 of
+     Mamba2-780m's 48, 18 of Zamba2-1.2B's 38):
+     ``ServingEngine(get_model(mamba2-780m), ...,
      max_slots=4, cache_len=2048, device="cuda")`` serves (a) 8 seeded
      requests one-shot (prompts less one of 64-128, 256, 384 or 512
      tokens) and (b) 8 with ``prefill_chunk=128`` (100-600 tokens), 32
-     new tokens each: K8 launched 48 x (one-shot prefills + chunk steps)
+     new tokens each: K8 launched 24 x (one-shot prefills + chunk steps)
      and nothing else, the cache in place, memory flat; torch.profiler
      over decode steps and over a 512-token prefill (with K8's device
      time a launch inside it); an EDF displacement on (a) emits the
      uninterrupted tokens.  Then Zamba2-1.2B the same
-     way with 4 requests a run (K8 38 x per prefill or chunk).
+     way with 4 requests a run (K8 18 x per prefill or chunk).
   13. every micro op on the card, counts set to 0 just before: one
      decoder block at Yi-6B's published widths (d 4096, 32 query heads
      of 128, 4 KV heads repeated to 32 by CONCATENATION, d_ff 11008, rope
@@ -189,8 +203,9 @@ Phases — any failure raises and the script exits non-zero:
      waves' int8 FC ops.  Then, untraced, the per-request us of a wave at each
      occupancy against a request alone.
   15. MoE serving, counts set to 0 just before each run:
-     DeepSeek-MoE-16B at full width and depth in bfloat16 (16.4 B
-     parameters seeded on the card), 5 requests of 16-512 tokens, 16 new:
+     DeepSeek-MoE-16B at full width with 14 of its 28 layers
+     (``MOE_LAYERS``) in bfloat16, seeded on the card, 5 requests of
+     16-512 tokens, 16 new:
      (a) contiguous (K3 28 x the decode steps), replays bit-equal to an
      eager engine; (b) bucketed: one prefill program per bucket hit, its
      prefill K/V within one bf16 ulp of (a)'s at layer 0 (a bf16 GEMM
@@ -307,17 +322,39 @@ Phases — any failure raises and the script exits non-zero:
      reduced in float32, 3 train steps on the card and on the CPU, the
      card's state set to the CPU's before each (``FAMILY_ARCHS``'
      tolerances).
-  Each of phases 15-25 logs its seconds and its peak device memory
+  26. mesh-sharded serving (``mesh_serving``), with the earlier phases'
+     models freed: (a) Yi-6B at full width and depth in bfloat16 on
+     ``make_serving_mesh(1)``, a world of one rank over NCCL in this
+     process whose collectives are captured in the programs, as a main
+     path: phase 7's requests give phase 7's tokens, K3 traced = counted
+     = 32 x the decode steps, the programs as on one device, the NCCL
+     kernels' device time; (b) two ranks, one process each
+     (``chip_smoke.py --mesh-rank R ...``): NCCL a card a rank where the
+     machine shows two cards, else gloo with both on the one card,
+     eager (gloo stages CUDA tensors through the host, which a graph
+     cannot record); the backend and card count printed.  Float32:
+     Yi-6B full width and depth contiguous (K3) and paged (K4) in
+     ``heads``/``kv_heads`` mode, Mamba2-780m one-shot and
+     ``prefill_chunk=128`` on 24 of its 48 SSD heads a rank (K8),
+     PaliGemma-3B in ``heads``/``sequence`` mode (its one KV head's rows
+     halved; reference attention, its head dim of 256 above K3's), and
+     DeepSeek-MoE-16B with 4 of its 28 layers (32 experts a rank): each
+     rank's greedy tokens, through a forced evict and restore, equal the
+     same model's single-device engine's in this process; each rank's
+     decode-step median, collective time in a trace, peak memory and
+     resident weight and KV bytes against the single device's.
+  Each of phases 15-26 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
   K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
   15's new shapes: K3, K4 and K7 at DeepSeek's (4, 16, 16, 2048, 128)
   bf16 (group 1), K5 and K6 at its first block's MLP, (4, 2048) x
   (2048, 10944) and (4, 10944) x (10944, 2048).
-  A JSON line of phases 15-25's summaries, one of the models, one
+  A JSON line of phases 15-26's summaries, one of the models, one
   listing the kernels (K1-K8; K1's and K2's launches summed over phases
   3-4, 13 and 14, with each path's count; K3-K8 with their launches on
-  phases 15, 18, 19-24's and 25 (d)'s runs), then the last line
+  phases 15, 18, 19-24's, 25 (d)'s and 26's runs; K3's and K4's rows
+  with their sharded forms), then the last line
   ``{"ok": true, "device": {...}}``.
 """
 
@@ -795,6 +832,185 @@ def check_paged_decode_attention(torch, np, dev):
             + f"  K3 {row['k3_ms'] * 1e3:.2f} us  gather+SDPA (two calls) "
             f"{row['gather_sdpa_ms'] * 1e3:.2f} us")
     return rows
+
+
+# a rank's share of Yi-6B's decode step on a 2-rank mesh
+SPLIT_RANKS = 2
+
+
+def _merge_partials(torch, outs, lses):
+    """Partial attentions over disjoint rows with their log-sum-exp,
+    merged as the ranks merge them (``Comm.combine``), in float32."""
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.max(dim=0).values)
+    num = (torch.stack(outs).float() * w[..., None]).sum(dim=0)
+    return num / w.sum(dim=0)[..., None]
+
+
+def _split_row(torch, label, shape, lens, dt, kernel, plain, library, nbytes,
+               ops):
+    """One sharded-form timing row: the kernel (with its log-sum-exp, as
+    a rank's step launches it), its plain version, the library call and
+    the bound, at a rank's shape."""
+    row = {"shape": shape, "lengths": lens, "window": None, "form": label,
+           "dtype": str(dt).replace("torch.", ""), "max_abs_err": 0.0}
+    row["ms"], row["call_ms"] = time_ms(torch, kernel)
+    row["plain_ms"], row["plain_call_ms"] = time_ms(torch, plain)
+    row["library_ms"] = None if library is None else time_ms(torch,
+                                                             library)[0]
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, ops, H100_F32_OPS_PER_S if dt == torch.float32
+        else H100_BF16_OPS_PER_S)
+    return row
+
+
+def check_sharded_decode_attention(torch, np, dev):
+    """K3 and K4 in the forms a 2-rank mesh runs them, on Yi-6B's cache
+    (4, 32, 4, 2048, 128), bf16 and f32, lengths 1, 37, 1500, 2048:
+    K3 on each half of the rows with its clamped lengths, K4 on each half
+    of every 16-row block of phase 2's permuted table (blocks of 8) with
+    its row counts, both with ``return_lse``.  Each half's output and
+    log-sum-exp against its plain version, a half with no valid row 0
+    and -inf, the halves merged against the unsplit kernel (f32 within
+    1e-5, bf16 within ``BF16_ATOL``), and the lse launch's output
+    bit-equal to the argument-free launch's.  Then each timed at a
+    rank's shapes: the ``heads`` share (4, 16, 2, 2048, 128) and the
+    half rows (4, 32, 4, 1024, 128), beside the plain version, the bound
+    and SDPA on the same inputs (K4: no single call walks a table).
+    Returns (K3's rows, K4's rows)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_cuda
+
+    b, h, kh, s, bs, d = 4, 32, 4, 2048, PAGED_BLOCK, 128
+    m, t = SPLIT_RANKS, s // PAGED_BLOCK
+    lens = [1, 37, 1500, s]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(26)
+    k3_rows, k4_rows, split_err = [], [], {}
+    for dt in (torch.bfloat16, torch.float32):
+        tol = 1e-5 if dt == torch.float32 else BF16_ATOL
+        q = torch.randn(b, h, d, generator=g).to(dev, dt)
+        k_pool, v_pool, tables, k, v = _paged_layout(
+            torch, dev, dt, b, kh, s, bs, d, lens, seed=26)
+        forms = {}
+        c = s // m
+        forms["K3"] = (
+            decode_attention_cuda(q, k, v, lengths),
+            [(decode_attention_cuda, ref.decode_attention_ref,
+              (q, k[:, :, r * c:(r + 1) * c].contiguous(),
+               v[:, :, r * c:(r + 1) * c].contiguous(),
+               torch.clamp(lengths - r * c, 0, c).to(torch.int32)))
+             for r in range(m)])
+        held = bs // m
+        forms["K4"] = (
+            paged_decode_attention_cuda(q, k_pool, v_pool, tables, lengths),
+            [(paged_decode_attention_cuda, ref.paged_decode_attention_ref,
+              (q, k_pool[:, :, r * held:(r + 1) * held].contiguous(),
+               v_pool[:, :, r * held:(r + 1) * held].contiguous(), tables,
+               ((lengths // bs) * held + torch.clamp(
+                   lengths % bs - r * held, 0, held)).to(torch.int32)))
+             for r in range(m)])
+        for name, (whole, parts) in forms.items():
+            outs, lses, errs = [], [], []
+            for r, (kern, plain, args) in enumerate(parts):
+                out, lse = kern(*args, return_lse=True)
+                bare = kern(*args)
+                want, want_lse = plain(*args, return_lse=True)
+                torch.cuda.synchronize()
+                n = args[-1]
+                if not torch.equal(out, bare):
+                    raise AssertionError(f"{name} half {r} {dt}: the lse "
+                                         f"launch's output differs")
+                errs.append((out.float() - want.float()).abs().max().item())
+                lse_err = (lse - want_lse)[n > 0].abs().max().item()
+                none = n == 0
+                if errs[-1] > tol or lse_err > 1e-4 or not (
+                        torch.equal(out[none], torch.zeros_like(out[none]))
+                        and torch.isneginf(lse[none]).all()):
+                    raise AssertionError(
+                        f"{name} half {r} {dt}: err {errs[-1]}, lse err "
+                        f"{lse_err}, empty rows {none.tolist()}")
+                outs.append(out)
+                lses.append(lse)
+            merged = _merge_partials(torch, outs, lses)
+            err = (merged - whole.float()).abs().max().item()
+            if err > tol:
+                raise AssertionError(f"{name} {dt}: the merged halves differ "
+                                     f"from the unsplit kernel by {err}")
+            split_err[name] = max(errs + [err])
+            log(f"  {name} {str(dt)[6:]} split over {m} ranks' rows: halves "
+                f"within {max(errs):.3g} of their plain versions (lse within "
+                f"1e-4, empty halves 0 and -inf), merged within {err:.3g} "
+                f"of the unsplit kernel")
+        if dt != torch.bfloat16:
+            continue
+        item = q.element_size()
+        # the rank's shapes: its heads (heads/kv_heads) and its half rows
+        hq, hk = q[:, :h // m].contiguous(), k[:, :kh // m].contiguous()
+        hv = v[:, :kh // m].contiguous()
+        _, _, half_args = forms["K3"][1][0]
+        _, _, paged_args = forms["K4"][1][0]
+        hpool = [x[:, :kh // m].contiguous() for x in (k_pool, v_pool)]
+        pos = torch.arange(s, device=dev)[None, :]
+        mask = (pos < lengths[:, None])[:, None, None, :]
+        hmask = (torch.arange(c, device=dev)[None, :]
+                 < half_args[3][:, None])[:, None, None, :]
+        n_half = half_args[3].tolist()
+        valid, valid_half = sum(min(n, s) for n in lens), sum(n_half)
+        k3_rows.append(_split_row(
+            torch, "mesh heads share", [b, h // m, kh // m, s, d], lens, dt,
+            lambda: decode_attention_cuda(hq, hk, hv, lengths,
+                                          return_lse=True),
+            lambda: ref.decode_attention_ref(hq, hk, hv, lengths,
+                                             return_lse=True),
+            lambda: F.scaled_dot_product_attention(
+                hq[:, :, None], hk, hv, attn_mask=mask, enable_gqa=True),
+            item * (2 * b * h // m * d + 2 * valid * kh // m * d) + 4 * b
+            + 4 * b * h // m, 4 * h // m * d * valid))
+        k3_rows.append(_split_row(
+            torch, "mesh half rows", [b, h, kh, c, d], n_half, dt,
+            lambda: decode_attention_cuda(*half_args, return_lse=True),
+            lambda: ref.decode_attention_ref(*half_args, return_lse=True),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], half_args[1], half_args[2], attn_mask=hmask,
+                enable_gqa=True),
+            item * (2 * b * h * d + 2 * valid_half * kh * d) + 4 * b
+            + 4 * b * h, 4 * h * d * valid_half))
+        n_paged = paged_args[4].tolist()
+        k4_rows.append(_split_row(
+            torch, "mesh heads share", [b, h // m, kh // m, t, bs, d], lens,
+            dt, lambda: paged_decode_attention_cuda(
+                hq, *hpool, tables, lengths, return_lse=True),
+            lambda: ref.paged_decode_attention_ref(
+                hq, *hpool, tables, lengths, return_lse=True), None,
+            item * (2 * b * h // m * d + 2 * valid * kh // m * d) + 4 * b
+            + 4 * b * h // m + 4 * sum(-(-n // bs) for n in lens),
+            4 * h // m * d * valid))
+        k4_rows.append(_split_row(
+            torch, "mesh half rows of each block", [b, h, kh, t, held, d],
+            n_paged, dt,
+            lambda: paged_decode_attention_cuda(*paged_args,
+                                                return_lse=True),
+            lambda: ref.paged_decode_attention_ref(*paged_args,
+                                                   return_lse=True), None,
+            item * (2 * b * h * d + 2 * sum(n_paged) * kh * d) + 4 * b
+            + 4 * b * h + 4 * sum(-(-n // held) for n in n_paged),
+            4 * h * d * sum(n_paged)))
+        for name, row in (("K3", k3_rows[-2]), ("K3", k3_rows[-1]),
+                          ("K4", k4_rows[-2]), ("K4", k4_rows[-1])):
+            # the bf16 halves' and merge's largest error (checked above)
+            row["max_abs_err"] = split_err[name]
+            row["library"] = ("none: no single PyTorch call walks a block "
+                              "table" if row["library_ms"] is None else
+                              "torch.nn.functional.scaled_dot_product_"
+                              "attention attn_mask enable_gqa")
+            log(f"  {name} {row['form']} {tuple(row['shape'])} "
+                f"{row['dtype']}: " + _times(row))
+    return k3_rows, k4_rows
 
 
 def cold_time_ms(torch, w, fn):
@@ -1658,6 +1874,9 @@ def median_us(fn, n: int = TIMED_WAVES) -> float:
 
 LM_ARCH = "yi-6b"
 SERVE_SLOTS, SERVE_CACHE = 4, 2048
+# phase 10's Yi-6B: full width, 16 of its 32 layers (phase 26 needs the
+# script's time; phases 7 and 9 serve all 32)
+QUANT_LAYERS = 16
 N_SERVE, SERVE_NEW = 8, 32
 PAGED_BLOCK, CHUNK = 16, 128
 TF_STEPS = 16
@@ -2442,15 +2661,33 @@ def check_logits(label, err, top, rtol) -> dict:
     return out
 
 
-def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
-                      served, fp_rows):
-    """Phase 10: the phase-7 model quantized on the card and the phase-7
-    requests through (a) int8 weights and KV, contiguous, (b) the same
-    paged with blocks of 16, (c) int4 weights and int8 KV, paged.  Each
-    run counts its kernels from 0, keeps memory flat and its cache in
-    place (``serve_lm``); (b) emits (a)'s tokens and (b) preempted and
-    restored emits them too.  Returns the runs' rows and each kernel's
-    launches on its run."""
+def quantized_serving(torch, np, dev):
+    """Phase 10: Yi-6B at full width with ``QUANT_LAYERS`` of its layers
+    (seed 0), quantized on the card, and phase 7's requests through (a)
+    int8 weights and KV, contiguous, (b) the same paged with blocks of
+    16, (c) int4 weights and int8 KV, paged.  Each run counts its kernels
+    from 0, keeps memory flat and its cache in place (``serve_lm``); (b)
+    emits (a)'s tokens and (b) preempted and restored emits them too;
+    each run's resident bytes and tokens against the bf16 engine of the
+    same model.  Returns the runs' rows and each kernel's launches on its
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    bundle = get_model(dataclasses.replace(get_config(LM_ARCH),
+                                           n_layers=QUANT_LAYERS))
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    prompts = serving_workload(np, bundle.cfg.vocab)
+    engine = family_engine(dev, bundle, model)
+    fp_rows = {}
+    for name, kw in (("contiguous", {}), ("paged",
+                                          {"kv_block": PAGED_BLOCK})):
+        eng = engine(**kw)
+        fp_rows[name] = {"param_bytes": eng.param_bytes,
+                         "kv_bytes": eng.kv_bytes}
+        if name == "contiguous":
+            _, served = serve_lm(torch, np, dev, eng, prompts)
+        del eng
     n_layers = bundle.cfg.n_layers
     runs = {"a": {"weight_dtype": "int8", "kv_dtype": "int8"},
             "b": {"weight_dtype": "int8", "kv_dtype": "int8",
@@ -2492,10 +2729,10 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
             kv_ratio_vs_bf16=fp["kv_bytes"] / row["kv_bytes"],
             peak_above_resident_bytes=(torch.cuda.max_memory_allocated()
                                        - resident),
-            tokens_equal_phase7=sum(a == b for u in served for a, b in
-                                    zip(toks[key][u], served[u])),
-            requests_equal_phase7=sum(toks[key][u] == served[u]
-                                      for u in served),
+            tokens_equal_bf16=sum(a == b for u in served for a, b in
+                                  zip(toks[key][u], served[u])),
+            requests_equal_bf16=sum(toks[key][u] == served[u]
+                                    for u in served),
             tokens=sum(len(t) for t in toks[key].values()))
         if row["weight_ratio_vs_bf16"] < WEIGHT_RATIO[kw["weight_dtype"]] \
                 or row["kv_ratio_vs_bf16"] < KV_RATIO:
@@ -2507,9 +2744,9 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
             f"({row['weight_ratio_vs_bf16']:.3f}x smaller than bf16), KV "
             f"{row['kv_bytes']:,} B ({row['kv_ratio_vs_bf16']:.3f}x); peak "
             f"{row['peak_above_resident_bytes']:,} B above the resident "
-            f"bytes; {row['tokens_equal_phase7']} of {row['tokens']} greedy "
-            f"tokens at phase 7's positions equal phase 7's, "
-            f"{row['requests_equal_phase7']} of {len(served)} requests "
+            f"bytes; {row['tokens_equal_bf16']} of {row['tokens']} greedy "
+            f"tokens at the bf16 engine's positions equal its, "
+            f"{row['requests_equal_bf16']} of {len(served)} requests "
             f"whole")
         profile_decode(torch, np, eng, row)
         row["private_pools_bytes"] = private_pools(torch, np, dev, eng,
@@ -2546,6 +2783,10 @@ def quantized_serving(torch, np, dev, engine, bundle, model, prompts,
 # ---------------------------------------------------------------------------
 
 SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-1.2b"
+# phase 12's depth: half of Mamba2-780m's 48 layers, 18 of Zamba2-1.2B's
+# 38 (the shared block after every 6th, 3 times); phase 26 needs the
+# script's time, and phase 18 serves both at full depth
+RECURRENT_LAYERS = {SSM_ARCH: 24, HYBRID_ARCH: 18}
 # float32 Mamba2-780m, K8 against the plain scan: the two sum in other
 # orders; the stated bound is relative to the largest entry of each
 # compared tensor (a layer's states, a step's logits)
@@ -2796,7 +3037,8 @@ def timed_prefill(eng, prompt, n: int = 3) -> float:
 
 
 def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
-    """Phase 12: ``arch`` at full width in bfloat16 through
+    """Phase 12: ``arch`` at full width with ``RECURRENT_LAYERS[arch]`` of
+    its layers in bfloat16 through
     ``ServingEngine(..., max_slots=4, cache_len=2048, device="cuda")``:
     (a) one-shot prefill, prompts inside the reference's contract, (b)
     ``prefill_chunk=128``, prompts of 100-600 tokens.  Counts set to 0
@@ -2811,7 +3053,8 @@ def recurrent_serving(torch, np, dev, arch, n_requests, *, preempt):
     from repro_torch.models import get_model
     from repro_torch.serving import ServingEngine
 
-    bundle = get_model(get_config(arch))
+    bundle = get_model(dataclasses.replace(
+        get_config(arch), n_layers=RECURRENT_LAYERS[arch]))
     model = bundle.init(torch.Generator(dev).manual_seed(0))
     n_layers, vocab = bundle.cfg.n_layers, bundle.cfg.vocab
 
@@ -2875,6 +3118,9 @@ MOE_ARCH, MOE2_ARCH = "deepseek-moe-16b", "qwen3-moe-30b-a3b"
 # heads and 128 experts per layer are what this checks; 48 layers would
 # add 57 GB of bf16 weights beside DeepSeek's)
 MOE2_LAYERS = 4
+# phase 15's DeepSeek-MoE-16B: the dense first block and 13 MoE layers of
+# its 28 (phase 26 needs the script's time)
+MOE_LAYERS = 14
 VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-large-v3"
 # requests a run: more than the 4 slots, so admission waits and a
 # fifth request is there for the preemption check; new tokens each
@@ -3258,8 +3504,8 @@ def phase_summary(torch, label, t0, rows):
 
 
 def moe_serving(torch, np, dev):
-    """Phase 15: DeepSeek-MoE-16B at full width and depth in bfloat16
-    (16.4 B parameters, seeded on the card): (a) contiguous on K3, its
+    """Phase 15: DeepSeek-MoE-16B at full width with ``MOE_LAYERS`` of its
+    28 layers in bfloat16 (seeded on the card): (a) contiguous on K3, its
     replays bit-equal to an eager engine; (b) bucketed (one prefill
     program per bucket hit; its prefill K/V against (a)'s within
     rounding, ``bucketed_vs_exact``, the MoE block's masked dispatch
@@ -3283,7 +3529,8 @@ def moe_serving(torch, np, dev):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    bundle = get_model(get_config(MOE_ARCH))
+    bundle = get_model(dataclasses.replace(get_config(MOE_ARCH),
+                                           n_layers=MOE_LAYERS))
     model = bundle.init(torch.Generator(dev).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  {MOE_ARCH}: {n_params / 1e9:.2f} B parameters, "
@@ -5091,6 +5338,395 @@ def training(torch, np, dev):
     return rows, summary, traced["decode_attention"]
 
 
+# ---------------------------------------------------------------------------
+# phase 26: mesh-sharded serving
+# ---------------------------------------------------------------------------
+
+# (b)'s ranks, the models they serve and how: (arch, layers kept (None:
+# all), the init seed, the runs as (label, engine keywords, the kernel
+# the run must launch), the workload).  float32, so the ranks' tokens can
+# be held equal to the single device's
+MESH_WORLD, MESH_NEW, MESH_REQUESTS = 2, 8, 4
+MESH_MODELS = [
+    (LM_ARCH, None, 0, [("contiguous", {}, "decode_attention"),
+                        ("paged", {"kv_block": PAGED_BLOCK},
+                         "paged_decode_attention")], "lm"),
+    (SSM_ARCH, None, 0, [("one-shot", {}, "ssd_scan"),
+                         (f"prefill_chunk={CHUNK}", {"prefill_chunk": CHUNK},
+                          "ssd_scan")], "ssm"),
+    (VLM_ARCH, None, 2, [("bucketed", {}, None)], "vlm"),
+    (MOE_ARCH, 4, 0, [("contiguous", {"prefill_buckets": False},
+                       "decode_attention")], "moe"),
+]
+# a rank of (b): the whole of its run, and a collective's wait
+MESH_RANKS_S, MESH_COLLECTIVE_S = 600, 300
+
+
+def mesh_bundle(arch, layers):
+    """The float32 bundle of ``arch`` at full width (``layers`` of its
+    layers when given)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return get_model(cfg)
+
+
+def mesh_workload(np, vocab, kind, label):
+    """The requests of one (b) run: Yi-6B's and DeepSeek's from phase 7's
+    and 15's, Mamba2-780m's inside one-shot prefill's contract (or longer
+    for the chunked run), PaliGemma's vision prefix plus prompt within 512
+    positions."""
+    if kind in ("lm", "moe"):
+        return serving_workload(np, vocab)[:MESH_REQUESTS]
+    if kind == "ssm":
+        return (recurrent_workload(np, vocab, 13, MESH_REQUESTS, 100, 600,
+                                   False) if "chunk" in label else
+                recurrent_workload(np, vocab, 12, MESH_REQUESTS, 0, 0, True))
+    return family_workload(np, vocab, 33, 16, 257)[:MESH_REQUESTS]
+
+
+def mesh_serve(torch, np, eng, prompts, evict=False):
+    """The requests through ``eng`` (a forced evict and restore after the
+    third step with ``evict``); returns (tokens, the median ms of the
+    decode steps without a prefill, whether a request was evicted)."""
+    from repro_torch.serving import Request
+
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, tokens=p, max_new_tokens=MESH_NEW,
+                           extras=family_extras(np, eng.cfg, uid)))
+    step_ms, steps, evicted = [], 0, False
+    while True:
+        t0 = time.perf_counter()
+        more = eng.step()
+        torch.cuda.synchronize()
+        if eng.last_step["decoded"] and not eng.last_step["prefill_tokens"]:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps += 1
+        if evict and not evicted and steps == 3:
+            eng.drain()
+            victim = next(s for s in range(eng.max_slots)
+                          if eng.active[s] or s in eng._chunking)
+            eng._evict(victim)
+            evicted = True
+        if not more:
+            break
+    return ({u: eng.results[u].output for u in range(len(prompts))},
+            statistics.median(step_ms), evicted)
+
+
+def mesh_collectives(torch, np, eng, n_steps: int = 4):
+    """Device and host ms a decode step spends in collectives, from a
+    torch.profiler trace of ``n_steps`` decode steps of fresh requests:
+    the device records of NCCL kernels, the host records of the gloo and
+    NCCL ops (each key named in the result)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(8)
+    for uid in range(SERVE_SLOTS):
+        eng.submit(Request(uid=1000 + uid, tokens=rng.integers(
+            0, eng.cfg.vocab - 2, 64).astype(np.int32),
+            max_new_tokens=n_steps + 3,
+            extras=family_extras(np, eng.cfg, 1000 + uid)))
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    device, host, keys = 0.0, 0.0, set()
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if e.device_type == DeviceType.CUDA and "nccl" in key:
+            device += e.self_device_time_total
+            keys.add(e.key[:60])
+        elif e.device_type == DeviceType.CPU and (
+                key.startswith("gloo:") or key.startswith("nccl:")):
+            host += e.cpu_time_total
+            keys.add(e.key[:60])
+    return {"device_ms_per_step": device / n_steps / 1e3,
+            "host_ms_per_step": host / n_steps / 1e3,
+            "keys": sorted(keys)}
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of phase 26 (b), started by ``mesh_two_ranks`` as
+    ``chip_smoke.py --mesh-rank R --mesh-world N --mesh-port P
+    --mesh-backend nccl|gloo --mesh-out DIR``: joins the world, builds
+    this rank's shards of each model (one rank at a time on a shared
+    card: each builds the whole model, shards it and frees it), serves
+    each run with a forced evict and restore, and writes its tokens,
+    step medians, collective time, launches, peak memory and resident
+    bytes to ``DIR/rank<R>.json``."""
+    import datetime
+
+    opts = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(opts["--mesh-rank"]), int(opts["--mesh-world"])
+    backend = opts["--mesh-backend"]
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"tcp://localhost:{opts['--mesh-port']}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_S))
+    from repro_torch.core import disable_capture
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import ServingEngine
+
+    mesh = make_serving_mesh(world)
+    # gloo stages CUDA tensors through the host, which a CUDA graph
+    # cannot record: on a shared card the ranks run eagerly
+    ctx = disable_capture() if backend == "gloo" else contextlib.nullcontext()
+    results = {}
+    with ctx:
+        for arch, layers, seed, runs, kind in MESH_MODELS:
+            bundle = mesh_bundle(arch, layers)
+            local = None
+            for turn in range(world):
+                if turn == rank:
+                    full = bundle.init(torch.Generator(dev).manual_seed(seed))
+                    local = shard_params(full, mesh)
+                    del full
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            for label, kw, _ in runs:
+                torch.cuda.reset_peak_memory_stats(dev)
+                eng = ServingEngine(bundle, local, max_slots=SERVE_SLOTS,
+                                    cache_len=SERVE_CACHE,
+                                    tags=("cuda", "reference"), device=dev,
+                                    mesh=mesh, **kw)
+                prompts = mesh_workload(np, bundle.cfg.vocab, kind, label)
+                before = dict(_build.launches)
+                toks, median, evicted = mesh_serve(torch, np, eng, prompts,
+                                                   evict=True)
+                launches = {k: n - before[k] for k, n in
+                            _build.launches.items() if n != before[k]}
+                res = {"tokens": {str(u): t for u, t in toks.items()},
+                       "median_decode_step_ms": median, "evicted": evicted,
+                       "launches": launches, "seq_kv": eng._seq_kv,
+                       "param_bytes": eng.param_bytes,
+                       "kv_bytes": eng.kv_bytes,
+                       "collectives": mesh_collectives(torch, np, eng),
+                       "peak_memory_bytes":
+                           torch.cuda.max_memory_allocated(dev)}
+                if "state" in (eng.cache or {}):
+                    res["ssd_heads"] = eng.cache["state"].shape[3]
+                results[f"{arch} {label}"] = res
+                del eng
+                torch.cuda.empty_cache()
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+    out = Path(opts["--mesh-out"]) / f"rank{rank}.json"
+    out.write_text(json.dumps(results))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_one_rank(torch, np, dev, served, want_prefill):
+    """Phase 26 (a): Yi-6B at full width and depth in bfloat16 on
+    ``make_serving_mesh(1)`` — a world of one rank over NCCL in this
+    process, its collectives issued (on one rank) and captured in the
+    programs — as a main path: phase 7's requests give phase 7's tokens,
+    K3 launched 32 x the decode steps (traced = counted), the programs as
+    on one device.  Returns (row, K3's launches)."""
+    import torch.distributed
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServingEngine
+
+    mesh = make_serving_mesh(1)
+    bundle = get_model(get_config(LM_ARCH))
+    model = bundle.init(torch.Generator(dev).manual_seed(0))
+    prompts = serving_workload(np, bundle.cfg.vocab)
+    eng = ServingEngine(bundle, model, max_slots=SERVE_SLOTS,
+                        cache_len=SERVE_CACHE, tags=("cuda", "reference"),
+                        device=dev, mesh=mesh)
+    dt = {}
+    with main_path(torch, "phase 26 (a) one rank over NCCL",
+                   device_time=dt) as traced:
+        first, toks = serve_lm(torch, np, dev, eng, prompts)
+    row, again = serve_lm(torch, np, dev, eng, prompts)
+    layers = bundle.cfg.n_layers
+    want = dict.fromkeys(traced, 0)
+    want["decode_attention"] = layers * first["decode_steps"]
+    if traced != want:
+        raise AssertionError(f"(a) launches {traced}, expected {want}")
+    if toks != served or again != served:
+        raise AssertionError("(a) tokens differ from phase 7's")
+    if row["programs"]["prefill"] != want_prefill or row["captures"] != \
+            first["captures"]:
+        raise AssertionError(f"(a) programs {row['programs']}, phase 7's "
+                             f"prefill programs {want_prefill}")
+    nccl_us = sum(us for name, us in dt["by_name"].items()
+                  if "nccl" in name.lower())
+    row.update(model=f"{LM_ARCH} bfloat16 serving, make_serving_mesh(1) "
+                     f"over NCCL", launches=traced,
+               mesh=repr(mesh), traced_device_us=dt["us"],
+               traced_nccl_us=nccl_us)
+    log(f"  (a) {mesh!r}: phase 7's tokens, request for request; programs "
+        f"{row['programs']} as on one device; decode step median "
+        f"{row['median_decode_step_ms']:.3f} ms replayed (phase 7's run "
+        f"without a mesh, above); NCCL kernels "
+        f"{nccl_us / 1e3:.2f} ms of the traced run's {dt['us'] / 1e3:.1f} "
+        f"ms device time")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return row, traced["decode_attention"]
+
+
+def mesh_two_ranks(torch, np, dev):
+    """Phase 26 (b): each of ``MESH_MODELS`` at full width (DeepSeek
+    4 layers), float32, on a world of ``MESH_WORLD`` ranks, one process
+    a rank (``mesh_rank_main``): NCCL, a card a rank, where the machine
+    shows that many cards; else gloo with every rank on the one card,
+    eager.  Each run's tokens, through a forced evict and restore, equal
+    the same model's single-device engine's here, each rank launched its
+    run's kernel, and each rank's resident weight and KV bytes are logged
+    against the single device's.  Returns (rows, launches by run)."""
+    import socket
+
+    from repro_torch.serving import ServingEngine
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_WORLD else "gloo"
+    log(f"  (b) {MESH_WORLD} ranks over {backend}; "
+        f"torch.cuda.device_count() = {cards}")
+    refs = {}
+    for arch, layers, seed, runs, kind in MESH_MODELS:
+        bundle = mesh_bundle(arch, layers)
+        model = bundle.init(torch.Generator(dev).manual_seed(seed))
+        for label, kw, _ in runs:
+            eng = ServingEngine(bundle, model, max_slots=SERVE_SLOTS,
+                                cache_len=SERVE_CACHE,
+                                tags=("cuda", "reference"), device=dev, **kw)
+            prompts = mesh_workload(np, bundle.cfg.vocab, kind, label)
+            toks, median, _ = mesh_serve(torch, np, eng, prompts)
+            refs[f"{arch} {label}"] = {
+                "tokens": {str(u): t for u, t in toks.items()},
+                "median_decode_step_ms": median,
+                "param_bytes": eng.param_bytes, "kv_bytes": eng.kv_bytes}
+            del eng
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = ROOT / "build" / "mesh26"
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("rank*.json"):
+        old.unlink()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         "--mesh-world", str(MESH_WORLD), "--mesh-port", str(port),
+         "--mesh-backend", backend, "--mesh-out", str(out)])
+        for r in range(MESH_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_RANKS_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"(b) ranks exited "
+                             f"{[p.returncode for p in procs]}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(MESH_WORLD)]
+    log(f"  (b) ranks done in {time.perf_counter() - t0:.1f} s")
+    rows, launches = [], {}
+    for arch, layers, seed, runs, kind in MESH_MODELS:
+        for label, kw, kernel in runs:
+            key = f"{arch} {label}"
+            ref = refs[key]
+            for r, res in enumerate(ranks):
+                got = res[key]
+                if got["tokens"] != ref["tokens"] or not got["evicted"]:
+                    raise AssertionError(f"(b) {key} rank {r}: tokens "
+                                         f"{got['tokens']} != the single "
+                                         f"device's {ref['tokens']}")
+                if kernel and not got["launches"].get(kernel):
+                    raise AssertionError(f"(b) {key} rank {r} launched "
+                                         f"{got['launches']}, no {kernel}")
+                if kernel:
+                    launches.setdefault(kernel, {})[
+                        f"phase 26 (b) {key} rank {r}"] = \
+                        got["launches"][kernel]
+            row = {"model": f"{key}, float32, {MESH_WORLD} ranks over "
+                            f"{backend}", "backend": backend, "cards": cards,
+                   "single_device": ref, "ranks": ranks_rows(ranks, key)}
+            rows.append(row)
+            w = [x["param_bytes"] / ref["param_bytes"] for x in row["ranks"]]
+            kv = [x["kv_bytes"] / ref["kv_bytes"] for x in row["ranks"]]
+            col = row["ranks"][0]["collectives"]
+            log(f"  (b) {key}: the single device's tokens on every rank "
+                f"through an evict and restore; decode step median "
+                + ", ".join(f"{x['median_decode_step_ms']:.2f}"
+                            for x in row["ranks"])
+                + f" ms a rank ({ref['median_decode_step_ms']:.2f} ms on one "
+                f"device); collectives {col['device_ms_per_step']:.2f} ms "
+                f"device, {col['host_ms_per_step']:.2f} ms host a step "
+                f"(rank 0: {', '.join(col['keys'][:3]) or 'none traced'}); "
+                f"resident weights {', '.join(f'{v:.3f}' for v in w)} and KV "
+                f"{', '.join(f'{v:.3f}' for v in kv)} of the single device's "
+                f"a rank; peak "
+                + ", ".join(f"{x['peak_memory_bytes'] / 2**30:.2f}"
+                            for x in row["ranks"]) + " GiB a rank"
+                + (f"; SSD heads a rank {row['ranks'][0]['ssd_heads']}"
+                   if "ssd_heads" in row["ranks"][0] else "")
+                + f"; KV rows split: {row['ranks'][0]['seq_kv']}")
+    return rows, launches
+
+
+def ranks_rows(ranks, key):
+    """Each rank's numbers of run ``key``, tokens left out."""
+    return [{k: v for k, v in res[key].items() if k != "tokens"}
+            for res in ranks]
+
+
+def mesh_serving(torch, np, dev, served, want_prefill):
+    """Phase 26: (a) then (b), with the earlier phases' models freed.
+    Returns (rows, the phase's summary, launches by kernel and run)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    row_a, k3 = mesh_one_rank(torch, np, dev, served, want_prefill)
+    rows_b, launches = mesh_two_ranks(torch, np, dev)
+    launches.setdefault("decode_attention", {})[
+        "phase 26 (a) one rank over NCCL"] = k3
+    info = {"phase": "phase 26 mesh-sharded serving",
+            "seconds": time.perf_counter() - t0,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log(f"  phase 26: {info['seconds']:.1f} s, peak device memory of this "
+        f"process {info['peak_memory_bytes'] / 2**30:.2f} GiB")
+    return [row_a, *rows_b], info, launches
+
+
 def serving_layers(torch, np, dev, served):
     """Phases 19-24 on Yi-6B at full width in bfloat16, its weights drawn
     again from phase 7's seed (``served`` are phase 7's tokens).  Returns
@@ -5170,6 +5806,8 @@ def serving_layers(torch, np, dev, served):
 
 
 def main() -> int:
+    if "--mesh-rank" in sys.argv:
+        return mesh_rank_main(sys.argv[1:])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -5236,6 +5874,9 @@ def main() -> int:
     k2_rows = check_flash_attention(torch, np, dev)
     k3_rows = check_decode_attention(torch, np, dev)
     k4_rows = check_paged_decode_attention(torch, np, dev)
+    k3_split, k4_split = check_sharded_decode_attention(torch, np, dev)
+    k3_rows += k3_split
+    k4_rows += k4_split
     k5_rows, k6_rows = check_dequant_matmul(torch, np, dev)
     k7_rows = check_paged_decode_attention_q(torch, np, dev)
     k8_rows = check_ssd_scan(torch, np, dev)
@@ -5340,12 +5981,11 @@ def main() -> int:
 
     phase(f"phase 10: {LM_ARCH} full width, bfloat16, quantized serving "
         f"through the ServingEngine (main path)")
-    q_rows, q_launches = quantized_serving(
-        torch, np, dev, engine, bundle, lm_model, prompts, served,
-        {"contiguous": serve_row, "paged": paged_row})
+    del lm_model, bundle
+    torch.cuda.empty_cache()
+    q_rows, q_launches = quantized_serving(torch, np, dev)
     launches.update(q_launches)
     model_rows.extend(q_rows)
-    del lm_model, bundle
     torch.cuda.empty_cache()
 
     phase(f"phase 11: {SSM_ARCH} full width, float32, prefill on K8 vs the "
@@ -5387,9 +6027,9 @@ def main() -> int:
     for name in want:
         launches[name] = sum(path[name] for path in micro_paths.values())
 
-    phase("phase 15: DeepSeek-MoE-16B full width and depth, bfloat16, and "
-          "Qwen3-MoE-30B-A3B full width, through the ServingEngine (main "
-          "path)")
+    phase(f"phase 15: DeepSeek-MoE-16B full width, {MOE_LAYERS} of 28 "
+          f"layers, bfloat16, and Qwen3-MoE-30B-A3B full width, through the "
+          f"ServingEngine (main path)")
     moe_rows, summaries, family_launches = moe_serving(torch, np, dev)
     model_rows.extend(moe_rows)
     phase("phase 16: PaliGemma-3B full width, bfloat16, through the "
@@ -5419,6 +6059,14 @@ def main() -> int:
     summaries.append(train_summary)
     layer_runs.setdefault("decode_attention", {})[
         "phase 25 (d) restored weights"] = train_k3
+    phase("phase 26: mesh-sharded serving — (a) Yi-6B on one rank over "
+          "NCCL, (b) four models on two ranks (main path)")
+    mesh_rows, mesh_summary, mesh_runs = mesh_serving(
+        torch, np, dev, served, serve_row["programs"]["prefill"])
+    model_rows.extend(mesh_rows)
+    summaries.append(mesh_summary)
+    for kname, per_run in mesh_runs.items():
+        layer_runs.setdefault(kname, {}).update(per_run)
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape

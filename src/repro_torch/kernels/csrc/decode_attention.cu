@@ -13,6 +13,11 @@
 // 1/37/1500/2048 7.3 MB, 2.2 us.  One launch: 128-position runs copied by
 // cp.async four 32-row stages at once, partials only where a run holds
 // rows, combined in run order by the last block to arrive.
+//
+// lse (B,H) float32 or null: each head's log-sum-exp over its valid rows
+// (-inf for none), for merging the attentions over a rank's rows of a
+// sequence-sharded cache; a rank passes its cache rows [r*S, (r+1)*S)
+// and its lengths clamped to them, clamp(n - r*S, 0, S).
 
 #include "decode_attention.cuh"
 
@@ -51,7 +56,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int KH, int S, int D,
                                        float scale, int has_window,
                                        int window, int is_bf16,
-                                       void* stream) {
+                                       void* stream, void* lse) {
   if (B < 1 || S < 1 || D < 1 || D > decode_attn::MAX_D || KH < 1 ||
       H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -61,11 +66,12 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   int* ctr = static_cast<int*>(counters);
   const ContiguousRows rows{KH, S};
   const decode_attn::NoScale none{};
+  float* lse_out = static_cast<float*>(lse);
   if (is_bf16)
     return decode_attn::launch<__nv_bfloat16, __nv_bfloat16>(
         q, k, v, none, rows, len, out, ws, ctr, B, H, KH, S, D, scale,
-        has_window, window, st);
+        has_window, window, st, lse_out);
   return decode_attn::launch<float, float>(q, k, v, none, rows, len, out, ws,
                                            ctr, B, H, KH, S, D, scale,
-                                           has_window, window, st);
+                                           has_window, window, st, lse_out);
 }

@@ -18,7 +18,14 @@
 // each K/V tile (GQA; K/V are never repeated in memory).  A row with no
 // valid key outputs 0.  q is float32 or bfloat16, the cache float32,
 // bfloat16 or (K7) int8; all math is float32 (expf, no TF32), the output
-// has q's type.
+// has q's type.  With an lse buffer (B,H) float32 a launch also writes
+// each head's log-sum-exp of its scaled scores over the valid keys, m +
+// log(l) from the block that writes the output, and -inf for a row with
+// no valid key: what merges partial attentions over parts of the rows
+// (a rank's rows of a sequence-sharded cache).  Without one (nullptr)
+// the kernels run as they did before it existed: the same code path,
+// the same arithmetic, one branch on the pointer where the output is
+// written.
 //
 // What bounds it on the H100: the bytes of the valid K/V rows (7.3 MB at
 // Yi-6B's decode step with lengths 1/37/1500/2048, 2.2 us at 3.35 TB/s).
@@ -204,12 +211,18 @@ struct Span {
   int r_first, r_last;        // runs that hold valid positions
 };
 
+// the log-sum-exp of a head's scores from its (m, l): -inf without keys
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l == 0.f ? -INFINITY : m + logf(l);
+}
+
 // the block's span, or false when it has nothing to do; a sequence with no
-// valid position gets its output of 0 from run 0
+// valid position gets its output of 0 (and lse of -inf) from run 0
 template <typename TQ>
 __device__ __forceinline__ bool block_span(const int* lengths, int b,
                                            int run, int S, int has_window,
                                            int window, TQ* o, int GD,
+                                           float* lse, int G,
                                            int nthreads, Span& sp) {
   const int len = lengths[b];
   const int hi_all = min(len, S);
@@ -218,8 +231,11 @@ __device__ __forceinline__ bool block_span(const int* lengths, int b,
     lo_all = static_cast<int>(
         min(max((long long)len - window, 0LL), (long long)S));
   if (lo_all >= hi_all) {
-    if (run == 0)
+    if (run == 0) {
       for (int i = threadIdx.x; i < GD; i += nthreads) store(o + i, 0.f);
+      if (lse)
+        for (int g = threadIdx.x; g < G; g += nthreads) lse[g] = -INFINITY;
+    }
     return false;
   }
   sp.r_first = lo_all / RUN;
@@ -289,12 +305,14 @@ struct Walk {
 // run's partial, and the last block to arrive combines all of them in run
 // order; it stages them in `scratch` (the K/V rows' shared memory, free by
 // now) by 16-byte cp.async, all in flight at once, when they fit, and
-// reads them from L2 otherwise (the same arithmetic either way).
+// reads them from L2 otherwise (the same arithmetic either way).  lse: the
+// G heads' log-sum-exp slots, or nullptr.
 // Workspace: acc [B*H*nrun][D], then m and l [B*H*nrun].
 template <typename TQ>
 __device__ __forceinline__ void finish(const float* racc, int ldr,
                                        const float* rm, const float* rl,
-                                       TQ* __restrict__ o, float* ws,
+                                       TQ* __restrict__ o,
+                                       float* __restrict__ lse, float* ws,
                                        int* counters, int* flag,
                                        unsigned char* scratch,
                                        const Span& sp, long long bh0, int b,
@@ -307,6 +325,8 @@ __device__ __forceinline__ void finish(const float* racc, int ldr,
       const float l = rl[w.g];
       store(o + i, l == 0.f ? 0.f : racc[w.g * ldr + w.d] / l);
     }
+    if (lse)
+      for (int g = tid; g < G; g += NT) lse[g] = lse_of(rm[g], rl[g]);
     return;
   }
   // partials of head h at row (b * H + h) * nrun + run
@@ -379,6 +399,13 @@ __device__ __forceinline__ void finish(const float* racc, int ldr,
       for (int r = 0; r < FEW; ++r)
         if (r < n) l = fmaf(sl[g * n + r], sw[g * n + r], l);
       sw[G * n + g] = l;
+      if (lse) {
+        float m = NEG_BIG;
+#pragma unroll
+        for (int r = 0; r < FEW; ++r)
+          if (r < n) m = fmaxf(m, sm[g * n + r]);
+        lse[g] = lse_of(m, l);
+      }
     }
     __syncthreads();
     // four consecutive columns of one head a thread, each summed over the
@@ -419,6 +446,7 @@ __device__ __forceinline__ void finish(const float* racc, int ldr,
       a = fmaf(__ldcg(part_acc + (row0 + r) * D + d), w, a);
     }
     store(o + i, l == 0.f ? 0.f : a / l);
+    if (lse && d == 0) lse[g] = lse_of(m, l);
   }
 }
 
@@ -504,9 +532,9 @@ __global__ void __launch_bounds__(THREADS)
 decode_simt_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                    const TKV* __restrict__ v, Scale scl, Rows rows,
                    const int* __restrict__ lengths, TQ* __restrict__ out,
-                   float* __restrict__ ws, int* __restrict__ counters, int H,
-                   int KH, int S, int D, float scale, int has_window,
-                   int window, int vec) {
+                   float* __restrict__ lse_out, float* __restrict__ ws,
+                   int* __restrict__ counters, int H, int KH, int S, int D,
+                   float scale, int has_window, int window, int vec) {
   constexpr int NT = THREADS;
   constexpr int HG = 4;                 // heads a warp takes at once
   using Chunk = async_copy::Chunk<TKV>;
@@ -534,8 +562,10 @@ decode_simt_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int b = blockIdx.z;
   const long long bh0 = (long long)b * H + (long long)kvh * G;
   TQ* o = out + bh0 * D;                // the G heads' rows, contiguous
+  float* lse = lse_out ? lse_out + bh0 : nullptr;
   Span sp;
-  if (!block_span(lengths, b, run, S, has_window, window, o, G * D, NT, sp))
+  if (!block_span(lengths, b, run, S, has_window, window, o, G * D, lse, G,
+                  NT, sp))
     return;
   const int base = run * RUN;
 
@@ -674,7 +704,7 @@ decode_simt_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float* rl = reinterpret_cast<float*>(smem + L.rl);
   combine_parts(wacc, L.lda, wm, wl, reinterpret_cast<float*>(smem + L.wgt),
                 rm, rl, TILES, G, D);
-  finish(wacc, L.lda, rm, rl, o, ws, counters,
+  finish(wacc, L.lda, rm, rl, o, lse, ws, counters,
          reinterpret_cast<int*>(smem + L.flag), smem, sp, bh0, b, kvh, KH, H,
          G, D);
 }
@@ -724,9 +754,9 @@ __global__ void __launch_bounds__(THREADS)
 decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, Rows rows,
                   const int* __restrict__ lengths, bf16* __restrict__ out,
-                  float* __restrict__ ws, int* __restrict__ counters, int H,
-                  int KH, int S, int D, float scale, int has_window,
-                  int window, int vec) {
+                  float* __restrict__ lse_out, float* __restrict__ ws,
+                  int* __restrict__ counters, int H, int KH, int S, int D,
+                  float scale, int has_window, int window, int vec) {
   constexpr int NT = THREADS;
   constexpr int KSTEPS = MAX_D / 16;    // 16-wide steps of D, at most
   constexpr int DTILES = MAX_D / 8;     // 8-wide output tiles, at most
@@ -750,8 +780,10 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   const long long bh0 = (long long)b * H + (long long)kvh * G;
   bf16* o = out + bh0 * D;
+  float* lse = lse_out ? lse_out + bh0 : nullptr;
   Span sp;
-  if (!block_span(lengths, b, run, S, has_window, window, o, G * D, NT, sp))
+  if (!block_span(lengths, b, run, S, has_window, window, o, G * D, lse, G,
+                  NT, sp))
     return;
   const int base = run * RUN;
   const int ldq = D + 8;
@@ -930,7 +962,7 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* rl = reinterpret_cast<float*>(smem + L.rl);
   combine_parts(wacc, L.lda, wm, wl, reinterpret_cast<float*>(smem + L.wgt),
                 rm, rl, 2 * TILES, G, D);
-  finish(wacc, L.lda, rm, rl, o, ws, counters,
+  finish(wacc, L.lda, rm, rl, o, lse, ws, counters,
          reinterpret_cast<int*>(smem + L.flag), smem, sp, bh0, b, kvh, KH, H,
          G, D);
 }
@@ -953,12 +985,13 @@ const void* pick(int G, int D) {
 // One launch on ``stream``; returns cudaGetLastError().  S is the number
 // of logical positions each sequence has; q and the output are TQ, the
 // cache TKV.  ws holds workspace_floats(B, H, S, D) floats; counters
-// B*KH ints that are 0 on entry and are left 0.
+// B*KH ints that are 0 on entry and are left 0; lse B*H floats for the
+// heads' log-sum-exp, or nullptr for none.
 template <typename TQ, typename TKV, typename Scale, typename Rows>
 int launch(const void* q, const void* k, const void* v, Scale scl, Rows rows,
            const int* lengths, void* out, float* ws, int* counters, int B,
            int H, int KH, int S, int D, float scale, int has_window,
-           int window, cudaStream_t stream) {
+           int window, cudaStream_t stream, float* lse = nullptr) {
   // opt in to more than 48 KB of shared memory once per device, type and
   // size, so steady-state launches (and CUDA-graph captures) make no call
   constexpr int MAX_DEVICES = 64;
@@ -994,14 +1027,14 @@ int launch(const void* q, const void* k, const void* v, Scale scl, Rows rows,
       decode_mma_kernel<Rows><<<grid, THREADS, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), rows, lengths, static_cast<bf16*>(out),
-          ws, counters, H, KH, S, D, scale, has_window, window, vec);
+          lse, ws, counters, H, KH, S, D, scale, has_window, window, vec);
       return static_cast<int>(cudaGetLastError());
     }
   }
   decode_simt_kernel<TQ, TKV, Scale, Rows><<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), scl, rows, lengths, static_cast<TQ*>(out),
-      ws, counters, H, KH, S, D, scale, has_window, window, vec);
+      lse, ws, counters, H, KH, S, D, scale, has_window, window, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

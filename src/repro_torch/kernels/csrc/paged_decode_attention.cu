@@ -19,6 +19,14 @@
 // of each of its valid rows once, before its copies; BS divides the
 // 32-row tile or is a multiple of it, the contract K4 has had since it
 // was written.
+//
+// lse (B,H) float32 or null, as K3's.  A rank of a sequence-sharded pool
+// holds rows [r*BS, (r+1)*BS) of every block of the full pool's size
+// m*BS: it passes its pool, whose block size is BS, the same tables, and
+// the count of its rows below each length n, (n / (m*BS))*BS +
+// clamp(n % (m*BS) - r*BS, 0, BS).  Local row j of table entry t is
+// global position t*m*BS + r*BS + j, a monotone map, so the first count
+// local rows are exactly the rank's valid ones.
 
 #include "decode_attention.cuh"
 
@@ -31,7 +39,7 @@ extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* lengths, void* out, void* workspace, void* counters, int B,
     int H, int KH, int T, int BS, int D, float scale, int has_window,
-    int window, int is_bf16, void* stream) {
+    int window, int is_bf16, void* stream, void* lse) {
   if (B < 1 || T < 1 || BS < 1 || D < 1 || D > decode_attn::MAX_D ||
       KH < 1 || H % KH != 0 ||
       (decode_attn::TILE % BS != 0 && BS % decode_attn::TILE != 0))
@@ -44,11 +52,13 @@ extern "C" int paged_decode_attention_launch(
                                     BS};
   const decode_attn::NoScale none{};
   const int S = T * BS;
+  float* lse_out = static_cast<float*>(lse);
   if (is_bf16)
     return decode_attn::launch<__nv_bfloat16, __nv_bfloat16>(
         q, k_pool, v_pool, none, rows, len, out, ws, ctr, B, H, KH, S, D,
-        scale, has_window, window, st);
+        scale, has_window, window, st, lse_out);
   return decode_attn::launch<float, float>(q, k_pool, v_pool, none, rows,
                                            len, out, ws, ctr, B, H, KH, S, D,
-                                           scale, has_window, window, st);
+                                           scale, has_window, window, st,
+                                           lse_out);
 }

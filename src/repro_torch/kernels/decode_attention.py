@@ -20,7 +20,11 @@ hold valid positions write partial (m, l, acc); the last block of a
 (b, KV head) to arrive — an arrival counter tells it — combines them in
 run order, so the result is deterministic (no float atomics) and takes
 one launch.  The split depends only on S, so a row's values do not
-depend on the batch.
+depend on the batch.  With ``return_lse`` the writing block also stores
+each head's log-sum-exp m + log(l) (-inf for a row with no valid key):
+a rank of a sequence-sharded cache runs it on its rows with its lengths
+clamped to them, and the ranks' partials merge into the attention over
+every row (``distributed.collectives.Comm.combine``).
 
 ``launches`` counts the calls of this process that launched the kernel;
 only ``decode_attention_cuda`` adds to it, and a CUDA-graph replay
@@ -44,7 +48,8 @@ MAX_D = 128
 RUN = 128           # cache positions per block (csrc/decode_attention.cuh)
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+             + [ctypes.c_void_p])     # the stream, then lse (None: no lse)
 # the combining blocks' arrival counters, one int32 per (b, KV head) on
 # each device: allocated zeroed at the first launch there (grown only when
 # B·KH grows) and left at 0 by every launch, so steady-state decode
@@ -96,10 +101,12 @@ def kernel_attributes(dtype: torch.dtype, group: int, d: int):
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
                           window: Optional[int] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """q (B,H,D), caches (B,KH,S,D), lengths (B,) int32 -> (B,H,D) on the
-    card.  Raises on anything the kernel does not take, and when the
-    launch fails."""
+    card; with ``return_lse`` also each head's float32 log-sum-exp (B,H)
+    of its scaled scores over the valid rows (-inf for none).  Raises on
+    anything the kernel does not take, and when the launch fails."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -136,8 +143,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0 or h == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _lib()
     ws = torch.empty(lib.decode_attention_workspace_floats(b, h, s, d),
                      dtype=torch.float32, device=q.device)
@@ -149,12 +158,13 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             counters.data_ptr(), b, h, kh, s, d, float(scale),
             int(window is not None), int(window or 0),
             int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            None if lse is None else lse.data_ptr())
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
     _build.launches["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``

@@ -116,33 +116,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,H,D), caches (B,KH,S,D), lengths (B,) -> (B,H,D)."""
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
+    """q (B,H,D), caches (B,KH,S,D), lengths (B,) -> (B,H,D); with
+    ``return_lse`` also the heads' float32 log-sum-exp (B,H)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths,
-                                    window=window, scale=scale)
+                                    window=window, scale=scale,
+                                    return_lse=return_lse)
     _no_backward("decode_attention", q, k_cache, v_cache)
     return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
                                  lengths.to(torch.int32).contiguous(),
-                                 window=window, scale=scale)
+                                 window=window, scale=scale,
+                                 return_lse=return_lse)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            lengths: torch.Tensor, *,
                            window: Optional[int] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           return_lse: bool = False):
     """Block-table decode attention: q (B,H,D), pools (P,KH,BS,D), tables
-    (B,T), lengths (B,) -> (B,H,D).  The block size is the pool's; one
-    the kernel does not take is refused on either device."""
+    (B,T), lengths (B,) -> (B,H,D) (and the log-sum-exp (B,H) with
+    ``return_lse``).  The block size is the pool's; one the kernel does
+    not take is refused on either device."""
     check_block_size(k_pool.shape[2])
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, tables, lengths,
-                                          window=window, scale=scale)
+                                          window=window, scale=scale,
+                                          return_lse=return_lse)
     _no_backward("paged_decode_attention", q, k_pool, v_pool)
     return paged_decode_attention_cuda(
         q.contiguous(), k_pool, v_pool, tables.to(torch.int32).contiguous(),
-        lengths.to(torch.int32).contiguous(), window=window, scale=scale)
+        lengths.to(torch.int32).contiguous(), window=window, scale=scale,
+        return_lse=return_lse)
 
 
 def quant_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -424,16 +432,20 @@ class CudaServingDecode:
 
     @staticmethod
     def eval(ctx, op, inputs):
+        from repro_torch.serving.ops import seq_kv_kw
         params, cache, tokens, lengths = inputs
         if not ctx.op_data["use_kernel"]:
             return ctx.bundle.decode(params, cache, tokens, lengths,
-                                     window=op.params.get("window"))
+                                     window=op.params.get("window"),
+                                     **seq_kv_kw(op))
         from repro_torch.models import lm
         # no window= here on purpose: the dense reference decode attends
         # over the whole valid cache, so the kernel must too — the tag
-        # choice may never change semantics
+        # choice may never change semantics.  (So a rank of a
+        # sequence-sharded cache never needs the window at global
+        # positions: its clamped lengths are the whole mask.)
         return lm.lm_decode(params, ctx.bundle.cfg, cache, tokens, lengths,
-                            attn_impl=decode_attention)
+                            attn_impl=decode_attention, **seq_kv_kw(op))
 
 
 @register_op(OpCode.SERVING_DECODE_PAGED, tag="cuda")
@@ -461,12 +473,13 @@ class CudaServingDecodePaged:
     def eval(ctx, op, inputs):
         params, pool, tables, tokens, lengths = inputs
         from repro_torch.models import lm
+        from repro_torch.serving.ops import seq_kv_kw
         # no window= here, as in the reference paged decode
         return lm.lm_decode_paged(
             params, ctx.bundle.cfg, pool, tables, tokens, lengths,
             embed_scale=ctx.op_data["scale"],
             attn_impl=(paged_decode_attention if ctx.op_data["use_kernel"]
-                       else None))
+                       else None), **seq_kv_kw(op))
 
 
 @register_op(OpCode.SERVING_DECODE_Q, tag="cuda")

@@ -8,7 +8,11 @@ int32 and ``tables`` are read on the device.  Logical position p lies in
 block ``tables[b, p // BS]`` at row ``p % BS``; it is valid when
 ``p < lengths[b]`` (and ``p >= lengths[b] - window`` with a window).  A
 row with no valid key outputs 0.  float32 or bfloat16 in, float32 math,
-q's type out; D <= 128; BS divides 32 or is a multiple of 32.
+q's type out; D <= 128; BS divides 32 or is a multiple of 32.  With
+``return_lse`` it also gives K3's log-sum-exp, and a rank of a
+sequence-sharded pool runs it on its rows of every block: its pool of
+block size BS/m, the same tables, and the count of its rows below each
+length (``csrc/paged_decode_attention.cu``).
 
 The kernel (``csrc/paged_decode_attention.cu``) is K3's code
 (``csrc/decode_attention.cuh``) with the row address taken from the
@@ -40,7 +44,8 @@ MAX_D = 128
 CHUNK = 32          # the kernel's K/V rows per pipeline stage
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+             + [ctypes.c_void_p])     # the stream, then lse (None: no lse)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,13 +70,14 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor, tables: torch.Tensor,
                                 lengths: torch.Tensor, *,
                                 window: Optional[int] = None,
-                                scale: Optional[float] = None
-                                ) -> torch.Tensor:
+                                scale: Optional[float] = None,
+                                return_lse: bool = False):
     """q (B,H,D), pools (P,KH,BS,D), tables (B,T) int32, lengths (B,)
-    int32 -> (B,H,D) on the card.  Raises on anything the kernel does not
-    take, and when the launch fails.  Table entries are not range-checked
-    (that would read them on the host): the caller keeps every entry a
-    row can reach below P."""
+    int32 -> (B,H,D) on the card; with ``return_lse`` also the heads'
+    log-sum-exp (B,H), as ``decode_attention_cuda``'s.  Raises on
+    anything the kernel does not take, and when the launch fails.  Table
+    entries are not range-checked (that would read them on the host):
+    the caller keeps every entry a row can reach below P."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_cuda needs CUDA tensors, "
                          f"got {q.device}")
@@ -118,8 +124,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0 or h == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _lib()
     ws = torch.empty(lib.paged_decode_attention_workspace_floats(
         b, h, t_len * bs, d), dtype=torch.float32, device=q.device)
@@ -131,12 +139,13 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
             ws.data_ptr(), counters.data_ptr(), b, h, kh, t_len, bs, d,
             float(scale), int(window is not None), int(window or 0),
             int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream,
+            None if lse is None else lse.data_ptr())
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
     _build.launches["paged_decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def __getattr__(attr: str) -> int:     # ``launches``, in ``_build``

@@ -103,13 +103,17 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lengths: torch.Tensor,
                          window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """q: (B, H, D); caches: (B, KH, S, D) with H % KH == 0 (GQA);
     lengths: (B,) valid entries.  Returns (B, H, D).
 
     With window=W only the last W valid positions attend.  Math is f32
     and the result has q's dtype.  A row with no valid key outputs 0, as
     the decode kernels do (a plain softmax would give NaN there).
+    ``return_lse``: also the float32 log-sum-exp (B, H) of each head's
+    scaled scores over its valid keys, -inf for a row with none — what
+    combines partial attentions over parts of the rows.
     """
     b, h, d = q.shape
     kh, s = k_cache.shape[1], k_cache.shape[2]
@@ -125,16 +129,20 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     w = torch.where(valid.any(dim=-1)[:, None, None, None], w, 0.0)
     out = w @ v_cache.to(torch.float32)                  # (B, KH, G, D)
-    return out.reshape(b, h, d).to(q.dtype)
+    out = out.reshape(b, h, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(b, h)
+    return out
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, tables: torch.Tensor,
                                lengths: torch.Tensor,
                                window: Optional[int] = None,
-                               scale: Optional[float] = None
-                               ) -> torch.Tensor:
-    """Paged twin of :func:`decode_attention_ref`.
+                               scale: Optional[float] = None,
+                               return_lse: bool = False):
+    """Paged twin of :func:`decode_attention_ref` (``return_lse`` as
+    there).
 
     q: (B, H, D); pools: (P, KH, BS, D), the shared physical block pool;
     tables: (B, T) int32 physical block ids in logical order (unmapped
@@ -150,7 +158,7 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     kc = k_pool[idx].transpose(1, 2).reshape(b, kh, t * bs, d)
     vc = v_pool[idx].transpose(1, 2).reshape(b, kh, t * bs, d)
     return decode_attention_ref(q, kc, vc, lengths, window=window,
-                                scale=scale)
+                                scale=scale, return_lse=return_lse)
 
 
 def paged_decode_attention_q_ref(q: torch.Tensor, k_pool: torch.Tensor,

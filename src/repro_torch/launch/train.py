@@ -7,8 +7,10 @@ weights, the packed Markov data source, the captured train step
 (``remat`` at full widths, one MoE group as on the host mesh), a line
 every 10 steps and a JSON summary (``final_loss``, ``steps``,
 ``wall_s``); ``--ckpt-dir``/``--ckpt-every`` write checkpoints in the
-JAX package's layout.  The production meshes are not in the port yet:
-``--production-mesh`` and ``--multi-pod`` are refused.
+JAX package's layout.  Training on the production meshes is the second
+half of ROADMAP item 15 (the port serves on a mesh, ``launch.mesh``, but
+does not train on one yet): ``--production-mesh`` and ``--multi-pod``
+are refused.
 """
 
 from __future__ import annotations

@@ -80,9 +80,17 @@ def init_hybrid_lm(gen: torch.Generator, cfg: ModelConfig) -> HybridLM:
 
 
 def hybrid_empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                       dtype: torch.dtype, device) -> Cache:
-    cache = ssm.ssm_empty_cache(cfg, batch, dtype, device)
-    shape = (n_shared_apps(cfg), batch, cfg.n_kv_heads, cache_len, cfg.dh)
+                       dtype: torch.dtype, device,
+                       model: Optional[HybridLM] = None) -> Cache:
+    """The zeroed cache; with a sharded ``model``, of its rank's SSD and
+    KV heads (every row)."""
+    heads = kv = None
+    if getattr(model, "tp", None) is not None:
+        lo, hi = ssm.state_heads(model, cfg)
+        heads, kv = hi - lo, model.shared.attn.wk.shape[1]
+    cache = ssm.ssm_empty_cache(cfg, batch, dtype, device, heads)
+    shape = (n_shared_apps(cfg), batch, kv or cfg.n_kv_heads, cache_len,
+             cfg.dh)
     cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
     cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
@@ -104,7 +112,8 @@ def hybrid_prefill(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
     (or S) ring at each application point."""
     x = lm.embed_tokens(model, cfg, tokens)
     b, s = x.shape[:2]
-    cache = hybrid_empty_cache(cfg, b, cache_len or s, x.dtype, x.device)
+    cache = hybrid_empty_cache(cfg, b, cache_len or s, x.dtype, x.device,
+                               model)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = ssm.mamba_block(
             blk, cfg, x, ssd_impl=ssd_impl)
@@ -118,7 +127,7 @@ def hybrid_prefill(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
 def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
                          tokens: torch.Tensor, start, n_real, *,
                          window: Optional[int] = None,
-                         ssd_impl=None) -> Cache:
+                         ssd_impl=None, seq_kv: bool = False) -> Cache:
     """Advance a batch=1 hybrid cache by one right-padded chunk, in place.
     The Mamba layers carry (conv, state) through ``mamba_chunk_block``
     with the padded tail an exact no-op; the shared block is the dense
@@ -129,11 +138,15 @@ def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
     them.  ``start`` and ``n_real`` are int32 scalar tensors, as in the
     JAX package, so one program serves every chunk (host ints are
     converted; ``start`` is checked, ``lm.chunk_offset``); ``start + S``
-    must fit the cache (no ring wrap)."""
+    must fit the cache (no ring wrap).  ``seq_kv``: the shared block's
+    cache holds this rank's rows (``lm.lm_prefill_chunk``)."""
     x = lm.embed_tokens(model, cfg, tokens)
     s, c = x.shape[1], cache["attn_k"].shape[3]
-    start = lm.chunk_offset(start, s, c, x.device)
+    comm = model.tp.comm if seq_kv else None
+    start = lm.chunk_offset(start, s, c * (comm.size if comm else 1),
+                            x.device)
     positions = start + torch.arange(s, device=x.device)
+    rows = lm.chunk_rows(comm, c, positions) if seq_kv else None
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = ssm.mamba_chunk_block(
             blk, cfg, x, cache["conv"][i], cache["state"][i], n_real,
@@ -143,16 +156,17 @@ def hybrid_prefill_chunk(model: HybridLM, cfg: ModelConfig, cache: Cache,
             x, _, _ = lm._chunk_layer(model.shared, cfg, x,
                                       cache["attn_k"][app],
                                       cache["attn_v"][app], positions,
-                                      window)
+                                      window, rows)
     return cache
 
 
 def hybrid_decode(model: HybridLM, cfg: ModelConfig, cache: Cache,
-                  tokens: torch.Tensor, lengths: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Cache]:
+                  tokens: torch.Tensor, lengths: torch.Tensor, *,
+                  seq_kv: bool = False) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens (B,1); lengths (B,) absolute positions
     (the shared block's ring slot); the cache is updated in place.
-    Returns (logits (B,V_pad), cache)."""
+    Returns (logits (B,V_pad), cache).  ``seq_kv`` as in
+    ``lm.decode_attention_block``."""
     x = lm.embed_tokens(model, cfg, tokens)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = ssm.mamba_decode_block(
@@ -160,7 +174,7 @@ def hybrid_decode(model: HybridLM, cfg: ModelConfig, cache: Cache,
         app = _shared_after(cfg, i)
         if app is not None:
             x = lm.decode_layer(model.shared, cfg, x, cache["attn_k"][app],
-                                cache["attn_v"][app], lengths)
+                                cache["attn_v"][app], lengths, seq_kv=seq_kv)
     return lm.lm_logits(model, cfg, x)[:, 0], cache
 
 

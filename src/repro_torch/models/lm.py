@@ -36,6 +36,18 @@ does not have yet: it always takes this path.
 The decode steps read ``lengths`` (and the block tables) on the device
 and take no branch on a device value, so they never wait for the device.
 
+On a mesh (``distributed.sharding.shard_params``) the same steps run on
+one rank's shards: each module's ``tp`` (a ``collectives.Shard``) says
+how its weights lie, and the step meets the other ranks where GSPMD
+would insert a collective — the masked embedding lookup and the
+row-parallel ``wo`` / MLP ``wo`` / MoE combine end in an ``all_reduce``,
+the column-parallel head's logits are ``all_gather``ed.  Attention in
+``heads`` mode runs on the rank's query heads (and, where ``wk``/``wv``
+stay whole, every KV head); with the cache's rows split over the ranks
+(``seq_kv``, the policy's ``sequence`` mode), each rank attends over
+its rows with their log-sum-exp, the partials merge flash-decoding
+style, and only the rank that holds a new row writes it.
+
 Training: ``lm_loss`` runs ``lm_backbone`` (``_layer_fwd`` per layer,
 each one rematerialized under ``remat=True`` through
 ``torch.utils.checkpoint``, as the JAX package checkpoints its scan
@@ -410,10 +422,45 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
-    """(B,S,H,dh) · wo (H,dh,D) -> (B,S,D)."""
+    """(B,S,H,dh) · wo (H,dh,D) -> (B,S,D); summed over the ranks where
+    the heads are split (row-parallel ``wo``)."""
     b, s = out.shape[:2]
-    return (out.reshape(b * s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
-            ).view(b, s, -1)
+    y = (out.reshape(b * s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+         ).view(b, s, -1)
+    tp = getattr(p, "tp", None)
+    return tp.comm.all_reduce(y) if tp is not None and tp.split else y
+
+
+def _rank_kv(p: Attention, cfg: ModelConfig, k: torch.Tensor,
+             v: torch.Tensor):
+    """k/v (B,S,KH,dh) of every KV head -> those of this rank's query
+    heads, one per head (B,S,H/m,dh), where the query heads are split
+    and the KV heads are not; else k/v as they are."""
+    tp = getattr(p, "tp", None)
+    if tp is None or not tp.split or tp.kv_split:
+        return k, v
+    h = p.wq.shape[1]
+    idx = (tp.comm.rank * h + torch.arange(h, device=k.device)) \
+        // (cfg.n_heads // cfg.n_kv_heads)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _sharded_attend(p: Attention, attend, q: torch.Tensor,
+                    seq: bool) -> torch.Tensor:
+    """Attention of this rank's query heads q (B,H,...,dh) through
+    ``attend(q, return_lse)`` over this rank's cache.  Where the heads
+    are split but the cache holds every KV head, the queries of every
+    head are gathered first and the rank keeps its own outputs; where
+    the cache's rows are split (``seq``), ``attend`` gives partials with
+    their log-sum-exp and the ranks merge them (``Comm.combine``)."""
+    tp = getattr(p, "tp", None)
+    if tp is None or (not seq and (tp.kv_split or not tp.split)):
+        return attend(q, False)
+    comm = tp.comm
+    gather = tp.split and not tp.kv_split
+    qa = comm.all_gather(q, dim=1) if gather else q
+    out = comm.combine(*attend(qa, True)) if seq else attend(qa, False)
+    return comm.own(out, 1) if gather else out
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +469,8 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 def decode_attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           lengths: torch.Tensor, attn_impl=None
+                           lengths: torch.Tensor, attn_impl=None,
+                           seq_kv: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """x (B,1,D); cache_k/v (B,KH,C,dh); lengths (B,) = tokens already in
@@ -431,34 +479,57 @@ def decode_attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
     ``attn_impl`` replaces only the attention math — called as
     ``attn_impl(q (B,H,dh), kc, vc, n_valid) -> (B,H,dh)`` over the
-    already-updated cache; the ring update and output projection stay
-    those of the reference path."""
+    already-updated cache (with ``return_lse=True`` where a partial's
+    log-sum-exp is needed); the ring update and output projection stay
+    those of the reference path.
+
+    ``seq_kv``: the caches hold this rank's rows [r·C, (r+1)·C) of a
+    ring of m·C positions; the rank that holds the new row writes it
+    (the others write a row's own value back), attends over its rows up
+    to its clamped length, and the ranks merge their partials."""
     b = x.shape[0]
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    g = h // kh
+    dh = cfg.dh
     c = cache_k.shape[2]
     q, k, v = _proj_qkv(p, cfg, x, lengths[:, None])
     rows = torch.arange(b, device=x.device)
-    slot = lengths % c
-    # the JAX package blends with a one-hot (cache*(1-oh) + k*oh); the
-    # index write stores exactly the same values
-    cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
-    n_valid = torch.clamp(lengths + 1, max=c)
-    if attn_impl is not None:
-        out = attn_impl(q[:, 0], cache_k, cache_v, n_valid)
+    if seq_kv:
+        comm = p.tp.comm
+        ring, lo = c * comm.size, comm.rank * c
+        slot = lengths % ring
+        own = ((slot >= lo) & (slot < lo + c))[:, None, None]
+        at = (slot - lo).clamp(0, c - 1)
+        cache_k[rows, :, at] = torch.where(own, k[:, 0].to(cache_k.dtype),
+                                           cache_k[rows, :, at])
+        cache_v[rows, :, at] = torch.where(own, v[:, 0].to(cache_v.dtype),
+                                           cache_v[rows, :, at])
+        n_valid = (torch.clamp(lengths + 1, max=ring) - lo).clamp(0, c)
     else:
-        out = _decode_attend(q[:, 0], cache_k, cache_v, n_valid)
-    y = _out_proj(p, out.reshape(b, 1, h, dh))
+        slot = lengths % c
+        # the JAX package blends with a one-hot (cache*(1-oh) + k*oh); the
+        # index write stores exactly the same values
+        cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
+        n_valid = torch.clamp(lengths + 1, max=c)
+
+    def attend(qh, lse):
+        if attn_impl is not None:
+            return (attn_impl(qh, cache_k, cache_v, n_valid, return_lse=True)
+                    if lse else attn_impl(qh, cache_k, cache_v, n_valid))
+        return _decode_attend(qh, cache_k, cache_v, n_valid, lse)
+
+    out = _sharded_attend(p, attend, q[:, 0], seq_kv)
+    y = _out_proj(p, out.reshape(b, 1, -1, dh))
     return y, cache_k, cache_v
 
 
 def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                   n_valid: torch.Tensor) -> torch.Tensor:
+                   n_valid: torch.Tensor, return_lse: bool = False):
     """The reference decode attention: q (B,H,dh) over caches (B,KH,C,dh),
     the first ``n_valid`` positions of each row valid.  Float32 logits
     masked to -1e30, softmax weights cast to q's dtype before P·V, as
-    the JAX package does.  Returns (B,KH,H/KH,dh)."""
+    the JAX package does.  Returns (B,H,dh); with ``return_lse`` also the
+    float32 log-sum-exp (B,H) of the valid scaled scores, and a row with
+    no valid position gives 0 and -inf (a partial over a rank's rows)."""
     b, h, dh = q.shape
     kh, c = kc.shape[1], kc.shape[2]
     qg = q.reshape(b, kh, h // kh, dh)
@@ -468,7 +539,13 @@ def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
              < n_valid[:, None, None, None])
     logits = logits.masked_fill(~valid, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
-    return w @ vc                                          # (B,KH,g,dh)
+    out = (w @ vc).reshape(b, h, dh)
+    if not return_lse:
+        return out
+    empty = (n_valid == 0)[:, None]
+    lse = torch.logsumexp(logits, dim=-1).reshape(b, h)
+    return (out.masked_fill(empty[..., None], 0),
+            lse.masked_fill(empty, -math.inf))
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +555,8 @@ def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 def paged_decode_attention_block(p: Attention, cfg: ModelConfig,
                                  x: torch.Tensor, pool_k: torch.Tensor,
                                  pool_v: torch.Tensor, tables: torch.Tensor,
-                                 lengths: torch.Tensor, attn_impl=None
+                                 lengths: torch.Tensor, attn_impl=None,
+                                 seq_kv: bool = False
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """Paged twin of ``decode_attention_block``: the slot's KV rows live
@@ -496,26 +574,51 @@ def paged_decode_attention_block(p: Attention, cfg: ModelConfig,
     contiguous (B,KH,C,dh) view and runs the contiguous block's math, so
     decoded values are the contiguous path's; ``attn_impl`` (the
     vendor-kernel hook) instead takes the pool and table:
-    ``attn_impl(q (B,H,dh), pool_k, pool_v, tables, n_valid)``."""
+    ``attn_impl(q (B,H,dh), pool_k, pool_v, tables, n_valid)``.
+
+    ``seq_kv``: the pools hold this rank's rows [r·BS, (r+1)·BS) of
+    every block of m·BS rows; a row another rank holds is written to the
+    garbage block instead, and the rank attends over its rows of the
+    slot's blocks, counting those below the length (in table order they
+    are the first ones)."""
     b = x.shape[0]
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    dh = cfg.dh
     bs, t = pool_k.shape[2], tables.shape[1]
-    c = t * bs
     q, k, v = _proj_qkv(p, cfg, x, lengths[:, None])
-    pos = (lengths % c).long()
-    phys = tables.gather(1, (pos // bs)[:, None])[:, 0].long()
-    off = pos % bs
+    if seq_kv:
+        comm = p.tp.comm
+        full = bs * comm.size
+        c = t * full
+        pos = (lengths % c).long()
+        off = pos % full - comm.rank * bs
+        own = (off >= 0) & (off < bs)
+        phys = torch.where(own, tables.gather(1, (pos // full)[:, None])[:, 0]
+                           .long(), 0)
+        off = torch.where(own, off, 0)
+        n = torch.clamp(lengths + 1, max=c)
+        n_valid = (n // full) * bs + (n % full - comm.rank * bs).clamp(0, bs)
+    else:
+        c = t * bs
+        pos = (lengths % c).long()
+        phys = tables.gather(1, (pos // bs)[:, None])[:, 0].long()
+        off = pos % bs
+        n_valid = torch.clamp(lengths + 1, max=c)
     pool_k[phys, :, off] = k[:, 0].to(pool_k.dtype)
     pool_v[phys, :, off] = v[:, 0].to(pool_v.dtype)
-    n_valid = torch.clamp(lengths + 1, max=c)
-    if attn_impl is not None:
-        out = attn_impl(q[:, 0], pool_k, pool_v, tables, n_valid)
-    else:
+
+    def attend(qh, lse):
+        if attn_impl is not None:
+            return (attn_impl(qh, pool_k, pool_v, tables, n_valid,
+                              return_lse=True) if lse
+                    else attn_impl(qh, pool_k, pool_v, tables, n_valid))
         idx = tables.long()
-        kc = pool_k[idx].transpose(1, 2).reshape(b, kh, c, dh)
-        vc = pool_v[idx].transpose(1, 2).reshape(b, kh, c, dh)
-        out = _decode_attend(q[:, 0], kc, vc, n_valid)
-    y = _out_proj(p, out.reshape(b, 1, h, dh))
+        kh = pool_k.shape[1]
+        kc = pool_k[idx].transpose(1, 2).reshape(b, kh, t * bs, dh)
+        vc = pool_v[idx].transpose(1, 2).reshape(b, kh, t * bs, dh)
+        return _decode_attend(qh, kc, vc, n_valid, lse)
+
+    out = _sharded_attend(p, attend, q[:, 0], seq_kv)
+    y = _out_proj(p, out.reshape(b, 1, -1, dh))
     return y, pool_k, pool_v
 
 
@@ -529,14 +632,18 @@ def _gate(act: str, g: torch.Tensor) -> torch.Tensor:
 
 def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (..., D) through wi/wg/wo; the experts' (E,D,F) weights take x
-    (G,E,C,D), one matmul per expert, as the JAX package's ``gecd,edf``."""
+    (G,E,C,D), one matmul per expert, as the JAX package's ``gecd,edf``.
+    Where the hidden width is split over the ranks (column-parallel
+    wi/wg, row-parallel wo) the output is summed over them."""
     hidden = x @ p.wi
     if cfg.act in GATED_ACTS:
         hidden = _gate(cfg.act, x @ p.wg) * hidden
     else:
         # jax.nn.gelu defaults to the tanh approximation
         hidden = F.gelu(hidden, approximate="tanh")
-    return hidden @ p.wo
+    y = hidden @ p.wo
+    tp = getattr(p, "tp", None)
+    return tp.comm.all_reduce(y) if tp is not None and tp.split else y
 
 
 # ---------------------------------------------------------------------------
@@ -638,7 +745,12 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     scatter-add visits them.  No atomics, so a run on the card repeats
     bit for bit.  ``data_shards``: ``moe_groups``'.  ``n_valid`` /
     ``eff_capacity``: the masked mode of ``moe_dispatch`` (single group
-    only)."""
+    only).
+
+    With the experts split over the ranks every rank routes every token
+    (the router is whole), runs its own experts' slots, gathers each
+    token's rows among them (the others' from the zero row) in the same
+    order, and the ranks' sums are summed by an ``all_reduce``."""
     b, s, d = x.shape
     t_all = b * s
     g = moe_groups(t_all, data_shards)
@@ -651,6 +763,18 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     logits = xg.float() @ p.router
     dispatch, combine, aux, slot = _route(logits, cfg, cap, n_valid,
                                           eff_capacity)
+    tp = getattr(p, "tp", None)
+    split = tp is not None and tp.split
+    rows = slot.view(g, t, k).sort(dim=-1).values.view(g, t * k)
+    if split:
+        # this rank's experts' slots [lo, lo + e·C); a row outside them
+        # reads the zero row
+        e = p.experts.wi.shape[0]
+        lo = tp.comm.rank * e * cap
+        dispatch = dispatch[:, lo:lo + e * cap]
+        combine = combine[:, lo:lo + e * cap]
+        mine = (rows >= lo) & (rows < lo + e * cap)
+        rows = torch.where(mine, rows - lo, e * cap)
     # a zero token row for the empty slots
     xpad = torch.cat([xg, xg.new_zeros(g, 1, d)], dim=1)
     xe = xpad.gather(1, dispatch[..., None].expand(-1, -1, d))
@@ -658,11 +782,12 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     ye = ye.reshape(g, e * cap, d) * combine[..., None].to(ye.dtype)
     # each token's slot rows, ascending; the overflow bin is a zero row
     yz = torch.cat([ye, ye.new_zeros(g, 1, d)], dim=1)
-    rows = slot.view(g, t, k).sort(dim=-1).values.view(g, t * k)
     parts = yz.gather(1, rows[..., None].expand(-1, -1, d)).view(g, t, k, d)
     y = parts[:, :, 0]
     for j in range(1, k):
         y = y + parts[:, :, j]
+    if split:
+        y = tp.comm.all_reduce(y)
     if cfg.n_shared_experts:
         y = y + mlp_block(p.shared, cfg, xg)
     return y.reshape(b, s, d), aux
@@ -685,7 +810,17 @@ def ffn(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
 
 def embed_tokens(model: DenseLM, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, model.embed)
+    """The tokens' embedding rows; with the vocabulary split over the
+    ranks each looks up the ids in its block (zeros for the others') and
+    the rows are summed over the ranks."""
+    tp = getattr(model, "tp", None)
+    if tp is None or not tp.split:
+        return F.embedding(tokens, model.embed)
+    n = model.embed.shape[0]
+    local = tokens - tp.comm.rank * n
+    mine = (local >= 0) & (local < n)
+    x = F.embedding(local.clamp(0, n - 1), model.embed)
+    return tp.comm.all_reduce(x.masked_fill(~mine[..., None], 0))
 
 
 def scale_embed(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
@@ -699,9 +834,15 @@ def scale_embed(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
 
 def lm_logits(model: DenseLM, cfg: ModelConfig,
               h: torch.Tensor) -> torch.Tensor:
+    """The (padded) vocabulary's logits of h; a column-parallel head's
+    blocks are gathered from the ranks in vocabulary order, so the
+    argmax's first maximum is the single device's."""
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
-    return h @ head
+    tp = getattr(model, "tp", None)
+    if tp is None or not tp.split:
+        return h @ head
+    return tp.comm.all_gather(h @ head, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -709,8 +850,12 @@ def lm_logits(model: DenseLM, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def empty_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                dtype: torch.dtype, device) -> Cache:
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.dh)
+                dtype: torch.dtype, device,
+                kv_heads: Optional[int] = None) -> Cache:
+    """The zeroed {k, v} cache (L, batch, KH, cache_len, dh); ``kv_heads``
+    a rank's KV heads in place of the config's."""
+    shape = (cfg.n_layers, batch, kv_heads or cfg.n_kv_heads, cache_len,
+             cfg.dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -738,7 +883,7 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B,S) -> (last-token logits (B,V_pad), cache dict).
 
     cache layout: k/v (L, B, KH, C, dh) ring-indexed by absolute pos,
-    C = ``cache_len`` or S.  ``prefix_embed`` (B,P,D) goes in front of
+    C = ``cache_len`` or S (on a mesh: every row, this rank's KV heads).  ``prefix_embed`` (B,P,D) goes in front of
     the (``embed_scale``-scaled) token embeddings — a VLM's vision prefix
     — and ``prefix_len`` positions attend bidirectionally.
     ``n_valid`` / ``moe_cap`` (int32 scalar tensors) are the
@@ -749,7 +894,10 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
-    cache = empty_cache(cfg, b, cache_len or s, x.dtype, x.device)
+    kv = (next(blocks(model)).attn.wk.shape[1]
+          if getattr(model, "tp", None) is not None else None)
+    cache = empty_cache(cfg, b, cache_len or s, x.dtype, x.device,
+                        kv_heads=kv)
     for i, blk in enumerate(blocks(model)):
         x = prefill_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
                           window=window, prefix_len=prefix_len,
@@ -792,7 +940,8 @@ def _self_attention(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
     positions = torch.arange(x.shape[1], device=x.device)
     xin = rms_norm(x, blk.ln1, cfg.norm_eps)
     q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
-    out = chunked_attention(q, k, v, cfg, prefix_len=prefix_len,
+    ka, va = _rank_kv(blk.attn, cfg, k, v)
+    out = chunked_attention(q, ka, va, cfg, prefix_len=prefix_len,
                             window=window)
     return x + _out_proj(blk.attn, out), k, v
 
@@ -820,7 +969,8 @@ def chunk_offset(start, s: int, capacity: int,
 def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
                      tokens: torch.Tensor, start, *,
                      window: Optional[int] = None,
-                     embed_scale: Optional[float] = None) -> Cache:
+                     embed_scale: Optional[float] = None,
+                     seq_kv: bool = False) -> Cache:
     """One prompt CHUNK through the backbone: tokens (B,S) take absolute
     positions ``start .. start+S`` of a cache {k,v} (L,B,KH,C,dh) that
     already holds every earlier position.  Each layer writes the chunk's
@@ -832,21 +982,36 @@ def lm_prefill_chunk(model: DenseLM, cfg: ModelConfig, cache: Cache,
     program serves every chunk (a host int is checked and converted,
     ``chunk_offset``); ``start + S <= C`` (no ring wrap).
     ``embed_scale``: the vlm family's (the first chunk, through the
-    ordinary prefill, carried its vision prefix)."""
+    ordinary prefill, carried its vision prefix).  ``seq_kv``: the cache
+    holds this rank's rows [r·C, (r+1)·C) of m·C (``chunk_rows``)."""
     x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     s, c = x.shape[1], cache["k"].shape[3]
-    start = chunk_offset(start, s, c, x.device)
+    comm = model.tp.comm if seq_kv else None
+    start = chunk_offset(start, s, c * (comm.size if comm else 1), x.device)
     positions = start + torch.arange(s, device=x.device)
+    rows = chunk_rows(comm, c, positions) if seq_kv else None
     for i, blk in enumerate(blocks(model)):
         x, _, _ = _chunk_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
-                               positions, window)
+                               positions, window, rows)
     return cache
+
+
+def chunk_rows(comm, c: int, positions: torch.Tensor):
+    """(global position of each of this rank's C cache rows, the local
+    row of each chunk position or C where another rank holds it): this
+    rank holds rows [r·C, (r+1)·C) of a sequence-sharded contiguous
+    cache."""
+    lo = comm.rank * c
+    kpos = lo + torch.arange(c, device=positions.device)
+    mine = (positions >= lo) & (positions < lo + c)
+    return kpos, torch.where(mine, positions - lo, c)
 
 
 def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
                            table_row: torch.Tensor, tokens: torch.Tensor,
                            start, *, window: Optional[int] = None,
-                           embed_scale: Optional[float] = None) -> Cache:
+                           embed_scale: Optional[float] = None,
+                           seq_kv: bool = False) -> Cache:
     """Paged twin of ``lm_prefill_chunk`` for one slot: pool {k,v}
     (L,P,KH,BS,dh), table_row (T,) its block ids in logical order.  The
     JAX package gathers the whole slot (all layers) to a contiguous
@@ -855,20 +1020,33 @@ def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
     same layer math on it, and writes only the chunk's rows back into
     the pool, in place.  The values are the JAX function's: the rest of
     the slot is written back unchanged there.  ``start`` and
-    ``embed_scale`` as in ``lm_prefill_chunk``."""
+    ``embed_scale`` as in ``lm_prefill_chunk``.  ``seq_kv``: the pool
+    holds this rank's rows [r·BS, (r+1)·BS) of every block of m·BS; the
+    view is those rows in table order, and a chunk row another rank
+    holds is written to the garbage block."""
     x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     s = x.shape[1]
     bs, t = pool["k"].shape[3], table_row.shape[0]
-    start = chunk_offset(start, s, t * bs, x.device)
+    m, r = (model.tp.comm.size, model.tp.comm.rank) if seq_kv else (1, 0)
+    full = bs * m
+    start = chunk_offset(start, s, t * full, x.device)
     positions = start + torch.arange(s, device=x.device)
     idx = table_row.long()
-    phys, off = idx[positions // bs], positions % bs
+    off = positions % full - r * bs
+    mine = (off >= 0) & (off < bs)
+    phys = torch.where(mine, idx[positions // full], 0)
+    off = torch.where(mine, off, 0)
+    rows = None
+    if seq_kv:
+        j = torch.arange(t * bs, device=x.device)
+        rows = ((j // bs) * full + r * bs + j % bs,
+                torch.where(mine, (positions // full) * bs + off, t * bs))
     for i, blk in enumerate(blocks(model)):
         pk, pv = pool["k"][i], pool["v"][i]
         kh, dh = pk.shape[1], pk.shape[3]
         ck = pk[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
         cv = pv[idx].transpose(0, 1).reshape(1, kh, t * bs, dh)
-        x, k, v = _chunk_layer(blk, cfg, x, ck, cv, positions, window)
+        x, k, v = _chunk_layer(blk, cfg, x, ck, cv, positions, window, rows)
         pk[phys, :, off] = k[0].to(pk.dtype)
         pv[phys, :, off] = v[0].to(pv.dtype)
     return pool
@@ -876,58 +1054,90 @@ def lm_prefill_chunk_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
 
 def _chunk_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                  ck: torch.Tensor, cv: torch.Tensor, positions: torch.Tensor,
-                 window: Optional[int]):
+                 window: Optional[int], rows=None):
     """One layer of a prompt chunk: x (B,S,D) at ``positions`` (S,), a
     device tensor; writes the chunk's K/V into ck/cv (B,KH,C,dh) at those
     positions in place, then attends over the whole of ck/cv, as the JAX
     ``lm_prefill_chunk`` does.  Returns (x after the layer, k, v
-    (B,S,KH,dh))."""
+    (B,S,KH,dh)).  ``rows`` (a sequence-sharded cache): (the global
+    position of each cache row, each chunk position's row or C where
+    another rank holds it); the rank attends over its rows and the
+    ranks merge their partials."""
     c = ck.shape[2]
-    g = cfg.n_heads // cfg.n_kv_heads
     p = blk.attn
     q, k, v = _proj_qkv(p, cfg, rms_norm(x, blk.ln1, cfg.norm_eps),
                         positions)
-    ck.index_copy_(2, positions, k.transpose(1, 2).to(ck.dtype))
-    cv.index_copy_(2, positions, v.transpose(1, 2).to(cv.dtype))
-    kx = ck.repeat_interleave(g, dim=1) if g > 1 else ck     # (B,H,C,dh)
-    vx = cv.repeat_interleave(g, dim=1) if g > 1 else cv
-    logits = (q.transpose(1, 2).float()
-              @ kx.float().transpose(-1, -2)) * (1.0 / math.sqrt(cfg.dh))
-    kpos = torch.arange(c, device=x.device)
+    if rows is None:
+        kpos = torch.arange(c, device=x.device)
+        ck.index_copy_(2, positions, k.transpose(1, 2).to(ck.dtype))
+        cv.index_copy_(2, positions, v.transpose(1, 2).to(cv.dtype))
+    else:
+        kpos, at = rows
+        _write_rows(ck, at, k)
+        _write_rows(cv, at, v)
     mask = kpos[None, :] <= positions[:, None]
     if window is not None:
         mask = mask & (kpos[None, :] > positions[:, None] - window)
-    logits = logits.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(vx.dtype)
-    h = x + _out_proj(p, (w @ vx).transpose(1, 2))
+
+    def attend(qh, lse):                                # qh (B,H,S,dh)
+        g = qh.shape[1] // ck.shape[1]
+        kx = ck.repeat_interleave(g, dim=1) if g > 1 else ck  # (B,H,C,dh)
+        vx = cv.repeat_interleave(g, dim=1) if g > 1 else cv
+        logits = (qh.float()
+                  @ kx.float().transpose(-1, -2)) * (1.0 / math.sqrt(cfg.dh))
+        logits = logits.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(vx.dtype)
+        out = w @ vx
+        if not lse:
+            return out
+        empty = ~mask.any(dim=-1)[:, None]              # (S,1)
+        return (out.masked_fill(empty, 0),
+                torch.logsumexp(logits, dim=-1).masked_fill(
+                    empty[:, 0], -math.inf))
+
+    out = _sharded_attend(p, attend, q.transpose(1, 2), rows is not None)
+    h = x + _out_proj(p, out.transpose(1, 2))
     x = h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
     return x, k, v
+
+
+def _write_rows(cache: torch.Tensor, at: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """new (B,S,KH,dh) into cache (B,KH,C,dh) at rows ``at`` (S,), in
+    place; an entry of C (a row another rank holds) is dropped, through
+    a scratch row past the end."""
+    b, kh, c, dh = cache.shape
+    ext = torch.cat([cache, cache.new_zeros(b, kh, 1, dh)], dim=2)
+    ext.index_copy_(2, at, new.transpose(1, 2).to(cache.dtype))
+    cache.copy_(ext[:, :, :c])
 
 
 def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
               tokens: torch.Tensor, lengths: torch.Tensor, *,
               embed_scale: Optional[float] = None,
-              attn_impl=None) -> Tuple[torch.Tensor, Cache]:
+              attn_impl=None, seq_kv: bool = False
+              ) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens (B,1); lengths (B,) absolute positions;
     cache {k,v}: (L,B,KH,C,dh), updated in place.  Returns (logits
     (B,V_pad), cache).  ``attn_impl`` plumbs a vendor attention kernel
-    into every layer's decode_attention_block (§4.8)."""
+    into every layer's decode_attention_block (§4.8); ``seq_kv`` as
+    there."""
     x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     for i, blk in enumerate(blocks(model)):
         x = decode_layer(blk, cfg, x, cache["k"][i], cache["v"][i], lengths,
-                         attn_impl=attn_impl)
+                         attn_impl=attn_impl, seq_kv=seq_kv)
     return lm_logits(model, cfg, x)[:, 0], cache
 
 
 def decode_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                  ck: torch.Tensor, cv: torch.Tensor, lengths: torch.Tensor,
-                 *, attn_impl=None) -> torch.Tensor:
+                 *, attn_impl=None, seq_kv: bool = False) -> torch.Tensor:
     """One transformer layer of a decode step: x (B,1,D), its K/V ring
     written in place into ck/cv (B,KH,C,dh).  Returns x after the
     layer."""
     xin = rms_norm(x, blk.ln1, cfg.norm_eps)
     att, _, _ = decode_attention_block(blk.attn, cfg, xin, ck, cv, lengths,
-                                       attn_impl=attn_impl)
+                                       attn_impl=attn_impl, seq_kv=seq_kv)
     h = x + att
     return h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
 
@@ -936,18 +1146,20 @@ def lm_decode_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,
                     tables: torch.Tensor, tokens: torch.Tensor,
                     lengths: torch.Tensor, *,
                     embed_scale: Optional[float] = None,
-                    attn_impl=None) -> Tuple[torch.Tensor, Cache]:
+                    attn_impl=None, seq_kv: bool = False
+                    ) -> Tuple[torch.Tensor, Cache]:
     """One decode step over the paged KV pool.  tokens (B,1); lengths
     (B,); tables (B,T) int32; pool {k,v}: (L,P,KH,BS,dh), updated in
     place.  Returns (logits (B,V_pad), pool).  The tables and lengths are
     read on the device, so mapping blocks between steps changes values
-    only, and the step never waits for the device."""
+    only, and the step never waits for the device.  ``seq_kv`` as in
+    ``paged_decode_attention_block``."""
     x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     for i, blk in enumerate(blocks(model)):
         xin = rms_norm(x, blk.ln1, cfg.norm_eps)
         att, _, _ = paged_decode_attention_block(
             blk.attn, cfg, xin, pool["k"][i], pool["v"][i], tables, lengths,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, seq_kv=seq_kv)
         h = x + att
         x = h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
     return lm_logits(model, cfg, x)[:, 0], pool

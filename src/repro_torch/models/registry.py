@@ -8,6 +8,7 @@ of the six families (dense, moe, ssm, hybrid, vlm, audio) resolves to a
   loss(params, batch, *, remat, data_shards) -> (loss, metrics)
   prefill(params, batch, cache_len, window) -> (logits, cache)
   decode(params, cache, tokens, lengths, window) -> (logits, cache)
+    (dense, moe, vlm, hybrid: ``seq_kv=`` for a sequence-sharded cache)
   empty_cache(batch, cache_len, dtype, device) -> cache dict
   batch_shapes(mode, batch, seq) -> {name: BatchSpec(shape, dtype)}
 
@@ -98,10 +99,11 @@ def _dense_bundle(cfg: ModelConfig) -> ModelBundle:
                              window=window, n_valid=batch.get("n_valid"),
                              moe_cap=batch.get("moe_cap"))
 
-    def decode(params, cache, tokens, lengths, window=None):
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False):
         # the dense decode attends over the whole valid cache: the
         # window is not applied, as in the JAX package
-        return lm.lm_decode(params, cfg, cache, tokens, lengths)
+        return lm.lm_decode(params, cfg, cache, tokens, lengths,
+                            seq_kv=seq_kv)
 
     return ModelBundle(cfg=cfg, init=lambda gen: lm.init_lm(gen, cfg),
                        prefill=prefill, decode=decode,
@@ -135,10 +137,11 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
         return hybrid.hybrid_prefill(params, cfg, batch["tokens"], cache_len,
                                      window=window, ssd_impl=ssd_impl)
 
-    def decode(params, cache, tokens, lengths, window=None):
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False):
         # the shared block's decode attends over the whole valid cache,
         # as in the JAX package
-        return hybrid.hybrid_decode(params, cfg, cache, tokens, lengths)
+        return hybrid.hybrid_decode(params, cfg, cache, tokens, lengths,
+                                    seq_kv=seq_kv)
 
     def empty_cache(batch, cache_len, dtype, device):
         return hybrid.hybrid_empty_cache(cfg, batch, cache_len, dtype,
@@ -157,8 +160,9 @@ def _vlm_bundle(cfg: ModelConfig) -> ModelBundle:
     def prefill(params, batch, cache_len=None, window=None):
         return vlm.vlm_prefill(params, cfg, batch, cache_len, window=window)
 
-    def decode(params, cache, tokens, lengths, window=None):
-        return vlm.vlm_decode(params, cfg, cache, tokens, lengths)
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False):
+        return vlm.vlm_decode(params, cfg, cache, tokens, lengths,
+                              seq_kv=seq_kv)
 
     p, dv = cfg.n_vision_tokens, cfg.d_vision
 

@@ -19,6 +19,12 @@ dim and scans.  The steps are plain functions on tensors:
   * ``ssm_loss`` — the training loss through ``ssm_backbone``, always on
     the plain ``ssd_chunked`` (K8 has no backward).
 
+On a mesh (``distributed.sharding.shard_params``) every rank computes
+the whole ``in_proj`` and causal conv (their weights stay whole), runs
+the scan on its block of the SSD heads (the state's ``gh`` axis split),
+and the gated norm, which reduces over all of ``d_inner``, sums its
+squares over the ranks before the scale; ``out_proj`` is row-parallel.
+
 The chunked scan is ``ssd_chunked`` (plain PyTorch); the prefill steps
 take ``ssd_impl=`` in its place, the vendor-kernel hook (§4.8) through
 which the ``"cuda"`` serving ops run the scan on K8 (``kernels.ops``),
@@ -251,28 +257,63 @@ def _in_proj(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor):
     return _split_proj(cfg, zxbcdt)
 
 
+def state_heads(blk: nn.Module, cfg: ModelConfig) -> Tuple[int, int]:
+    """[lo, hi): the SSD heads whose state this rank carries — all of
+    them, or on a mesh its block where the heads divide over the ranks
+    (one group: its heads are then its ``d_inner`` block).  ``blk``: a
+    Mamba block, or the model (its ``tp`` has the same axis)."""
+    h = cfg.ssm_heads
+    tp = getattr(blk, "tp", None)
+    if tp is None or (h // cfg.ssm_groups) % tp.comm.size:
+        return 0, h
+    n = h // tp.comm.size
+    return tp.comm.rank * n, (tp.comm.rank + 1) * n
+
+
 def _ssd_inputs(blk: MambaBlock, cfg: ModelConfig, xbc: torch.Tensor,
                 dt: torch.Tensor):
     """The conv output and raw dt (B,S,…) as the scan's inputs: xs
-    (B,S,H,P), Bm/Cm (B,S,G,N), dt post-softplus (float32) and A."""
+    (B,S,H,P), Bm/Cm (B,S,G,N), dt post-softplus (float32) and A, of
+    this rank's heads (``state_heads``)."""
     b, s = xbc.shape[:2]
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    lo, hi = state_heads(blk, cfg)
     xs = xbc[..., :di].reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
     bm = xbc[..., di:di + g * n].reshape(b, s, g, n)
     cm = xbc[..., di + g * n:].reshape(b, s, g, n)
     dtf = F.softplus(dt.float() + blk.dt_bias)
-    return xs, bm, cm, dtf, -torch.exp(blk.A_log)
+    a = -torch.exp(blk.A_log)
+    if hi - lo < cfg.ssm_heads:
+        xs, dtf, a = xs[:, :, lo:hi], dtf[..., lo:hi], a[lo:hi]
+    return xs, bm, cm, dtf, a
 
 
 def _ssd_out(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
              xs: torch.Tensor, y: torch.Tensor,
              z: torch.Tensor) -> torch.Tensor:
-    """y (B,S,H,P) + D·x, gated norm, out_proj, residual."""
+    """y (B,S,H,P) + D·x, gated norm, out_proj, residual.  Where
+    ``d_inner`` is split over the ranks: the rank's channels of y·silu(z)
+    are normalized by the mean square over all of them (its sum of
+    squares summed over the ranks), and ``out_proj``'s rows are
+    row-parallel."""
     b, s = h.shape[:2]
-    y = y + xs * blk.D[None, None, :, None].to(y.dtype)
-    y = y.reshape(b, s, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), blk.norm, cfg.norm_eps)
-    return h + (y.reshape(b * s, -1) @ blk.out_proj).view(b, s, -1)
+    lo, hi = state_heads(blk, cfg)
+    y = y + xs * blk.D[lo:hi][None, None, :, None].to(y.dtype)
+    y = y.reshape(b, s, -1)
+    tp = getattr(blk, "tp", None)
+    if tp is None or not tp.split:
+        y = rms_norm(y * F.silu(z), blk.norm, cfg.norm_eps)
+        return h + (y.reshape(b * s, -1) @ blk.out_proj).view(b, s, -1)
+    comm = tp.comm
+    if y.shape[-1] == cfg.d_inner:          # the state's heads are whole
+        y = comm.own(y, -1)
+    g = y * F.silu(comm.own(z, -1))
+    gf = g.float()
+    ss = comm.all_reduce(gf.square().sum(dim=-1, keepdim=True))
+    g = (gf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)).to(g.dtype)
+    y = g * blk.norm.to(g.dtype)
+    out = (y.reshape(b * s, -1) @ blk.out_proj).view(b, s, -1)
+    return h + comm.all_reduce(out)
 
 
 def mamba_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor, *,
@@ -332,9 +373,11 @@ def mamba_chunk_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ssm_empty_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                    device) -> Cache:
+                    device, heads: Optional[int] = None) -> Cache:
+    """The zeroed recurrent cache; ``heads``: the SSD heads a rank
+    carries, in place of the config's."""
     g, n = cfg.ssm_groups, cfg.ssm_state
-    gh, ph = cfg.ssm_heads // g, cfg.ssm_head_dim
+    gh, ph = (heads or cfg.ssm_heads) // g, cfg.ssm_head_dim
     conv_ch = cfg.d_inner + 2 * g * n
     L = cfg.n_layers
     return {"conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_ch),
@@ -349,7 +392,8 @@ def ssm_prefill(model: SSMLM, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B,S) -> (last-token logits (B,V_pad), cache {conv, state}).
     ``cache_len`` is not used: the recurrent cache does not grow."""
     x = embed_tokens(model, cfg, tokens)
-    cache = ssm_empty_cache(cfg, x.shape[0], x.dtype, x.device)
+    lo, hi = state_heads(model, cfg)
+    cache = ssm_empty_cache(cfg, x.shape[0], x.dtype, x.device, hi - lo)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = mamba_block(
             blk, cfg, x, ssd_impl=ssd_impl)

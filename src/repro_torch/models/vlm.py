@@ -38,12 +38,12 @@ def vlm_prefill(model: lm.DenseLM, cfg: ModelConfig,
 
 
 def vlm_decode(model: lm.DenseLM, cfg: ModelConfig, cache: lm.Cache,
-               tokens: torch.Tensor, lengths: torch.Tensor
-               ) -> Tuple[torch.Tensor, lm.Cache]:
+               tokens: torch.Tensor, lengths: torch.Tensor, *,
+               seq_kv: bool = False) -> Tuple[torch.Tensor, lm.Cache]:
     """One decode step; ``lengths`` are absolute positions counting the
-    vision prefix."""
+    vision prefix (``seq_kv`` as in ``lm.lm_decode``)."""
     return lm.lm_decode(model, cfg, cache, tokens, lengths,
-                        embed_scale=math.sqrt(cfg.d_model))
+                        embed_scale=math.sqrt(cfg.d_model), seq_kv=seq_kv)
 
 
 def vlm_loss(model: lm.DenseLM, cfg: ModelConfig,

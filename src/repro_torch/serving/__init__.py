@@ -8,9 +8,10 @@ typed family errors."""
 
 from . import ops  # registers the reference serving macro-kernels
 from .engine import (BUCKETED_FAMILIES, CHUNKED_FAMILIES, DEFAULT_TAGS,
-                     PAGED_FAMILIES, RECURRENT_FAMILIES, STREAMING_FAMILIES,
-                     Request, RequestResult, ServingEngine, SlotCheckpoint,
-                     StreamEvent, default_clock)
+                     PAGED_FAMILIES, RECURRENT_FAMILIES, SHARDED_FAMILIES,
+                     STREAMING_FAMILIES, Request, RequestResult,
+                     ServingEngine, SlotCheckpoint, StreamEvent,
+                     default_clock)
 from .errors import UnsupportedFamilyError
 from .host import MicroRequest, MicroRequestResult, MultiTenantHost
 from .router import ReplicaRouter
@@ -22,7 +23,8 @@ from .scheduling import (EDFDisplacePolicy, EDFPolicy, FIFOPolicy,
                          get_preemption, get_routing)
 
 __all__ = ["BUCKETED_FAMILIES", "CHUNKED_FAMILIES", "DEFAULT_TAGS",
-           "PAGED_FAMILIES", "RECURRENT_FAMILIES", "STREAMING_FAMILIES",
+           "PAGED_FAMILIES", "RECURRENT_FAMILIES", "SHARDED_FAMILIES",
+           "STREAMING_FAMILIES",
            "Request", "RequestResult", "ServingEngine", "SlotCheckpoint",
            "StreamEvent", "UnsupportedFamilyError", "default_clock",
            "MicroRequest", "MicroRequestResult", "MultiTenantHost",

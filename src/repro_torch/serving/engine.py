@@ -124,9 +124,28 @@ A last one overlaps the host with the device (docs/STREAMING.md):
     host-to-device copy, which would wait for the step in flight).
 
 The JAX engine's families refuse the same fast paths here, with the
-same ``UnsupportedFamilyError``.  Mesh sharding is refused at
-construction with ``NotImplementedError`` naming the ROADMAP slice that
-brings it.
+same ``UnsupportedFamilyError``.
+
+Mesh sharding (``mesh=make_serving_mesh(N)``, ``SHARDED_FAMILIES``): one
+engine per rank of a ``torch.distributed`` world, every rank running
+this same loop on its shards (docs/ARCHITECTURE.md §9).  At
+construction the weights become this rank's slices
+(``distributed.sharding.shard_params``) and the arena — the contiguous
+rings or the paged pool, and the batch=1 chunk cache — is allocated at
+this rank's shapes (``engine_shardings``); the bookkeeping (block
+tables, lengths, current tokens) is whole on every rank, so every host
+write lands in the bound local buffers as on one device, and the
+programs are the same programs (one decode, one chunk, a prefill per
+bucket, nothing new across evict and restore), their collectives inside
+them.  Where the KV cache's rows are split (the policy's ``sequence``
+mode) the decode and chunk ops get ``seq_kv``; a prefill emits every
+row, and the engine keeps this rank's.  The ranks take every scheduling
+decision alike: the queue and the tokens are the same on every rank,
+and the clock a decision reads (an arrival stamp, an admission's
+``now``) is the ``model`` axis's rank 0's, broadcast to the others
+(``Mesh.broadcast_host``), so ranks whose clocks differ neither diverge
+nor wait on each other's collectives.  Quantized serving is refused on
+a mesh, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -147,9 +166,13 @@ from repro_torch.core.executor import (BucketTable, CapturedProgram,
 from repro_torch.core.interpreter import setup_device
 from repro_torch.core.op_resolver import MicroMutableOpResolver
 from repro_torch.core.schema import OpCode, OpDef
+from repro_torch.distributed.sharding import (KV_LEAVES, SHARDED_FAMILIES,
+                                              cache_sharding,
+                                              engine_shardings, shard_params)
 from repro_torch.kernels import ops as _vendor_kernels  # noqa: F401 (tag "cuda")
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm, lm_quant
-from repro_torch.models.registry import ModelBundle
+from repro_torch.models.registry import ModelBundle, empty_model
 
 from . import ops as serving_ops  # registers tag="reference" serving ops
 from .errors import UnsupportedFamilyError
@@ -175,13 +198,6 @@ BUCKETED_FAMILIES = ("dense", "vlm", "moe")
 # staged at admission) has not been qualified for deferred readback, as
 # in the JAX engine.
 STREAMING_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-
-# the engine option of the JAX engine that a later slice of the port
-# brings
-_NOT_PORTED = {
-    "mesh": "mesh-sharded serving, ROADMAP queue 1, slice 8, item 15",
-}
-
 
 def default_clock() -> int:
     """Host time in µs — the clock policies age/deadline against."""
@@ -313,7 +329,10 @@ class ServingEngine:
     ``params`` itself is left as it was); ``kv_dtype``: None or
     ``"int8"``.  ``overlap``: the overlapped decode loop (the module
     docstring); ``on_token``: a ``StreamEvent`` callback, called for each
-    emitted token in both modes."""
+    emitted token in both modes.  ``mesh``: a ``launch.mesh`` serving
+    mesh; ``params`` is then the whole model (or one already sharded for
+    this mesh, ``shard_params``) and this engine serves this rank's
+    share (the module docstring)."""
 
     def __init__(self, bundle: ModelBundle, params: torch.nn.Module, *,
                  max_slots: int = 4, cache_len: int = 256,
@@ -328,10 +347,6 @@ class ServingEngine:
                  weight_dtype: Any = None, kv_dtype: Any = None,
                  mesh: Any = None, overlap: bool = False,
                  on_token: Any = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh={mesh!r}: {_NOT_PORTED['mesh']} is not in the "
-                f"PyTorch port yet")
         self.device = resolve_device(device)
         setup_device(self.device)
         self.bundle = bundle
@@ -418,6 +433,11 @@ class ServingEngine:
                 raise ValueError(
                     "prefill_chunk does not compose with quantized "
                     "serving (the chunk ops write float KV rows)")
+            if mesh is not None:
+                raise ValueError(
+                    "mesh does not compose with quantized serving (the "
+                    "quantized weights and scales have no partition "
+                    "specs)")
             if weight_dtype:
                 self.params = params = lm_quant.quantize_lm_params(
                     params, self.cfg, weight_dtype)
@@ -433,8 +453,39 @@ class ServingEngine:
                     f"kv_block must divide cache_len, got "
                     f"{self.kv_block} vs {cache_len}")
             self.n_table = cache_len // self.kv_block
+        # --- mesh sharding: this rank's weights and arena shapes, before
+        # anything is allocated (the family gate first, as the JAX engine)
+        self.mesh = mesh
+        self._shard: Optional[Dict[str, Any]] = None
+        self._seq_kv = False
+        if mesh is not None:
+            if self.cfg.family not in SHARDED_FAMILIES:
+                raise UnsupportedFamilyError(self.cfg.family,
+                                             "mesh-sharded serving",
+                                             supported=SHARDED_FAMILIES)
+            if not isinstance(mesh, Mesh) or mesh.abstract \
+                    or "model" not in mesh.axis_names:
+                raise TypeError(f"mesh={mesh!r}: a serving mesh of this "
+                                f"process's ranks is needed "
+                                f"(launch.mesh.make_serving_mesh)")
+            dtype = self.cfg.torch_dtype()
+            n_blocks = (int(kv_pool_blocks) if kv_pool_blocks
+                        else max_slots * self.n_table + 1) if self.paged \
+                else max_slots
+            self._shard = engine_shardings(
+                self.cfg, mesh, empty_model(self.cfg, "meta"),
+                bundle.empty_cache(n_blocks, self.kv_block or cache_len,
+                                   dtype, "meta"),
+                global_batch=n_blocks,
+                cache1_tree=bundle.empty_cache(1, cache_len, dtype, "meta"))
+            self.params = params = shard_params(params, mesh)
+            # the KV cache's rows split over the ranks (sequence mode)
+            self._seq_kv = any(
+                name in KV_LEAVES and len(sh.spec) > 3
+                and sh.spec[3] == "model"
+                for name, sh in self._shard["cache"].items())
         # resident weight bytes (a quantized model's payload and scales)
-        # and KV bytes: the HBM footprint
+        # and KV bytes: the HBM footprint (this rank's on a mesh)
         self.param_bytes = _cache_bytes(t for _, t in _model_tensors(params))
 
         # --- the KV cache or pool: allocated once, interpreter-lifetime
@@ -508,6 +559,8 @@ class ServingEngine:
         decode_params = {"window": window, **qparams}
         if self.paged:
             decode_params["kv_block"] = self.kv_block
+        seq = {"seq_kv": True} if self._seq_kv else {}
+        decode_params.update(seq)
         # the programs share one graph pool: each replay's outputs are
         # read or copied before the next replay
         self.graph_pool = GraphPool()
@@ -536,7 +589,7 @@ class ServingEngine:
         self._readback = (TokenReadback(max_slots, torch.int64, self.device)
                           if self.overlap else None)
         self._prefill_chunk = (CapturedProgram(
-            self._bind(chunk_code, {"window": window}), name="chunk",
+            self._bind(chunk_code, {"window": window, **seq}), name="chunk",
             pool=self.graph_pool) if self.chunk_tokens else None)
         # static inputs of the programs: prefill's tokens (a prompt of S
         # tokens is the first S of one buffer); the chunk step's tokens,
@@ -715,21 +768,42 @@ class ServingEngine:
         return batch
 
     # ------------------------------------------------------------------
+    def _now(self) -> int:
+        """The clock a scheduling decision reads: ``clock()``, on a mesh
+        the ``model`` axis's rank 0's (every rank calls this at the same
+        points, so every rank decides alike)."""
+        now = self.clock()
+        return now if self.mesh is None else self.mesh.broadcast_host(now)
+
     def submit(self, req: Request) -> None:
         if req.arrival_us is None:
-            req.arrival_us = self.clock()
+            req.arrival_us = self._now()
         self.queue.append(req)
         self.results[req.uid] = RequestResult(uid=req.uid,
                                               prompt_len=len(req.tokens))
 
-    def _empty_cache(self, batch: int,
-                     length: int) -> Dict[str, torch.Tensor]:
+    def _empty_cache(self, batch: int, length: int,
+                     every_row: bool = False) -> Dict[str, torch.Tensor]:
         """The family's zeroed cache for ``batch`` sequences: {k, v} of
         (L, batch, KH, length, dh) for the dense family — the slot rings, a
         batch=1 cache, or (batch = blocks, length = BS) the pool; with an
         int8 KV cache the quantized {k, v, k_scale, v_scale} layout (int8
         zeros, scales 1.0) — or the recurrent {conv, state} (+ hybrid's
-        {attn_k, attn_v} of ``length`` positions)."""
+        {attn_k, attn_v} of ``length`` positions).  On a mesh, this
+        rank's share of it (``cache_sharding``); with ``every_row``, with
+        every KV row, as a prefill emits it."""
+        if self.mesh is not None:
+            full = self.bundle.empty_cache(batch, length,
+                                           self.cfg.torch_dtype(), "meta")
+            shard = cache_sharding(self.cfg, self.mesh, full, batch)
+            out = {}
+            for name, t in full.items():
+                shape = list(shard[name].local_shape(t.shape))
+                if every_row and name in KV_LEAVES:
+                    shape[3] = t.shape[3]
+                out[name] = torch.zeros(shape, dtype=t.dtype,
+                                        device=self.device)
+            return out
         cache = self.bundle.empty_cache(batch, length,
                                         self.cfg.torch_dtype(), self.device)
         if self.kv_dtype:
@@ -770,6 +844,16 @@ class ServingEngine:
         if padded == s:
             return tokens
         return np.concatenate([tokens, np.zeros(padded - s, tokens.dtype)])
+
+    def _local_rows(self, cache1: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A prefill's batch=1 cache (every row) as this rank holds one:
+        where the KV rows are split (``seq_kv``), this rank's rows of each
+        KV leaf, copied; otherwise the cache as it is."""
+        if not self._seq_kv:
+            return cache1
+        return {name: self._shard["cache1"][name].local(t)
+                if name in KV_LEAVES else t for name, t in cache1.items()}
 
     def _vis(self) -> int:
         """Cache positions the vision prefix takes (vlm only)."""
@@ -827,12 +911,16 @@ class ServingEngine:
         int8 KV cache, its scales (L,1,KH,C) — into the slot's mapped
         blocks, in place: one-shot prefill lands contiguous, then pages
         in.  Unmapped table entries point at the garbage block, which
-        absorbs the tail of the scatter."""
+        absorbs the tail of the scatter.  Where the pool holds this
+        rank's rows of each block (``seq_kv``), those rows of each
+        block."""
         row = torch.from_numpy(self._table_row(slot)).long().to(self.device)
         t, bs = self.n_table, self.kv_block
         for name, pool in self.kv_pool.items():
-            l, _, kh = pool.shape[:3]
+            l, _, kh, held = pool.shape[:4]
             src = cache1[name][:, 0].reshape(l, kh, t, bs, *pool.shape[4:])
+            if held < bs:
+                src = src.narrow(3, self.mesh.coords["model"] * held, held)
             pool[:, row] = src.transpose(1, 2).to(pool.dtype)
 
     def _release_slot_blocks(self, slot: int) -> None:
@@ -886,10 +974,13 @@ class ServingEngine:
                 prompt = self._padded_prompt(prompt)
             _, cache1 = self._run_prefill(prompt, req.extras,
                                           len(req.tokens) - 1)
+            if not self.paged:
+                cache1 = self._local_rows(cache1)
             self.last_step["prefill_tokens"].append(len(prompt))
             self.policy.charge(req.tenant, 1.0)
         else:   # single-token prompt: the slot starts from a fresh cache
-            cache1 = self._empty_cache(1, self.cache_len)
+            cache1 = self._empty_cache(1, self.cache_len,
+                                       every_row=self.paged)
         self._activate_slot(req, slot, cache1)
         self._settle()
         self.results[req.uid].prefill_s += time.perf_counter() - t0
@@ -943,7 +1034,8 @@ class ServingEngine:
         else:
             # the slot's own copy: the prefill program's output is
             # overwritten by its next replay
-            cache1 = {name: t.clone() for name, t in cache1.items()}
+            cache1 = {name: t.clone()
+                      for name, t in self._local_rows(cache1).items()}
         self._chunking[slot] = _ChunkState(req, cache1, len(first))
         self._settle()
         self.results[req.uid].prefill_s += time.perf_counter() - t0
@@ -1276,7 +1368,7 @@ class ServingEngine:
                 # the state after emission, and a retirement in flight
                 # may free the slot the queue needs
                 self.drain()
-            now = self.clock()
+            now = self._now()
             for slot in range(self.max_slots):
                 if self.queue and not self.active[slot] \
                         and slot not in self._chunking:

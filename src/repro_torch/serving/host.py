@@ -185,7 +185,9 @@ class MultiTenantHost:
         prompt-bucket table (family permitting), growing the shared
         scratch reservation to the new maximum — the construction path
         ``add_model`` and every ``add_replicated_model`` replica go
-        through.  ``mesh`` goes to the engine, which refuses it."""
+        through.  ``mesh`` goes to the engine: every replica is sharded
+        over the same ``model`` group, and replicas of one ``params``
+        share this rank's weights (``shard_params`` makes them once)."""
         bucketable = bundle.cfg.family in BUCKETED_FAMILIES
         chunkable = bundle.cfg.family in CHUNKED_FAMILIES
         buckets = self.prompt_buckets if bucketable else False

@@ -38,6 +38,11 @@ package's refuses.
 The contract mirrors the micro C-API: ``prepare(ctx, op)`` runs once at
 engine init (it may inspect the model family and bake decisions into
 ``op_data``); ``eval(ctx, op, inputs)`` runs at every step.
+
+On a mesh the engine binds the ops to this rank's model
+(``distributed.sharding.shard_params``) and, where its KV cache's rows
+are split over the ranks, sets ``seq_kv`` in the decode and chunk ops'
+params, which they pass on to the model steps (``seq_kv_kw``).
 """
 
 from __future__ import annotations
@@ -65,6 +70,13 @@ WEIGHT_QUANT_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 # the families whose KV-offset chunks are token-identical to one-shot
 # prefill (the chunk ops' gate)
 KV_CHUNK_FAMILIES = ("dense", "vlm")
+
+
+def seq_kv_kw(op) -> dict:
+    """``{"seq_kv": True}`` where the engine split its KV cache's rows
+    over a mesh's ranks (the op's params say so), else nothing: the
+    families without a KV cache take no such keyword."""
+    return {"seq_kv": True} if op.params.get("seq_kv") else {}
 
 
 class ServingContext:
@@ -107,7 +119,8 @@ class RefServingDecode:
     def eval(ctx: ServingContext, op, inputs):
         params, cache, tokens, lengths = inputs
         return ctx.bundle.decode(params, cache, tokens, lengths,
-                                 window=op.params.get("window"))
+                                 window=op.params.get("window"),
+                                 **seq_kv_kw(op))
 
 
 def family_gate(cfg, feature: str, supported) -> Optional[float]:
@@ -147,7 +160,8 @@ class RefServingPrefillChunk:
         params, cache, tokens, start = inputs
         return lm.lm_prefill_chunk(params, ctx.bundle.cfg, cache, tokens,
                                    start, window=op.params.get("window"),
-                                   embed_scale=ctx.op_data["scale"])
+                                   embed_scale=ctx.op_data["scale"],
+                                   **seq_kv_kw(op))
 
 
 @register_op(OpCode.SERVING_DECODE_PAGED, tag="reference")
@@ -168,7 +182,8 @@ class RefServingDecodePaged:
         params, pool, tables, tokens, lengths = inputs
         return lm.lm_decode_paged(params, ctx.bundle.cfg, pool, tables,
                                   tokens, lengths,
-                                  embed_scale=ctx.op_data["scale"])
+                                  embed_scale=ctx.op_data["scale"],
+                                  **seq_kv_kw(op))
 
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK_PAGED, tag="reference")
@@ -193,7 +208,8 @@ class RefServingPrefillChunkPaged:
         return lm.lm_prefill_chunk_paged(params, ctx.bundle.cfg, pool,
                                          table_row, tokens, start,
                                          window=op.params.get("window"),
-                                         embed_scale=ctx.op_data["scale"])
+                                         embed_scale=ctx.op_data["scale"],
+                                         **seq_kv_kw(op))
 
 
 @register_op(OpCode.SERVING_PREFILL_CHUNK_STATE, tag="reference")
@@ -233,7 +249,8 @@ def prefill_chunk_state(ctx: ServingContext, op, inputs, ssd_impl=None):
         return hybrid.hybrid_prefill_chunk(params, cfg, cache, tokens, start,
                                            n_real,
                                            window=op.params.get("window"),
-                                           ssd_impl=ssd_impl)
+                                           ssd_impl=ssd_impl,
+                                           **seq_kv_kw(op))
     return ssm.ssm_prefill_chunk(params, cfg, cache, tokens, n_real,
                                  ssd_impl=ssd_impl)
 

@@ -112,8 +112,10 @@ def make_train_step(loss_fn: Callable, *, lr=3e-4, max_grad_norm=1.0,
 
 
 def train_state_sharding(param_sharding: Any, mesh) -> Any:
-    """The JAX package's TrainState sharding tree.  The port has no mesh
-    yet: refused, naming the slice that brings it."""
+    """The JAX package's TrainState sharding tree.  Mesh-sharded training
+    is the second half of ROADMAP item 15 (the port serves on a mesh, it
+    does not train on one yet): refused, naming that slice."""
     raise NotImplementedError(
-        f"train_state_sharding(mesh={mesh!r}): mesh-sharded training, "
-        f"ROADMAP queue 1, slice 8, item 15, is not in the PyTorch port yet")
+        f"train_state_sharding(mesh={mesh!r}): mesh-sharded training "
+        f"(act_sharding, moe_ep, the sharded train step), the second half "
+        f"of ROADMAP queue 1, item 15, is not in the PyTorch port yet")

@@ -408,6 +408,104 @@ def test_paged_decode_attention_kernel_empty_rows_are_zero(cuda):
                        torch.zeros_like(got))
 
 
+def _merge(outs, lses):
+    """Partials over disjoint rows with their log-sum-exp, merged as the
+    ranks of a mesh merge them (``Comm.combine``), in float32."""
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.max(dim=0).values)
+    num = (torch.stack(outs).float() * w[..., None]).sum(dim=0)
+    return num / w.sum(dim=0)[..., None]
+
+
+def _check_split(outs, lses, counts, whole, plain_parts, dtype):
+    """Each part against its plain version (f32 within 1e-5, bf16 within
+    one ulp, 2^-6; lse within 1e-5 + 1e-5 relative: f32 sums of the
+    scores in another order), empty parts 0 and -inf, and the
+    merge against the unsplit kernel (f32 within 1e-5, bf16 within
+    2^-6)."""
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for out, lse, n, (want, want_lse) in zip(outs, lses, counts,
+                                             plain_parts):
+        torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                                   rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+        none = n == 0
+        assert torch.equal(out[none], torch.zeros_like(out[none]))
+        assert torch.isneginf(lse[none]).all()
+    torch.testing.assert_close(_merge(outs, lses), whole.float(), atol=atol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2, 4])
+def test_decode_attention_kernel_split_over_rows(cuda, dtype, m):
+    """K3 on a rank's rows of Yi-6B's cache (4, 32, 4, 2048, 128) with
+    its clamped lengths and ``return_lse``: each part against the plain
+    version, the merge against the unsplit kernel; the lse launch's
+    output bit-equal to the argument-free launch's (the same code path
+    and arithmetic; ``tools/decode_attention_bits.py`` holds the
+    argument-free launch bit-equal to the parent checkout's kernel)."""
+    b, h, kh, s, d = 4, 32, 4, 2048, 128
+    g = torch.Generator().manual_seed(m)
+    q = torch.randn(b, h, d, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(b, kh, s, d, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    lengths = torch.tensor([1, 37, 1500, 2048], dtype=torch.int32,
+                           device=cuda)
+    whole = ops.decode_attention(q, k, v, lengths)
+    out, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
+    assert torch.equal(out, whole)
+    c = s // m
+    outs, lses, counts, plain = [], [], [], []
+    for r in range(m):
+        n = torch.clamp(lengths - r * c, 0, c).to(torch.int32)
+        kr, vr = (x[:, :, r * c:(r + 1) * c].contiguous() for x in (k, v))
+        o, l_ = ops.decode_attention(q, kr, vr, n, return_lse=True)
+        outs.append(o)
+        lses.append(l_)
+        counts.append(n)
+        plain.append(ref.decode_attention_ref(q, kr, vr, n, return_lse=True))
+    torch.cuda.synchronize()
+    _check_split(outs, lses, counts, whole, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2, 4])
+def test_paged_decode_attention_kernel_split_over_block_rows(cuda, dtype, m):
+    """K4 on a rank's rows of every 16-row block (block size 16/m) of a
+    permuted table, each rank counting its rows below each length: parts
+    against the plain version, the merge against the unsplit kernel; the
+    lse launch's output bit-equal to the argument-free one's."""
+    b, h, kh, s, bs, d = 4, 32, 4, 2048, 16, 128
+    t = s // bs
+    _, _, k_pool, v_pool, tables = _paged_layout(cuda, b, kh, s, bs, d,
+                                                 dtype, [t] * b, 11 + m)
+    q = torch.randn(b, h, d, generator=torch.Generator().manual_seed(m)
+                    ).to(cuda, dtype)
+    lengths = torch.tensor([1, 37, 1500, 2048], dtype=torch.int32,
+                           device=cuda)
+    whole = ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths)
+    out, _ = ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                                        return_lse=True)
+    assert torch.equal(out, whole)
+    held = bs // m
+    outs, lses, counts, plain = [], [], [], []
+    for r in range(m):
+        n = ((lengths // bs) * held
+             + torch.clamp(lengths % bs - r * held, 0, held)).to(torch.int32)
+        kr, vr = (x[:, :, r * held:(r + 1) * held].contiguous()
+                  for x in (k_pool, v_pool))
+        o, l_ = ops.paged_decode_attention(q, kr, vr, tables, n,
+                                           return_lse=True)
+        outs.append(o)
+        lses.append(l_)
+        counts.append(n)
+        plain.append(ref.paged_decode_attention_ref(q, kr, vr, tables, n,
+                                                    return_lse=True))
+    torch.cuda.synchronize()
+    _check_split(outs, lses, counts, whole, plain, dtype)
+
+
 def test_paged_decode_attention_kernel_refuses(cuda):
     q = torch.zeros(2, 4, 32, device=cuda)
     pool = torch.zeros(5, 2, 16, 32, device=cuda)

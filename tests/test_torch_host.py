@@ -383,7 +383,9 @@ def test_wfq_shares_converge_to_weights(blobs):
 def test_host_refusals_and_replicas(lms):
     """``profile=`` is refused when it was measured on another device
     than the host's (here a card's profile on a CPU host), ``mesh=``
-    reaches the engine, which refuses it; a replicated tenant is a router
+    reaches the engine, which refuses anything but a serving mesh
+    (``tests/test_torch_sharded_serving.py`` serves a host on one); a
+    replicated tenant is a router
     over engines sharing one weight module, each with its own KV in the
     shared arena."""
     card = CalibrationProfile(
@@ -397,7 +399,7 @@ def test_host_refusals_and_replicas(lms):
         MultiTenantHost(1 << 20, profile=card, **CPU)
     _, _, bundle, model = lms["qwen3-32b"]
     host = MultiTenantHost(256 << 20, **CPU)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="make_serving_mesh"):
         host.add_model("lm", bundle, model, mesh=object())
     router = host.add_replicated_model("lm", bundle, model, replicas=2,
                                        max_slots=1, cache_len=32,

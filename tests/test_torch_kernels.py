@@ -247,3 +247,128 @@ def test_decode_attention_plain_bf16_keeps_dtype():
     # one bfloat16 rounding of an f32 result: half an ulp, 2^-8 relative
     np.testing.assert_allclose(got.float().numpy(), want.numpy(),
                                rtol=2 ** -8, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 on a rank's rows: the log-sum-exp, split and merged
+# ---------------------------------------------------------------------------
+
+# merged partials against the unsplit plain version, float32: each
+# partial's softmax over its rows, then the exp(lse - max) weights
+SPLIT_TOL = 1e-6
+
+
+def _merge(outs, lses):
+    """Partial attentions over disjoint rows, each with its log-sum-exp,
+    merged as the ranks merge them (``Comm.combine``): (out, lse)."""
+    lse = torch.stack(lses)
+    top = lse.max(dim=0).values
+    w = torch.exp(lse - top)
+    num = (torch.stack(outs).float() * w[..., None]).sum(dim=0)
+    den = w.sum(dim=0)
+    return num / den[..., None], top + torch.log(den)
+
+
+def _check_parts(outs, lses, counts, whole, whole_lse):
+    merged, lse = _merge(outs, lses)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(),
+                               atol=SPLIT_TOL, rtol=SPLIT_TOL)
+    np.testing.assert_allclose(lse.numpy(), whole_lse.numpy(),
+                               atol=SPLIT_TOL, rtol=SPLIT_TOL)
+    empty = 0
+    for out, part_lse, n in zip(outs, lses, counts):
+        none = n == 0
+        empty += int(none.sum())
+        assert torch.equal(out[none], torch.zeros_like(out[none]))
+        assert torch.isneginf(part_lse[none]).all()
+        assert torch.isfinite(part_lse[~none]).all()
+    assert empty                # some rank held no valid row of some row
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("b,h,kh,s,d", [(4, 8, 2, 256, 64),
+                                        (3, 4, 1, 128, 32),
+                                        (4, 16, 2, 512, 128)])
+def test_decode_attention_plain_split_over_rows(pallas_memory_space_alias,
+                                                b, h, kh, s, d, m):
+    """A rank of m holds cache rows [r·S/m, (r+1)·S/m) and its lengths
+    clamped to them, clamp(n - r·S/m, 0, S/m): its partial and lse, the
+    m of them merged, give the unsplit plain version (itself the JAX
+    oracle's and the Pallas kernel's in interpret mode); a rank with no
+    valid row gives 0 and -inf."""
+    q, k, v, lengths = _decode_case(b, h, kh, s, d, None, b + h + s + m)
+    lengths[1] = s // m + 1         # one row past the first rank's rows
+    t = lambda a: torch.from_numpy(a)
+    whole, whole_lse = ops.decode_attention(t(q), t(k), t(v), t(lengths),
+                                            return_lse=True)
+    assert torch.equal(whole, ops.decode_attention(t(q), t(k), t(v),
+                                                   t(lengths)))
+    jq = tuple(map(jnp.asarray, (q, k, v, lengths)))
+    np.testing.assert_allclose(
+        whole.numpy(), np.asarray(jax_ref.decode_attention_ref(*jq)),
+        atol=DECODE_TOL, rtol=DECODE_TOL)
+    np.testing.assert_allclose(
+        whole.numpy(), np.asarray(jax_ops.decode_attention(*jq,
+                                                           interpret=True)),
+        atol=DECODE_TOL, rtol=DECODE_TOL)
+    c = s // m
+    outs, lses, counts = [], [], []
+    for r in range(m):
+        n = torch.clamp(t(lengths) - r * c, 0, c).to(torch.int32)
+        rows = slice(r * c, (r + 1) * c)
+        out, lse = ops.decode_attention(
+            t(q), t(k)[:, :, rows].contiguous(),
+            t(v)[:, :, rows].contiguous(), n, return_lse=True)
+        outs.append(out)
+        lses.append(lse)
+        counts.append(n)
+    _check_parts(outs, lses, counts, whole, whole_lse)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("b,h,kh,t,bs,d", [(3, 4, 2, 4, 16, 32),
+                                           (2, 8, 1, 2, 32, 64),
+                                           (4, 4, 4, 8, 8, 16)])
+def test_paged_decode_attention_plain_split_over_block_rows(b, h, kh, t, bs,
+                                                            d, m):
+    """A rank of m holds rows [r·BS/m, (r+1)·BS/m) of every block: K4's
+    plain version on that pool (block size BS/m, which the kernel takes),
+    the same permuted table and the rank's count of rows below each
+    length, (n // BS)·BS/m + clamp(n % BS - r·BS/m, 0, BS/m), gives
+    partials whose merge is the unsplit paged plain version (itself the
+    JAX oracle's and the Pallas kernel's); empty ranks give 0 and
+    -inf."""
+    rng = np.random.default_rng(b * t + bs + m)
+    p = b * t + 1
+    q = rng.normal(0, 1, (b, h, d)).astype(np.float32)
+    k_pool = rng.normal(0, 1, (p, kh, bs, d)).astype(np.float32)
+    v_pool = rng.normal(0, 1, (p, kh, bs, d)).astype(np.float32)
+    tables = (1 + rng.permutation(b * t)).reshape(b, t).astype(np.int32)
+    lengths = rng.integers(1, t * bs + 1, b).astype(np.int32)
+    lengths[0] = 1
+    lengths[-1] = t * bs
+    tt = lambda a: torch.from_numpy(a)
+    whole, whole_lse = ops.paged_decode_attention(
+        *map(tt, (q, k_pool, v_pool, tables, lengths)), return_lse=True)
+    jq = tuple(map(jnp.asarray, (q, k_pool, v_pool, tables, lengths)))
+    np.testing.assert_allclose(
+        whole.numpy(), np.asarray(jax_ref.paged_decode_attention_ref(*jq)),
+        atol=DECODE_TOL, rtol=DECODE_TOL)
+    np.testing.assert_allclose(
+        whole.numpy(), np.asarray(jax_ops.paged_decode_attention(
+            *jq, interpret=True)), atol=DECODE_TOL, rtol=DECODE_TOL)
+    held = bs // m
+    outs, lses, counts = [], [], []
+    for r in range(m):
+        n = tt(lengths)
+        n = ((n // bs) * held
+             + torch.clamp(n % bs - r * held, 0, held)).to(torch.int32)
+        rows = slice(r * held, (r + 1) * held)
+        out, lse = ops.paged_decode_attention(
+            tt(q), tt(k_pool)[:, :, rows].contiguous(),
+            tt(v_pool)[:, :, rows].contiguous(), tt(tables), n,
+            return_lse=True)
+        outs.append(out)
+        lses.append(lse)
+        counts.append(n)
+    _check_parts(outs, lses, counts, whole, whole_lse)

@@ -389,7 +389,9 @@ def test_quantized_refusals(models):
         engine(weight_dtype="int8", prefill_chunk=8)
     with pytest.raises(ValueError, match="prefill_chunk"):
         engine(kv_dtype="int8", prefill_chunk=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # quantized serving with a mesh is refused before the mesh is read,
+    # as in the JAX engine
+    with pytest.raises(ValueError, match="quantized serving"):
         engine(weight_dtype="int8", mesh=object())
     assert engine(weight_dtype="int8", overlap=True).overlap
     op = OpDef(OpCode.SERVING_DECODE_Q, (), (),

@@ -212,9 +212,11 @@ def test_on_token_streams_every_token_in_order():
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("overlap", True)])
 def test_unported_options_raise(option, value):
-    """``mesh=`` is refused, naming the ROADMAP slice that brings it.
-    ``overlap=`` is ported: it constructs alone, and with ``mesh=`` the
-    mesh refusal still stands."""
+    """Both options are ported: ``mesh=`` takes a serving mesh of this
+    process's ranks (``launch.mesh``; ``tests/test_torch_sharded_serving.py``
+    serves on one), and anything else is refused with ``TypeError``.
+    ``overlap=`` constructs alone, and with a bogus ``mesh=`` the mesh
+    refusal still stands."""
     cfg = get_config("yi-6b", reduced=True)
     bundle = get_model(cfg)
     model = bundle.init(torch.Generator().manual_seed(0))
@@ -222,7 +224,7 @@ def test_unported_options_raise(option, value):
     if option == "overlap":
         assert ServingEngine(bundle, model, device="cpu", **kw).overlap
         kw["mesh"] = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_serving_mesh"):
         ServingEngine(bundle, model, device="cpu", **kw)
 
 
