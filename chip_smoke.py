@@ -6,8 +6,8 @@ recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
 serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper,
 the overlapped decode loop, the multi-tenant host, the replica router,
 the streaming server, the profiler, the calibration cost model,
-training and mesh-sharded serving — with every CUDA kernel of those
-paths held against its plain PyTorch version.
+training, mesh-sharded serving and mesh-sharded training — with every
+CUDA kernel of those paths held against its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -134,7 +134,7 @@ Phases — any failure raises and the script exits non-zero:
      paged engine: every request finishes, and the longest prompt's K/V
      rows after chunked prefill agree with one-shot prefill's at layer 0
      within one bfloat16 ulp of each row's largest entry.
-  10. the quantized serving main path: Yi-6B at full width with 16 of its
+  10. the quantized serving main path: Yi-6B at full width with 8 of its
      32 layers (``QUANT_LAYERS``), quantized on the card by the engine,
      and the phase-7 requests, counts set to 0 just before each run,
      through (a) ``weight_dtype="int8",
@@ -203,7 +203,7 @@ Phases — any failure raises and the script exits non-zero:
      waves' int8 FC ops.  Then, untraced, the per-request us of a wave at each
      occupancy against a request alone.
   15. MoE serving, counts set to 0 just before each run:
-     DeepSeek-MoE-16B at full width with 14 of its 28 layers
+     DeepSeek-MoE-16B at full width with 10 of its 28 layers
      (``MOE_LAYERS``) in bfloat16, seeded on the card, 5 requests of
      16-512 tokens, 16 new:
      (a) contiguous (K3 28 x the decode steps), replays bit-equal to an
@@ -227,18 +227,21 @@ Phases — any failure raises and the script exits non-zero:
      equal the CPU's.  Then Qwen3-MoE-30B-A3B at full width with 4 of
      its 48 layers: contiguous and bucketed on K3 (4 x a step),
      compared as (a) and (b).
-  16. PaliGemma-3B at full width in bfloat16 with seeded patch
+  16. PaliGemma-3B at full width, 9 of its 18 layers (``VLM_LAYERS``),
+     in bfloat16 with seeded patch
      embeddings: bucketed, ``prefill_chunk=128``, paged and int8 KV; no
      kernel launched on any run (vlm keeps reference attention, as in
      the JAX package); paged emits the bucketed tokens; chunked prefill
      against one-shot, K/V at layer 0 within one bf16 ulp of each row's
      max; int8 KV against bf16, teacher-forced logits within 0.25 of the
      largest |logit|, its tokens counted.
-  17. Whisper-large-v3 at full width in bfloat16 with seeded frames:
+  17. Whisper-large-v3 at full width, 16 of its 32 encoder and 32
+     decoder layers (``AUDIO_LAYERS``), in bfloat16 with seeded frames:
      exact, replays bit-equal to eager, and checkpointed (an EDF
      displacement, the checkpoint carrying the cross K/V) with the
      uninterrupted tokens; no kernel launched.
-  18. Mamba2-780m and Zamba2-1.2B at full width, int8 and int4 weights:
+  18. Mamba2-780m and Zamba2-1.2B at full width and phase 12's depth
+     (``RECURRENT_LAYERS``), int8 and int4 weights:
      K8 once per Mamba layer per prefill and nothing else; a float engine
      on the dequantized weights emits the same tokens.
   19. Yi-6B (phase 7's weights, drawn again from its seed) with
@@ -333,24 +336,52 @@ Phases — any failure raises and the script exits non-zero:
      machine shows two cards, else gloo with both on the one card,
      eager (gloo stages CUDA tensors through the host, which a graph
      cannot record); the backend and card count printed.  Float32:
-     Yi-6B full width and depth contiguous (K3) and paged (K4) in
-     ``heads``/``kv_heads`` mode, Mamba2-780m one-shot and
-     ``prefill_chunk=128`` on 24 of its 48 SSD heads a rank (K8),
-     PaliGemma-3B in ``heads``/``sequence`` mode (its one KV head's rows
-     halved; reference attention, its head dim of 256 above K3's), and
-     DeepSeek-MoE-16B with 4 of its 28 layers (32 experts a rank): each
+     full widths (``MESH_MODELS``): Yi-6B at full depth contiguous (K3)
+     and paged (K4) in ``heads``/``kv_heads`` mode, and, cut in depth
+     for time, Mamba2-780m with 24 of its 48 layers
+     one-shot and ``prefill_chunk=128`` on 24 of its 48 SSD heads a rank
+     (K8), PaliGemma-3B with 9 of its 18 layers in ``heads``/``sequence``
+     mode (its one KV head's rows halved; reference attention, its head
+     dim of 256 above K3's), and DeepSeek-MoE-16B with 4 of its 28
+     layers (32 experts a rank): each
      rank's greedy tokens, through a forced evict and restore, equal the
      same model's single-device engine's in this process; each rank's
      decode-step median, collective time in a trace, peak memory and
      resident weight and KV bytes against the single device's.
-  Each of phases 15-26 logs its seconds and its peak device memory
+  27. mesh-sharded training (``mesh_training``), with the earlier
+     phases' models freed: (a) a world of two ranks, this process rank 0
+     and a ``chip_smoke.py --mesh-rank 1 ... --mesh-task parity`` process
+     rank 1 (NCCL a card a rank where two cards show, else gloo with
+     both on the one card, eager; the backend and card count printed):
+     Yi-6B at full width with 2 layers and DeepSeek-MoE-16B at full width
+     with its dense block and one MoE layer (capacity factor 11,
+     dropless on the expert-parallel path), float32, on ``(data=2,
+     model=1)`` (FSDP) and ``(1, 2)`` (tensor and sequence parallel; the
+     MoE layer through ``moe_block_ep``), 3 steps of 2 x 512 tokens from
+     the seed-0 weights: every rank runs the same model's single-device
+     loss and gradients on its card and sets its slices to that model's
+     before each sharded step; every rank's loss within 1e-5 relative
+     and its slice of each leaf of the gradient the step applied (read
+     back from the first moment) within 1e-4 of the leaf's largest
+     entry; no kernel launched; Yi-6B's world checkpoint on ``(2, 1)``,
+     written whole by rank 0, restored on every card bit-equal to the
+     state's slices.  (b) Where two cards show: phase 25's
+     configuration (Yi-6B 8 layers bf16, 4 x 2048 tokens, phase 25's
+     schedule and clip) on ``(2, 1)`` and ``(1, 2)``, one process a card
+     over NCCL, captured, 10 steps, the last 2 traced: the median step a
+     rank, tokens/s, NCCL device ms a step, peak memory a rank, the loss
+     falling (logged beside phase 25's first ten).  (c) Where four cards
+     show: Yi-6B at full depth (which one card cannot hold for
+     training), FSDP over ``(4, 1)``, 5 steps: finite, falling loss, the
+     median step and the peak a rank.
+  Each of phases 15-27 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
   K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
   15's new shapes: K3, K4 and K7 at DeepSeek's (4, 16, 16, 2048, 128)
   bf16 (group 1), K5 and K6 at its first block's MLP, (4, 2048) x
   (2048, 10944) and (4, 10944) x (10944, 2048).
-  A JSON line of phases 15-26's summaries, one of the models, one
+  A JSON line of phases 15-27's summaries, one of the models, one
   listing the kernels (K1-K8; K1's and K2's launches summed over phases
   3-4, 13 and 14, with each path's count; K3-K8 with their launches on
   phases 15, 18, 19-24's, 25 (d)'s and 26's runs; K3's and K4's rows
@@ -1874,9 +1905,9 @@ def median_us(fn, n: int = TIMED_WAVES) -> float:
 
 LM_ARCH = "yi-6b"
 SERVE_SLOTS, SERVE_CACHE = 4, 2048
-# phase 10's Yi-6B: full width, 16 of its 32 layers (phase 26 needs the
-# script's time; phases 7 and 9 serve all 32)
-QUANT_LAYERS = 16
+# phase 10's Yi-6B: full width, 8 of its 32 layers (phases 26 and 27
+# need the script's time; phases 7 and 9 serve all 32)
+QUANT_LAYERS = 8
 N_SERVE, SERVE_NEW = 8, 32
 PAGED_BLOCK, CHUNK = 16, 128
 TF_STEPS = 16
@@ -2783,9 +2814,9 @@ def quantized_serving(torch, np, dev):
 # ---------------------------------------------------------------------------
 
 SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-1.2b"
-# phase 12's depth: half of Mamba2-780m's 48 layers, 18 of Zamba2-1.2B's
-# 38 (the shared block after every 6th, 3 times); phase 26 needs the
-# script's time, and phase 18 serves both at full depth
+# phases 12 and 18's depth: half of Mamba2-780m's 48 layers, 18 of
+# Zamba2-1.2B's 38 (the shared block after every 6th, 3 times); phases
+# 26 and 27 need the script's time
 RECURRENT_LAYERS = {SSM_ARCH: 24, HYBRID_ARCH: 18}
 # float32 Mamba2-780m, K8 against the plain scan: the two sum in other
 # orders; the stated bound is relative to the largest entry of each
@@ -3118,10 +3149,14 @@ MOE_ARCH, MOE2_ARCH = "deepseek-moe-16b", "qwen3-moe-30b-a3b"
 # heads and 128 experts per layer are what this checks; 48 layers would
 # add 57 GB of bf16 weights beside DeepSeek's)
 MOE2_LAYERS = 4
-# phase 15's DeepSeek-MoE-16B: the dense first block and 13 MoE layers of
-# its 28 (phase 26 needs the script's time)
-MOE_LAYERS = 14
+# phase 15's DeepSeek-MoE-16B: the dense first block and 9 MoE layers of
+# its 28 (phases 26 and 27 need the script's time)
+MOE_LAYERS = 10
 VLM_ARCH, AUDIO_ARCH = "paligemma-3b", "whisper-large-v3"
+# phases 16 and 17's depth: half of PaliGemma-3B's 18 layers and of
+# Whisper-large-v3's 32 encoder and 32 decoder layers (phases 26 and 27
+# need the script's time)
+VLM_LAYERS, AUDIO_LAYERS = 9, 16
 # requests a run: more than the 4 slots, so admission waits and a
 # fifth request is there for the preemption check; new tokens each
 N_FAMILY, FAMILY_NEW = 5, 16
@@ -3653,7 +3688,8 @@ def vlm_serving(torch, np, dev):
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    bundle = get_model(get_config(VLM_ARCH))
+    bundle = get_model(dataclasses.replace(get_config(VLM_ARCH),
+                                           n_layers=VLM_LAYERS))
     model = bundle.init(torch.Generator(dev).manual_seed(2))
     engine = family_engine(dev, bundle, model)
     vocab = bundle.cfg.vocab
@@ -3709,7 +3745,9 @@ def audio_serving(torch, np, dev):
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    bundle = get_model(get_config(AUDIO_ARCH))
+    bundle = get_model(dataclasses.replace(
+        get_config(AUDIO_ARCH), n_layers=AUDIO_LAYERS,
+        n_encoder_layers=AUDIO_LAYERS))
     model = bundle.init(torch.Generator(dev).manual_seed(3))
     engine = family_engine(dev, bundle, model)
     prompts = family_workload(np, bundle.cfg.vocab, 35, 4, 64)
@@ -3759,7 +3797,8 @@ def quantized_recurrent_serving(torch, np, dev):
     for arch in (SSM_ARCH, HYBRID_ARCH):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        bundle = get_model(get_config(arch))
+        bundle = get_model(dataclasses.replace(
+            get_config(arch), n_layers=RECURRENT_LAYERS[arch]))
         model = bundle.init(torch.Generator(dev).manual_seed(4))
         engine = family_engine(dev, bundle, model)
         layers, vocab = bundle.cfg.n_layers, bundle.cfg.vocab
@@ -5351,10 +5390,10 @@ MESH_MODELS = [
     (LM_ARCH, None, 0, [("contiguous", {}, "decode_attention"),
                         ("paged", {"kv_block": PAGED_BLOCK},
                          "paged_decode_attention")], "lm"),
-    (SSM_ARCH, None, 0, [("one-shot", {}, "ssd_scan"),
-                         (f"prefill_chunk={CHUNK}", {"prefill_chunk": CHUNK},
-                          "ssd_scan")], "ssm"),
-    (VLM_ARCH, None, 2, [("bucketed", {}, None)], "vlm"),
+    (SSM_ARCH, 24, 0, [("one-shot", {}, "ssd_scan"),
+                       (f"prefill_chunk={CHUNK}", {"prefill_chunk": CHUNK},
+                        "ssd_scan")], "ssm"),
+    (VLM_ARCH, 9, 2, [("bucketed", {}, None)], "vlm"),
     (MOE_ARCH, 4, 0, [("contiguous", {"prefill_buckets": False},
                        "decode_attention")], "moe"),
 ]
@@ -5460,7 +5499,9 @@ def mesh_collectives(torch, np, eng, n_steps: int = 4):
 def mesh_rank_main(argv) -> int:
     """One rank of phase 26 (b), started by ``mesh_two_ranks`` as
     ``chip_smoke.py --mesh-rank R --mesh-world N --mesh-port P
-    --mesh-backend nccl|gloo --mesh-out DIR``: joins the world, builds
+    --mesh-backend nccl|gloo --mesh-out DIR`` (or of phase 27 with
+    ``--mesh-task parity|perf|full``, ``train_mesh_rank``): joins the
+    world, builds
     this rank's shards of each model (one rank at a time on a shared
     card: each builds the whole model, shards it and frees it), serves
     each run with a forced evict and restore, and writes its tokens,
@@ -5478,10 +5519,20 @@ def mesh_rank_main(argv) -> int:
 
     dev = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(dev)
+    task = opts.get("--mesh-task", "serve")
     dist.init_process_group(
         backend, init_method=f"tcp://localhost:{opts['--mesh-port']}",
         rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_S))
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_S
+                                   if task == "serve"
+                                   else TRAIN_MESH_COLLECTIVE_S))
+    if task != "serve":
+        from repro_torch.core.executor import setup_device
+
+        setup_device(dev)
+        train_mesh_rank(torch, np, dev, rank, task, opts["--mesh-out"])
+        dist.destroy_process_group()
+        return 0
     from repro_torch.core import disable_capture
     from repro_torch.distributed.sharding import shard_params
     from repro_torch.kernels import _build
@@ -5596,16 +5647,14 @@ def mesh_one_rank(torch, np, dev, served, want_prefill):
 
 
 def mesh_two_ranks(torch, np, dev):
-    """Phase 26 (b): each of ``MESH_MODELS`` at full width (DeepSeek
-    4 layers), float32, on a world of ``MESH_WORLD`` ranks, one process
+    """Phase 26 (b): each of ``MESH_MODELS`` at full width and its
+    depth there, float32, on a world of ``MESH_WORLD`` ranks, one process
     a rank (``mesh_rank_main``): NCCL, a card a rank, where the machine
     shows that many cards; else gloo with every rank on the one card,
     eager.  Each run's tokens, through a forced evict and restore, equal
     the same model's single-device engine's here, each rank launched its
     run's kernel, and each rank's resident weight and KV bytes are logged
     against the single device's.  Returns (rows, launches by run)."""
-    import socket
-
     from repro_torch.serving import ServingEngine
 
     cards = torch.cuda.device_count()
@@ -5634,27 +5683,9 @@ def mesh_two_ranks(torch, np, dev):
     out.mkdir(parents=True, exist_ok=True)
     for old in out.glob("rank*.json"):
         old.unlink()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
-         "--mesh-world", str(MESH_WORLD), "--mesh-port", str(port),
-         "--mesh-backend", backend, "--mesh-out", str(out)])
-        for r in range(MESH_WORLD)]
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, MESH_RANKS_S
-                               - (time.perf_counter() - t0)))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        raise AssertionError(f"(b) ranks exited "
-                             f"{[p.returncode for p in procs]}")
+    mesh_wait(mesh_launch(0, MESH_WORLD, free_port(), backend, out, "serve"),
+              t0, MESH_RANKS_S)
     ranks = [json.loads((out / f"rank{r}.json").read_text())
              for r in range(MESH_WORLD)]
     log(f"  (b) ranks done in {time.perf_counter() - t0:.1f} s")
@@ -5725,6 +5756,468 @@ def mesh_serving(torch, np, dev, served, want_prefill):
     log(f"  phase 26: {info['seconds']:.1f} s, peak device memory of this "
         f"process {info['peak_memory_bytes'] / 2**30:.2f} GiB")
     return [row_a, *rows_b], info, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 27: mesh-sharded training
+# ---------------------------------------------------------------------------
+
+# (a) parity, float32, two ranks: (arch, config fields replaced).  Yi-6B
+# at full width with 2 layers; DeepSeek-MoE-16B at full width with its
+# dense first block and one MoE layer, its capacity factor dropless on
+# the expert-parallel path (a rank's capacity int(t·6·11/64) >= t)
+TRAIN_MESH_WORLD = 2
+TRAIN_MESH_PARITY = [(LM_ARCH, {"n_layers": 2}),
+                     (MOE_ARCH, {"n_layers": 2, "capacity_factor": 11.0})]
+TRAIN_MESH_SHAPES = [(2, 1), (1, 2)]
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 2, 512, 3
+# a small constant lr: the ranks run free from the same seeded weights,
+# and Adam's first steps move an element whose gradient is within
+# rounding of 0 by up to 2 lr, which must not move the next gradients
+TRAIN_MESH_LR = 1e-5
+TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_GRAD_TOL = 1e-5, 1e-4
+# (b) phase 25's configuration on two cards; (c) Yi-6B at full depth,
+# FSDP over four
+TRAIN_MESH_PERF_STEPS, TRAIN_MESH_FULL_STEPS = 10, 5
+TRAIN_MESH_TRACED = 2
+# a rank's whole run, and a collective's wait
+TRAIN_MESH_RANKS_S, TRAIN_MESH_COLLECTIVE_S = 900, 300
+
+
+def mesh_launch(first, world, port, backend, out, task):
+    """Ranks ``first`` .. ``world - 1`` of a world of ``world`` running
+    ``task`` (phase 26's ``serve`` or one of phase 27's), one
+    ``chip_smoke.py --mesh-rank R ...`` process each."""
+    return [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         "--mesh-world", str(world), "--mesh-port", str(port),
+         "--mesh-backend", backend, "--mesh-out", str(out),
+         "--mesh-task", task]) for r in range(first, world)]
+
+
+def mesh_wait(procs, t0, limit):
+    """Wait for ``procs`` (killed past ``limit`` seconds from ``t0``);
+    raises unless every one exited 0."""
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, limit - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"ranks exited {[p.returncode for p in procs]}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_parity_rank(torch, np, dev, rank):
+    """Phase 27 (a) on this rank of a world of ``TRAIN_MESH_WORLD``: each
+    of ``TRAIN_MESH_PARITY`` on each of ``TRAIN_MESH_SHAPES``, from the
+    seed-0 weights, ``TRAIN_MESH_STEPS`` sharded steps, each held
+    against the same model's single-device loss and gradients, which
+    every rank (rank 0 is the launching process) runs on its own card
+    on the whole batch, clipped as the step clips them.  Before each
+    step the sharded parameters are set to this rank's slices of the
+    single-device ones (which follow plain SGD steps of the clipped
+    gradient), so every step starts from the same parameters: routing
+    flips on a rounding-level drift would move an MoE's gradients.  Each
+    rank holds its loss, and its slice of the gradient the sharded step
+    applied, read back from its first moment (mu_t = b1 mu_t-1 + (1 -
+    b1) g_t), against the single device's.  On the first mesh the
+    world's checkpoint, written whole by rank 0, is restored on every
+    rank's card and its slices held bit-equal to the rank's state.
+    Returns rank 0's rows (None elsewhere)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import capture_count
+    from repro_torch.data import make_batches
+    from repro_torch.distributed.sharding import shard_local, shard_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.training import (clip_by_global_norm, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.trainer import loss_and_grads
+
+    b1 = 0.9                              # adamw_update's default
+    rows = []
+    for arch, fields in TRAIN_MESH_PARITY:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  **fields)
+        bundle = get_model(cfg)
+        batches = make_batches(cfg, TRAIN_MESH_BATCH, TRAIN_MESH_SEQ,
+                               TRAIN_MESH_STEPS, seed=0)
+        for shape in TRAIN_MESH_SHAPES:
+            mesh = make_mesh(shape)
+            kw = dict(remat=True, data_shards=shape[0])
+            ref = bundle.init(torch.Generator(dev).manual_seed(0))
+            state = init_train_state(shard_params(ref, mesh, fsdp=True))
+            step = make_train_step(bundle.loss, lr=TRAIN_MESH_LR, mesh=mesh,
+                                   **kw)
+            specs = state.params.specs
+            row = {"model": f"{arch} {cfg.n_layers} layers float32 "
+                            f"training, mesh {shape}",
+                   "backend": mesh.backend, "losses": [], "loss_rel": [],
+                   "grad": [], "grad_norm_rel": [], "step_ms": [],
+                   "ref_grad_ms": []}
+            before = dict(_build.launches)
+            for batch in batches:
+                whole = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                l0, _, g0 = loss_and_grads(bundle.loss, ref, whole, **kw)
+                g0, n0 = clip_by_global_norm(g0, 1.0)
+                torch.cuda.synchronize()
+                row["ref_grad_ms"].append((time.perf_counter() - t) * 1e3)
+                with torch.no_grad():
+                    for n, p in state.params.named_parameters():
+                        p.copy_(shard_local(ref.get_parameter(n), specs[n],
+                                            mesh))
+                mu_prev = {n: t.clone() for n, t in state.opt.mu.items()}
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, m = step(state, batch)
+                torch.cuda.synchronize()
+                row["step_ms"].append((time.perf_counter() - t) * 1e3)
+                worst = 0.0
+                for n, mu in state.opt.mu.items():
+                    applied = (mu - b1 * mu_prev[n]) / (1 - b1)
+                    want = shard_local(g0[n], specs[n], mesh)
+                    top = float(g0[n].abs().max()) or 1.0
+                    worst = max(worst, float((applied - want).abs().max())
+                                / top)
+                del mu_prev
+                mine = torch.tensor(
+                    [float(m["loss"]), abs(float(m["loss"]) - float(l0))
+                     / abs(float(l0)), abs(float(m["grad_norm"]) - float(n0))
+                     / float(n0), worst], device=dev)
+                every = [torch.zeros(4, device=dev)
+                         for _ in range(mesh.size)]
+                dist.all_gather(every, mine)
+                every = [[float(x) for x in e] for e in every]
+                row["losses"].append([e[0] for e in every])
+                row["loss_rel"].append(max(e[1] for e in every))
+                row["grad_norm_rel"].append(max(e[2] for e in every))
+                row["grad"].append(max(e[3] for e in every))
+                with torch.no_grad():
+                    for n, p in ref.named_parameters():
+                        p.sub_(TRAIN_MESH_LR * g0[n])
+                del g0
+            if dict(_build.launches) != before:
+                raise AssertionError(f"(a) the sharded step launched "
+                                     f"kernels: {_build.launches}")
+            row["captures"] = capture_count(step.program)
+            row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+            bad = [(i, x) for i, x in enumerate(row["loss_rel"])
+                   if not x <= TRAIN_MESH_LOSS_RTOL]
+            bad += [(i, x) for i, x in enumerate(row["grad"])
+                    if not x <= TRAIN_MESH_GRAD_TOL]
+            if bad:
+                raise AssertionError(f"(a) {row['model']}: steps off one "
+                                     f"device's: {bad}")
+            if (arch, shape) == (TRAIN_MESH_PARITY[0][0],
+                                 TRAIN_MESH_SHAPES[0]):
+                row["checkpoint"] = world_checkpoint(
+                    torch, dev, rank, state, save_checkpoint,
+                    restore_checkpoint)
+            if rank == 0:
+                rows.append(row)
+                log(f"  (a) {row['model']} over {mesh.backend}: rank "
+                    f"losses " + "; ".join(
+                        "/".join(f"{x:.6f}" for x in ls)
+                        for ls in row["losses"])
+                    + f" (worst {max(row['loss_rel']):.2e} rel of one "
+                    f"device's); each step's applied gradient within "
+                    + ", ".join(f"{x:.2e}" for x in row["grad"])
+                    + " of each leaf's largest entry, its norm within "
+                    + ", ".join(f"{x:.1e}" for x in row["grad_norm_rel"])
+                    + " rel; sharded step ms "
+                    + ", ".join(f"{x:.1f}" for x in row["step_ms"])
+                    + " (one device's loss and gradients "
+                    + ", ".join(f"{x:.1f}" for x in row["ref_grad_ms"])
+                    + f"); captures {row['captures']}"
+                    + (f"; the world's checkpoint ({row['checkpoint']}) "
+                       f"restored on one card bit-equal"
+                       if row.get("checkpoint") else ""))
+            del state, ref, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows if rank == 0 else None
+
+
+def world_checkpoint(torch, dev, rank, state, save_checkpoint,
+                     restore_checkpoint):
+    """(a)'s checkpoint: the world's state saved under ``build/`` (rank 0
+    writes it whole), restored on every rank's card (one device's whole
+    state) and each leaf's slice held bit-equal to the rank's; returns
+    the leaves, bytes and seconds."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_local
+
+    ckpt = ROOT / "build" / "phase27_ckpt"
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dist.barrier()
+    t = time.perf_counter()
+    out = save_checkpoint(str(ckpt), TRAIN_MESH_STEPS, state)
+    save_s = time.perf_counter() - t
+    like = whole_like(state)
+    t = time.perf_counter()
+    back = restore_checkpoint(str(ckpt), TRAIN_MESH_STEPS, like, device=dev)
+    restore_s = time.perf_counter() - t
+    mesh, specs = state.params.mesh, state.params.specs
+    pairs = [(n, p, shard_local(back.params.get_parameter(n), specs[n], mesh))
+             for n, p in state.params.named_parameters()]
+    pairs += [(f"{mom} {n}", t_, shard_local(getattr(back.opt, mom)[n],
+                                             specs[n], mesh))
+              for mom in ("mu", "nu")
+              for n, t_ in getattr(state.opt, mom).items()]
+    pairs.append(("step", state.opt.step, back.opt.step))
+    for n, a, b in pairs:
+        if a.dtype != b.dtype or not torch.equal(bits(torch, a),
+                                                 bits(torch, b)):
+            raise AssertionError(f"(a) rank {rank}: restored {n} is not "
+                                 f"bit-equal")
+    nbytes = sum(f.stat().st_size for f in Path(out).iterdir())
+    del back
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"leaves": len(pairs), "bytes": nbytes, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def whole_like(state):
+    """A TrainState of ``state``'s whole shapes on the meta device, for
+    ``restore_checkpoint``'s ``like`` on one device."""
+    from repro_torch.models.registry import empty_model
+    from repro_torch.training import TrainState
+    from repro_torch.training.optimizer import AdamWState
+
+    model = empty_model(state.params.cfg, "meta")
+    mom = {n: p.detach().float() for n, p in model.named_parameters()}
+    return TrainState(model, AdamWState(step=state.opt.step, mu=mom,
+                                        nu=mom))
+
+
+def train_perf_rank(torch, np, dev, rank, layers, shapes, steps):
+    """Phase 27 (b)/(c) on this rank: Yi-6B at full width with ``layers``
+    layers, bfloat16, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens a step on
+    each mesh of ``shapes``, ``steps`` captured steps over NCCL with
+    phase 25's schedule and clip, the last ``TRAIN_MESH_TRACED`` traced
+    by torch.profiler; returns this rank's rows: losses, step ms, peak
+    memory, NCCL device ms a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import capture_count
+    from repro_torch.data import PackedLMDataset
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.training import (cosine_schedule, init_train_state,
+                                      make_train_step)
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=layers)
+    bundle = get_model(cfg)
+    ds = PackedLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [ds.next_batch() for _ in range(steps)]
+    rows = []
+    for shape in shapes:
+        mesh = make_mesh(shape)
+        torch.cuda.reset_peak_memory_stats(dev)
+        full = bundle.init(torch.Generator(dev).manual_seed(0))
+        n_params = sum(p.numel() for p in full.parameters())
+        state = init_train_state(shard_params(full, mesh, fsdp=True))
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # phase 25's schedule, so (b)'s steps are phase 25's first ten
+        lr = cosine_schedule(TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_STEPS,
+                             TRAIN_FLOOR)
+        step = make_train_step(bundle.loss, lr=lr,
+                               max_grad_norm=TRAIN_MAX_GRAD_NORM, remat=True,
+                               data_shards=shape[0], mesh=mesh)
+        losses, ms = [], []
+        before = dict(_build.launches)
+
+        def run(batch):
+            t = time.perf_counter()
+            _, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+
+        for batch in batches[:-TRAIN_MESH_TRACED]:
+            run(batch)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for batch in batches[-TRAIN_MESH_TRACED:]:
+                run(batch)
+        nccl_records = [e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and "nccl" in e.key.lower()]
+        nccl = sum(e.self_device_time_total for e in nccl_records)
+        device = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        if dict(_build.launches) != before:
+            raise AssertionError("the sharded step launched kernels")
+        median = statistics.median(ms[1:-TRAIN_MESH_TRACED])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        rows.append({
+            "model": f"{cfg.arch_id} {layers} of 32 layers bf16 training, "
+                     f"mesh {shape} over {mesh.backend}",
+            "rank": rank, "parameters": n_params, "losses": losses,
+            "step_ms": ms, "median_step_ms": median,
+            "tokens_per_s": tokens / median * 1e3,
+            "nccl_device_ms_per_step": nccl / 1e3 / TRAIN_MESH_TRACED,
+            "nccl_kernels_per_step": sum(e.count for e in nccl_records)
+            / TRAIN_MESH_TRACED,
+            "device_ms_per_step": device / 1e3 / TRAIN_MESH_TRACED,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "captures": capture_count(step.program),
+            "capture_s": step.program.capture_s})
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_mesh_rank(torch, np, dev, rank, task, out):
+    """A ``--mesh-task`` rank of phase 27: ``parity`` ((a)'s rank 1),
+    ``perf`` ((b)) or ``full`` ((c)); writes its rows to
+    ``out/rank<R>.json``."""
+    if task == "parity":
+        rows = train_parity_rank(torch, np, dev, rank)
+    elif task == "perf":
+        rows = train_perf_rank(torch, np, dev, rank, TRAIN_LAYERS,
+                               TRAIN_MESH_SHAPES, TRAIN_MESH_PERF_STEPS)
+    else:
+        rows = train_perf_rank(torch, np, dev, rank, 32, [(4, 1)],
+                               TRAIN_MESH_FULL_STEPS)
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(rows))
+
+
+def train_mesh_world(torch, np, n, backend, task):
+    """(b)/(c): ``n`` ranks of ``task``, one process a card over
+    ``backend``; returns every rank's rows."""
+    out = ROOT / "build" / f"mesh27_{task}"
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("rank*.json"):
+        old.unlink()
+    t0 = time.perf_counter()
+    mesh_wait(mesh_launch(0, n, free_port(), backend, out, task), t0,
+              TRAIN_MESH_RANKS_S)
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def mesh_training(torch, np, dev, phase25_losses=None):
+    """Phase 27: (a) parity on a world of two ranks — this process is
+    rank 0, a ``--mesh-rank 1`` process rank 1, each running the
+    single-device loss and gradients beside its share: NCCL a card a rank where two cards show, else gloo
+    with both on the one card, eager; (b) with two cards, phase 25's
+    configuration captured over NCCL on (2, 1) and (1, 2), its losses
+    logged beside ``phase25_losses``' first (same weights, data and
+    schedule); (c) with four, Yi-6B at full depth, FSDP over four.
+    Returns (rows, the phase's summary)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.executor import setup_device
+
+    t_phase = time.perf_counter()
+    setup_device(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= TRAIN_MESH_WORLD else "gloo"
+    log(f"  (a) {TRAIN_MESH_WORLD} ranks over {backend}; "
+        f"torch.cuda.device_count() = {cards}")
+    out = ROOT / "build" / "mesh27_parity"
+    out.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = mesh_launch(1, TRAIN_MESH_WORLD, port, backend, out, "parity")
+    try:
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{port}", rank=0,
+            world_size=TRAIN_MESH_WORLD,
+            timeout=datetime.timedelta(seconds=TRAIN_MESH_COLLECTIVE_S))
+        try:
+            rows = train_parity_rank(torch, np, dev, 0)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        mesh_wait(procs, t0, TRAIN_MESH_RANKS_S)
+    for row in rows:
+        row["cards"] = cards
+    if cards >= 2:
+        ranks = train_mesh_world(torch, np, 2, "nccl", "perf")
+        for i, shape in enumerate(TRAIN_MESH_SHAPES):
+            per = [r[i] for r in ranks]
+            losses = per[0]["losses"]
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"(b) {shape}: losses {losses}")
+            rows.append({"model": per[0]["model"], "cards": cards,
+                         "ranks": per})
+            log(f"  (b) {per[0]['model']}: median step "
+                + ", ".join(f"{r['median_step_ms']:.2f}" for r in per)
+                + f" ms a rank (phase 25, one card: 809.80), "
+                + ", ".join(f"{r['tokens_per_s']:,.0f}" for r in per)
+                + " tokens/s; NCCL device "
+                + ", ".join(f"{r['nccl_device_ms_per_step']:.2f}"
+                            for r in per)
+                + " ms a step ("
+                + ", ".join(f"{r['nccl_kernels_per_step']:.0f}" for r in per)
+                + " NCCL kernels, the recomputed layers' again); peak "
+                + ", ".join(f"{r['peak_memory_bytes'] / 1e9:.2f}"
+                            for r in per)
+                + " GB a rank (phase 25: 31.6); loss "
+                + " ".join(f"{x:.3f}" for x in losses)
+                + (" (phase 25's first steps: " + " ".join(
+                    f"{x:.3f}" for x in phase25_losses[:len(losses)]) + ")"
+                   if phase25_losses else "")
+                + f"; captures {per[0]['captures']}")
+    if cards >= 4:
+        ranks = train_mesh_world(torch, np, 4, "nccl", "full")
+        per = [r[0] for r in ranks]
+        losses = per[0]["losses"]
+        if not (all(np.isfinite(losses)) and min(losses[1:]) < losses[0]):
+            raise AssertionError(f"(c) losses {losses}")
+        rows.append({"model": per[0]["model"], "cards": cards, "ranks": per})
+        log(f"  (c) {per[0]['model']} ({per[0]['parameters']:,} "
+            f"parameters): loss " + " ".join(f"{x:.3f}" for x in losses)
+            + "; median step " + ", ".join(
+                f"{r['median_step_ms']:.1f}" for r in per)
+            + " ms a rank; peak " + ", ".join(
+                f"{r['peak_memory_bytes'] / 1e9:.2f}" for r in per)
+            + " GB a rank")
+    info = {"phase": "phase 27 mesh-sharded training",
+            "seconds": time.perf_counter() - t_phase, "backend": backend,
+            "cards": cards,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    log(f"  phase 27: {info['seconds']:.1f} s, peak device memory of this "
+        f"process {info['peak_memory_bytes'] / 2**30:.2f} GiB")
+    return rows, info
 
 
 def serving_layers(torch, np, dev, served):
@@ -6067,6 +6560,13 @@ def main() -> int:
     summaries.append(mesh_summary)
     for kname, per_run in mesh_runs.items():
         layer_runs.setdefault(kname, {}).update(per_run)
+    phase("phase 27: mesh-sharded training — (a) Yi-6B and DeepSeek-MoE-16B "
+          "on two ranks against one device, (b) phase 25's model on two "
+          "cards, (c) Yi-6B at full depth on four (where the cards show)")
+    mt_rows, mt_summary = mesh_training(torch, np, dev,
+                                        train_rows[0]["losses"])
+    model_rows.extend(mt_rows)
+    summaries.append(mt_summary)
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape

@@ -11,11 +11,17 @@ parameter module's keys have no ``.params/``), and per-layer parameters
 are stacked on a leading L dim as the JAX tree stacks them
 (``models.lm.jax_layout``), so a checkpoint written by either package
 restores in the other.  bfloat16 is stored as ``uint16`` with dtype
-``"bfloat16"``.  Restore is by key, so leaf order does not matter and
-``strict=False`` tolerates missing leaves; it builds a new state on an
-explicit device.  Shards are written and read by ``_IO_THREADS``
-threads (numpy's zip writes and reads release the interpreter lock), at
-most that many shards in flight.
+``"bfloat16"``.  A sharded tree (a state of ``shard_params``' slices on
+a mesh) is written whole, in the same layout, so it restores on one
+device: every rank gathers each leaf in turn and only rank 0 keeps it,
+while it is written.  A checkpoint restores onto a mesh like a sharded
+tree: each rank reads one leaf at a time and keeps its slices, so no
+rank holds more of the state than its share and a leaf.  Restore is by
+key, so leaf order does not matter and ``strict=False`` tolerates
+missing leaves; it builds a new state on an explicit device.  Leaves
+are written and read by ``_IO_THREADS`` threads (numpy's zip writes and
+reads release the interpreter lock), at most that many shards or
+leaves in flight.
 """
 
 from __future__ import annotations
@@ -24,10 +30,12 @@ import json
 import os
 import re
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Tuple, Union
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core.executor import resolve_device
@@ -40,6 +48,13 @@ _SHARD_BYTES = 1 << 30
 _IO_THREADS = 4
 
 Tree = Union[TrainState, nn.Module]
+# one leaf: its flat key, its tensors in layer order, whether the JAX leaf
+# stacks them, and each tensor's spec on the mesh (None: whole)
+Leaf = Tuple[str, List[torch.Tensor], bool, List[Optional[tuple]]]
+
+
+def _params(tree: Tree) -> nn.Module:
+    return tree.params if isinstance(tree, TrainState) else tree
 
 
 def _groups(tree: Tree) -> Iterator[Tuple[str, Dict[str, torch.Tensor]]]:
@@ -53,28 +68,36 @@ def _groups(tree: Tree) -> Iterator[Tuple[str, Dict[str, torch.Tensor]]]:
         yield "", dict(tree.named_parameters())
 
 
-def _leaves(tree: Tree) -> List[Tuple[str, List[torch.Tensor], bool]]:
-    """(flat key, tensors in layer order, stacked?) for every leaf, in
-    the JAX package's flatten order (the parameters, the step, mu, nu;
-    keys sorted)."""
-    out = []
+def _leaves(tree: Tree) -> List[Leaf]:
+    """Every leaf of ``tree`` in the JAX package's flatten order (the
+    parameters, the step, mu, nu; keys sorted); a moment lies as its
+    parameter, the step whole."""
+    specs = getattr(_params(tree), "specs", None) or {}
+    out: List[Leaf] = []
     for prefix, named in _groups(tree):
         layout = lm.jax_layout(named.items())
-        out += [(prefix + k, *layout[k]) for k in sorted(layout)]
+        lies = lm.jax_layout((n, specs.get(n)) for n in named)
+        out += [(prefix + k, *layout[k], lies[k][0]) for k in sorted(layout)]
         if prefix == ".params/":
-            out.append((".opt/.step", [tree.opt.step], False))
+            out.append((".opt/.step", [tree.opt.step], False, [None]))
     return out
 
 
-def _to_numpy(parts: List[torch.Tensor], stacked: bool
-              ) -> Tuple[np.ndarray, str]:
+def _host(parts: Iterable[Optional[torch.Tensor]], n: int, stacked: bool
+          ) -> Optional[Tuple[np.ndarray, str]]:
     """The leaf on the host, stacked on a leading L dim when ``stacked``:
-    each part copied once, into its slice."""
-    first = parts[0]
-    out = torch.empty(((len(parts),) if stacked else ()) + tuple(first.shape),
-                      dtype=first.dtype)
+    each of its ``n`` parts copied once, into its slice, as it comes
+    (None, on a rank that does not keep the leaf, for every part)."""
+    out = None
     for i, part in enumerate(parts):
+        if part is None:
+            continue
+        if out is None:
+            out = torch.empty(((n,) if stacked else ()) + tuple(part.shape),
+                              dtype=part.dtype)
         (out[i] if stacked else out).copy_(part.detach())
+    if out is None:
+        return None
     if out.dtype == torch.bfloat16:
         return out.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = out.numpy()
@@ -88,14 +111,57 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def gather_tree(tree: Tree, device="cpu") -> Tree:
+    """A sharded tree's whole leaves on ``device``, on every rank (a
+    collective over the mesh: every rank calls it)."""
+    from repro_torch.distributed.sharding import gather_params, unshard
+    params = _params(tree)
+    whole = gather_params(params, device)
+    if not isinstance(tree, TrainState):
+        return whole
+
+    def moments(m):
+        return {n: unshard(t, params.specs[n], params.mesh).to(device)
+                for n, t in m.items()}
+    return TrainState(whole, AdamWState(step=tree.opt.step.to(device),
+                                        mu=moments(tree.opt.mu),
+                                        nu=moments(tree.opt.nu)))
+
+
+def _bounded(pool: ThreadPoolExecutor, fn: Callable, items: List,
+             ahead: int) -> Iterator:
+    """``pool.map(fn, items)`` with at most ``ahead`` results read ahead
+    of the consumer."""
+    pending = []
+    for item in items:
+        if len(pending) >= ahead:
+            yield pending.pop(0).result()
+        pending.append(pool.submit(fn, item))
+    for f in pending:
+        yield f.result()
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Tree) -> str:
     """Write ``tree`` (a TrainState or a parameter module) to
-    ``<ckpt_dir>/<step>``; returns that directory."""
+    ``<ckpt_dir>/<step>``; returns that directory.  A sharded tree is
+    written whole by rank 0: every rank calls this and gathers each leaf
+    with the others, one part at a time, and only rank 0 keeps it until
+    its shard is written."""
+    from repro_torch.distributed.sharding import unshard
     out = os.path.join(ckpt_dir, str(step))
-    os.makedirs(out, exist_ok=True)
+    mesh = getattr(_params(tree), "mesh", None)
+    write = mesh is None or dist.get_rank() == 0
+
+    def whole(parts, specs):
+        for part, spec in zip(parts, specs):
+            if mesh is not None and spec is not None:
+                part = unshard(part, spec, mesh)
+            yield part if write else None
+
+    if write:
+        os.makedirs(out, exist_ok=True)
     manifest, shard, shard_bytes, shard_idx = {}, {}, 0, 0
     pending = []
-
     with ThreadPoolExecutor(_IO_THREADS) as pool:
         def flush():
             nonlocal shard, shard_bytes, shard_idx
@@ -108,8 +174,11 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Tree) -> str:
                 shard, shard_bytes = {}, 0
                 shard_idx += 1
 
-        for key, parts, stacked in _leaves(tree):
-            arr, dtype = _to_numpy(parts, stacked)
+        for key, parts, stacked, specs in _leaves(tree):
+            host = _host(whole(parts, specs), len(parts), stacked)
+            if host is None:
+                continue
+            arr, dtype = host
             safe = re.sub(r"[^A-Za-z0-9_]", "__", key)
             manifest[key] = {"shape": list(arr.shape), "dtype": dtype,
                              "file": f"shard_{shard_idx}.npz", "entry": safe}
@@ -120,8 +189,11 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Tree) -> str:
         flush()
         for f in pending:
             f.result()
-    with open(os.path.join(out, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
+    if write:
+        with open(os.path.join(out, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+    if mesh is not None:
+        dist.barrier()
     return out
 
 
@@ -131,14 +203,24 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Tree, *,
     default) with the leaves of ``<ckpt_dir>/<step>``.  A leaf missing
     from the checkpoint raises ``KeyError`` unless ``strict=False``,
     which keeps ``like``'s value; a leaf of another shape or dtype than
-    ``like``'s raises ``ValueError``."""
+    ``like``'s whole leaf raises ``ValueError``.  With a sharded ``like``
+    the new tree is sharded as it is, and each rank reads the leaves one
+    at a time (the next read while this one is sliced) and keeps its
+    slices."""
+    from repro_torch.distributed.sharding import (local_shape, shard_local,
+                                                  shard_params)
     device = resolve_device(device)
     src = os.path.join(ckpt_dir, str(step))
     with open(os.path.join(src, "manifest.json")) as f:
         manifest = json.load(f)
 
-    params = like.params if isinstance(like, TrainState) else like
-    model = empty_model(params.cfg, device)
+    params = _params(like)
+    mesh = getattr(params, "mesh", None)
+    if mesh is None:
+        model = empty_model(params.cfg, device)
+    else:
+        model = shard_params(empty_model(params.cfg, "meta"), mesh,
+                             fsdp=params.fsdp).to_empty(device=device)
     new: Tree = model
     if isinstance(like, TrainState):
         new = TrainState(model, AdamWState(
@@ -147,12 +229,11 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Tree, *,
                 for n, t in like.opt.mu.items()},
             nu={n: torch.empty_like(t, device=device)
                 for n, t in like.opt.nu.items()}))
-    sources = {k: parts for k, parts, _ in _leaves(like)}
-    targets = {}
-    for key, parts, stacked in _leaves(new):
+    sources = {leaf[0]: leaf[1] for leaf in _leaves(like)}
+    targets = []
+    for key, parts, stacked, specs in _leaves(new):
         if key in manifest:
-            targets.setdefault(manifest[key]["file"], []).append(
-                (key, parts, stacked))
+            targets.append((key, parts, stacked, specs))
         elif strict:
             raise KeyError(f"checkpoint missing {key}")
         else:
@@ -160,23 +241,27 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Tree, *,
                 for dst, old in zip(parts, sources[key]):
                     dst.copy_(old)
 
-    def read(fn):
-        with np.load(os.path.join(src, fn)) as npz:
-            return {key: npz[manifest[key]["entry"]].reshape(
-                manifest[key]["shape"]) for key, _, _ in targets[fn]}
+    def read(target):
+        entry = manifest[target[0]]
+        with np.load(os.path.join(src, entry["file"])) as npz:
+            return npz[entry["entry"]].reshape(entry["shape"])
 
+    # on a mesh every rank of the host reads every leaf: one at a time
+    ahead = _IO_THREADS if mesh is None else 1
     with ThreadPoolExecutor(_IO_THREADS) as pool, torch.no_grad():
-        for fn, arrays in zip(targets, pool.map(read, targets)):
-            for key, parts, stacked in targets[fn]:
-                arr = arrays.pop(key)
-                for i, dst in enumerate(parts):
-                    value = _from_numpy(arr[i] if stacked else arr,
-                                        manifest[key]["dtype"])
-                    if (tuple(value.shape) != tuple(dst.shape)
-                            or value.dtype != dst.dtype):
-                        raise ValueError(
-                            f"{key}: checkpoint {tuple(value.shape)} "
-                            f"{value.dtype}, expected {tuple(dst.shape)} "
-                            f"{dst.dtype}")
-                    dst.copy_(value)
+        for (key, parts, stacked, specs), arr in zip(
+                targets, _bounded(pool, read, targets, ahead)):
+            for i, (dst, spec) in enumerate(zip(parts, specs)):
+                value = _from_numpy(arr[i] if stacked else arr,
+                                    manifest[key]["dtype"])
+                sliced = spec is not None and mesh is not None
+                want = (local_shape(value.shape, spec, mesh) if sliced
+                        else tuple(value.shape))
+                if tuple(want) != tuple(dst.shape) or value.dtype != dst.dtype:
+                    raise ValueError(
+                        f"{key}: checkpoint {tuple(value.shape)} "
+                        f"{value.dtype}, expected {tuple(dst.shape)} "
+                        f"{dst.dtype}" + (" a rank" if sliced else ""))
+                dst.copy_(shard_local(value, spec, mesh) if sliced else value)
+            del arr
     return new

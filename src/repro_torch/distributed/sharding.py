@@ -29,7 +29,9 @@ dim, as ``registry.params_to_jax`` lays them out), and ``param_specs``
 maps the specs back to the port's parameter names, the stacked layer
 dimension dropped.  ``shard_local`` is this rank's slice of a tensor,
 ``shard_params`` a model of this rank's slices, ready for the per-rank
-model steps.
+model steps (serving's Megatron layout, or training's with FSDP), and
+``unshard`` / ``gather_params`` put a rank's slices back together;
+``shard_batch`` is this rank's rows of a batch.
 """
 
 from __future__ import annotations
@@ -38,13 +40,14 @@ import dataclasses
 import types
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
 
-from .collectives import Comm, Shard
+from .collectives import Comm, DataShard, Shard
 
 Spec = Tuple[Any, ...]
 
@@ -55,7 +58,7 @@ def P(*entries) -> Spec:
 
 
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return mesh.data_axes
 
 
 def _axis_size(mesh: Mesh, name: str) -> int:
@@ -456,26 +459,32 @@ def engine_shardings(cfg: ModelConfig, mesh: Mesh, model: nn.Module,
 SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
-def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
+def shard_params(model: nn.Module, mesh: Mesh, *,
+                 fsdp: bool = True) -> nn.Module:
     """This rank's model on ``mesh``: a module of the same class whose
-    every parameter is ``shard_local`` of ``model``'s under the serving
-    specs (``engine_shardings``' ``"params"``), each module told how its
-    weights lie (``tp``, a ``collectives.Shard``) so the model steps run
-    on the local shards and meet the other ranks at their collectives.
-    A model already sharded for ``mesh`` is returned as it is, and the
-    shards of one ``model`` are made once per mesh (replicas share
-    them)."""
+    every parameter is ``shard_local`` of ``model``'s under
+    ``param_sharding(..., fsdp=fsdp)``, each module told how its weights
+    lie — ``tp`` (a ``collectives.Shard``) on the ``model`` axis and,
+    where FSDP splits over more than one data rank, ``dp`` (a
+    ``collectives.DataShard``) — so the model steps run on the local
+    shards and meet the other ranks at their collectives.  ``specs``
+    (parameter name -> spec), ``mesh`` and ``fsdp`` are set on the
+    model.  Serving
+    shards with ``fsdp=False`` (weights whole over ``data``), training
+    with FSDP.  A model already sharded for ``mesh`` is returned as it
+    is, and the shards of one ``model`` are made once per mesh and
+    ``fsdp`` (replicas share them)."""
     if getattr(model, "mesh", None) is mesh:
         return model
     memo = model.__dict__.setdefault("_mesh_shards", {})
-    if id(mesh) in memo:
-        return memo[id(mesh)][1]
+    if (id(mesh), fsdp) in memo:
+        return memo[(id(mesh), fsdp)][1]
     from repro_torch.models import registry
     cfg = model.cfg
     if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not served on a mesh "
+        raise ValueError(f"family {cfg.family!r} is not sharded on a mesh "
                          f"(sharded families: {SHARDED_FAMILIES})")
-    pol = make_policy(cfg, mesh, fsdp=False)
+    pol = make_policy(cfg, mesh, fsdp=fsdp)
     specs = param_specs(model, mesh, policy=pol)
     local = registry.empty_model(cfg, "meta")
     for name, param in model.named_parameters():
@@ -484,17 +493,85 @@ def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
             shard_local(param.detach(), specs[name], mesh),
             requires_grad=False))
     _annotate(local, cfg, mesh, pol, specs)
-    local.mesh = mesh
-    memo[id(mesh)] = (mesh, local)
+    local.mesh, local.specs, local.fsdp = mesh, specs, fsdp
+    memo[(id(mesh), fsdp)] = (mesh, local)
     return local
+
+
+def unshard(tensor: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which ``tensor`` is this rank's slice under
+    ``spec`` (the inverse of ``shard_local``): every sharded dimension
+    gathered over its entry's axes.  Every rank of ``mesh`` must call it
+    for the same leaf at the same point; every rank gets the whole."""
+    out = tensor.detach()
+    for d, entry in enumerate(spec):
+        if _parts(entry, mesh) > 1:
+            out = mesh.comm(_axes(entry)).all_gather(out, d)
+    return out
+
+
+def gather_params(model: nn.Module, device=None) -> nn.Module:
+    """The whole model of which ``model`` (``shard_params``' result) is
+    this rank's part, every parameter ``unshard``ed, on ``device``
+    (``model``'s by default).  A collective over the mesh: every rank
+    calls it and gets the whole model."""
+    from repro_torch.models import registry
+    whole = registry.empty_model(model.cfg, "meta")
+    for name, param in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        value = unshard(param, model.specs[name], model.mesh)
+        setattr(whole.get_submodule(owner), leaf, nn.Parameter(
+            value.to(device or param.device), requires_grad=False))
+    return whole
+
+
+def shard_batch(batch: Dict[str, Any], mesh: Mesh,
+                grad_accum: int = 1) -> Dict[str, Any]:
+    """This rank's rows of a global batch (numpy arrays or tensors,
+    batch first) under ``batch_sharding``: a block of the rows over the
+    data axes — of each of ``grad_accum`` micro-batches, as the JAX
+    step's reshape of a data-sharded batch takes them, so micro-batch i
+    is the same rows as on one device.  A batch the data axes do not
+    divide is refused (each data rank's gradient is its rows' share,
+    which a replicated batch would count once a rank)."""
+    data = mesh.comm(data_axes(mesh))
+    if data.size == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0] // grad_accum
+        if v.shape[0] % grad_accum or rows % data.size:
+            raise ValueError(f"batch leaf {k!r}: {v.shape[0]} rows in "
+                             f"{grad_accum} micro-batches do not divide "
+                             f"over the {data.size} data ranks of {mesh!r}")
+        n = rows // data.size
+        parts = [v[i * rows + data.rank * n:i * rows + (data.rank + 1) * n]
+                 for i in range(grad_accum)]
+        out[k] = parts[0] if grad_accum == 1 else (
+            torch.cat(parts) if isinstance(v, torch.Tensor)
+            else np.concatenate(parts))
+    return out
 
 
 def _annotate(model: nn.Module, cfg: ModelConfig, mesh: Mesh,
               pol: ShardingPolicy, specs: Dict[str, Spec]) -> None:
-    """Set ``tp`` on every module whose step meets a collective."""
+    """Set ``tp`` on every module whose step meets a collective on
+    ``model``, and ``dp`` on every module with parameters when the data
+    axes hold more than one rank and FSDP is on."""
     from repro_torch.models import lm, ssm
     m = mesh.shape["model"]
-    comm = Comm(mesh.groups["model"], mesh.coords["model"], m)
+    comm = mesh.comm("model")
+    if pol.fsdp and _data_size(mesh) > 1:
+        dcomm = mesh.comm(data_axes(mesh))
+        dm = _dm(pol)
+        for prefix, mod in model.named_modules():
+            key = f"{prefix}." if prefix else ""
+            names = [n for n, _ in mod.named_parameters(recurse=False)]
+            if names:
+                mod.dp = DataShard(dcomm, {
+                    n: next((d for d, e in enumerate(specs[key + n])
+                             if dm is not None and e == dm), None)
+                    for n in names}, experts=prefix.endswith("experts"))
     if pol.attn_mode == "head_dim":
         raise ValueError("attention sharded by head_dim is not served on "
                          "a mesh (the serving policy replicates instead)")

@@ -11,22 +11,28 @@ and meets the others at explicit collectives (``distributed.collectives``).
   * ``make_serving_mesh(N)`` — the ``(data=1, model=N)`` mesh of ONE
     sharded serving engine over the ``torch.distributed`` world of N
     ranks, launched one process a rank (``torchrun --nproc-per-node N``);
+  * ``make_mesh((data, model))`` or ``((pod, data, model))`` — any mesh
+    over the initialized world, ranks in row-major order (the twin of
+    ``jax.make_mesh``): what a sharded train step runs on;
   * ``make_host_mesh()`` — the ``(1, 1)`` mesh of one process;
   * ``make_production_mesh(multi_pod)`` — the JAX package's production
-    shapes, (16, 16) or (2, 16, 16), abstract: no process group, for the
-    sharding policy's shapes only.
+    shapes, (16, 16) or (2, 16, 16): abstract (no process group, for the
+    sharding policy's shapes), or with ``abstract=False`` over a world
+    of exactly 256 or 512 ranks.
 
 Without an initialized world, ``make_host_mesh`` and
 ``make_serving_mesh(1)`` start a world of one rank in this process
-(gloo on the CPU, NCCL on the card).  Constructing a mesh is the only
-thing here that touches ``torch.distributed``; importing the module does
-not.
+(gloo on the CPU, NCCL on the card).  ``Mesh.comm(axes)`` is the
+``distributed.collectives.Comm`` of ``model``, of the data axes
+together, or of every axis.  Constructing a mesh is the only thing here
+that touches ``torch.distributed``; importing the module does not.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -46,10 +52,10 @@ class Mesh:
 
     ``axis_names`` and ``shape`` (name -> size) are a JAX mesh's;
     ``coords`` (name -> this rank's index on the axis) and ``groups``
-    (name -> its process group; see ``_world_mesh``) are what an
-    SPMD process adds.  ``host_group`` is a gloo group over the ``model``
-    axis for host values (the engines' shared clock), whatever backend
-    ``groups`` use.  An abstract mesh (``make_production_mesh``) has
+    (``"model"``, and the tuple of the data axes, -> its process group;
+    see ``_world_mesh``) are what an SPMD process adds.  ``host_group``
+    is a gloo group over the ``model`` axis for host values (the
+    engines' shared clock), whatever backend ``groups`` use.  An abstract mesh (``make_production_mesh``) has
     shapes only."""
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
@@ -84,6 +90,32 @@ class Mesh:
                 f"{a}={c}" for a, c in self.coords.items()))
         return f"Mesh({axes}; {where})"
 
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The axes the batch and FSDP split over: ``pod`` and ``data``."""
+        return tuple(a for a in self.axis_names if a != "model")
+
+    def comm(self, axes: Union[str, Tuple[str, ...]]):
+        """The ``Comm`` of ``axes``: ``"model"``, the data axes (a name or
+        the tuple of them), or every axis.  An axis of one rank and no
+        group gives a ``Comm`` of size 1 whose collectives do nothing."""
+        from repro_torch.distributed.collectives import Comm
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if self.abstract:
+            raise ValueError(f"{self!r} is abstract: it has no ranks")
+        if set(axes) == set(self.axis_names):
+            return Comm(dist.group.WORLD, dist.get_rank(), self.size)
+        if axes == ("model",):
+            return Comm(self.groups["model"], self.coords["model"],
+                        self.shape["model"])
+        if set(axes) == set(self.data_axes):
+            size, index = 1, 0
+            for a in self.data_axes:
+                size, index = size * self.shape[a], \
+                    index * self.shape[a] + self.coords[a]
+            return Comm(self.groups.get(self.data_axes), index, size)
+        raise ValueError(f"no group for axes {axes} on {self!r}")
+
     def broadcast_host(self, value: int) -> int:
         """``value`` as the ``model`` axis's rank 0 has it, on every rank
         of the axis (one gloo broadcast of an int64; no collective on a
@@ -111,18 +143,24 @@ def _start_world(device) -> str:
     return backend
 
 
-def _world_mesh(data: int, model: int) -> Mesh:
-    """The ``(data, model)`` mesh over the initialized world, ranks in
-    row-major order (rank = data_index * model + model_index).  The
-    ``model`` axis always has a group, one rank or more (a sharded model
-    meets its collectives on it); the ``data`` axis one when it has more
-    than one rank."""
+def _world_mesh(data: int, model: int,
+                axis_names: Tuple[str, ...] = ("data", "model"),
+                shape: Optional[Tuple[int, ...]] = None) -> Mesh:
+    """The mesh of ``shape`` (default ``(data, model)``) over the
+    initialized world, ranks in row-major order (rank = data_index *
+    model + model_index, ``data`` the axes before ``model`` taken
+    together).  The ``model`` axis always has a group, one rank or more
+    (a sharded model meets its collectives on it); the data axes
+    together one when they have more than one rank, keyed by their
+    tuple."""
+    shape = shape or (data, model)
     rank, world = dist.get_rank(), dist.get_world_size()
     if data * model != world:
-        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+        raise ValueError(f"a {tuple(shape)} mesh needs {data * model} "
                          f"ranks; the world holds {world}")
     backend = dist.get_backend()
-    groups: Dict[str, object] = {"data": None}
+    data_key = tuple(axis_names[:-1])
+    groups: Dict[object, object] = {data_key: None}
     host = None
     # every rank creates every group, in the same order
     for d in range(data):
@@ -139,10 +177,35 @@ def _world_mesh(data: int, model: int) -> Mesh:
             ranks = list(range(m, world, model))
             g = dist.new_group(ranks)
             if rank in ranks:
-                groups["data"] = g
-    coords = {"data": rank // model, "model": rank % model}
-    return Mesh((data, model), ("data", "model"), coords=coords,
+                groups[data_key] = g
+    coords, outer = {"model": rank % model}, rank // model
+    for name, n in reversed(list(zip(axis_names[:-1], shape[:-1]))):
+        coords[name], outer = outer % n, outer // n
+    coords = {a: coords[a] for a in axis_names}
+    return Mesh(tuple(shape), tuple(axis_names), coords=coords,
                 groups=groups, host_group=host, backend=backend)
+
+
+def make_mesh(shape: Tuple[int, ...],
+              axis_names: Optional[Tuple[str, ...]] = None) -> Mesh:
+    """A mesh of ``shape`` over the initialized ``torch.distributed``
+    world, ranks in row-major order — the twin of ``jax.make_mesh``:
+    ``(data, model)``, or ``(pod, data, model)`` for three axes (the
+    names by default).  The world must hold exactly the mesh's ranks
+    (``ValueError`` naming the count otherwise); launch one process a
+    rank (``torchrun --nproc-per-node N``)."""
+    shape = tuple(int(n) for n in shape)
+    names = tuple(axis_names or {2: ("data", "model"),
+                                 3: ("pod", "data", "model")}[len(shape)])
+    if len(names) != len(shape) or names[-1] != "model" or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} over axes {names}: the last "
+                         f"axis is 'model', every size >= 1")
+    need = math.prod(shape)
+    if not dist.is_initialized():
+        raise ValueError(f"make_mesh({shape}): torch.distributed is not "
+                         f"initialized — launch {need} processes with "
+                         f"torchrun --nproc-per-node {need}")
+    return _world_mesh(need // shape[-1], shape[-1], names, shape)
 
 
 def make_host_mesh(device="cuda") -> Mesh:
@@ -186,10 +249,24 @@ def make_serving_mesh(model: int = 1, device="cuda") -> Mesh:
     return _world_mesh(1, model)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The JAX package's production mesh shapes, abstract (no ranks, no
-    process group): (data=16, model=16), or (pod=2, data=16, model=16)
-    multi-pod.  For the sharding policy's shapes and the dry run."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         abstract: bool = True) -> Mesh:
+    """The JAX package's production mesh shapes: (data=16, model=16), or
+    (pod=2, data=16, model=16) multi-pod.  Abstract by default (no
+    ranks, no process group: for the sharding policy's shapes and the
+    dry run); ``abstract=False`` builds it over the initialized world,
+    which must hold exactly 256 (512 multi-pod) ranks — ``ValueError``
+    naming the count otherwise."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    if not abstract:
+        need = math.prod(shape)
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if world != need:
+            raise ValueError(
+                f"the {'multi-pod ' if multi_pod else ''}production mesh "
+                f"{shape} needs a world of {need} ranks; it holds {world} "
+                f"— launch {need} processes (torchrun), one a card")
+        return make_mesh(shape)
     if multi_pod:
-        return Mesh((2, 16, 16), ("pod", "data", "model"))
-    return Mesh((16, 16), ("data", "model"))
+        return Mesh(shape, ("pod", "data", "model"))
+    return Mesh(shape, ("data", "model"))

@@ -137,16 +137,31 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     """logits (B,S,V) upcast to float32, cross-entropy against labels
     (B,S): the JAX function's steps — a detached max, a hand-rolled
     logsumexp, and the gold logit picked by a mask on the vocab index —
-    then the mean over the ``mask``-weighted positions (at least 1)."""
+    then the mean over the ``mask``-weighted positions (at least 1).
+    Inside a training context whose data axes hold more than one rank
+    (``distributed.act_sharding``) the numerator and the count are summed
+    over them first, so the loss is one device's over the whole batch,
+    not a mean of the ranks' means."""
     logits = logits.float()
     m = logits.max(dim=-1, keepdim=True).values.detach()
     logz = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
     iota = torch.arange(logits.shape[-1], device=logits.device)
     gold = torch.where(iota == labels[..., None], logits, 0.0).sum(dim=-1)
     nll = logz - gold
-    if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+    # imported here: distributed.sharding imports this module
+    from repro_torch.distributed import act_sharding, collectives
+    ctx = act_sharding.current()
+    data = ctx.data if ctx is not None else None
+    if data is None:
+        if mask is not None:
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.mean()
+    # a data-sharded batch: the masked mean over every data rank's rows
+    num = (nll * mask).sum() if mask is not None else nll.sum()
+    den = mask.sum() if mask is not None else nll.new_tensor(nll.numel())
+    num = collectives.all_reduce(data, num)
+    den = collectives.all_reduce(data, den.detach().clone())
+    return num / torch.clamp(den, min=1.0)
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int],

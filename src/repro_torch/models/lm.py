@@ -29,9 +29,10 @@ tensors, as in the JAX package:
 The MoE block (``moe_block``) is the JAX package's single-device
 capacity dispatch: top-k routing, a per-expert queue of ``moe_capacity``
 slots, every expert's matmuls over its slots (so a step reads every
-expert's weights), and the combine back to tokens.  The expert-parallel
-``moe_block_ep`` of the JAX package needs a device mesh, which the port
-does not have yet: it always takes this path.
+expert's weights), and the combine back to tokens.  Inside a training
+context where the experts divide over ``model`` (``moe_ep.ep_applicable``)
+it delegates to ``moe_ep.moe_block_ep``, the expert-parallel dispatch
+with an all-to-all each way, as the JAX function does.
 
 The decode steps read ``lengths`` (and the block tables) on the device
 and take no branch on a device value, so they never wait for the device.
@@ -56,10 +57,23 @@ rematerializes each query chunk whenever it is differentiated, as the
 JAX function checkpoints its chunk body, so backward never holds the
 (B,H,S,S) softmax weights.  No kernel wrapper is on this path: a
 kernel launch has no backward.
+
+Sharded training (inside ``distributed.act_sharding.activation_sharding``,
+on ``shard_params(..., fsdp=True)``'s slices) runs the same functions,
+every collective differentiable (``distributed.collectives``): each
+layer's FSDP-sharded weights are gathered over the data axes as the
+layer starts (``act_sharding.gathered``, inside the rematerialized
+region, so a recomputed layer gathers again), tensor-parallel regions
+are entered through the copy-in and left through the all_reduce, or,
+under sequence parallelism, through an all-gather and a reduce-scatter
+of the positions (``act_sharding.enter``/``leave``); the embedding and
+the head are vocab-parallel; a replicated weight that feeds a rank's
+own heads (``wk``/``wv`` kept whole, the q/k norms) takes the copy-in.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -71,6 +85,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed import collectives as C
 
 from .common import (ModelConfig, apply_rope, cross_entropy_loss, dense_init,
                      rms_norm, rope_cos_sin)
@@ -348,15 +364,26 @@ def load_jax_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
 
 def _proj_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor):
-    """x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KH,dh) with qk_norm + RoPE."""
+    """x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KH,dh) with qk_norm + RoPE.
+    With the query heads split over ``model``, the whole ``wk``/``wv``
+    (KV heads not split) and the q/k norms feed this rank's heads: they
+    take the copy-in (a no-op without a gradient)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
+    wk, wv = p.wk, p.wv
+    norms = (p.q_norm, p.k_norm) if cfg.qk_norm else ()
+    tp = getattr(p, "tp", None)
+    if tp is not None and tp.split:
+        if not tp.kv_split:
+            wk, wv = C.copy_in(tp.comm, wk, wv)
+        if norms:
+            norms = C.copy_in(tp.comm, *norms)
     q = (flat @ p.wq.reshape(d, -1)).view(b, s, *p.wq.shape[1:])
-    k = (flat @ p.wk.reshape(d, -1)).view(b, s, *p.wk.shape[1:])
-    v = (flat @ p.wv.reshape(d, -1)).view(b, s, *p.wv.shape[1:])
+    k = (flat @ wk.reshape(d, -1)).view(b, s, *wk.shape[1:])
+    v = (flat @ wv.reshape(d, -1)).view(b, s, *wv.shape[1:])
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, norms[0], cfg.norm_eps)
+        k = rms_norm(k, norms[1], cfg.norm_eps)
     if cfg.rope_base:
         cos, sin = rope_cos_sin(positions, cfg.dh, cfg.rope_base)
         q = apply_rope(q, cos, sin)
@@ -369,9 +396,14 @@ def checkpointed(fn, *args):
     (``jax.checkpoint``): non-reentrant, so gradients reach the tensors
     ``fn`` closes over, and without saving RNG state (nothing on the
     training path draws random numbers, and a CUDA-graph capture may not
-    read the generator)."""
+    read the generator).  The recompute runs in the activation-sharding
+    context of the forward (``act_sharding.using``): on the card
+    backward runs on autograd's own thread, which has none."""
+    ctx = acts.current()
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          acts.using(ctx)))
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -423,12 +455,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     """(B,S,H,dh) · wo (H,dh,D) -> (B,S,D); summed over the ranks where
-    the heads are split (row-parallel ``wo``)."""
+    the heads are split (row-parallel ``wo``; ``act_sharding.leave``)."""
     b, s = out.shape[:2]
     y = (out.reshape(b * s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
          ).view(b, s, -1)
-    tp = getattr(p, "tp", None)
-    return tp.comm.all_reduce(y) if tp is not None and tp.split else y
+    return acts.leave(y, getattr(p, "tp", None))
 
 
 def _rank_kv(p: Attention, cfg: ModelConfig, k: torch.Tensor,
@@ -634,16 +665,17 @@ def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x (..., D) through wi/wg/wo; the experts' (E,D,F) weights take x
     (G,E,C,D), one matmul per expert, as the JAX package's ``gecd,edf``.
     Where the hidden width is split over the ranks (column-parallel
-    wi/wg, row-parallel wo) the output is summed over them."""
+    wi/wg, row-parallel wo) the output is summed over them
+    (``act_sharding.enter``/``leave``)."""
+    tp = getattr(p, "tp", None)
+    x = acts.enter(x, tp)
     hidden = x @ p.wi
     if cfg.act in GATED_ACTS:
         hidden = _gate(cfg.act, x @ p.wg) * hidden
     else:
         # jax.nn.gelu defaults to the tanh approximation
         hidden = F.gelu(hidden, approximate="tanh")
-    y = hidden @ p.wo
-    tp = getattr(p, "tp", None)
-    return tp.comm.all_reduce(y) if tp is not None and tp.split else y
+    return acts.leave(hidden @ p.wo, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -676,10 +708,16 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _route(router_logits: torch.Tensor, cfg: ModelConfig, capacity: int,
-           n_valid=None, eff_capacity=None):
+           n_valid=None, eff_capacity=None, *, span=None, stats=()):
     """``moe_dispatch``'s work, plus each (token, k) pair's slot (G,T·K):
     its expert·C + queue position, or E·C (the overflow bin) where it is
-    dropped."""
+    dropped.  On a mesh a group's tokens may lie on several ranks, the
+    same count on each: ``stats`` are the ``Comm``s over whose ranks the
+    aux loss's density and mean probability are summed (so the aux loss
+    is the whole group's), and ``span`` the ``Comm`` over whose ranks,
+    in rank order, the group's token order continues (so the queue
+    positions continue: this rank's tokens queue after the earlier
+    ranks')."""
     g, t, e = router_logits.shape
     k = cfg.top_k
     experts = torch.arange(e, device=router_logits.device)
@@ -687,13 +725,27 @@ def _route(router_logits: torch.Tensor, cfg: ModelConfig, capacity: int,
     top_w, top_ids = top_k(probs, k)                          # (G,T,K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # load-balance auxiliary loss (Switch):  E * sum_e f_e * p_e
-    density = (top_ids[..., :1] == experts).float().mean(dim=1)   # (G,E)
-    aux = (density * probs.mean(dim=1)).sum(-1).mean() * e
+    top1 = (top_ids[..., :1] == experts).float()                  # (G,T,E)
+    stats = [c for c in stats if c is not None and c.size > 1]
+    if stats:
+        n, density, pmean = t, top1.sum(dim=1), probs.sum(dim=1)
+        for c in stats:
+            density = C.all_reduce(c, density)
+            pmean = C.all_reduce(c, pmean)
+            n *= c.size
+        density, pmean = density / n, pmean / n
+    else:
+        density, pmean = top1.mean(dim=1), probs.mean(dim=1)      # (G,E)
+    aux = (density * pmean).sum(-1).mean() * e
     flat_ids = top_ids.reshape(g, t * k)
     flat_w = top_w.reshape(g, t * k)
     # position of each (token, k) within its expert's queue
     onehot = (flat_ids[..., None] == experts).int()               # (G,TK,E)
     pos = (onehot.cumsum(dim=1) - 1).gather(-1, flat_ids[..., None])[..., 0]
+    if span is not None and span.size > 1:
+        every = span.all_gather(onehot.sum(dim=1)[None], 0)       # (R,G,E)
+        before = every[:span.rank].sum(dim=0)
+        pos = pos + before.gather(-1, flat_ids)
     token_of = torch.arange(t * k, device=router_logits.device) // k
     if n_valid is not None:
         cap_eff = capacity if eff_capacity is None else eff_capacity
@@ -730,6 +782,25 @@ def moe_dispatch(router_logits: torch.Tensor, cfg: ModelConfig,
     return dispatch, combine, aux
 
 
+def moe_layout(n_tokens: int, data, data_shards: int):
+    """(groups on this rank, the ``Comm`` one group's tokens span or
+    None, groups in the batch) for ``n_tokens`` tokens on this rank and
+    ``data`` the data axes' ``Comm`` (None: one data rank).  The batch
+    is grouped as on one device (``moe_groups`` of the whole batch's
+    tokens): one group spanning the data ranks, or groups that are each
+    a data rank's own (the JAX package's rows over (pod, data))."""
+    if data is None:
+        g = moe_groups(n_tokens, data_shards)
+        return g, None, g
+    total = moe_groups(n_tokens * data.size, data_shards)
+    if total == 1:
+        return 1, data, 1
+    if total % data.size:
+        raise ValueError(f"{total} MoE groups do not divide over the "
+                         f"{data.size} data ranks")
+    return total // data.size, None, total
+
+
 def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
               data_shards: int = 16, n_valid=None,
               eff_capacity=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -750,25 +821,49 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     With the experts split over the ranks every rank routes every token
     (the router is whole), runs its own experts' slots, gathers each
     token's rows among them (the others' from the zero row) in the same
-    order, and the ranks' sums are summed by an ``all_reduce``."""
+    order, and the ranks' sums are summed by an ``all_reduce``.
+
+    Inside a training context: where ``moe_ep.ep_applicable``, the
+    expert-parallel block (as the JAX function delegates); else the
+    positions of a sequence-parallel input are gathered, the groups
+    follow ``moe_layout`` (a group spanning the data ranks queues each
+    rank's tokens after the earlier ranks' and sums its aux statistics
+    over them; a rank's own groups average their aux over the data
+    ranks), and a rank's experts take their tokens and combine weights
+    through the copy-in."""
+    ctx = acts.current()
     b, s, d = x.shape
-    t_all = b * s
-    g = moe_groups(t_all, data_shards)
-    if n_valid is not None and g != 1:
+    if n_valid is None and ctx is not None:
+        from .moe_ep import ep_applicable, moe_block_ep
+        positions = s * (ctx.model.size if ctx.seq_divisible else 1)
+        if ep_applicable(cfg, b * ctx.data_size, positions):
+            return moe_block_ep(p, cfg, x, data_shards=data_shards)
+    seq = ctx is not None and ctx.seq_divisible
+    x_in = x
+    if seq:
+        x = C.all_gather(ctx.model, x, 1)
+        s = x.shape[1]
+    data = ctx.data if ctx is not None else None
+    g, span, n_groups = moe_layout(b * s, data, data_shards)
+    if n_valid is not None and n_groups != 1:
         raise ValueError("capacity-stable masked dispatch requires the "
-                         "single-group layout (got %d groups)" % g)
-    t, e, k = t_all // g, cfg.n_experts, cfg.top_k
+                         "single-group layout (got %d groups)" % n_groups)
+    t, e, k = b * s // g, cfg.n_experts, cfg.top_k
     xg = x.reshape(g, t, d)
-    cap = moe_capacity(cfg, t)
+    cap = moe_capacity(cfg, t * (span.size if span is not None else 1))
     logits = xg.float() @ p.router
     dispatch, combine, aux, slot = _route(logits, cfg, cap, n_valid,
-                                          eff_capacity)
+                                          eff_capacity, span=span,
+                                          stats=(span,))
+    if n_groups > g:
+        aux = C.all_reduce(data, aux * g) / n_groups
     tp = getattr(p, "tp", None)
     split = tp is not None and tp.split
     rows = slot.view(g, t, k).sort(dim=-1).values.view(g, t * k)
     if split:
         # this rank's experts' slots [lo, lo + e·C); a row outside them
         # reads the zero row
+        xg, combine = C.copy_in(tp.comm, xg, combine)
         e = p.experts.wi.shape[0]
         lo = tp.comm.rank * e * cap
         dispatch = dispatch[:, lo:lo + e * cap]
@@ -787,10 +882,13 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     for j in range(1, k):
         y = y + parts[:, :, j]
     if split:
-        y = tp.comm.all_reduce(y)
+        y = C.all_reduce(tp.comm, y)
+    y = y.reshape(b, s, d)
+    if seq:
+        y = C.split(ctx.model, y, 1)
     if cfg.n_shared_experts:
-        y = y + mlp_block(p.shared, cfg, xg)
-    return y.reshape(b, s, d), aux
+        y = y + mlp_block(p.shared, cfg, x_in)
+    return y, aux
 
 
 def ffn(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
@@ -813,6 +911,7 @@ def embed_tokens(model: DenseLM, cfg: ModelConfig,
     """The tokens' embedding rows; with the vocabulary split over the
     ranks each looks up the ids in its block (zeros for the others') and
     the rows are summed over the ranks."""
+    model = acts.gathered(model)
     tp = getattr(model, "tp", None)
     if tp is None or not tp.split:
         return F.embedding(tokens, model.embed)
@@ -820,7 +919,7 @@ def embed_tokens(model: DenseLM, cfg: ModelConfig,
     local = tokens - tp.comm.rank * n
     mine = (local >= 0) & (local < n)
     x = F.embedding(local.clamp(0, n - 1), model.embed)
-    return tp.comm.all_reduce(x.masked_fill(~mine[..., None], 0))
+    return C.all_reduce(tp.comm, x.masked_fill(~mine[..., None], 0))
 
 
 def scale_embed(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
@@ -836,13 +935,17 @@ def lm_logits(model: DenseLM, cfg: ModelConfig,
               h: torch.Tensor) -> torch.Tensor:
     """The (padded) vocabulary's logits of h; a column-parallel head's
     blocks are gathered from the ranks in vocabulary order, so the
-    argmax's first maximum is the single device's."""
+    argmax's first maximum is the single device's.  In training every
+    rank computes the loss from the whole logits: the hidden state takes
+    the copy-in into this rank's vocabulary block, and the gather's
+    gradient is this rank's block."""
+    model = acts.gathered(model)
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
     tp = getattr(model, "tp", None)
     if tp is None or not tp.split:
         return h @ head
-    return tp.comm.all_gather(h @ head, dim=-1)
+    return C.all_gather(tp.comm, C.copy_in(tp.comm, h) @ head, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -936,9 +1039,11 @@ def _self_attention(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
                     window: Optional[int] = None, prefix_len: int = 0):
     """ln1 → causal (+prefix, +window) attention over x (B,S,D) at
     positions 0..S-1.  Returns (x + the attention output, k, v
-    (B,S,KH,dh))."""
-    positions = torch.arange(x.shape[1], device=x.device)
-    xin = rms_norm(x, blk.ln1, cfg.norm_eps)
+    (B,S,KH,dh)).  Under sequence parallelism x holds this rank's
+    positions, and the attention every position (``act_sharding``)."""
+    xin = rms_norm(x, acts.seq_param(blk.ln1), cfg.norm_eps)
+    xin = acts.enter(xin, getattr(blk.attn, "tp", None))
+    positions = torch.arange(xin.shape[1], device=x.device)
     q, k, v = _proj_qkv(blk.attn, cfg, xin, positions)
     ka, va = _rank_kv(blk.attn, cfg, k, v)
     out = chunked_attention(q, ka, va, cfg, prefix_len=prefix_len,
@@ -1173,9 +1278,11 @@ def _layer_fwd(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
                prefix_len: int = 0, window: Optional[int] = None,
                data_shards: int = 16):
     """One layer over a whole sequence x (B,S,D), no cache.  Returns (x
-    after the layer, its MoE aux loss or None)."""
+    after the layer, its MoE aux loss or None).  In a sharded step the
+    layer's weights are gathered here (``act_sharding.gathered``)."""
+    blk = acts.gathered(blk)
     h = _self_attention(blk, cfg, x, window=window, prefix_len=prefix_len)[0]
-    hin = rms_norm(h, blk.ln2, cfg.norm_eps)
+    hin = rms_norm(h, acts.seq_param(blk.ln2), cfg.norm_eps)
     moe = getattr(blk, "moe", None)
     if moe is not None:
         y, aux = moe_block(moe, cfg, hin, data_shards)
@@ -1189,7 +1296,10 @@ def lm_backbone(model: DenseLM, cfg: ModelConfig, x: torch.Tensor, *,
     """Embedded input x (B,S,D) -> (hidden (B,S,D), aux loss: the MoE
     layers' sum, float32).  ``remat`` rematerializes each of ``layers``
     (the JAX package's scan body; DeepSeek's first block runs before the
-    scan, plain)."""
+    scan, plain).  Under sequence parallelism the layers run on this
+    rank's positions (``act_sharding.shard_seq``) and the output is
+    gathered for the head."""
+    x = acts.shard_seq(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in blocks(model):
         fn = functools.partial(_layer_fwd, blk, cfg, prefix_len=prefix_len,
@@ -1198,7 +1308,7 @@ def lm_backbone(model: DenseLM, cfg: ModelConfig, x: torch.Tensor, *,
         x, aux = checkpointed(fn, x) if remat and scanned else fn(x)
         if aux is not None:
             aux_total = aux_total + aux
-    return x, aux_total
+    return acts.unshard_seq(x), aux_total
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,13 @@ the whole ``in_proj`` and causal conv (their weights stay whole), runs
 the scan on its block of the SSD heads (the state's ``gh`` axis split),
 and the gated norm, which reduces over all of ``d_inner``, sums its
 squares over the ranks before the scale; ``out_proj`` is row-parallel.
+In training those collectives are differentiable
+(``distributed.collectives``): the whole tensors that feed a rank's own
+heads or channels (the conv output, dt, z, and the per-head ``dt_bias``,
+``A_log`` and ``D``) take the copy-in, so ``in_proj``, the conv and
+everything before them get the gradient of every head, and the
+layer's FSDP-sharded weights are gathered as it starts
+(``act_sharding.gathered``).
 
 The chunked scan is ``ssd_chunked`` (plain PyTorch); the prefill steps
 take ``ssd_impl=`` in its place, the vendor-kernel hook (§4.8) through
@@ -46,6 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.executor import resolve_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed import collectives as C
 
 from .common import ModelConfig, dense_init, rms_norm
 from .lm import (NEG_INF, _param, checkpointed, embed_tokens, lm_logits,
@@ -274,15 +283,20 @@ def _ssd_inputs(blk: MambaBlock, cfg: ModelConfig, xbc: torch.Tensor,
                 dt: torch.Tensor):
     """The conv output and raw dt (B,S,…) as the scan's inputs: xs
     (B,S,H,P), Bm/Cm (B,S,G,N), dt post-softplus (float32) and A, of
-    this rank's heads (``state_heads``)."""
+    this rank's heads (``state_heads``; the whole tensors feeding them
+    take the copy-in)."""
     b, s = xbc.shape[:2]
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
     lo, hi = state_heads(blk, cfg)
+    dt_bias, a_log = blk.dt_bias, blk.A_log
+    if hi - lo < cfg.ssm_heads:
+        xbc, dt, dt_bias, a_log = C.copy_in(blk.tp.comm, xbc, dt, dt_bias,
+                                            a_log)
     xs = xbc[..., :di].reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
     bm = xbc[..., di:di + g * n].reshape(b, s, g, n)
     cm = xbc[..., di + g * n:].reshape(b, s, g, n)
-    dtf = F.softplus(dt.float() + blk.dt_bias)
-    a = -torch.exp(blk.A_log)
+    dtf = F.softplus(dt.float() + dt_bias)
+    a = -torch.exp(a_log)
     if hi - lo < cfg.ssm_heads:
         xs, dtf, a = xs[:, :, lo:hi], dtf[..., lo:hi], a[lo:hi]
     return xs, bm, cm, dtf, a
@@ -298,7 +312,10 @@ def _ssd_out(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
     row-parallel."""
     b, s = h.shape[:2]
     lo, hi = state_heads(blk, cfg)
-    y = y + xs * blk.D[lo:hi][None, None, :, None].to(y.dtype)
+    d_skip = blk.D
+    if hi - lo < cfg.ssm_heads:
+        z, d_skip = C.copy_in(blk.tp.comm, z, d_skip)
+    y = y + xs * d_skip[lo:hi][None, None, :, None].to(y.dtype)
     y = y.reshape(b, s, -1)
     tp = getattr(blk, "tp", None)
     if tp is None or not tp.split:
@@ -306,14 +323,17 @@ def _ssd_out(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
         return h + (y.reshape(b * s, -1) @ blk.out_proj).view(b, s, -1)
     comm = tp.comm
     if y.shape[-1] == cfg.d_inner:          # the state's heads are whole
+        y, z = C.copy_in(comm, y, z)
         y = comm.own(y, -1)
     g = y * F.silu(comm.own(z, -1))
     gf = g.float()
-    ss = comm.all_reduce(gf.square().sum(dim=-1, keepdim=True))
+    # the sum of squares over every rank's channels scales this rank's
+    ss = C.copy_in(comm, C.all_reduce(
+        comm, gf.square().sum(dim=-1, keepdim=True)))
     g = (gf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)).to(g.dtype)
     y = g * blk.norm.to(g.dtype)
     out = (y.reshape(b * s, -1) @ blk.out_proj).view(b, s, -1)
-    return h + comm.all_reduce(out)
+    return h + C.all_reduce(comm, out)
 
 
 def mamba_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor, *,
@@ -443,9 +463,10 @@ def ssm_backbone(model: SSMLM, cfg: ModelConfig, x: torch.Tensor, *,
 def mamba_layer(blk: MambaBlock, cfg: ModelConfig, x: torch.Tensor, *,
                 remat: bool = False) -> torch.Tensor:
     """One Mamba layer of the training forward (no cache), rematerialized
-    under ``remat``."""
+    under ``remat``; in a sharded step its weights are gathered inside
+    (``act_sharding.gathered``)."""
     def fn(h):
-        return mamba_block(blk, cfg, h)[0]
+        return mamba_block(acts.gathered(blk), cfg, h)[0]
     return checkpointed(fn, x) if remat else fn(x)
 
 

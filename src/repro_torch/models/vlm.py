@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import act_sharding as acts
+
 from . import lm
 from .common import ModelConfig
 
@@ -52,11 +54,13 @@ def vlm_loss(model: lm.DenseLM, cfg: ModelConfig,
     """batch: vision (B,P,d_vision), tokens (B,S), labels (B,S).  The
     projected vision prefix goes in front of the scaled token embeddings
     and attends bidirectionally; the loss is over the text positions
-    only.  Returns (loss, {"ce_loss"})."""
+    only.  Returns (loss, {"ce_loss"}).  In a sharded step the projector's
+    FSDP-sharded d_model dimension is gathered over the data axes and the
+    prefix goes through the layers as the tokens do."""
     p = cfg.n_vision_tokens
     xt = lm.scale_embed(lm.embed_tokens(model, cfg, batch["tokens"]),
                         math.sqrt(cfg.d_model))
-    xv = batch["vision"].to(xt.dtype) @ model.projector
+    xv = batch["vision"].to(xt.dtype) @ acts.gathered(model).projector
     h, _ = lm.lm_backbone(model, cfg, torch.cat([xv, xt], dim=1),
                           prefix_len=p, remat=remat, data_shards=data_shards)
     loss = lm.masked_ce(lm.lm_logits(model, cfg, h[:, p:]), batch["labels"])

@@ -478,7 +478,8 @@ class ServingEngine:
                                    dtype, "meta"),
                 global_batch=n_blocks,
                 cache1_tree=bundle.empty_cache(1, cache_len, dtype, "meta"))
-            self.params = params = shard_params(params, mesh)
+            self.params = params = shard_params(params, mesh,
+                                                fsdp=False)
             # the KV cache's rows split over the ranks (sequence mode)
             self._seq_kv = any(
                 name in KV_LEAVES and len(sh.spec) > 3

@@ -46,13 +46,37 @@ def adamw_init(params: Iterable[Tuple[str, torch.Tensor]]) -> AdamWState:
                       mu=mu, nu=nu)
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float
-                        ) -> Tuple[Tensors, torch.Tensor]:
+def clip_by_global_norm(grads: Tensors, max_norm: float, *, mesh=None,
+                        specs=None) -> Tuple[Tensors, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm), the global float32 l2
     norm); the scale is cast to each gradient's dtype before the
-    product, as in the JAX function."""
-    gnorm = torch.sqrt(torch.stack([g.float().square().sum()
-                                    for g in grads.values()]).sum())
+    product, as in the JAX function.
+
+    On a ``mesh`` the gradients are this rank's slices, laid out as
+    ``specs`` (parameter name -> spec, ``sharding.param_specs``): the
+    squared sums of the leaves split over the same axes are summed over
+    those axes' ranks (one ``all_reduce`` per set of axes), and a leaf
+    every rank holds whole counts once, so every rank gets the norm of
+    the whole gradient."""
+    if mesh is None:
+        gnorm = torch.sqrt(torch.stack([g.float().square().sum()
+                                        for g in grads.values()]).sum())
+    else:
+        from repro_torch.distributed import collectives
+        sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+        for n, g in grads.items():
+            axes = tuple(a for a in mesh.axis_names
+                         if any(a == e or (isinstance(e, tuple) and a in e)
+                                for e in specs[n]))
+            if math.prod(mesh.shape[a] for a in axes) == 1:
+                axes = ()
+            part = g.float().square().sum()
+            sums[axes] = sums[axes] + part if axes in sums else part
+        total = sums.pop((), None)
+        for axes, part in sums.items():
+            part = collectives.all_reduce(mesh.comm(axes), part)
+            total = part if total is None else total + part
+        gnorm = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, gnorm
 

@@ -18,16 +18,32 @@ The parameters are ``nn.Parameter``s held without ``requires_grad``
 only while it runs.  No kernel wrapper runs on this path: a ``ctypes``
 launch has no backward, and the wrappers refuse a differentiated input
 (``kernels.ops``).
+
+On a mesh (``make_train_step(..., mesh=)``, the JAX package's
+``jax.jit(step, in_shardings=(train_state_sharding(...),
+batch_sharding(...)))``): the state holds this rank's slices
+(``shard_params(model, mesh, fsdp=True)``, then ``init_train_state``,
+whose moments mirror them), every rank passes the same global batch and
+the step stages this rank's rows (``sharding.shard_batch``), and the
+forward and backward run inside the step's ``activation_sharding``
+context, which turns the model steps into this rank's share with their
+differentiable collectives; the clip sums the squared norms over the
+axes each leaf is split on.  The sharded step is one ``CapturedProgram``
+per batch shape too: over NCCL its collectives are captured with the
+forward, backward and update; over gloo on the card (gloo stages CUDA
+tensors through the host, which a capture cannot record) it runs
+eagerly and records nothing.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+import contextlib
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from repro_torch.core.executor import CapturedProgram
+from repro_torch.core.executor import CapturedProgram, disable_capture
 
 from .optimizer import (AdamWState, adamw_init, adamw_update,
                         clip_by_global_norm)
@@ -42,9 +58,57 @@ def init_train_state(params: nn.Module) -> TrainState:
     return TrainState(params=params, opt=adamw_init(params.named_parameters()))
 
 
+# the families whose layers run under sequence parallelism on a mesh:
+# those of ``lm.lm_backbone`` (the recurrent layers take every position)
+SEQ_PARALLEL_FAMILIES = ("dense", "moe", "vlm")
+
+
+def step_context(cfg, mesh, batch: Dict[str, Any]):
+    """The ``activation_sharding`` context of a sharded step on ``mesh``
+    for this rank's ``batch`` (the JAX dry run's decisions): experts
+    where they divide over ``model``, sequence parallelism where the
+    layers' positions (the vision prefix included) do; a null context
+    without a mesh.  Attention's split by heads is the sharding policy's
+    (``tp.split``)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from repro_torch.distributed.act_sharding import activation_sharding
+    m = mesh.shape["model"]
+    s = batch["tokens"].shape[1] + (cfg.n_vision_tokens
+                                     if cfg.family == "vlm" else 0)
+    return activation_sharding(
+        mesh, batch_divisible=True,
+        seq_divisible=(m > 1 and cfg.family in SEQ_PARALLEL_FAMILIES
+                       and s % m == 0),
+        experts_divisible=bool(cfg.n_experts) and cfg.n_experts % m == 0)
+
+
+def loss_and_grads(loss_fn: Callable, model: nn.Module,
+                   batch: Dict[str, torch.Tensor], *, mesh=None,
+                   **loss_kwargs):
+    """(loss, metrics, gradients by parameter name) of ``loss_fn(model,
+    batch, **loss_kwargs)``, all detached; on a ``mesh`` ``model`` is this
+    rank's slices, ``batch`` its rows, and the gradients its slices of
+    the whole batch's (the loss and metrics are the whole batch's, on
+    every rank)."""
+    named = dict(model.named_parameters())
+    params = list(named.values())
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad(), step_context(model.cfg, mesh, batch):
+            loss, metrics = loss_fn(model, batch, **loss_kwargs)
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(named, grads)))
+
+
 def make_train_step(loss_fn: Callable, *, lr=3e-4, max_grad_norm=1.0,
                     grad_accum: int = 1, weight_decay: float = 0.1,
-                    **loss_kwargs) -> Callable:
+                    mesh=None, **loss_kwargs) -> Callable:
     """loss_fn(params, batch, **loss_kwargs) -> (loss, metrics), as a
     bundle's ``loss``.  Returns ``step(state, batch) -> (state,
     metrics)``: ``batch`` a dict of arrays or tensors (copied to the
@@ -52,22 +116,12 @@ def make_train_step(loss_fn: Callable, *, lr=3e-4, max_grad_norm=1.0,
     ``grad_norm`` and ``step``, device scalars valid until the next call
     (with ``grad_accum > 1`` the loss function's metrics reduce to
     ``ce_loss``, the mean loss, as in the JAX package).  ``step.program``
-    is the step's ``CapturedProgram``."""
-
-    def single(model, named, batch):
-        params = list(named.values())
-        for p in params:
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss, metrics = loss_fn(model, batch, **loss_kwargs)
-                grads = torch.autograd.grad(loss, params,
-                                            materialize_grads=True)
-        finally:
-            for p in params:
-                p.requires_grad_(False)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                dict(zip(named, grads)))
+    is the step's ``CapturedProgram``.  With ``mesh`` (a ``launch.mesh``
+    mesh over this process's world) the state is this rank's
+    (``shard_params(..., fsdp=True)``), ``batch`` the global batch every
+    rank passes alike, and the step this rank's share (module
+    docstring); pass ``data_shards`` = the data axes' size, as the JAX
+    launcher does."""
 
     def train_step(model: nn.Module, opt: AdamWState,
                    batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -79,15 +133,19 @@ def make_train_step(loss_fn: Callable, *, lr=3e-4, max_grad_norm=1.0,
                                     device=p.device) for k, p in named.items()}
             for i in range(grad_accum):
                 micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_i, _, g_i = single(model, named, micro)
+                l_i, _, g_i = loss_and_grads(loss_fn, model, micro,
+                                             mesh=mesh, **loss_kwargs)
                 loss = loss + l_i
                 grads = {k: g + g_i[k] for k, g in grads.items()}
             loss = loss / grad_accum
             grads = {k: g / grad_accum for k, g in grads.items()}
             metrics = {"ce_loss": loss}
         else:
-            loss, metrics, grads = single(model, named, batch)
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            loss, metrics, grads = loss_and_grads(loss_fn, model, batch,
+                                                  mesh=mesh, **loss_kwargs)
+        grads, gnorm = clip_by_global_norm(
+            grads, max_grad_norm, mesh=mesh,
+            specs=getattr(model, "specs", None))
         adamw_update(grads, opt, named, lr=lr, weight_decay=weight_decay)
         return dict(metrics, loss=loss, grad_norm=gnorm, step=opt.step.clone())
 
@@ -104,18 +162,25 @@ def make_train_step(loss_fn: Callable, *, lr=3e-4, max_grad_norm=1.0,
 
     def step(state: TrainState, batch) -> tuple:
         device = state.opt.step.device
+        if mesh is not None:
+            from repro_torch.distributed.sharding import shard_batch
+            batch = shard_batch(batch, mesh, grad_accum)
         staged = {k: stage(k, v, device) for k, v in batch.items()}
-        return state, program(state.params, state.opt, staged)
+        eager = (mesh is not None and mesh.backend == "gloo"
+                 and device.type == "cuda")
+        with disable_capture() if eager else contextlib.nullcontext():
+            return state, program(state.params, state.opt, staged)
 
     step.program = program
     return step
 
 
-def train_state_sharding(param_sharding: Any, mesh) -> Any:
-    """The JAX package's TrainState sharding tree.  Mesh-sharded training
-    is the second half of ROADMAP item 15 (the port serves on a mesh, it
-    does not train on one yet): refused, naming that slice."""
-    raise NotImplementedError(
-        f"train_state_sharding(mesh={mesh!r}): mesh-sharded training "
-        f"(act_sharding, moe_ep, the sharded train step), the second half "
-        f"of ROADMAP queue 1, item 15, is not in the PyTorch port yet")
+def train_state_sharding(param_sharding: Any, mesh) -> TrainState:
+    """The TrainState sharding tree (the JAX package's): the moments
+    mirror ``param_sharding`` (parameter name -> ``Sharding``,
+    ``sharding.param_sharding``) and the step is replicated.
+    ``shard_params`` and ``init_train_state`` lay a state out so."""
+    from repro_torch.distributed.sharding import replicated
+    return TrainState(params=param_sharding,
+                      opt=AdamWState(step=replicated(mesh),
+                                     mu=param_sharding, nu=param_sharding))

@@ -62,8 +62,10 @@ from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core import capture_count
 from repro_torch.data import PackedLMDataset, make_batches
+from repro_torch.distributed.sharding import param_sharding
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import (get_model, lm, params_from_jax,
                                 params_to_jax)
 from repro_torch.models.registry import jax_tree
@@ -373,8 +375,14 @@ def test_capture_count_follows_batch_shapes():
         assert capture_count(step.program) == jstep._cache_size()
     assert capture_count(step.program) == 2
     assert int(state.opt.step) == 6
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_state_sharding(None, "mesh")
+    # the TrainState sharding tree: moments mirror the parameters, the
+    # step replicated (the JAX package's train_state_sharding)
+    mesh = make_production_mesh()
+    p_shard = param_sharding(cfg, mesh, state.params)
+    s_shard = train_state_sharding(p_shard, mesh)
+    assert s_shard.params is p_shard
+    assert s_shard.opt.mu is p_shard and s_shard.opt.nu is p_shard
+    assert s_shard.opt.step.spec == () and s_shard.opt.step.mesh is mesh
 
 
 # ---------------------------------------------------------------------------
@@ -548,9 +556,11 @@ def test_train_command_line_learns_on_the_cpu():
     assert sorted(summary) == ["final_loss", "steps", "wall_s"]
     assert summary["steps"] == 30
     assert summary["final_loss"] <= first - 0.5, (first, summary)
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="item 15"):
+    # the production meshes need their worlds: 256 ranks, 512 multi-pod
+    for flag, ranks in (("--production-mesh", 256), ("--multi-pod", 512)):
+        with pytest.raises(ValueError, match=f"world of {ranks} ranks"):
             train_cli.main(["--device", "cpu", flag])
+    assert not torch.distributed.is_initialized()
 
 
 def _meta(*shape, grad=False, dtype=torch.float32):
