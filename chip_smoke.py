@@ -353,11 +353,16 @@ Phases — any failure raises and the script exits non-zero:
      and a ``chip_smoke.py --mesh-rank 1 ... --mesh-task parity`` process
      rank 1 (NCCL a card a rank where two cards show, else gloo with
      both on the one card, eager; the backend and card count printed):
-     Yi-6B at full width with 2 layers and DeepSeek-MoE-16B at full width
+     Yi-6B at full width with 2 layers, DeepSeek-MoE-16B at full width
      with its dense block and one MoE layer (capacity factor 11,
-     dropless on the expert-parallel path), float32, on ``(data=2,
-     model=1)`` (FSDP) and ``(1, 2)`` (tensor and sequence parallel; the
-     MoE layer through ``moe_block_ep``), 3 steps of 2 x 512 tokens from
+     dropless on the expert-parallel path) and Whisper-large-v3 at full
+     width with 2 + 2 layers, float32, on ``(data=2, model=1)`` (FSDP)
+     and ``(1, 2)`` (tensor parallel, and sequence parallel but for
+     Whisper; the MoE layer through ``moe_block_ep``), and Whisper with 5
+     heads of 256 on ``(1, 2)``, where the heads do not divide and the
+     decoder's attention splits K/V by sequence and merges (the merges
+     counted; no other case merges); 3 steps of 2 x 512 tokens (Whisper
+     2 x (1,500 frames, 448 tokens)) from
      the seed-0 weights: every rank runs the same model's single-device
      loss and gradients on its card and sets its slices to that model's
      before each sharded step; every rank's loss within 1e-5 relative
@@ -367,13 +372,16 @@ Phases — any failure raises and the script exits non-zero:
      written whole by rank 0, restored on every card bit-equal to the
      state's slices.  (b) Where two cards show: phase 25's
      configuration (Yi-6B 8 layers bf16, 4 x 2048 tokens, phase 25's
-     schedule and clip) on ``(2, 1)`` and ``(1, 2)``, one process a card
-     over NCCL, captured, 10 steps, the last 2 traced: the median step a
-     rank, tokens/s, NCCL device ms a step, peak memory a rank, the loss
-     falling (logged beside phase 25's first ten).  (c) Where four cards
-     show: Yi-6B at full depth (which one card cannot hold for
-     training), FSDP over ``(4, 1)``, 5 steps: finite, falling loss, the
-     median step and the peak a rank.
+     schedule and clip) and Whisper with 8 + 8 of its 32 + 32 layers,
+     bf16, 4 x (1,500 frames, 448 tokens), on ``(2, 1)`` and ``(1, 2)``,
+     one process a card over NCCL, captured, 10 steps, the last 2
+     traced: the median step a rank, tokens/s, NCCL device ms a step,
+     peak memory a rank, the loss falling (Yi-6B's logged beside phase
+     25's first ten; Whisper's steps beside one card's, run first in
+     this process).  (c) Where four cards show: Yi-6B at full depth
+     (which one card cannot hold for training), FSDP over ``(4, 1)``,
+     and Whisper at full depth on ``(2, 2)``, 5 steps each: finite,
+     falling loss, the median step, NCCL ms and the peak a rank.
   Each of phases 15-27 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
@@ -5762,22 +5770,43 @@ def mesh_serving(torch, np, dev, served, want_prefill):
 # phase 27: mesh-sharded training
 # ---------------------------------------------------------------------------
 
-# (a) parity, float32, two ranks: (arch, config fields replaced).  Yi-6B
-# at full width with 2 layers; DeepSeek-MoE-16B at full width with its
-# dense first block and one MoE layer, its capacity factor dropless on
-# the expert-parallel path (a rank's capacity int(t·6·11/64) >= t)
+# (a) parity, float32, two ranks: (arch, config fields replaced, meshes,
+# tokens a row).  Yi-6B at full width with 2 layers; DeepSeek-MoE-16B at
+# full width with its dense first block and one MoE layer, its capacity
+# factor dropless on the expert-parallel path (a rank's capacity
+# int(t·6·11/64) >= t); Whisper at full width with 2 + 2 layers, 1,500
+# frames and 448 tokens (its decoder's context) a row; and the K/V split:
+# Whisper with 5 heads of 256 (its width), which do not divide over
+# model=2, so the decoder's self-attention splits K/V by sequence
 TRAIN_MESH_WORLD = 2
-TRAIN_MESH_PARITY = [(LM_ARCH, {"n_layers": 2}),
-                     (MOE_ARCH, {"n_layers": 2, "capacity_factor": 11.0})]
 TRAIN_MESH_SHAPES = [(2, 1), (1, 2)]
-TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 2, 512, 3
+AUDIO_TRAIN_LAYERS = {"n_layers": 2, "n_encoder_layers": 2}
+AUDIO_SPLIT_HEADS = {"n_heads": 5, "n_kv_heads": 5, "head_dim": 256}
+TRAIN_MESH_PARITY = [
+    (LM_ARCH, {"n_layers": 2}, TRAIN_MESH_SHAPES, 512),
+    (MOE_ARCH, {"n_layers": 2, "capacity_factor": 11.0}, TRAIN_MESH_SHAPES,
+     512),
+    (AUDIO_ARCH, AUDIO_TRAIN_LAYERS, TRAIN_MESH_SHAPES, 448),
+    (AUDIO_ARCH, dict(AUDIO_TRAIN_LAYERS, **AUDIO_SPLIT_HEADS), [(1, 2)],
+     448)]
+TRAIN_MESH_BATCH, TRAIN_MESH_STEPS = 2, 3
 # a small constant lr: the ranks run free from the same seeded weights,
 # and Adam's first steps move an element whose gradient is within
 # rounding of 0 by up to 2 lr, which must not move the next gradients
 TRAIN_MESH_LR = 1e-5
 TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_GRAD_TOL = 1e-5, 1e-4
-# (b) phase 25's configuration on two cards; (c) Yi-6B at full depth,
-# FSDP over four
+# (b) on two cards: phase 25's configuration, and Whisper at full width
+# with 8 + 8 of its 32 + 32 layers, bf16, 4 x (1,500 frames, 448 tokens);
+# (c) on four: Yi-6B at full depth, FSDP over four, and Whisper at full
+# depth on (2, 2): (arch, config fields replaced, rows, tokens a row,
+# meshes)
+TRAIN_MESH_PERF = [
+    (LM_ARCH, {"n_layers": TRAIN_LAYERS}, TRAIN_BATCH, TRAIN_SEQ,
+     TRAIN_MESH_SHAPES),
+    (AUDIO_ARCH, {"n_layers": 8, "n_encoder_layers": 8}, 4, 448,
+     TRAIN_MESH_SHAPES)]
+TRAIN_MESH_FULL = [(LM_ARCH, {}, TRAIN_BATCH, TRAIN_SEQ, [(4, 1)]),
+                   (AUDIO_ARCH, {}, 4, 448, [(2, 2)])]
 TRAIN_MESH_PERF_STEPS, TRAIN_MESH_FULL_STEPS = 10, 5
 TRAIN_MESH_TRACED = 2
 # a rank's whole run, and a collective's wait
@@ -5820,140 +5849,177 @@ def free_port() -> int:
 
 def train_parity_rank(torch, np, dev, rank):
     """Phase 27 (a) on this rank of a world of ``TRAIN_MESH_WORLD``: each
-    of ``TRAIN_MESH_PARITY`` on each of ``TRAIN_MESH_SHAPES``, from the
-    seed-0 weights, ``TRAIN_MESH_STEPS`` sharded steps, each held
-    against the same model's single-device loss and gradients, which
-    every rank (rank 0 is the launching process) runs on its own card
-    on the whole batch, clipped as the step clips them.  Before each
-    step the sharded parameters are set to this rank's slices of the
-    single-device ones (which follow plain SGD steps of the clipped
-    gradient), so every step starts from the same parameters: routing
-    flips on a rounding-level drift would move an MoE's gradients.  Each
-    rank holds its loss, and its slice of the gradient the sharded step
-    applied, read back from its first moment (mu_t = b1 mu_t-1 + (1 -
-    b1) g_t), against the single device's.  On the first mesh the
-    world's checkpoint, written whole by rank 0, is restored on every
-    rank's card and its slices held bit-equal to the rank's state.
-    Returns rank 0's rows (None elsewhere)."""
+    of ``TRAIN_MESH_PARITY`` on each of its meshes (``parity_model``),
+    the merges of K/V-split partial attentions (``collectives.combine``)
+    counted.  Returns rank 0's rows (None elsewhere)."""
+    from repro_torch.distributed import collectives
+
+    rows, merges = [], [0]
+    combine = collectives.combine
+
+    def counted_combine(*args):
+        merges[0] += 1
+        return combine(*args)
+
+    collectives.combine = counted_combine
+    try:
+        for arch, fields, shapes, seq in TRAIN_MESH_PARITY:
+            rows += parity_model(torch, dev, rank, arch, fields, shapes, seq,
+                                 merges)
+    finally:
+        collectives.combine = combine
+    return rows if rank == 0 else None
+
+
+def parity_model(torch, dev, rank, arch, fields, shapes, seq, merges):
+    """(a) for one model: from the seed-0 weights, ``TRAIN_MESH_STEPS``
+    sharded steps on each of ``shapes``, each held against the same
+    model's single-device loss and gradients, which every rank (rank 0
+    is the launching process) runs on its own card on the whole batch,
+    clipped as the step clips them.  Before each step the sharded
+    parameters are set to this rank's slices of the single-device ones
+    (which follow plain SGD steps of the clipped gradient), so every
+    step starts from the same parameters: routing flips on a
+    rounding-level drift would move an MoE's gradients.  Each rank holds
+    its loss, and its slice of the gradient the sharded step applied,
+    read back from its first moment (mu_t = b1 mu_t-1 + (1 - b1) g_t),
+    against the single device's.  The step's context must split K/V by
+    sequence exactly where the heads do not divide over ``model``, and
+    then merge (``merges[0]``, the calls counted); elsewhere nothing
+    merges.  On Yi-6B's first mesh the world's checkpoint, written whole
+    by rank 0, is restored on every rank's card and its slices held
+    bit-equal to the rank's state.  Returns rank 0's rows."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core import capture_count
     from repro_torch.data import make_batches
-    from repro_torch.distributed.sharding import shard_local, shard_params
+    from repro_torch.distributed.sharding import (shard_batch, shard_local,
+                                                  shard_params)
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import get_model
     from repro_torch.training import (clip_by_global_norm, init_train_state,
                                       make_train_step)
-    from repro_torch.training.trainer import loss_and_grads
+    from repro_torch.training.trainer import loss_and_grads, step_context
 
     b1 = 0.9                              # adamw_update's default
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **fields)
+    bundle = get_model(cfg)
+    batches = make_batches(cfg, TRAIN_MESH_BATCH, seq, TRAIN_MESH_STEPS,
+                           seed=0)
+    layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers} layers"
+              if cfg.family == "audio" else f"{cfg.n_layers} layers")
+    if "n_heads" in fields:
+        layers += f", {cfg.n_heads} heads of {cfg.dh}"
     rows = []
-    for arch, fields in TRAIN_MESH_PARITY:
-        cfg = dataclasses.replace(get_config(arch), dtype="float32",
-                                  **fields)
-        bundle = get_model(cfg)
-        batches = make_batches(cfg, TRAIN_MESH_BATCH, TRAIN_MESH_SEQ,
-                               TRAIN_MESH_STEPS, seed=0)
-        for shape in TRAIN_MESH_SHAPES:
-            mesh = make_mesh(shape)
-            kw = dict(remat=True, data_shards=shape[0])
-            ref = bundle.init(torch.Generator(dev).manual_seed(0))
-            state = init_train_state(shard_params(ref, mesh, fsdp=True))
-            step = make_train_step(bundle.loss, lr=TRAIN_MESH_LR, mesh=mesh,
-                                   **kw)
-            specs = state.params.specs
-            row = {"model": f"{arch} {cfg.n_layers} layers float32 "
-                            f"training, mesh {shape}",
-                   "backend": mesh.backend, "losses": [], "loss_rel": [],
-                   "grad": [], "grad_norm_rel": [], "step_ms": [],
-                   "ref_grad_ms": []}
-            before = dict(_build.launches)
-            for batch in batches:
-                whole = {k: torch.from_numpy(v).to(dev)
-                         for k, v in batch.items()}
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                l0, _, g0 = loss_and_grads(bundle.loss, ref, whole, **kw)
-                g0, n0 = clip_by_global_norm(g0, 1.0)
-                torch.cuda.synchronize()
-                row["ref_grad_ms"].append((time.perf_counter() - t) * 1e3)
-                with torch.no_grad():
-                    for n, p in state.params.named_parameters():
-                        p.copy_(shard_local(ref.get_parameter(n), specs[n],
-                                            mesh))
-                mu_prev = {n: t.clone() for n, t in state.opt.mu.items()}
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                _, m = step(state, batch)
-                torch.cuda.synchronize()
-                row["step_ms"].append((time.perf_counter() - t) * 1e3)
-                worst = 0.0
-                for n, mu in state.opt.mu.items():
-                    applied = (mu - b1 * mu_prev[n]) / (1 - b1)
-                    want = shard_local(g0[n], specs[n], mesh)
-                    top = float(g0[n].abs().max()) or 1.0
-                    worst = max(worst, float((applied - want).abs().max())
-                                / top)
-                del mu_prev
-                mine = torch.tensor(
-                    [float(m["loss"]), abs(float(m["loss"]) - float(l0))
-                     / abs(float(l0)), abs(float(m["grad_norm"]) - float(n0))
-                     / float(n0), worst], device=dev)
-                every = [torch.zeros(4, device=dev)
-                         for _ in range(mesh.size)]
-                dist.all_gather(every, mine)
-                every = [[float(x) for x in e] for e in every]
-                row["losses"].append([e[0] for e in every])
-                row["loss_rel"].append(max(e[1] for e in every))
-                row["grad_norm_rel"].append(max(e[2] for e in every))
-                row["grad"].append(max(e[3] for e in every))
-                with torch.no_grad():
-                    for n, p in ref.named_parameters():
-                        p.sub_(TRAIN_MESH_LR * g0[n])
-                del g0
-            if dict(_build.launches) != before:
-                raise AssertionError(f"(a) the sharded step launched "
-                                     f"kernels: {_build.launches}")
-            row["captures"] = capture_count(step.program)
-            row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
-            bad = [(i, x) for i, x in enumerate(row["loss_rel"])
-                   if not x <= TRAIN_MESH_LOSS_RTOL]
-            bad += [(i, x) for i, x in enumerate(row["grad"])
-                    if not x <= TRAIN_MESH_GRAD_TOL]
-            if bad:
-                raise AssertionError(f"(a) {row['model']}: steps off one "
-                                     f"device's: {bad}")
-            if (arch, shape) == (TRAIN_MESH_PARITY[0][0],
-                                 TRAIN_MESH_SHAPES[0]):
-                row["checkpoint"] = world_checkpoint(
-                    torch, dev, rank, state, save_checkpoint,
-                    restore_checkpoint)
-            if rank == 0:
-                rows.append(row)
-                log(f"  (a) {row['model']} over {mesh.backend}: rank "
-                    f"losses " + "; ".join(
-                        "/".join(f"{x:.6f}" for x in ls)
-                        for ls in row["losses"])
-                    + f" (worst {max(row['loss_rel']):.2e} rel of one "
-                    f"device's); each step's applied gradient within "
-                    + ", ".join(f"{x:.2e}" for x in row["grad"])
-                    + " of each leaf's largest entry, its norm within "
-                    + ", ".join(f"{x:.1e}" for x in row["grad_norm_rel"])
-                    + " rel; sharded step ms "
-                    + ", ".join(f"{x:.1f}" for x in row["step_ms"])
-                    + " (one device's loss and gradients "
-                    + ", ".join(f"{x:.1f}" for x in row["ref_grad_ms"])
-                    + f"); captures {row['captures']}"
-                    + (f"; the world's checkpoint ({row['checkpoint']}) "
-                       f"restored on one card bit-equal"
-                       if row.get("checkpoint") else ""))
-            del state, ref, step
-            gc.collect()
-            torch.cuda.empty_cache()
-    return rows if rank == 0 else None
+    for shape in shapes:
+        mesh = make_mesh(shape)
+        kw = dict(remat=True, data_shards=shape[0])
+        ref = bundle.init(torch.Generator(dev).manual_seed(0))
+        state = init_train_state(shard_params(ref, mesh, fsdp=True))
+        step = make_train_step(bundle.loss, lr=TRAIN_MESH_LR, mesh=mesh,
+                               **kw)
+        specs = state.params.specs
+        with step_context(cfg, mesh, shard_batch(batches[0], mesh)) as ctx:
+            kv_seq = ctx.kv_seq
+        if kv_seq != (cfg.n_heads % shape[1] != 0):
+            raise AssertionError(f"(a) {arch} {layers} on {shape}: K/V "
+                                 f"split by sequence {kv_seq}")
+        row = {"model": f"{arch} {layers} float32 training, mesh {shape}",
+               "backend": mesh.backend, "tokens_a_row": seq,
+               "kv_seq_split": kv_seq, "losses": [], "loss_rel": [],
+               "grad": [], "grad_norm_rel": [], "step_ms": [],
+               "ref_grad_ms": []}
+        before = dict(_build.launches)
+        merges[0] = 0
+        for batch in batches:
+            whole = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            l0, _, g0 = loss_and_grads(bundle.loss, ref, whole, **kw)
+            g0, n0 = clip_by_global_norm(g0, 1.0)
+            torch.cuda.synchronize()
+            row["ref_grad_ms"].append((time.perf_counter() - t) * 1e3)
+            with torch.no_grad():
+                for n, p in state.params.named_parameters():
+                    p.copy_(shard_local(ref.get_parameter(n), specs[n],
+                                        mesh))
+            mu_prev = {n: t.clone() for n, t in state.opt.mu.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            row["step_ms"].append((time.perf_counter() - t) * 1e3)
+            worst = 0.0
+            for n, mu in state.opt.mu.items():
+                applied = (mu - b1 * mu_prev[n]) / (1 - b1)
+                want = shard_local(g0[n], specs[n], mesh)
+                top = float(g0[n].abs().max()) or 1.0
+                worst = max(worst, float((applied - want).abs().max())
+                            / top)
+            del mu_prev
+            mine = torch.tensor(
+                [float(m["loss"]), abs(float(m["loss"]) - float(l0))
+                 / abs(float(l0)), abs(float(m["grad_norm"]) - float(n0))
+                 / float(n0), worst], device=dev)
+            every = [torch.zeros(4, device=dev) for _ in range(mesh.size)]
+            dist.all_gather(every, mine)
+            every = [[float(x) for x in e] for e in every]
+            row["losses"].append([e[0] for e in every])
+            row["loss_rel"].append(max(e[1] for e in every))
+            row["grad_norm_rel"].append(max(e[2] for e in every))
+            row["grad"].append(max(e[3] for e in every))
+            with torch.no_grad():
+                for n, p in ref.named_parameters():
+                    p.sub_(TRAIN_MESH_LR * g0[n])
+            del g0
+        if dict(_build.launches) != before:
+            raise AssertionError(f"(a) the sharded step launched "
+                                 f"kernels: {_build.launches}")
+        # the merges of the step's runs (a captured step merges only
+        # while it is captured; over gloo every step runs eagerly)
+        row["merges"] = merges[0]
+        if (merges[0] > 0) != kv_seq:
+            raise AssertionError(f"(a) {row['model']}: {merges[0]} merges "
+                                 f"with K/V split by sequence {kv_seq}")
+        row["captures"] = capture_count(step.program)
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        bad = [(i, x) for i, x in enumerate(row["loss_rel"])
+               if not x <= TRAIN_MESH_LOSS_RTOL]
+        bad += [(i, x) for i, x in enumerate(row["grad"])
+                if not x <= TRAIN_MESH_GRAD_TOL]
+        if bad:
+            raise AssertionError(f"(a) {row['model']}: steps off one "
+                                 f"device's: {bad}")
+        if (arch, shape) == (LM_ARCH, TRAIN_MESH_SHAPES[0]):
+            row["checkpoint"] = world_checkpoint(
+                torch, dev, rank, state, save_checkpoint, restore_checkpoint)
+        if rank == 0:
+            rows.append(row)
+            log(f"  (a) {row['model']} over {mesh.backend}: rank losses "
+                + "; ".join("/".join(f"{x:.6f}" for x in ls)
+                            for ls in row["losses"])
+                + f" (worst {max(row['loss_rel']):.2e} rel of one "
+                f"device's); each step's applied gradient within "
+                + ", ".join(f"{x:.2e}" for x in row["grad"])
+                + " of each leaf's largest entry, its norm within "
+                + ", ".join(f"{x:.1e}" for x in row["grad_norm_rel"])
+                + " rel; sharded step ms "
+                + ", ".join(f"{x:.1f}" for x in row["step_ms"])
+                + " (one device's loss and gradients "
+                + ", ".join(f"{x:.1f}" for x in row["ref_grad_ms"])
+                + f"); captures {row['captures']}"
+                + (f"; K/V split by sequence, {row['merges']} merges"
+                   if kv_seq else "")
+                + (f"; the world's checkpoint ({row['checkpoint']}) "
+                   f"restored on one card bit-equal"
+                   if row.get("checkpoint") else ""))
+        del state, ref, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
 
 
 def world_checkpoint(torch, dev, rank, state, save_checkpoint,
@@ -6014,10 +6080,24 @@ def whole_like(state):
                                         nu=mom))
 
 
-def train_perf_rank(torch, np, dev, rank, layers, shapes, steps):
-    """Phase 27 (b)/(c) on this rank: Yi-6B at full width with ``layers``
-    layers, bfloat16, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens a step on
-    each mesh of ``shapes``, ``steps`` captured steps over NCCL with
+def layers_label(cfg, arch) -> str:
+    """``cfg``'s depth against ``arch``'s published one, e.g. "8 of 32
+    layers" or Whisper's "8 + 8 of 32 + 32 layers"."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    if cfg.family == "audio":
+        return (f"{cfg.n_encoder_layers} + {cfg.n_layers} of "
+                f"{full.n_encoder_layers} + {full.n_layers} layers")
+    return f"{cfg.n_layers} of {full.n_layers} layers"
+
+
+def train_perf_rank(torch, np, dev, rank, arch, fields, rows_a_step, seq,
+                    shapes, steps):
+    """Phase 27 (b)/(c) on this rank: ``arch`` at full width with
+    ``fields`` replaced, bfloat16, ``rows_a_step`` x ``seq`` tokens a step
+    (Whisper's rows with their 1,500 frames) on each mesh of ``shapes``
+    (None: one card, no mesh), ``steps`` captured steps over NCCL with
     phase 25's schedule and clip, the last ``TRAIN_MESH_TRACED`` traced
     by torch.profiler; returns this rank's rows: losses, step ms, peak
     memory, NCCL device ms a step."""
@@ -6034,27 +6114,29 @@ def train_perf_rank(torch, np, dev, rank, layers, shapes, steps):
     from repro_torch.training import (cosine_schedule, init_train_state,
                                       make_train_step)
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), **fields)
     bundle = get_model(cfg)
-    ds = PackedLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    ds = PackedLMDataset(cfg, rows_a_step, seq, seed=0)
     batches = [ds.next_batch() for _ in range(steps)]
     rows = []
     for shape in shapes:
-        mesh = make_mesh(shape)
+        mesh = make_mesh(shape) if shape else None
         torch.cuda.reset_peak_memory_stats(dev)
         full = bundle.init(torch.Generator(dev).manual_seed(0))
         n_params = sum(p.numel() for p in full.parameters())
-        state = init_train_state(shard_params(full, mesh, fsdp=True))
+        state = init_train_state(shard_params(full, mesh, fsdp=True)
+                                 if mesh else full)
         del full
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        # phase 25's schedule, so (b)'s steps are phase 25's first ten
+        # phase 25's schedule, so (b)'s Yi-6B steps are phase 25's first ten
         lr = cosine_schedule(TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_STEPS,
                              TRAIN_FLOOR)
         step = make_train_step(bundle.loss, lr=lr,
                                max_grad_norm=TRAIN_MAX_GRAD_NORM, remat=True,
-                               data_shards=shape[0], mesh=mesh)
+                               data_shards=shape[0] if shape else 1,
+                               mesh=mesh)
         losses, ms = [], []
         before = dict(_build.launches)
 
@@ -6079,10 +6161,12 @@ def train_perf_rank(torch, np, dev, rank, layers, shapes, steps):
         if dict(_build.launches) != before:
             raise AssertionError("the sharded step launched kernels")
         median = statistics.median(ms[1:-TRAIN_MESH_TRACED])
-        tokens = TRAIN_BATCH * TRAIN_SEQ
+        tokens = rows_a_step * seq
+        where = (f"mesh {shape} over {mesh.backend}" if mesh
+                 else "one card")
         rows.append({
-            "model": f"{cfg.arch_id} {layers} of 32 layers bf16 training, "
-                     f"mesh {shape} over {mesh.backend}",
+            "model": f"{cfg.arch_id} {layers_label(cfg, arch)} bf16 training, "
+                     f"{where}",
             "rank": rank, "parameters": n_params, "losses": losses,
             "step_ms": ms, "median_step_ms": median,
             "tokens_per_s": tokens / median * 1e3,
@@ -6101,16 +6185,17 @@ def train_perf_rank(torch, np, dev, rank, layers, shapes, steps):
 
 def train_mesh_rank(torch, np, dev, rank, task, out):
     """A ``--mesh-task`` rank of phase 27: ``parity`` ((a)'s rank 1),
-    ``perf`` ((b)) or ``full`` ((c)); writes its rows to
-    ``out/rank<R>.json``."""
+    ``perf`` ((b), ``TRAIN_MESH_PERF``) or ``full`` ((c),
+    ``TRAIN_MESH_FULL``); writes its rows to ``out/rank<R>.json``."""
     if task == "parity":
         rows = train_parity_rank(torch, np, dev, rank)
-    elif task == "perf":
-        rows = train_perf_rank(torch, np, dev, rank, TRAIN_LAYERS,
-                               TRAIN_MESH_SHAPES, TRAIN_MESH_PERF_STEPS)
     else:
-        rows = train_perf_rank(torch, np, dev, rank, 32, [(4, 1)],
-                               TRAIN_MESH_FULL_STEPS)
+        runs, steps = ((TRAIN_MESH_PERF, TRAIN_MESH_PERF_STEPS)
+                       if task == "perf"
+                       else (TRAIN_MESH_FULL, TRAIN_MESH_FULL_STEPS))
+        rows = [row for arch, fields, n, seq, shapes in runs
+                for row in train_perf_rank(torch, np, dev, rank, arch,
+                                           fields, n, seq, shapes, steps)]
     (Path(out) / f"rank{rank}.json").write_text(json.dumps(rows))
 
 
@@ -6131,11 +6216,13 @@ def train_mesh_world(torch, np, n, backend, task):
 def mesh_training(torch, np, dev, phase25_losses=None):
     """Phase 27: (a) parity on a world of two ranks — this process is
     rank 0, a ``--mesh-rank 1`` process rank 1, each running the
-    single-device loss and gradients beside its share: NCCL a card a rank where two cards show, else gloo
-    with both on the one card, eager; (b) with two cards, phase 25's
-    configuration captured over NCCL on (2, 1) and (1, 2), its losses
+    single-device loss and gradients beside its share: NCCL a card a
+    rank where two cards show, else gloo with both on the one card,
+    eager; (b) with two cards, phase 25's configuration and Whisper at 8
+    + 8 layers captured over NCCL on (2, 1) and (1, 2), Yi-6B's losses
     logged beside ``phase25_losses``' first (same weights, data and
-    schedule); (c) with four, Yi-6B at full depth, FSDP over four.
+    schedule), Whisper's steps beside one card's; (c) with four, Yi-6B
+    at full depth, FSDP over four, and Whisper at full depth on (2, 2).
     Returns (rows, the phase's summary)."""
     import datetime
 
@@ -6171,17 +6258,32 @@ def mesh_training(torch, np, dev, phase25_losses=None):
     for row in rows:
         row["cards"] = cards
     if cards >= 2:
+        # one card's steps of each (b) model but Yi-6B (phase 25's)
+        one = {}
+        for arch, fields, n, seq, _ in TRAIN_MESH_PERF:
+            if arch != LM_ARCH:
+                one[arch] = train_perf_rank(torch, np, dev, 0, arch, fields,
+                                            n, seq, [None],
+                                            TRAIN_MESH_PERF_STEPS)[0]
+                rows.append(dict(one[arch], cards=cards))
+                log(f"  (b) {one[arch]['model']}: median step "
+                    f"{one[arch]['median_step_ms']:.2f} ms, peak "
+                    f"{one[arch]['peak_memory_bytes'] / 1e9:.2f} GB")
         ranks = train_mesh_world(torch, np, 2, "nccl", "perf")
-        for i, shape in enumerate(TRAIN_MESH_SHAPES):
+        runs = [(arch, shape) for arch, _, _, _, shapes in TRAIN_MESH_PERF
+                for shape in shapes]
+        for i, (arch, shape) in enumerate(runs):
             per = [r[i] for r in ranks]
             losses = per[0]["losses"]
             if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-                raise AssertionError(f"(b) {shape}: losses {losses}")
+                raise AssertionError(f"(b) {arch} {shape}: losses {losses}")
             rows.append({"model": per[0]["model"], "cards": cards,
                          "ranks": per})
+            ref = one.get(arch)
             log(f"  (b) {per[0]['model']}: median step "
                 + ", ".join(f"{r['median_step_ms']:.2f}" for r in per)
-                + f" ms a rank (phase 25, one card: 809.80), "
+                + (f" ms a rank (one card: {ref['median_step_ms']:.2f}), "
+                   if ref else " ms a rank (phase 25, one card: 809.80), ")
                 + ", ".join(f"{r['tokens_per_s']:,.0f}" for r in per)
                 + " tokens/s; NCCL device "
                 + ", ".join(f"{r['nccl_device_ms_per_step']:.2f}"
@@ -6191,26 +6293,34 @@ def mesh_training(torch, np, dev, phase25_losses=None):
                 + " NCCL kernels, the recomputed layers' again); peak "
                 + ", ".join(f"{r['peak_memory_bytes'] / 1e9:.2f}"
                             for r in per)
-                + " GB a rank (phase 25: 31.6); loss "
+                + (f" GB a rank (one card: "
+                   f"{ref['peak_memory_bytes'] / 1e9:.2f}); loss "
+                   if ref else " GB a rank (phase 25: 31.6); loss ")
                 + " ".join(f"{x:.3f}" for x in losses)
                 + (" (phase 25's first steps: " + " ".join(
                     f"{x:.3f}" for x in phase25_losses[:len(losses)]) + ")"
-                   if phase25_losses else "")
+                   if phase25_losses and arch == LM_ARCH else "")
                 + f"; captures {per[0]['captures']}")
     if cards >= 4:
         ranks = train_mesh_world(torch, np, 4, "nccl", "full")
-        per = [r[0] for r in ranks]
-        losses = per[0]["losses"]
-        if not (all(np.isfinite(losses)) and min(losses[1:]) < losses[0]):
-            raise AssertionError(f"(c) losses {losses}")
-        rows.append({"model": per[0]["model"], "cards": cards, "ranks": per})
-        log(f"  (c) {per[0]['model']} ({per[0]['parameters']:,} "
-            f"parameters): loss " + " ".join(f"{x:.3f}" for x in losses)
-            + "; median step " + ", ".join(
-                f"{r['median_step_ms']:.1f}" for r in per)
-            + " ms a rank; peak " + ", ".join(
-                f"{r['peak_memory_bytes'] / 1e9:.2f}" for r in per)
-            + " GB a rank")
+        for i in range(len(TRAIN_MESH_FULL)):
+            per = [r[i] for r in ranks]
+            losses = per[0]["losses"]
+            if not (all(np.isfinite(losses))
+                    and min(losses[1:]) < losses[0]):
+                raise AssertionError(f"(c) {per[0]['model']}: losses "
+                                     f"{losses}")
+            rows.append({"model": per[0]["model"], "cards": cards,
+                         "ranks": per})
+            log(f"  (c) {per[0]['model']} ({per[0]['parameters']:,} "
+                f"parameters): loss " + " ".join(f"{x:.3f}" for x in losses)
+                + "; median step " + ", ".join(
+                    f"{r['median_step_ms']:.1f}" for r in per)
+                + " ms a rank; NCCL device " + ", ".join(
+                    f"{r['nccl_device_ms_per_step']:.2f}" for r in per)
+                + " ms a step; peak " + ", ".join(
+                    f"{r['peak_memory_bytes'] / 1e9:.2f}" for r in per)
+                + " GB a rank")
     info = {"phase": "phase 27 mesh-sharded training",
             "seconds": time.perf_counter() - t_phase, "backend": backend,
             "cards": cards,
@@ -6560,9 +6670,10 @@ def main() -> int:
     summaries.append(mesh_summary)
     for kname, per_run in mesh_runs.items():
         layer_runs.setdefault(kname, {}).update(per_run)
-    phase("phase 27: mesh-sharded training — (a) Yi-6B and DeepSeek-MoE-16B "
-          "on two ranks against one device, (b) phase 25's model on two "
-          "cards, (c) Yi-6B at full depth on four (where the cards show)")
+    phase("phase 27: mesh-sharded training — (a) Yi-6B, DeepSeek-MoE-16B "
+          "and Whisper (and its K/V split) on two ranks against one "
+          "device, (b) phase 25's model and Whisper on two cards, (c) "
+          "Yi-6B and Whisper at full depth on four (where the cards show)")
     mt_rows, mt_summary = mesh_training(torch, np, dev,
                                         train_rows[0]["losses"])
     model_rows.extend(mt_rows)

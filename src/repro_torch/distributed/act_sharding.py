@@ -38,10 +38,20 @@ and without a context every function here is the identity, as there:
     head is vocab-parallel is the sharding policy's choice (``tp.split``),
     not the context's, so the context takes no ``heads_divisible`` or
     ``logit_axis``;
-  * ``shard_kv`` — the JAX package splits K/V by sequence where the heads
-    do not divide; in the port's training the attention then runs whole
-    on each rank (the same result), and the split is still to port
-    (ROADMAP queue 1).
+  * ``shard_kv`` (``kv_seq``) — where the heads do not divide over
+    ``model`` (the policy replicates attention there) and the attended
+    positions do, K/V (B, S, KH, dh) are split by sequence: a rank holds
+    its block of S/m positions (their gradients gathered in backward),
+    attends every query over it at the block's absolute positions (the
+    causal mask, the window and a vision prefix are the whole
+    attention's) and keeps the log-sum-exp; the ranks' partials merge
+    through ``collectives.combine``, whose backward gives each partial
+    its share.  The queries, whole on every rank, feed every rank's
+    partial, so they take the copy-in (``kv_query``).  A rank holds a
+    1/m block of the logits and does 1/m of the attention's work;
+    ``models.lm.chunked_attention`` runs it, for every family whose
+    training reaches it (Whisper's decoder too; its encoder's 1,500
+    frames and the cross-attention run whole).
 
 This module imports nothing of ``repro_torch.models`` (no cycles).
 """
@@ -69,18 +79,20 @@ class ActivationCtx:
     """One sharded step's decisions on ``mesh`` that the model steps read
     — whether the batch rows divide over the data axes (the EP dispatch's
     groups), whether the layers run under sequence parallelism, whether
-    the experts divide over ``model`` — and the ``Comm``s it meets:
-    ``model``, and ``data`` over the data axes together (None when they
-    hold one rank)."""
+    the experts divide over ``model``, whether attention splits K/V by
+    sequence (``kv_seq``) — and the ``Comm``s it meets: ``model``, and
+    ``data`` over the data axes together (None when they hold one
+    rank)."""
 
     def __init__(self, mesh, *, batch_divisible: bool,
                  seq_divisible: bool = False,
-                 experts_divisible: bool = False):
+                 experts_divisible: bool = False, kv_seq: bool = False):
         self.mesh = mesh
         self.batch_divisible = batch_divisible
         has_model = "model" in mesh.axis_names
         self.seq_divisible = seq_divisible and has_model
         self.experts_divisible = experts_divisible and has_model
+        self.kv_seq = kv_seq and has_model and mesh.shape["model"] > 1
         self.model = mesh.comm("model")
         data = mesh.comm(mesh.data_axes)
         self.data = data if data.size > 1 else None
@@ -93,13 +105,15 @@ class ActivationCtx:
 @contextlib.contextmanager
 def activation_sharding(mesh, *, batch_divisible: bool,
                         seq_divisible: bool = False,
-                        experts_divisible: bool = False):
+                        experts_divisible: bool = False,
+                        kv_seq: bool = False):
     """Run the model steps inside as this rank's share of a step on
     ``mesh``; yields the ``ActivationCtx``."""
     prev = current()
     _STATE.ctx = ActivationCtx(mesh, batch_divisible=batch_divisible,
                                seq_divisible=seq_divisible,
-                               experts_divisible=experts_divisible)
+                               experts_divisible=experts_divisible,
+                               kv_seq=kv_seq)
     try:
         yield _STATE.ctx
     finally:
@@ -188,13 +202,35 @@ def shard_heads(x, head_axis_index: int = 2):
     return x
 
 
+def kv_split() -> Optional[C.Comm]:
+    """The ``model`` axis's ``Comm`` where attention splits K/V by
+    sequence (the context's ``kv_seq``), else None."""
+    ctx = current()
+    return ctx.model if ctx is not None and ctx.kv_seq else None
+
+
 def shard_kv(x):
-    """K/V inside attention: heads on ``model`` where they divide (a
-    rank's own, as ``shard_heads``); where they do not, the JAX package
-    splits the sequence, and the port's training attends over the whole
-    sequence on every rank instead (the same result; the split is still
-    to port).  ``x`` itself."""
-    return x
+    """K/V (B, S, KH, dh) inside attention: heads on ``model`` where they
+    divide (a rank's own already, as ``shard_heads``); where they do not
+    and the context splits K/V by sequence (``kv_seq``), this rank's
+    block of the S positions (gradient: the blocks' gradients gathered);
+    else ``x`` itself."""
+    comm = kv_split()
+    if comm is None:
+        return x
+    if x.shape[1] % comm.size:
+        raise ValueError(f"K/V of {x.shape[1]} positions do not split "
+                         f"over model={comm.size}")
+    return C.split(comm, x, 1)
+
+
+def kv_query(q):
+    """The queries of attention whose K/V are split by sequence: whole on
+    every rank and feeding every rank's partial, so they take the
+    copy-in (their gradient summed over ``model``); ``q`` itself when
+    K/V are not split."""
+    comm = kv_split()
+    return q if comm is None else C.copy_in(comm, q)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Where GSPMD inserts a collective into the JAX package's sharded
 programs, the port's per-rank model steps (``models.lm``, ``models.ssm``,
-``models.moe_ep``) call one of these explicitly, on plain local tensors.
+``models.encdec``, ``models.moe_ep``) call one of these explicitly, on
+plain local tensors.
 ``Comm`` holds the raw collectives of one axis:
 
   * ``all_reduce`` — the sum over ranks (row-parallel projections, the
@@ -13,7 +14,8 @@ programs, the port's per-rank model steps (``models.lm``, ``models.ssm``,
   * ``all_to_all`` — each rank's slices of one dimension sent to their
     ranks and concatenated along another (the expert-parallel dispatch);
   * ``combine`` — flash-decoding: partial attentions over each rank's
-    KV rows, with their log-sum-exp, merged into the attention over all
+    KV rows (serving's sequence-split cache, training's sequence split of
+    K/V), with their log-sum-exp, merged into the attention over all
     rows (one ``all_reduce`` of the max, one of the rescaled sums).
 
 All of them go through ``torch.distributed`` on the axis's group, so on
@@ -48,6 +50,11 @@ raw ``Comm`` calls, so serving runs exactly as before); each is an
   reduce_scatter partial -> slices    all_gather
   split          whole -> slice       all_gather
   all_to_all     dim a -> dim b       all_to_all dim b -> dim a
+  combine        partials, lse ->     this rank's share, no collective:
+                 merged               a_r g to its partial, a_r <g,
+                                      o_r - y> to its lse (a_r its
+                                      weight; the merged y is consumed
+                                      alike on every rank)
   ============== ==================== ===================================
 
 On the ``model`` axis every rank computes the same loss, so a reduce-
@@ -168,6 +175,12 @@ class Comm:
         ``lse`` (...) of the scaled scores (-inf where a rank holds no
         valid row, its ``out`` 0): the attention over every rank's rows,
         in ``out``'s dtype.  exp(lse_r - max) weighs each partial."""
+        return self.merge(out, lse)[0].to(out.dtype)
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor):
+        """``combine``'s float32 result and this rank's weight in it,
+        exp(lse_r) / sum_r exp(lse_r) (...): one ``all_reduce`` of the
+        max, one of the rescaled sums."""
         top = self.all_reduce(lse.clone(), dist.ReduceOp.MAX)
         w = torch.exp(lse - top)
         packed = torch.cat([(out.float() * w[..., None]).flatten(),
@@ -176,7 +189,7 @@ class Comm:
         n = out.numel()
         num = packed[:n].view(out.shape)
         den = packed[n:].view(w.shape)
-        return (num / den[..., None]).to(out.dtype)
+        return num / den[..., None], w / den
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -294,6 +307,24 @@ class _Split(torch.autograd.Function):
         return ctx.comm.all_gather(g, ctx.dim), None, None
 
 
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, lse, comm):
+        y, a = comm.merge(out, lse)
+        ctx.save_for_backward(out, a, y)
+        return y.to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        # y = sum_r a_r o_r with a_r = softmax_r(lse_r): dy/do_r = a_r,
+        # dy/dlse_r = a_r (o_r - y)
+        out, a, y = ctx.saved_tensors
+        g = g.float()
+        d_out = (g * a[..., None]).to(out.dtype)
+        d_lse = a * (g * (out.float() - y)).sum(-1)
+        return d_out, d_lse, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, comm, split_dim, concat_dim):
@@ -373,3 +404,16 @@ def all_to_all(comm: Comm, x: torch.Tensor, split_dim: int,
     if not _grad(x):
         return comm.all_to_all(x, split_dim, concat_dim)
     return _AllToAll.apply(x, comm, split_dim, concat_dim)
+
+
+def combine(comm: Comm, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """``Comm.combine``: each rank's partial attention ``out`` over its
+    block of keys and their float32 log-sum-exp ``lse`` merged into the
+    attention over every rank's keys (a partial whose block is fully
+    masked weighs 0).  Its gradient is this rank's share of the merged
+    one's, for its partial and its lse."""
+    if comm.size == 1:
+        return out
+    if not _grad(out, lse):
+        return comm.combine(out, lse)
+    return _Combine.apply(out, lse, comm)

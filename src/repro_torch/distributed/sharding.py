@@ -455,7 +455,9 @@ def engine_shardings(cfg: ModelConfig, mesh: Mesh, model: nn.Module,
 # this rank's model
 # ---------------------------------------------------------------------------
 
-# the families a serving mesh shards (the JAX engine's SHARDED_FAMILIES)
+# the families a serving mesh shards (the JAX engine's SHARDED_FAMILIES;
+# ``ServingEngine(mesh=)`` refuses the others); a training mesh shards
+# every family, audio too
 SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
@@ -473,17 +475,20 @@ def shard_params(model: nn.Module, mesh: Mesh, *,
     shards with ``fsdp=False`` (weights whole over ``data``), training
     with FSDP.  A model already sharded for ``mesh`` is returned as it
     is, and the shards of one ``model`` are made once per mesh and
-    ``fsdp`` (replicas share them)."""
+    ``fsdp`` (replicas share them).  A ``model`` axis the padded
+    vocabulary does not divide is refused with ``ValueError``."""
     if getattr(model, "mesh", None) is mesh:
         return model
     memo = model.__dict__.setdefault("_mesh_shards", {})
     if (id(mesh), fsdp) in memo:
         return memo[(id(mesh), fsdp)][1]
-    from repro_torch.models import registry
+    from repro_torch.models import lm, registry
     cfg = model.cfg
-    if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not sharded on a mesh "
-                         f"(sharded families: {SHARDED_FAMILIES})")
+    m, vocab = _axis_size(mesh, "model"), lm.padded_vocab(cfg)
+    if vocab % m:
+        raise ValueError(f"{cfg.arch_id}: its vocabulary of {cfg.vocab} "
+                         f"(padded to {vocab} rows) does not divide over "
+                         f"model={m}")
     pol = make_policy(cfg, mesh, fsdp=fsdp)
     specs = param_specs(model, mesh, policy=pol)
     local = registry.empty_model(cfg, "meta")
@@ -558,7 +563,7 @@ def _annotate(model: nn.Module, cfg: ModelConfig, mesh: Mesh,
     """Set ``tp`` on every module whose step meets a collective on
     ``model``, and ``dp`` on every module with parameters when the data
     axes hold more than one rank and FSDP is on."""
-    from repro_torch.models import lm, ssm
+    from repro_torch.models import encdec, lm, ssm
     m = mesh.shape["model"]
     comm = mesh.comm("model")
     if pol.fsdp and _data_size(mesh) > 1:
@@ -578,9 +583,18 @@ def _annotate(model: nn.Module, cfg: ModelConfig, mesh: Mesh,
     model.tp = Shard(comm, split=specs["embed"][0] == "model")
     for prefix, mod in model.named_modules():
         key = f"{prefix}." if prefix else ""
-        if isinstance(mod, lm.Attention):
+        if isinstance(mod, (lm.Attention, encdec.BiasedAttention)):
             mod.tp = Shard(comm, split=specs[key + "wq"][1] == "model",
                            kv_split=specs[key + "wk"][1] == "model")
+            if (isinstance(mod, encdec.BiasedAttention)
+                    and mod.tp.split != mod.tp.kv_split):
+                raise ValueError(
+                    f"{cfg.arch_id}: encoder-decoder attention with its "
+                    f"{cfg.n_heads} query heads split over model={m} and "
+                    f"its {cfg.n_kv_heads} KV heads whole (no "
+                    f"configuration of the repository has them)")
+        elif isinstance(mod, encdec.BiasedMLP):
+            mod.tp = Shard(comm, split=specs[key + "wi"][-1] == "model")
         elif isinstance(mod, lm.MoE):
             mod.tp = Shard(comm,
                            split=specs[key + "experts.wi"][0] == "model")

@@ -16,10 +16,17 @@ on a world of 256 ranks, ``--multi-pod`` (2, 16, 16) on 512, or
 raises ``ValueError`` naming the size the mesh needs.  Each rank holds
 its slices (``shard_params(..., fsdp=True)``) and trains its share of
 every step (``make_train_step(..., mesh=)``); rank 0 prints, and a
-checkpoint is written whole by rank 0.  For example, on the CPU:
+checkpoint is written whole by rank 0.  Every family trains on a mesh,
+Whisper (``--arch whisper-large-v3``) too; where the heads do not divide
+over ``model`` the attention splits K/V by sequence.  A ``model`` axis
+the padded vocabulary does not divide raises ``ValueError`` naming it
+(Whisper's 51,866 entries pad to 53,248 rows, 2^12 x 13).  For example,
+on the CPU:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --device cpu --mesh 1,2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch whisper-large-v3 --device cpu --mesh 2,2
 """
 
 from __future__ import annotations

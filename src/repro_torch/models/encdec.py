@@ -18,9 +18,29 @@ loss over the decoder's token labels.
 The frames are cast to the model's dtype, as PaliGemma's patches are:
 the JAX package runs them in their own dtype, and float32 frames on a
 bfloat16 model stop its decoder scan with a carry-dtype error, so where
-the JAX package runs (frames in the model's dtype) the two agree.  The
-JAX package's activation-sharding hooks (``shard_act``,
-``shard_logits``) are the identity on one device and are left out.
+the JAX package runs (frames in the model's dtype) the two agree.
+
+Sharded training (``distributed.sharding.shard_params(..., fsdp=True)``
+inside ``act_sharding.activation_sharding``; the JAX ``encdec.py`` pins
+only ``shard_act`` / ``shard_logits``, so no sequence parallelism) runs
+the same functions on a rank's slices, as ``models.lm`` does: each
+layer's FSDP views are taken inside its rematerialized region
+(``act_sharding.gathered``); the normalized input of an attention or MLP
+whose weights are split over ``model`` takes the copy-in
+(``act_sharding.enter``) and its row-parallel output the all_reduce
+(``act_sharding.leave``), and only then the replicated ``bo``, so it is
+added once.  The policy keeps ``bq`` / ``bv`` whole while ``wq`` / ``wv``
+split by heads: a rank adds its heads' block (``collectives.split``,
+whose backward gathers the whole leaf's gradient on every rank);
+``bi`` follows ``wi``'s split.  The encoder output, whole on every rank,
+feeds every layer's cross K/V of the rank's heads, so it takes the
+copy-in once, before the decoder.  The embedding lookup and the tied
+head are vocab-parallel (``lm.embed_tokens``; the head's logits
+gathered); ``dec_pos`` and the norms are replicated.  Where the heads do
+not divide over ``model`` every attention runs whole on each rank, the
+decoder's self-attention with K/V split by sequence
+(``lm.chunked_attention``); the encoder's 1,500 frames and the
+cross-attention are not split.
 """
 
 from __future__ import annotations
@@ -34,6 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.executor import resolve_device
+from repro_torch.distributed import act_sharding as acts
+from repro_torch.distributed import collectives as C
 
 from . import lm
 from .common import ModelConfig, dense_init, layer_norm
@@ -173,21 +195,39 @@ def sinusoids(length: int, channels: int, dtype=torch.float32,
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1).to(dtype)
 
 
+def _head_bias(p: BiasedAttention, name: str) -> torch.Tensor:
+    """``bq`` (H,dh) or ``bv`` (KH,dh) as this rank's heads add it: the
+    policy keeps the bias whole while ``wq`` / ``wv`` split by heads, so
+    a rank takes its heads' block (``collectives.split``: in backward
+    every rank gathers the whole leaf's gradient)."""
+    bias = getattr(p, name)
+    tp = getattr(p, "tp", None)
+    return C.split(tp.comm, bias, 0) if tp is not None and tp.split \
+        else bias
+
+
 def _qkv(p: BiasedAttention, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq) + p.bq
+    """x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KH,dh) of this rank's heads;
+    x takes the copy-in where the heads are split."""
+    x = acts.enter(x, getattr(p, "tp", None))
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq) + _head_bias(p, "bq")
     k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv) + p.bv
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv) + _head_bias(p, "bv")
     return q, k, v
 
 
 def _out(p: BiasedAttention, out: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bqhk,hkd->bqd", out, p.wo) + p.bo
+    """(B,S,H,dh) · wo -> (B,S,D), summed over the ranks where the heads
+    are split, then + ``bo``."""
+    y = torch.einsum("bqhk,hkd->bqd", out, p.wo)
+    return acts.leave(y, getattr(p, "tp", None)) + p.bo
 
 
 def _mlp(p: BiasedMLP, x: torch.Tensor) -> torch.Tensor:
-    h = F.gelu(torch.einsum("bsd,df->bsf", x, p.wi) + p.bi,
+    tp = getattr(p, "tp", None)
+    h = F.gelu(torch.einsum("bsd,df->bsf", acts.enter(x, tp), p.wi) + p.bi,
                approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p.wo) + p.bo
+    return acts.leave(torch.einsum("bsf,fd->bsd", h, p.wo), tp) + p.bo
 
 
 def _encoder_attn(p: BiasedAttention, cfg: ModelConfig,
@@ -195,7 +235,7 @@ def _encoder_attn(p: BiasedAttention, cfg: ModelConfig,
     """Bidirectional self-attention over all frames, one einsum."""
     q, k, v = _qkv(p, x)
     b, s, h, dh = q.shape
-    kh = cfg.n_kv_heads
+    kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, dh)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
     w = torch.softmax(logits / math.sqrt(dh), dim=-1).to(v.dtype)
@@ -210,9 +250,10 @@ def _cross_attn(p: BiasedAttention, cfg: ModelConfig, x: torch.Tensor,
     of ``chunk`` when S is a multiple of it (each query row's softmax is
     its own, so the chunking only bounds the (chunk,T) logits)."""
     b, s, _ = x.shape
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    q = (torch.einsum("bsd,dhk->bshk", x, p.wq) + p.bq).reshape(
-        b, s, kh, h // kh, dh)
+    h, kh, dh = p.wq.shape[1], enc_k.shape[1], cfg.dh
+    x = acts.enter(x, getattr(p, "tp", None))
+    q = (torch.einsum("bsd,dhk->bshk", x, p.wq)
+         + _head_bias(p, "bq")).reshape(b, s, kh, h // kh, dh)
 
     def attend(qc):
         logits = torch.einsum("bqkgd,bktd->bkgqt", qc.float(),
@@ -245,20 +286,23 @@ def encode(model: EncDecLM, cfg: ModelConfig, frames: torch.Tensor, *,
     for layer in model.encoder:
         fn = functools.partial(_encoder_layer, layer, cfg)
         x = lm.checkpointed(fn, x) if remat else fn(x)
-    return _ln(x, model, "enc_final")
+    return _ln(x, acts.gathered(model), "enc_final")
 
 
 def _encoder_layer(layer: EncoderLayer, cfg: ModelConfig,
                    x: torch.Tensor) -> torch.Tensor:
+    layer = acts.gathered(layer)
     x = x + _encoder_attn(layer.attn, cfg, _ln(x, layer, "ln1"))
     return x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
 
 
 def _enc_kv(xa: BiasedAttention, enc: torch.Tensor):
-    """One decoder layer's cross K/V (B,KH,T,dh) from the encoder
-    output."""
+    """One decoder layer's cross K/V (B,KH,T,dh) of this rank's heads
+    from the encoder output (which takes the copy-in in a sharded step,
+    ``_decoder_fwd``)."""
     ek = torch.einsum("btd,dhk->bhtk", enc, xa.wk)
-    ev = torch.einsum("btd,dhk->bhtk", enc, xa.wv) + xa.bv[None, :, None]
+    ev = (torch.einsum("btd,dhk->bhtk", enc, xa.wv)
+          + _head_bias(xa, "bv")[None, :, None])
     return ek, ev
 
 
@@ -267,7 +311,10 @@ def _decoder_layer(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
                    window: Optional[int] = None):
     """One decoder layer over a whole sequence x (B,S,D) at positions
     0..S-1: causal self-attention, cross-attention over ek/ev, MLP.
-    Returns (x after the layer, its self-attention k, v (B,S,KH,dh))."""
+    Returns (x after the layer, its self-attention k, v (B,S,KH,dh)).  In
+    a sharded step the layer's weights are gathered here
+    (``act_sharding.gathered``)."""
+    layer = acts.gathered(layer)
     q, k, v = _qkv(layer.attn, _ln(x, layer, "ln1"))
     x = x + _out(layer.attn, lm.chunked_attention(q, k, v, cfg,
                                                   window=window))
@@ -280,9 +327,14 @@ def _decoder_fwd(model: EncDecLM, cfg: ModelConfig, x: torch.Tensor,
                  remat: bool = False) -> torch.Tensor:
     """The decoder over a whole sequence x (B,S,D) against the encoder
     output; ``remat`` rematerializes each layer.  Returns the hidden
-    states before the final norm."""
+    states before the final norm.  In a sharded step the encoder output
+    takes the copy-in once for every layer's cross K/V of this rank's
+    heads, and each layer's are projected outside its rematerialized
+    region (as the JAX function projects them before its scan)."""
+    if len(model.decoder):
+        enc = acts.enter(enc, getattr(model.decoder[0].xattn, "tp", None))
     for layer in model.decoder:
-        ek, ev = _enc_kv(layer.xattn, enc)
+        ek, ev = _enc_kv(acts.gathered(layer.xattn), enc)
 
         def fn(h, layer=layer, ek=ek, ev=ev):
             return _decoder_layer(layer, cfg, h, ek, ev, window=window)[0]
@@ -292,12 +344,23 @@ def _decoder_fwd(model: EncDecLM, cfg: ModelConfig, x: torch.Tensor,
 
 def _embed_dec(model: EncDecLM, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-    return (F.embedding(tokens, model.embed)
-            + F.embedding(positions % DEC_MAX_POS, model.dec_pos))
+    """Token rows (vocab-parallel on a mesh, ``lm.embed_tokens``) plus
+    the learned positions."""
+    return (lm.embed_tokens(model, model.cfg, tokens)
+            + F.embedding(positions % DEC_MAX_POS,
+                          acts.gathered(model).dec_pos))
 
 
 def _logits(model: EncDecLM, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,vd->bsv", _ln(x, model, "final"), model.embed)
+    """The tied head's (padded) vocabulary logits; on a mesh each rank's
+    block, gathered in vocabulary order (as ``lm.lm_logits``)."""
+    model = acts.gathered(model)
+    h = _ln(x, model, "final")
+    tp = getattr(model, "tp", None)
+    if tp is None or not tp.split:
+        return torch.einsum("bsd,vd->bsv", h, model.embed)
+    return C.all_gather(tp.comm, torch.einsum(
+        "bsd,vd->bsv", C.copy_in(tp.comm, h), model.embed), -1)
 
 
 def encdec_prefill(model: EncDecLM, cfg: ModelConfig,

@@ -419,7 +419,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a multiple of the chunk (min(chunk, S)), as there.  When q is
     differentiated each chunk is rematerialized (``checkpointed``), as
     the JAX function checkpoints its chunk body: backward keeps no
-    chunk's float32 logits."""
+    chunk's float32 logits.
+
+    Inside a sharded step that splits K/V by sequence
+    (``act_sharding.shard_kv``: the heads do not divide over ``model``)
+    a rank attends every query over its block of S/m key positions, at
+    their absolute positions, and the ranks' partials merge by their
+    log-sum-exp (``collectives.combine``); a block fully masked for a
+    query weighs 0 there.  The K/V blocks are taken before the GQA
+    repeat (the same result; the gradients gathered in backward are
+    KH, not H, heads wide)."""
     b, s, h, dh = q.shape
     g = h // k.shape[2]
     chunk = min(chunk, s)
@@ -427,10 +436,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sequence {s} is not a multiple of the "
                          f"attention chunk {chunk}")
     scale = 1.0 / math.sqrt(dh)
+    comm = acts.kv_split()
+    q = acts.kv_query(q)
+    k, v = acts.shard_kv(k), acts.shard_kv(v)
     kx = (k.repeat_interleave(g, dim=2) if g > 1 else k).transpose(1, 2)
     vx = (v.repeat_interleave(g, dim=2) if g > 1 else v).transpose(1, 2)
     kxf = kx.float()
-    kpos = torch.arange(s, device=q.device)
+    n = kx.shape[2]
+    first = comm.rank * n if comm is not None else 0
+    kpos = first + torch.arange(n, device=q.device)
 
     def attend(qc, start):                                 # (B,H,c,dh)
         logits = (qc.float() @ kxf.transpose(-1, -2)) * scale
@@ -442,7 +456,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
         logits = logits.masked_fill(~mask, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
-        return (w @ vx).transpose(1, 2)                    # (B,c,H,dh)
+        out = (w @ vx).transpose(1, 2)                     # (B,c,H,dh)
+        if comm is None:
+            return out
+        return out, torch.logsumexp(logits, dim=-1).transpose(1, 2)
 
     grad = torch.is_grad_enabled() and q.requires_grad
     outs = []
@@ -450,7 +467,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qc = q[:, start:start + chunk].transpose(1, 2)
         outs.append(checkpointed(attend, qc, start) if grad
                     else attend(qc, start))
-    return torch.cat(outs, dim=1)
+    if comm is None:
+        return torch.cat(outs, dim=1)
+    return C.combine(comm, torch.cat([o for o, _ in outs], dim=1),
+                     torch.cat([lse for _, lse in outs], dim=1))
 
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:

@@ -67,20 +67,24 @@ def step_context(cfg, mesh, batch: Dict[str, Any]):
     """The ``activation_sharding`` context of a sharded step on ``mesh``
     for this rank's ``batch`` (the JAX dry run's decisions): experts
     where they divide over ``model``, sequence parallelism where the
-    layers' positions (the vision prefix included) do; a null context
-    without a mesh.  Attention's split by heads is the sharding policy's
-    (``tp.split``)."""
+    layers' positions (the vision prefix included) do, and K/V split by
+    sequence (``kv_seq``) where the heads do not divide over ``model``
+    and the attended positions do (the dry run's ``not heads_divisible
+    and seq_divisible``); a null context without a mesh.  Attention's
+    split by heads is the sharding policy's (``tp.split``)."""
     if mesh is None:
         return contextlib.nullcontext()
     from repro_torch.distributed.act_sharding import activation_sharding
     m = mesh.shape["model"]
     s = batch["tokens"].shape[1] + (cfg.n_vision_tokens
                                      if cfg.family == "vlm" else 0)
+    seq_divisible = m > 1 and s % m == 0
     return activation_sharding(
         mesh, batch_divisible=True,
-        seq_divisible=(m > 1 and cfg.family in SEQ_PARALLEL_FAMILIES
-                       and s % m == 0),
-        experts_divisible=bool(cfg.n_experts) and cfg.n_experts % m == 0)
+        seq_divisible=seq_divisible and cfg.family in SEQ_PARALLEL_FAMILIES,
+        experts_divisible=bool(cfg.n_experts) and cfg.n_experts % m == 0,
+        kv_seq=(seq_divisible and bool(cfg.n_heads)
+                and cfg.n_heads % m != 0))
 
 
 def loss_and_grads(loss_fn: Callable, model: nn.Module,

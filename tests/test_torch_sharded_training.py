@@ -1,8 +1,8 @@
 """Mesh-sharded training on the CPU: ``make_train_step(..., mesh=)`` on
 gloo worlds of 2 ranks, as ``(data=2, model=1)`` and ``(1, 2)``, and of 4,
 as ``(2, 2)``, one process a rank (``tests/torch_train_worker.py``),
-against the single-device port on the same weights, for the five
-families a mesh trains (dense, moe, ssm, hybrid, vlm) at their reduced
+against the single-device port on the same weights, for every family
+(dense, moe, ssm, hybrid, vlm and audio) at their reduced
 configurations, float32.
 
   * every differentiable collective's gradient (``distributed.
@@ -26,7 +26,16 @@ configurations, float32.
     single-device ``jax.value_and_grad`` loss (``data_shards`` the world's
     data size, so MoE groups line up with the data ranks);
   * the expert-parallel block against the port's and the JAX package's
-    ``moe_block(data_shards=1)``, dropless.
+    ``moe_block(data_shards=1)``, dropless;
+  * K/V split by sequence where the heads do not divide over ``model``
+    (variants of reduced Yi-6B, PaliGemma, Zamba2 and Whisper with 2 or
+    3 heads, with and without sequence parallelism, with a vision
+    prefix): the merges ran, and the loss and gradients equal one
+    device's; the queries' copy-in dropped gives a wrong gradient;
+  * ``launch/train.py --arch whisper-large-v3 --mesh D,M`` on each world
+    against the same command on one device; ``ServingEngine(mesh=)``
+    still refuses Whisper, and ``shard_params`` a ``model`` axis the
+    vocabulary does not divide.
 
 Tolerances are ``tests/test_torch_training.py``'s: losses and
 metrics within 1e-5 relative, gradients and moments within 1e-4 of each
@@ -40,6 +49,9 @@ FileStore under ``tmp_path``, and is killed if it does not finish within
 ``GROUP_S``; a collective waits at most
 ``torch_train_worker.COLLECTIVE_TIMEOUT_S``."""
 
+import contextlib
+import io
+import json
 import os
 import pickle
 import subprocess
@@ -62,12 +74,13 @@ from repro_torch.data import make_batches
 from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as port_mesh
+from repro_torch.launch import train as train_cli
 from repro_torch.models import get_model, params_to_jax
 
 WORKER = Path(__file__).resolve().parent / "torch_train_worker.py"
 SRC = Path(__file__).resolve().parents[1] / "src"
 ARCHS = ["yi-6b", "deepseek-moe-16b", "mamba2-780m", "zamba2-1.2b",
-         "paligemma-3b"]
+         "paligemma-3b", "whisper-large-v3"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4            # of each gradient leaf's largest entry
 METRIC_RTOL = 1e-5
@@ -83,19 +96,54 @@ MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
 # 352 MB whole, no leaf above 1/20 of it
 CKPT_MEMORY_CFG = {"n_layers": 4, "d_model": 1024, "d_ff": 1024}
 COLLECTIVES = ["all_reduce", "copy_in", "all_gather", "gather_local",
-               "reduce_scatter", "split", "all_to_all"]
+               "reduce_scatter", "split", "all_to_all", "combine"]
+# K/V split by sequence: (arch, mesh) -> the reduced config's heads
+# replaced so that they do not divide over model (no published config has
+# such heads on model <= 4); Yi-6B's and PaliGemma's layers run under
+# sequence parallelism, PaliGemma's with its 16-token vision prefix
+SPLITS = {
+    ("yi-6b", (1, 2)): {"n_heads": 3, "n_kv_heads": 1, "head_dim": 64},
+    ("yi-6b", (2, 2)): {"n_heads": 3, "n_kv_heads": 1, "head_dim": 64},
+    ("paligemma-3b", (1, 2)): {"n_heads": 3, "n_kv_heads": 1},
+    ("zamba2-1.2b", (1, 2)): {"n_heads": 3, "n_kv_heads": 3, "head_dim": 64},
+    ("whisper-large-v3", (1, 2)): {"n_heads": 3, "n_kv_heads": 3,
+                                   "head_dim": 32},
+    ("whisper-large-v3", (1, 4)): {"n_heads": 2, "n_kv_heads": 2,
+                                   "head_dim": 64},
+}
+# the case whose gradients are taken again with the queries' copy-in
+# dropped
+DROP_Q_COPY_IN = ("yi-6b", (1, 2))
+# launch/train.py on each world, against the same command on one device
+LAUNCH_ARGV = ["--arch", "whisper-large-v3", "--device", "cpu", "--steps",
+               "3", "--batch", "4", "--seq", "32"]
+
+
+def _random_biases(tree, rng):
+    """``tree`` with every bias leaf (``bq``, ``bv``, ``bo``, ``bi`` and
+    the LayerNorms' ``*_b``), which Whisper's init zeroes, drawn from
+    N(0, 0.1): a bias added once a rank too many, or a rank's block of a
+    whole one taken wrongly, then shows in the first step's loss."""
+    return {k: _random_biases(v, rng) if isinstance(v, dict)
+            else (rng.normal(0, 0.1, v.shape).astype(v.dtype)
+                  if k in ("bq", "bv", "bo", "bi") or k.endswith("_b")
+                  else v)
+            for k, v in tree.items()}
 
 
 @pytest.fixture(scope="module")
 def models():
-    """arch -> (port cfg, the port's seed-0 weights as a JAX numpy tree,
-    the JAX init's weights, the batches)."""
+    """arch -> (port cfg, the port's seed-0 weights as a JAX numpy tree
+    (Whisper's biases drawn, ``_random_biases``), the JAX init's weights,
+    the batches)."""
     out = {}
     for arch in ARCHS:
         cfg = get_config(arch, reduced=True)
         bundle = get_model(cfg)
         tree = params_to_jax(bundle.init(torch.Generator().manual_seed(0)),
                              cfg)
+        if cfg.family == "audio":
+            tree = _random_biases(tree, np.random.default_rng(1))
         jtree = jax.tree.map(np.asarray, jax.jit(jax_get_model(
             jax_get_config(arch, reduced=True)).init)(jax.random.PRNGKey(0)))
         out[arch] = (cfg, tree, jtree, make_batches(cfg, BATCH, SEQ, STEPS,
@@ -171,6 +219,15 @@ def _cases(models, world):
     cases.append({"name": f"ep {ep_mesh}", "kind": "ep", "mesh": ep_mesh,
                   "arch": "deepseek-moe-16b",
                   "tree": models["deepseek-moe-16b"][1], "x": _ep_input()})
+    for (arch, mesh), heads in SPLITS.items():
+        if mesh[0] * mesh[1] == world:
+            cases.append({"name": f"split {arch} {mesh}", "kind": "split",
+                          "mesh": mesh, "arch": arch, "replace": heads,
+                          "drop_q_copy_in": (arch, mesh) == DROP_Q_COPY_IN})
+    for mesh in MESHES[world]:
+        cases.append({"name": f"launch {mesh}", "kind": "launch",
+                      "mesh": mesh, "argv": LAUNCH_ARGV + [
+                          "--mesh", f"{mesh[0]},{mesh[1]}"]})
     return cases
 
 
@@ -248,7 +305,14 @@ def test_sharded_step_matches_one_device(request, arch, mesh):
         assert max(got["param_share"]) <= PARAM_OUTLIERS, label
         assert got["steps"] == len(got["moment"]) == STEPS
         assert got["captures"] == got["ref_captures"] == 1
-        assert got["local_bytes"] < 0.75 * got["whole_bytes"], label
+        if arch == "whisper-large-v3":
+            # its 8,192 learned decoder positions, over half the reduced
+            # model, stay whole on every rank (the JAX policy's spec): a
+            # rank holds its share of the leaves the policy splits
+            assert got["split_local_bytes"] < 0.75 * \
+                got["split_whole_bytes"], label
+        else:
+            assert got["local_bytes"] < 0.75 * got["whole_bytes"], label
 
 
 def test_moe_takes_the_expert_parallel_block(two_ranks, four_ranks):
@@ -368,6 +432,113 @@ def test_ep_block_matches_moe_block(request, models, mesh):
         assert abs(got["aux"] - got["want_aux"]) <= 1e-5 * got["want_aux"]
         assert abs(got["aux"] - float(jaux)) <= 1e-5 * float(jaux)
         assert abs(got["mean_own_aux"] - got["aux"]) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K/V split by sequence
+# ---------------------------------------------------------------------------
+
+SPLIT_IDS = [f"{arch}-{mesh[0]}x{mesh[1]}" for arch, mesh in SPLITS]
+
+
+@pytest.mark.parametrize("arch,mesh", list(SPLITS), ids=SPLIT_IDS)
+def test_kv_sequence_split_matches_one_device(request, arch, mesh):
+    """Heads that do not divide over ``model``: the step's context splits
+    K/V by sequence, every attention layer's forward and its recompute
+    merge their partials (``collectives.combine``), and the loss and
+    every gradient leaf equal one device's."""
+    for r, res in enumerate(_ranks(request, mesh)):
+        got = res[f"split {arch} {mesh}"]
+        label = (arch, mesh, r)
+        assert got["kv_seq"], label
+        assert got["seq_parallel"] == (arch in ("yi-6b", "paligemma-3b"))
+        assert got["combines"] >= 2, (label, got["combines"])
+        assert got["loss_rel"] <= LOSS_RTOL, (label, got["loss_rel"])
+        assert got["grad"] <= GRAD_TOL, (label, got["grad"])
+
+
+def test_heads_that_divide_take_no_split(two_ranks, four_ranks):
+    """On the reduced configurations every head count divides over
+    ``model`` <= 2: attention is split by heads and nothing merges."""
+    for ranks in (two_ranks, four_ranks):
+        for res in ranks:
+            for name, got in res.items():
+                if "calls" in got:
+                    assert "combine" not in got["calls"], name
+
+
+def test_missing_q_copy_in_gives_a_wrong_gradient(request):
+    """Under the split the queries, whole on every rank, feed every
+    rank's partial: without their copy-in a rank keeps only its own
+    partial's share of their gradient."""
+    arch, mesh = DROP_Q_COPY_IN
+    for res in _ranks(request, mesh):
+        got = res[f"split {arch} {mesh}"]
+        assert got["grad"] <= GRAD_TOL
+        assert got["grad_no_q_copy_in"] > 0.1, got["grad_no_q_copy_in"]
+
+
+# ---------------------------------------------------------------------------
+# Whisper through the command line; what a mesh refuses
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def launch_one_device():
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        train_cli.main(LAUNCH_ARGV)
+    return json.loads(printed.getvalue().splitlines()[-1])
+
+
+@pytest.mark.parametrize("mesh", [m for w in MESHES for m in MESHES[w]],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_train_command_line_trains_whisper_on_a_mesh(request,
+                                                     launch_one_device,
+                                                     mesh):
+    """``launch/train.py --arch whisper-large-v3 --mesh D,M`` on a gloo
+    world, one process a rank: every rank runs its steps, and rank 0's
+    final loss after 3 steps is one device's."""
+    ranks = _ranks(request, mesh)
+    assert all(res[f"launch {mesh}"]["done"] for res in ranks)
+    got = ranks[0][f"launch {mesh}"]["summary"]
+    want = launch_one_device
+    assert got["steps"] == want["steps"] == 3
+    assert np.isfinite(got["final_loss"])
+    assert abs(got["final_loss"] - want["final_loss"]) <= \
+        LOSS_RTOL * abs(want["final_loss"]), (got, want)
+
+
+def test_whisper_shards_for_training_but_not_for_serving():
+    """On a one-rank mesh (a gloo world of one in this process, torn down
+    after): ``shard_params`` shards Whisper, ``ServingEngine(mesh=)``
+    still refuses it with the typed error; a ``model`` axis the padded
+    vocabulary does not divide is refused with a ``ValueError`` naming
+    the vocabulary."""
+    from repro_torch.serving import (SHARDED_FAMILIES, ServingEngine,
+                                     UnsupportedFamilyError)
+    if torch.distributed.is_initialized():
+        pytest.skip("a torch.distributed world is already up here")
+    cfg = get_config("whisper-large-v3", reduced=True)
+    bundle = get_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0))
+    three = port_mesh.Mesh((1, 3), ("data", "model"),
+                           coords={"data": 0, "model": 0},
+                           groups={"model": None})
+    with pytest.raises(ValueError, match="vocabulary of 512 .padded to "
+                                         "2048 rows. does not divide over "
+                                         "model=3"):
+        sharding.shard_params(model, three)
+    mesh = port_mesh.make_serving_mesh(1, device="cpu")
+    try:
+        local = sharding.shard_params(model, mesh, fsdp=True)
+        assert local.tp.split and local.decoder[0].xattn.tp.split
+        assert "audio" not in SHARDED_FAMILIES
+        with pytest.raises(UnsupportedFamilyError) as ei:
+            ServingEngine(bundle, model, max_slots=1, cache_len=64,
+                          mesh=mesh, device="cpu")
+        assert "mesh-sharded serving" in str(ei.value)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

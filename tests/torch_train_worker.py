@@ -9,7 +9,11 @@ collective's gradient against one device's derivative of the same
 whole tensors, and the clip's norm), ``train`` (a reduced architecture's
 sharded loss, metrics and gradients against the single-device port's,
 the steps' parameters, the capture counts, the checkpoints both ways and
-the loss on the JAX package's weights), ``ep`` (``moe_block_ep``
+the loss on the JAX package's weights), ``split`` (a variant whose heads
+do not divide over ``model``: K/V split by sequence, the loss and
+gradients against the single-device port's, the merges counted, and the
+gradients with the queries' copy-in dropped), ``launch``
+(``launch/train.py --mesh`` on this world), ``ep`` (``moe_block_ep``
 against ``moe_block(data_shards=1)``) and ``ckpt_memory`` (the host
 memory a rank adds while a sharded state is saved and restored onto
 the world).  The single-device references run
@@ -20,10 +24,13 @@ its traceback there and ends the rank with exit code 1.  This module
 imports no jax.
 """
 
+import contextlib
 import copy
 import dataclasses
 import datetime
 import gc
+import io
+import json
 import os
 import pickle
 import sys
@@ -41,10 +48,12 @@ from repro_torch.checkpoint import (gather_tree,  # noqa: E402
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import capture_count  # noqa: E402
+from repro_torch.data import make_batches  # noqa: E402
 from repro_torch.distributed import act_sharding as acts  # noqa: E402
 from repro_torch.distributed import collectives as C  # noqa: E402
 from repro_torch.distributed.sharding import (shard_batch,  # noqa: E402
                                               shard_local, shard_params)
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import get_model, lm, params_from_jax  # noqa: E402
 from repro_torch.models import moe_ep  # noqa: E402
@@ -57,7 +66,8 @@ from repro_torch.training.trainer import (loss_and_grads,  # noqa: E402
 # seconds a collective may wait for the other ranks before it raises
 COLLECTIVE_TIMEOUT_S = 60
 
-# calls of the expert-parallel block and of the all-to-all, counted
+# calls of the expert-parallel block, of the raw collectives and of the
+# differentiable merge of K/V-split partial attentions, counted
 CALLS = {}
 
 
@@ -71,6 +81,7 @@ def _counted(owner, name):
 
 
 _counted(moe_ep, "moe_block_ep")
+_counted(C, "combine")
 for _name in ("all_to_all", "all_gather", "gather_blocks", "reduce_scatter",
               "all_reduce"):
     _counted(C.Comm, _name)
@@ -193,6 +204,12 @@ def train_case(case, mesh, rank, ckpt_root):
     out["ref_captures"] = capture_count(ref_step.program)
     out["local_bytes"] = sum(p.numel() for p in state.params.parameters())
     out["whole_bytes"] = sum(p.numel() for p in full.parameters())
+    # the same over the leaves the policy splits on this mesh
+    pairs = [(p.numel(), w.numel()) for p, w in
+             zip(state.params.parameters(), full.parameters())
+             if p.numel() < w.numel()]
+    out["split_local_bytes"] = sum(a for a, _ in pairs)
+    out["split_whole_bytes"] = sum(b for _, b in pairs)
     # checkpoints: the world's, restored on one device; one device's,
     # restored onto the world
     ckpt = str(Path(ckpt_root) / f"{case['name']}")
@@ -212,6 +229,65 @@ def train_case(case, mesh, rank, ckpt_root):
     with torch.no_grad(), step_context(cfg, mesh, batch):
         out["jax_weights_loss"] = float(bundle.loss(jlocal, batch, **kw)[0])
     return out
+
+
+def split_case(case, mesh, rank):
+    """A variant of a reduced architecture whose heads do not divide over
+    ``model`` (``case["replace"]``), from the port's seed-0 init: whether
+    the step's context splits K/V by sequence, the merges
+    (``collectives.combine``) its loss and gradients ran, its loss and
+    every gradient leaf (this rank's slice) of the first batch against
+    the single-device port's, and with ``drop_q_copy_in`` the gradients
+    again with the queries' copy-in (``act_sharding.kv_query``)
+    dropped."""
+    cfg = _cfg(case)
+    bundle = get_model(cfg)
+    kw = dict(remat=True, data_shards=mesh.size // mesh.shape["model"])
+    full = bundle.init(torch.Generator().manual_seed(0))
+    if cfg.family == "audio":
+        # Whisper's init zeroes its biases; draw them, so that a bias
+        # taken wrongly on a rank shows
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for n, p in full.named_parameters():
+                leaf = n.rsplit(".", 1)[-1]
+                if leaf in ("bq", "bv", "bo", "bi") or leaf.endswith("_b"):
+                    p.normal_(0, 0.1, generator=gen)
+    local = shard_params(full, mesh, fsdp=True)
+    specs = local.specs
+    batch = make_batches(cfg, 4, 32, 1, seed=0)[0]
+    l0, _, g0 = loss_and_grads(bundle.loss, full, _t(batch), **kw)
+    mine = _t(shard_batch(batch, mesh))
+    with step_context(cfg, mesh, mine) as ctx:
+        out = {"kv_seq": ctx.kv_seq, "seq_parallel": ctx.seq_divisible}
+    CALLS.clear()
+    l1, _, g1 = loss_and_grads(bundle.loss, local, mine, mesh=mesh, **kw)
+    out["combines"] = CALLS.get("combine", 0)
+    out["loss_rel"] = abs(float(l1) - float(l0)) / abs(float(l0))
+    out["grad"] = max(_leaf_err(g1[n], g0[n], mesh, specs[n]) for n in g0)
+    if case.get("drop_q_copy_in"):
+        kv_query = acts.kv_query
+        acts.kv_query = lambda q: q
+        try:
+            _, _, g2 = loss_and_grads(bundle.loss, local, mine, mesh=mesh,
+                                      **kw)
+        finally:
+            acts.kv_query = kv_query
+        out["grad_no_q_copy_in"] = max(
+            _leaf_err(g2[n], g0[n], mesh, specs[n]) for n in g0)
+    return out
+
+
+def launch_case(case, mesh, rank):
+    """``launch/train.py`` with ``case["argv"]`` on this world (its own
+    mesh of it): rank 0's JSON summary, and whether every rank ran to
+    the end."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        train_cli.main(case["argv"])
+    lines = printed.getvalue().splitlines()
+    return {"summary": json.loads(lines[-1]) if rank == 0 else None,
+            "done": True}
 
 
 def _slices_bit_equal(local, whole, mesh):
@@ -380,6 +456,21 @@ def collectives_case(case, mesh, rank):
           lambda *ps: sum((torch.cat([block(p, i) for p in ps], 1)
                            * torch.cat([blocks[i]] * m, 1)).sum()
                           for i in range(m)), parts, lambda g: g[r])
+    # combine: each rank's partial attention over its block of the keys,
+    # with its log-sum-exp, merged; the first query's last block fully
+    # masked (-1e30, as the attention masks), so that rank weighs 0 there
+    logits = torch.randn(3, 2 * m, generator=gen)
+    logits[0, -2:] = -1e30
+    vals = torch.randn(2 * m, 4, generator=gen)
+    cq = torch.randn(3, 4, generator=gen)
+
+    def partial(x, i):
+        return (torch.softmax(x, -1) @ block(vals, i),
+                torch.logsumexp(x, -1))
+    check("combine", block(logits, r, 1),
+          lambda x: (C.combine(comm, *partial(x, r)) * cq).sum(),
+          lambda w: ((torch.softmax(w, -1) @ vals) * cq).sum(), [logits],
+          lambda g: block(g[0], r, 1))
     # the clip: a leaf split over model counted over the ranks, a whole
     # leaf once
     grads = {"split": block(whole, r).clone(), "whole": cs[0].clone()}
@@ -403,6 +494,8 @@ def main(spec_path, rank):
     kinds = {"train": lambda c, m: train_case(c, m, rank, spec["ckpt"]),
              "ep": lambda c, m: ep_case(c, m, rank),
              "collectives": lambda c, m: collectives_case(c, m, rank),
+             "split": lambda c, m: split_case(c, m, rank),
+             "launch": lambda c, m: launch_case(c, m, rank),
              "ckpt_memory": lambda c, m: ckpt_memory_case(c, m, rank,
                                                           spec["ckpt"])}
     for case in spec["cases"]:
