@@ -6,8 +6,9 @@ recurrent-state serving (Mamba-2, Zamba2, float and quantized), MoE
 serving (DeepSeek-MoE-16B, Qwen3-MoE-30B-A3B), PaliGemma and Whisper,
 the overlapped decode loop, the multi-tenant host, the replica router,
 the streaming server, the profiler, the calibration cost model,
-training, mesh-sharded serving and mesh-sharded training — with every
-CUDA kernel of those paths held against its plain PyTorch version.
+training, mesh-sharded serving, mesh-sharded training and the
+multi-pod dry run — with every CUDA kernel of those paths held against
+its plain PyTorch version.
 
 Run from the root of a checkout (needs one CUDA card and nvcc):
 
@@ -382,14 +383,34 @@ Phases — any failure raises and the script exits non-zero:
      (which one card cannot hold for training), FSDP over ``(4, 1)``,
      and Whisper at full depth on ``(2, 2)``, 5 steps each: finite,
      falling loss, the median step, NCCL ms and the peak a rank.
-  Each of phases 15-27 logs its seconds and its peak device memory
+  28. the multi-pod dry run (``dry_runs``; ``repro_torch.launch.dryrun``,
+     no jax): (a) ``run_one`` on the (16, 16) production mesh for every
+     architecture at decode_32k and for Yi-6B and DeepSeek-MoE-16B
+     (through ``moe_ep``'s all-to-all) at train_4k — one rank's step on
+     meta tensors, its collectives recorded by ``DryComm`` — a line
+     each: the three roofline terms, the dominant one, arguments +
+     outputs + temporaries (XLA's three sizes, the outputs not among the
+     temporaries) and the trace's seconds; any exception fails the
+     phase.
+     (b) ``chip_smoke.py --dry-real OUT``, a process of its own (a clean
+     card, expandable segments): the same rank's step run for real on
+     the card on a ``dry_mesh`` of (16, 16), eagerly, for Yi-6B
+     train_4k with 4 of its 32 layers and Yi-6B decode_32k at full
+     depth, seeded N(0, 0.02) weights: the arguments' bytes and the peak
+     above them over the first call against the dry run's at the same
+     depth, and the median of 3 steps after it against the dry run's
+     max(compute, memory).  The phase fails if the dry run's arguments
+     + outputs + temporaries lie more than 10% below the card's measured
+     peak; arguments + ``peak_bytes`` (its own peak, outputs included)
+     are printed beside it.
+  Each of phases 15-28 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
   K2 at (1, 32, 256, 128) causal float32, phase 13's shape, and phase
   15's new shapes: K3, K4 and K7 at DeepSeek's (4, 16, 16, 2048, 128)
   bf16 (group 1), K5 and K6 at its first block's MLP, (4, 2048) x
   (2048, 10944) and (4, 10944) x (10944, 2048).
-  A JSON line of phases 15-27's summaries, one of the models, one
+  A JSON line of phases 15-28's summaries, one of the models, one
   listing the kernels (K1-K8; K1's and K2's launches summed over phases
   3-4, 13 and 14, with each path's count; K3-K8 with their launches on
   phases 15, 18, 19-24's, 25 (d)'s and 26's runs; K3's and K4's rows
@@ -405,6 +426,7 @@ import functools
 import gc
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -6330,6 +6352,227 @@ def mesh_training(torch, np, dev, phase25_losses=None):
     return rows, info
 
 
+# phase 28 (a): the production-mesh dry runs on this machine's CPU (no
+# jax), (b) one rank's step of two of them run for real on the card
+DRY_MESH_SHAPES = ["decode_32k"]
+DRY_TRAIN_ARCHS = ["yi-6b", "deepseek-moe-16b"]
+# (arch, shape, layers or None for full depth) run for real in (b)
+DRY_REAL = [("yi-6b", "train_4k", 4), ("yi-6b", "decode_32k", None)]
+DRY_REAL_STEPS = 3
+# the dry run's argument + output + temporary bytes may lie at most this
+# far below the card's measured peak (an upper bound is what proves a
+# fit)
+DRY_MEMORY_SLACK = 0.10
+DRY_REAL_S = 420
+
+
+def dry_fit(memory) -> int:
+    """The dry run's bound on a device's memory: arguments + outputs +
+    temporaries, as the JAX dry run's ``memory_analysis`` sizes add."""
+    return (memory["argument_bytes"] + memory["output_bytes"]
+            + memory["temp_bytes"])
+
+
+def dry_line(res) -> str:
+    r, m = res["roofline"], res["memory"]
+    return (f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}, "
+            f"arguments + outputs + temporaries {dry_fit(m) / 1e9:.3f} GB "
+            f"(arguments + peak "
+            f"{(m['argument_bytes'] + m['peak_bytes']) / 1e9:.3f} GB), "
+            f"traced in {res['trace_s']:.2f} s")
+
+
+def dry_runs(torch, np, dev):
+    """Phase 28: (a) the dry run (``repro_torch.launch.dryrun.run_one``)
+    of every architecture at decode_32k and of Yi-6B and DeepSeek-MoE-16B
+    at train_4k on the (16, 16) production mesh, on this machine (no
+    jax; meta tensors, the card unused); (b) two of them as one rank's
+    step run for real on the card (``chip_smoke.py --dry-real OUT`` in a
+    process of its own, a clean card): the measured peak memory and step
+    time against the dry run's.  Returns (rows, the phase's summary)."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    rows = []
+    combos = [(a, s) for s in DRY_MESH_SHAPES for a in list_archs()]
+    combos += [(a, "train_4k") for a in DRY_TRAIN_ARCHS]
+    for arch, shape in combos:
+        res = dryrun.run_one(arch, shape, False, verbose=False)
+        log(f"  (a) {arch} {shape} 16x16: {dry_line(res)}")
+        rows.append(dict(res, model=f"dry run {arch} {shape} 16x16"))
+    # (b)'s process needs most of the card: this one keeps what it holds
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) this process holds {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+        f"reserved")
+    out = ROOT / "build" / "dry28" / "real.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dry-real", str(out)], env=env,
+                          capture_output=True, text=True,
+                          timeout=DRY_REAL_S)
+    for line in proc.stdout.splitlines():
+        log(f"  (b) {line}")
+    if proc.returncode != 0 or not out.exists():
+        raise AssertionError(f"phase 28 (b) exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    real = json.loads(out.read_text())
+    for r in real:
+        dry = r["dry"]["memory"]
+        fit = dry_fit(dry)
+        peak = r["measured_argument_bytes"] + r["measured_peak_above_bytes"]
+        r["dry_over_measured"] = fit / peak
+        r["dry_peak_over_measured"] = (dry["argument_bytes"]
+                                       + dry["peak_bytes"]) / peak
+        log(f"  (b) {r['label']}: measured {r['median_step_ms']:.2f} ms a "
+            f"step (median of {DRY_REAL_STEPS}) against the dry run's "
+            f"max(compute, memory) {r['dry_bound_ms']:.2f} ms; peak above "
+            f"the arguments {r['measured_peak_above_bytes'] / 1e9:.3f} GB "
+            f"against the dry run's peak {dry['peak_bytes'] / 1e9:.3f} GB "
+            f"(outputs {dry['output_bytes'] / 1e9:.3f} GB + temporaries "
+            f"{dry['temp_bytes'] / 1e9:.3f} GB); arguments measured "
+            f"{r['measured_argument_bytes'] / 1e9:.3f} GB, dry "
+            f"{dry['argument_bytes'] / 1e9:.3f} GB; dry / measured: "
+            f"arguments + outputs + temporaries "
+            f"{r['dry_over_measured']:.3f}, arguments + peak "
+            f"{r['dry_peak_over_measured']:.3f}")
+        if fit < (1 - DRY_MEMORY_SLACK) * peak:
+            raise AssertionError(
+                f"phase 28 (b) {r['label']}: the dry run's arguments + "
+                f"outputs + temporaries {fit:,} B lie more than "
+                f"{DRY_MEMORY_SLACK:.0%} below the card's peak {peak:,} B")
+        rows.append(dict(r, model=f"dry run on the card {r['label']}"))
+    info = {"phase": "phase 28 dry run", "seconds":
+            time.perf_counter() - t_phase,
+            "real_seconds": time.perf_counter() - t0,
+            "peak_memory_bytes": max(r["measured_argument_bytes"]
+                                     + r["measured_peak_above_bytes"]
+                                     for r in real)}
+    log(f"  phase 28: {info['seconds']:.1f} s ((b) "
+        f"{info['real_seconds']:.1f} s in its own process)")
+    return rows, info
+
+
+def _on_card(torch, tree, dev, gen, vocab):
+    """A dry run's meta arguments as tensors on the card: floats drawn
+    from N(0, 0.02) (``gen``), token ids in [0, vocab), the train
+    state's moments, step and the caches zero, modules' parameters
+    replaced in place (their sharding annotations kept)."""
+    from torch import nn
+
+    from repro_torch.training.trainer import TrainState, init_train_state
+
+    def leaf(name, t):
+        if t.is_floating_point():
+            if name in ("cache",):
+                return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            x = torch.randn(t.shape, generator=gen, device=dev)
+            return x.mul_(0.02).to(t.dtype)
+        hi = vocab if name in ("tokens", "labels") else 2
+        return torch.randint(0, hi, t.shape, generator=gen, device=dev,
+                             dtype=t.dtype)
+
+    def module(m):
+        for name, p in list(m.named_parameters()):
+            owner, _, attr = name.rpartition(".")
+            setattr(m.get_submodule(owner), attr,
+                    nn.Parameter(leaf("param", p), requires_grad=False))
+        return m
+
+    if isinstance(tree, TrainState):
+        return init_train_state(module(tree.params))
+    if isinstance(tree, nn.Module):
+        return module(tree)
+    if isinstance(tree, dict):
+        return {k: leaf(k if k in ("tokens", "labels") else "cache", v)
+                for k, v in tree.items()}
+    return leaf("tokens", tree)
+
+
+def dry_real_main(out_path) -> int:
+    """Phase 28 (b), in a process of its own (``chip_smoke.py --dry-real
+    OUT``): for each ``DRY_REAL`` combination, the dry run at that depth
+    on meta tensors, then the same rank's step (``dryrun.build_step`` on
+    a ``dry_mesh`` of (16, 16), its collectives ``DryComm``'s stand-ins)
+    on the card, eagerly: the arguments' bytes, the peak above them over
+    the first call, and the median of ``DRY_REAL_STEPS`` timed steps
+    after it.  Writes the rows to OUT as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import disable_capture, setup_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh, make_production_mesh
+    from repro_torch.launch.shapes import SHAPES, cache_len_for
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    setup_device(dev)
+    rows = []
+    for arch, shape_name, layers in DRY_REAL:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        bundle = get_model(cfg)
+        shape = SHAPES[shape_name]
+        label = (f"{arch} {shape_name} 16x16, "
+                 f"{cfg.n_layers} of {get_config(arch).n_layers} layers")
+        prod = make_production_mesh()
+        dry = dryrun.measure(bundle, shape, dry_mesh(prod))
+        fn, args = dryrun.build_step(bundle, shape, dry_mesh(prod))
+        gen = torch.Generator(dev).manual_seed(28)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        real = [_on_card(torch, a, dev, gen, cfg.vocab) for a in args]
+        if shape.mode == "decode":
+            # absolute positions inside the whole (unsplit) cache
+            real[3] = torch.randint(1, cache_len_for(cfg, shape) - 1,
+                                    tuple(real[3].shape), generator=gen,
+                                    device=dev, dtype=real[3].dtype)
+        del args
+        torch.cuda.synchronize()
+        arg_bytes = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        with disable_capture():
+            for i in range(DRY_REAL_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*real)
+                torch.cuda.synchronize()
+                if i == 0:
+                    peak = torch.cuda.max_memory_allocated() - base
+                else:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                del out
+        r = dry["roofline"]
+        row = {"label": label, "arch": arch, "shape": shape_name,
+               "layers": cfg.n_layers, "dry": dry,
+               "dry_bound_ms": max(r["compute_s"], r["memory_s"]) * 1e3,
+               "measured_argument_bytes": arg_bytes,
+               "measured_peak_above_bytes": peak,
+               "median_step_ms": statistics.median(times),
+               "step_ms": times}
+        print(f"{label}: {dry_line(dry)}", flush=True)
+        rows.append(row)
+        del real, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(out_path).write_text(json.dumps(rows))
+    return 0
+
+
 def serving_layers(torch, np, dev, served):
     """Phases 19-24 on Yi-6B at full width in bfloat16, its weights drawn
     again from phase 7's seed (``served`` are phase 7's tokens).  Returns
@@ -6411,6 +6654,8 @@ def serving_layers(torch, np, dev, served):
 def main() -> int:
     if "--mesh-rank" in sys.argv:
         return mesh_rank_main(sys.argv[1:])
+    if "--dry-real" in sys.argv:
+        return dry_real_main(sys.argv[sys.argv.index("--dry-real") + 1])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -6678,6 +6923,12 @@ def main() -> int:
                                         train_rows[0]["losses"])
     model_rows.extend(mt_rows)
     summaries.append(mt_summary)
+    phase("phase 28: the multi-pod dry run — (a) every architecture at "
+          "decode_32k and Yi-6B and DeepSeek-MoE-16B at train_4k on the "
+          "(16, 16) mesh, (b) two of them as one rank's step on the card")
+    dry_rows, dry_summary = dry_runs(torch, np, dev)
+    model_rows.extend(dry_rows)
+    summaries.append(dry_summary)
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape

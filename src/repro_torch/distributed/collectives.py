@@ -22,7 +22,10 @@ All of them go through ``torch.distributed`` on the axis's group, so on
 the card they are NCCL calls on the current stream, which a CUDA-graph
 capture records with the rest of the step.  ``Shard`` tells a model
 module how its weights lie on the ``model`` axis, ``DataShard`` on the
-data axes.
+data axes.  ``DryComm`` is a recording stand-in of ``Comm`` for the dry
+run (``launch.dryrun``): rank 0 of an axis with no group, each
+collective returning a tensor of the real result's shape and tallying
+its bytes.
 
 Training differentiates through them.  The module functions below are
 the collectives a training step calls (without gradients they are the
@@ -68,6 +71,7 @@ returns its input there.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional
 
 import torch
@@ -190,6 +194,103 @@ class Comm:
         num = packed[:n].view(out.shape)
         den = packed[n:].view(w.shape)
         return num / den[..., None], w / den
+
+
+# the JAX dry run's collective kinds (``repro.launch.hlo_analysis``), the
+# names a ``DryComm`` tallies under
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+_QUIET = threading.local()
+
+
+def in_collective() -> bool:
+    """Whether this thread is inside a ``DryComm`` collective: the ops it
+    runs to make the result's shape stand for the transfer, so a cost
+    count skips them (``launch.op_analysis``), as the HLO analysis counts
+    no bytes or FLOPs for a collective instruction."""
+    return getattr(_QUIET, "depth", 0) > 0
+
+
+def new_tally() -> Dict[str, Dict[str, float]]:
+    """Zeroed collective tallies: ``{"bytes": {kind: 0.0},
+    "counts": {kind: 0.0}}`` over ``COLLECTIVE_KINDS``."""
+    return {"bytes": dict.fromkeys(COLLECTIVE_KINDS, 0.0),
+            "counts": dict.fromkeys(COLLECTIVE_KINDS, 0.0)}
+
+
+class DryComm(Comm):
+    """A stand-in ``Comm`` of rank 0 of ``size`` with no group: each raw
+    collective returns what the real one returns on this rank, a tensor
+    of the real result's shape, and adds the result's bytes to ``tally``
+    (``new_tally``; shared by a dry mesh's axes) under the JAX analysis's
+    kind (its convention: result bytes, one count a call).  What it
+    counts is the card's NCCL route: ``gather_blocks`` is one
+    all-gather and ``reduce_scatter`` one reduce-scatter (never gloo's
+    ``_exchange``); ``combine`` / ``merge`` are their two all-reduces.
+    An axis of one rank moves nothing and counts nothing.  The values
+    returned are this rank's own (an all-reduce returns the input, a
+    gather repeats it), so a step runs on them as on a world's results;
+    the ops that make them are skipped by a cost count
+    (``in_collective``)."""
+
+    def __init__(self, size: int, tally=None):
+        self.group, self.rank, self.size = None, 0, int(size)
+        self.nccl = True
+        self.tally = tally if tally is not None else new_tally()
+
+    def __repr__(self) -> str:
+        return f"DryComm(rank 0 of {self.size})"
+
+    def _record(self, kind: str, out: torch.Tensor) -> torch.Tensor:
+        self.tally["bytes"][kind] += out.numel() * out.element_size()
+        self.tally["counts"][kind] += 1
+        return out
+
+    def _quiet(self, fn, *args):
+        _QUIET.depth = getattr(_QUIET, "depth", 0) + 1
+        try:
+            return fn(*args)
+        finally:
+            _QUIET.depth -= 1
+
+    def all_reduce(self, x: torch.Tensor,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        x = self._quiet(torch.Tensor.contiguous, x)
+        return x if self.size == 1 else self._record("all-reduce", x)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return self._quiet(torch.Tensor.contiguous, x)
+
+        def gather(x):
+            # NCCL's route: the ranks' blocks in one buffer, then the
+            # concatenation along ``dim``
+            flat = x.contiguous().expand(self.size, *x.shape).contiguous()
+            return torch.cat(flat.unbind(0), dim=dim)
+        return self._record("all-gather", self._quiet(gather, x))
+
+    def gather_blocks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return self.all_gather(x, dim)
+
+    def _exchange(self, blocks: torch.Tensor) -> torch.Tensor:
+        # an all-to-all: the blocks this rank receives, in the shape of
+        # those it sends
+        return self._record("all-to-all", self._quiet(_clone, blocks))
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return self._quiet(torch.Tensor.contiguous, x)
+
+        def scatter(x):
+            front = x.movedim(dim, 0).contiguous()
+            out = front.narrow(0, 0, front.shape[0] // self.size).clone()
+            return out.movedim(0, dim).contiguous()
+        return self._record("reduce-scatter", self._quiet(scatter, x))
+
+
+def _clone(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().clone()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -19,6 +19,9 @@ and meets the others at explicit collectives (``distributed.collectives``).
     shapes, (16, 16) or (2, 16, 16): abstract (no process group, for the
     sharding policy's shapes), or with ``abstract=False`` over a world
     of exactly 256 or 512 ranks.
+  * ``dry_mesh(mesh)`` — any of these shapes as rank 0 sees it, with no
+    world: its ``comm`` records each collective (``DryComm``) instead of
+    making it, for the dry run (``launch.dryrun``).
 
 Without an initialized world, ``make_host_mesh`` and
 ``make_serving_mesh(1)`` start a world of one rank in this process
@@ -126,6 +129,51 @@ class Mesh:
         dist.broadcast(t, src=dist.get_global_rank(self.host_group, 0),
                        group=self.host_group)
         return int(t.item())
+
+
+class DryMesh(Mesh):
+    """A mesh's shape with rank 0's coordinates on every axis and no
+    process group: ``comm(axes)`` is a ``collectives.DryComm`` of the
+    axes' size, every axis group's sharing one ``tally`` (bytes and
+    counts by collective kind).  One rank's step runs on it as on a
+    world of the mesh's shape, each collective recorded in place of
+    being made (``dry_mesh``)."""
+
+    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...]):
+        from repro_torch.distributed.collectives import new_tally
+        super().__init__(shape, axis_names,
+                         coords={a: 0 for a in axis_names}, backend="dry")
+        self.tally = new_tally()
+
+    def __repr__(self) -> str:
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"DryMesh({axes})"
+
+    def comm(self, axes: Union[str, Tuple[str, ...]]):
+        from repro_torch.distributed.collectives import DryComm
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not set(axes) <= set(self.axis_names):
+            raise ValueError(f"no group for axes {axes} on {self!r}")
+        return DryComm(math.prod(self.shape[a] for a in set(axes)),
+                       self.tally)
+
+    def broadcast_host(self, value: int) -> int:
+        return int(value)
+
+
+def dry_mesh(mesh: Union[Mesh, Tuple[int, ...]]) -> DryMesh:
+    """The dry run's mesh: ``mesh``'s shape (an abstract
+    ``make_production_mesh``, any ``Mesh``, or a shape, named as
+    ``make_mesh`` names it) as rank 0 of it sees it, with no world
+    behind it (``DryMesh``): a sharded step runs on this rank's slices
+    and records its collectives in ``.tally``.  Every rank's shapes are
+    the same under the policy's even splits, so rank 0's step stands
+    for each."""
+    if isinstance(mesh, Mesh):
+        return DryMesh(tuple(mesh.shape.values()), mesh.axis_names)
+    shape = tuple(int(n) for n in mesh)
+    names = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+    return DryMesh(shape, names)
 
 
 def _start_world(device) -> str:

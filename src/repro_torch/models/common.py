@@ -79,6 +79,52 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
+    def n_params(self) -> int:
+        """The analytic parameter count of the JAX package's
+        ``ModelConfig.n_params`` (the N of MODEL_FLOPS = 6·N·D), term for
+        term: the unpadded vocabulary, no norms but two a layer, the
+        hybrid's shared block counted once."""
+        d, v = self.d_model, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.n_heads * self.dh + 2 * d * self.n_kv_heads * self.dh \
+            + self.n_heads * self.dh * d
+        if self.family == "ssm":
+            total = emb + self.n_layers * self._ssm_block_params()
+        elif self.family == "hybrid":
+            shared = attn + 3 * d * self.d_ff + 4 * d
+            total = emb + self.n_layers * self._ssm_block_params() + shared
+        elif self.family == "moe":
+            experts = self.n_experts * 3 * d * self.moe_d_ff
+            moe = (experts + self.n_shared_experts * 3 * d * self.moe_d_ff
+                   + d * self.n_experts)
+            total = emb + self.n_layers * (attn + moe + 2 * d)
+            if self.first_layer_dense_ff:
+                total += 3 * d * self.first_layer_dense_ff \
+                    - (experts + d * self.n_experts)
+        else:
+            ff_mult = 3 if self.act == "silu" else 2
+            per_layer = attn + ff_mult * d * self.d_ff + 2 * d
+            total = emb + (self.n_layers + self.n_encoder_layers) * per_layer
+            if self.n_encoder_layers:            # cross-attention
+                total += self.n_layers * attn
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """The parameters a token runs through (MoE: its top_k routed
+        experts of every layer's n_experts; every other family: all)."""
+        if self.family != "moe":
+            return self.n_params()
+        per_expert = self.n_layers * 3 * self.d_model * self.moe_d_ff
+        return int(self.n_params() - (self.n_experts - self.top_k)
+                   * per_expert)
+
+    def _ssm_block_params(self) -> int:
+        d, di = self.d_model, self.d_inner
+        n, g, h = self.ssm_state, self.ssm_groups, self.ssm_heads
+        in_proj = d * (2 * di + 2 * g * n + h)
+        conv = (di + 2 * g * n) * self.ssm_conv
+        return in_proj + conv + 3 * h + di * d + d
+
 
 # ---------------------------------------------------------------------------
 # primitives (plain functions on tensors)

@@ -245,21 +245,32 @@ def _encoder_attn(p: BiasedAttention, cfg: ModelConfig,
 
 def _cross_attn(p: BiasedAttention, cfg: ModelConfig, x: torch.Tensor,
                 enc_k: torch.Tensor, enc_v: torch.Tensor, *,
-                chunk: int = 512) -> torch.Tensor:
+                chunk: int = 512, seq: bool = False) -> torch.Tensor:
     """x (B,S,D) over the staged enc_k/v (B,KH,T,dh); queries in chunks
     of ``chunk`` when S is a multiple of it (each query row's softmax is
-    its own, so the chunking only bounds the (chunk,T) logits)."""
+    its own, so the chunking only bounds the (chunk,T) logits).
+    ``seq``: enc_k/v hold this rank's rows of the encoder positions (a
+    decode cache split by sequence), and each query's partial merges
+    with the other ranks' by its log-sum-exp (``collectives.combine``)."""
     b, s, _ = x.shape
     h, kh, dh = p.wq.shape[1], enc_k.shape[1], cfg.dh
     x = acts.enter(x, getattr(p, "tp", None))
     q = (torch.einsum("bsd,dhk->bshk", x, p.wq)
          + _head_bias(p, "bq")).reshape(b, s, kh, h // kh, dh)
 
+    # the closure holds no reference to ``p``: a rematerialized chunk
+    # keeps it, and with it a sharded step's gathered weights
+    comm = p.tp.comm if seq else None
+
     def attend(qc):
         logits = torch.einsum("bqkgd,bktd->bkgqt", qc.float(),
                               enc_k.float())
         w = torch.softmax(logits / math.sqrt(dh), dim=-1).to(x.dtype)
-        return torch.einsum("bkgqt,bktd->bqkgd", w, enc_v)
+        out = torch.einsum("bkgqt,bktd->bqkgd", w, enc_v)
+        if comm is None:
+            return out
+        lse = torch.logsumexp(logits / math.sqrt(dh), dim=-1)
+        return C.combine(comm, out, lse.permute(0, 3, 1, 2))
 
     step = chunk if s > chunk and s % chunk == 0 else s
     # differentiated, each chunk is rematerialized, as the JAX function
@@ -370,20 +381,20 @@ def encdec_prefill(model: EncDecLM, cfg: ModelConfig,
                    ) -> Tuple[torch.Tensor, Cache]:
     """batch: ``frames`` (B,T,D) + ``tokens`` (B,S) -> (last-token logits,
     cache {k, v, cross_k, cross_v}): the self-attention rings of C =
-    ``cache_len`` (or S) positions and every decoder layer's cross
-    K/V."""
+    ``cache_len`` (or S) positions and every decoder layer's cross K/V
+    (on a mesh, of this rank's heads).  In a sharded step each layer's
+    weights are gathered as it starts (``act_sharding.gathered``)."""
     frames, tokens = batch["frames"], batch["tokens"]
     enc = encode(model, cfg, frames)
     b, s = tokens.shape
     c = cache_len or s
     x = _embed_dec(model, tokens, torch.arange(s, device=tokens.device)[None])
-    ring = (cfg.n_layers, b, cfg.n_kv_heads, c, cfg.dh)
     ks, vs, xks, xvs = [], [], [], []
     for layer in model.decoder:
-        ek, ev = _enc_kv(layer.xattn, enc)
+        ek, ev = _enc_kv(acts.gathered(layer.xattn), enc)
         x, k, v = _decoder_layer(layer, cfg, x, ek, ev, window=window)
         for dst, src in ((ks, k), (vs, v)):
-            one = src.new_zeros(ring[1:])
+            one = src.new_zeros((b, src.shape[2], c, cfg.dh))
             lm._to_cache(one, src)
             dst.append(one)
         xks.append(ek)
@@ -396,42 +407,61 @@ def encdec_prefill(model: EncDecLM, cfg: ModelConfig,
 
 def _decode_self_attn(p: BiasedAttention, cfg: ModelConfig, x: torch.Tensor,
                       ck: torch.Tensor, cv: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      lengths: torch.Tensor,
+                      seq_kv: bool = False) -> torch.Tensor:
     """The biased twin of ``lm.decode_attention_block``: the new token's
     K/V written at ring slot ``lengths % C``, in place, then attention
-    over the first ``min(lengths + 1, C)`` positions."""
-    b = x.shape[0]
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    c = ck.shape[2]
+    over the first ``min(lengths + 1, C)`` positions.  ``seq_kv``: the
+    caches hold this rank's rows of the ring (``lm.ring_write``), and the
+    ranks merge their partials (``lm._sharded_attend``)."""
+    b, kh, c, dh = ck.shape
     q, k, v = _qkv(p, x)
-    rows = torch.arange(b, device=x.device)
-    slot = lengths % c
-    ck[rows, :, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, :, slot] = v[:, 0].to(cv.dtype)
-    n_valid = torch.clamp(lengths + 1, max=c)
-    qg = q[:, 0].reshape(b, kh, h // kh, dh)
-    logits = (torch.einsum("bkgd,bkcd->bkgc", qg.float(), ck.float())
-              / math.sqrt(dh))
+    n_valid = lm.ring_write(ck, cv, k[:, 0], v[:, 0], lengths,
+                            p.tp.comm if seq_kv else None)
     valid = (torch.arange(c, device=x.device)[None, None, None, :]
              < n_valid[:, None, None, None])
-    logits = logits.masked_fill(~valid, lm.NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgc,bkcd->bkgd", w, cv).reshape(b, 1, h, dh)
-    return _out(p, out)
+
+    def attend(qh, lse):                                   # (B,H,dh)
+        h = qh.shape[1]
+        qg = qh.reshape(b, kh, h // kh, dh)
+        logits = (torch.einsum("bkgd,bkcd->bkgc", qg.float(), ck.float())
+                  / math.sqrt(dh))
+        logits = logits.masked_fill(~valid, lm.NEG_INF)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgc,bkcd->bkgd", w, cv).reshape(b, h, dh)
+        if not lse:
+            return out
+        empty = (n_valid == 0)[:, None]
+        return (out.masked_fill(empty[..., None], 0),
+                torch.logsumexp(logits, dim=-1).reshape(b, h)
+                .masked_fill(empty, -math.inf))
+
+    out = lm._sharded_attend(p, attend, q[:, 0], seq_kv)
+    return _out(p, out.reshape(b, 1, -1, dh))
 
 
 def encdec_decode(model: EncDecLM, cfg: ModelConfig, cache: Cache,
-                  tokens: torch.Tensor, lengths: torch.Tensor
+                  tokens: torch.Tensor, lengths: torch.Tensor, *,
+                  seq_kv: bool = False
                   ) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens (B,1); lengths (B,) absolute positions;
     the rings are updated in place, the cross K/V only read.  Returns
-    (logits (B,V_pad), cache)."""
+    (logits (B,V_pad), cache).  ``seq_kv``: the rings hold this rank's
+    rows (the policy's ``sequence`` mode; ``_decode_self_attn``).  In a
+    sharded step each layer's weights are gathered as it starts
+    (``act_sharding.gathered``)."""
     x = _embed_dec(model, tokens, lengths[:, None])
+    # the policy splits the cross K/V by sequence too where the encoder's
+    # positions divide over ``model``
+    cross_seq = seq_kv and cache["cross_k"].shape[3] < cfg.n_audio_ctx
     for i, layer in enumerate(model.decoder):
+        layer = acts.gathered(layer)
         x = x + _decode_self_attn(layer.attn, cfg, _ln(x, layer, "ln1"),
-                                  cache["k"][i], cache["v"][i], lengths)
+                                  cache["k"][i], cache["v"][i], lengths,
+                                  seq_kv)
         x = x + _cross_attn(layer.xattn, cfg, _ln(x, layer, "lnx"),
-                            cache["cross_k"][i], cache["cross_v"][i])
+                            cache["cross_k"][i], cache["cross_v"][i],
+                            seq=cross_seq)
         x = x + _mlp(layer.mlp, _ln(x, layer, "ln2"))
     return _logits(model, x)[:, 0], cache
 

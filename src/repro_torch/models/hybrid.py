@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.executor import resolve_device
+from repro_torch.distributed import act_sharding as acts
 
 from . import lm, ssm
 from .common import ModelConfig, dense_init
@@ -109,14 +110,16 @@ def hybrid_prefill(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
                    ssd_impl=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> (last-token logits (B,V_pad), cache {conv, state,
     attn_k, attn_v}); the shared block's K/V land in a C = ``cache_len``
-    (or S) ring at each application point."""
+    (or S) ring at each application point.  In a sharded step each
+    layer's weights are gathered as it starts (``act_sharding.gathered``;
+    the shared block's in ``lm.prefill_layer``)."""
     x = lm.embed_tokens(model, cfg, tokens)
     b, s = x.shape[:2]
     cache = hybrid_empty_cache(cfg, b, cache_len or s, x.dtype, x.device,
                                model)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = ssm.mamba_block(
-            blk, cfg, x, ssd_impl=ssd_impl)
+            acts.gathered(blk), cfg, x, ssd_impl=ssd_impl)
         app = _shared_after(cfg, i)
         if app is not None:
             x = lm.prefill_layer(model.shared, cfg, x, cache["attn_k"][app],
@@ -166,7 +169,8 @@ def hybrid_decode(model: HybridLM, cfg: ModelConfig, cache: Cache,
     """One decode step.  tokens (B,1); lengths (B,) absolute positions
     (the shared block's ring slot); the cache is updated in place.
     Returns (logits (B,V_pad), cache).  ``seq_kv`` as in
-    ``lm.decode_attention_block``."""
+    ``lm.decode_attention_block``; the layers gather their weights in a
+    sharded step (``ssm.mamba_decode_block``, ``lm.decode_layer``)."""
     x = lm.embed_tokens(model, cfg, tokens)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = ssm.mamba_decode_block(

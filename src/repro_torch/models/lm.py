@@ -540,27 +540,9 @@ def decode_attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     to its clamped length, and the ranks merge their partials."""
     b = x.shape[0]
     dh = cfg.dh
-    c = cache_k.shape[2]
     q, k, v = _proj_qkv(p, cfg, x, lengths[:, None])
-    rows = torch.arange(b, device=x.device)
-    if seq_kv:
-        comm = p.tp.comm
-        ring, lo = c * comm.size, comm.rank * c
-        slot = lengths % ring
-        own = ((slot >= lo) & (slot < lo + c))[:, None, None]
-        at = (slot - lo).clamp(0, c - 1)
-        cache_k[rows, :, at] = torch.where(own, k[:, 0].to(cache_k.dtype),
-                                           cache_k[rows, :, at])
-        cache_v[rows, :, at] = torch.where(own, v[:, 0].to(cache_v.dtype),
-                                           cache_v[rows, :, at])
-        n_valid = (torch.clamp(lengths + 1, max=ring) - lo).clamp(0, c)
-    else:
-        slot = lengths % c
-        # the JAX package blends with a one-hot (cache*(1-oh) + k*oh); the
-        # index write stores exactly the same values
-        cache_k[rows, :, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[rows, :, slot] = v[:, 0].to(cache_v.dtype)
-        n_valid = torch.clamp(lengths + 1, max=c)
+    n_valid = ring_write(cache_k, cache_v, k[:, 0], v[:, 0], lengths,
+                         p.tp.comm if seq_kv else None)
 
     def attend(qh, lse):
         if attn_impl is not None:
@@ -571,6 +553,35 @@ def decode_attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     out = _sharded_attend(p, attend, q[:, 0], seq_kv)
     y = _out_proj(p, out.reshape(b, 1, -1, dh))
     return y, cache_k, cache_v
+
+
+def ring_write(cache_k: torch.Tensor, cache_v: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+               comm=None) -> torch.Tensor:
+    """A decode step's new K/V (B,KH,dh) into its ring caches (B,KH,C,dh)
+    at slot ``lengths % C``, in place; returns each row's count of valid
+    positions.  With ``comm`` (a sequence-sharded cache) the caches hold
+    this rank's rows [r·C, (r+1)·C) of a ring of m·C positions: the rank
+    that holds the new row writes it (the others write a row's own value
+    back), and the count is of this rank's rows."""
+    b, c = cache_k.shape[0], cache_k.shape[2]
+    rows = torch.arange(b, device=k.device)
+    if comm is not None:
+        ring, lo = c * comm.size, comm.rank * c
+        slot = lengths % ring
+        own = ((slot >= lo) & (slot < lo + c))[:, None, None]
+        at = (slot - lo).clamp(0, c - 1)
+        cache_k[rows, :, at] = torch.where(own, k.to(cache_k.dtype),
+                                           cache_k[rows, :, at])
+        cache_v[rows, :, at] = torch.where(own, v.to(cache_v.dtype),
+                                           cache_v[rows, :, at])
+        return (torch.clamp(lengths + 1, max=ring) - lo).clamp(0, c)
+    slot = lengths % c
+    # the JAX package blends with a one-hot (cache*(1-oh) + k*oh); the
+    # index write stores exactly the same values
+    cache_k[rows, :, slot] = k.to(cache_k.dtype)
+    cache_v[rows, :, slot] = v.to(cache_v.dtype)
+    return torch.clamp(lengths + 1, max=c)
 
 
 def _decode_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -843,14 +854,16 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     token's rows among them (the others' from the zero row) in the same
     order, and the ranks' sums are summed by an ``all_reduce``.
 
-    Inside a training context: where ``moe_ep.ep_applicable``, the
-    expert-parallel block (as the JAX function delegates); else the
-    positions of a sequence-parallel input are gathered, the groups
-    follow ``moe_layout`` (a group spanning the data ranks queues each
-    rank's tokens after the earlier ranks' and sums its aux statistics
-    over them; a rank's own groups average their aux over the data
-    ranks), and a rank's experts take their tokens and combine weights
-    through the copy-in."""
+    Inside a sharded step's context (training, or the dry run's prefill
+    and decode): where ``moe_ep.ep_applicable``, the expert-parallel
+    block (as the JAX function delegates); else the positions of a
+    sequence-parallel input are gathered, the groups follow
+    ``moe_layout`` (a group spanning the data ranks queues each rank's
+    tokens after the earlier ranks' and sums its aux statistics over
+    them; a rank's own groups average their aux over the data ranks; a
+    batch the data ranks do not divide, which each holds whole, is
+    grouped as on one device), and a rank's experts take their tokens
+    and combine weights through the copy-in."""
     ctx = acts.current()
     b, s, d = x.shape
     if n_valid is None and ctx is not None:
@@ -863,7 +876,9 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     if seq:
         x = C.all_gather(ctx.model, x, 1)
         s = x.shape[1]
-    data = ctx.data if ctx is not None else None
+    # a batch every data rank holds whole (one that does not divide over
+    # them) is grouped as on one device
+    data = ctx.data if ctx is not None and ctx.batch_divisible else None
     g, span, n_groups = moe_layout(b * s, data, data_shards)
     if n_valid is not None and n_groups != 1:
         raise ValueError("capacity-stable masked dispatch requires the "
@@ -912,12 +927,13 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
 
 
 def ffn(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor, *,
-        n_valid=None, moe_cap=None) -> torch.Tensor:
+        n_valid=None, moe_cap=None, data_shards: int = 16) -> torch.Tensor:
     """A layer's feed-forward on x (B,S,D): its MoE block (the aux loss
-    dropped; ``n_valid`` / ``moe_cap`` the masked dispatch) or its MLP."""
+    dropped; ``n_valid`` / ``moe_cap`` the masked dispatch,
+    ``data_shards`` its groups, ``moe_groups``) or its MLP."""
     moe = getattr(blk, "moe", None)
     if moe is not None:
-        return moe_block(moe, cfg, x, n_valid=n_valid,
+        return moe_block(moe, cfg, x, data_shards, n_valid=n_valid,
                          eff_capacity=moe_cap)[0]
     return mlp_block(blk.mlp, cfg, x)
 
@@ -1002,7 +1018,8 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
                window: Optional[int] = None, prefix_len: int = 0,
                prefix_embed: Optional[torch.Tensor] = None,
                embed_scale: Optional[float] = None,
-               n_valid=None, moe_cap=None) -> Tuple[torch.Tensor, Cache]:
+               n_valid=None, moe_cap=None,
+               data_shards: int = 16) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> (last-token logits (B,V_pad), cache dict).
 
     cache layout: k/v (L, B, KH, C, dh) ring-indexed by absolute pos,
@@ -1012,7 +1029,8 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     ``n_valid`` / ``moe_cap`` (int32 scalar tensors) are the
     capacity-stable bucketed-MoE mode: S is a right-padded bucket,
     ``n_valid`` the true token count and ``moe_cap`` its expert capacity
-    (``moe_dispatch``), so one program serves a bucket."""
+    (``moe_dispatch``), so one program serves a bucket.  ``data_shards``:
+    the MoE layers' groups (``moe_groups``), the JAX function's."""
     x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
@@ -1024,7 +1042,8 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
     for i, blk in enumerate(blocks(model)):
         x = prefill_layer(blk, cfg, x, cache["k"][i], cache["v"][i],
                           window=window, prefix_len=prefix_len,
-                          n_valid=n_valid, moe_cap=moe_cap)
+                          n_valid=n_valid, moe_cap=moe_cap,
+                          data_shards=data_shards)
     logits = lm_logits(model, cfg, x[:, -1:])[:, 0]
     return logits, cache
 
@@ -1032,14 +1051,17 @@ def lm_prefill(model: DenseLM, cfg: ModelConfig, tokens: torch.Tensor,
 def prefill_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                   ck: torch.Tensor, cv: torch.Tensor, *,
                   window: Optional[int] = None, prefix_len: int = 0,
-                  n_valid=None, moe_cap=None) -> torch.Tensor:
+                  n_valid=None, moe_cap=None,
+                  data_shards: int = 16) -> torch.Tensor:
     """One transformer layer over a whole prompt x (B,S,D) at positions
     0..S-1, its K/V written into ck/cv (B,KH,C,dh) (``_to_cache``).
-    Returns x after the layer."""
+    Returns x after the layer.  In a sharded step the layer's weights are
+    gathered here (``act_sharding.gathered``), as in training."""
+    blk = acts.gathered(blk)
     h = prefill_attention(blk, cfg, x, ck, cv, window=window,
                           prefix_len=prefix_len)
     return h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps),
-                   n_valid=n_valid, moe_cap=moe_cap)
+                   n_valid=n_valid, moe_cap=moe_cap, data_shards=data_shards)
 
 
 def prefill_attention(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
@@ -1240,31 +1262,36 @@ def _write_rows(cache: torch.Tensor, at: torch.Tensor,
 def lm_decode(model: DenseLM, cfg: ModelConfig, cache: Cache,
               tokens: torch.Tensor, lengths: torch.Tensor, *,
               embed_scale: Optional[float] = None,
-              attn_impl=None, seq_kv: bool = False
-              ) -> Tuple[torch.Tensor, Cache]:
+              attn_impl=None, seq_kv: bool = False,
+              data_shards: int = 16) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens (B,1); lengths (B,) absolute positions;
     cache {k,v}: (L,B,KH,C,dh), updated in place.  Returns (logits
     (B,V_pad), cache).  ``attn_impl`` plumbs a vendor attention kernel
     into every layer's decode_attention_block (§4.8); ``seq_kv`` as
-    there."""
+    there; ``data_shards`` the MoE groups (``moe_groups``)."""
     x = scale_embed(embed_tokens(model, cfg, tokens), embed_scale)
     for i, blk in enumerate(blocks(model)):
         x = decode_layer(blk, cfg, x, cache["k"][i], cache["v"][i], lengths,
-                         attn_impl=attn_impl, seq_kv=seq_kv)
+                         attn_impl=attn_impl, seq_kv=seq_kv,
+                         data_shards=data_shards)
     return lm_logits(model, cfg, x)[:, 0], cache
 
 
 def decode_layer(blk: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                  ck: torch.Tensor, cv: torch.Tensor, lengths: torch.Tensor,
-                 *, attn_impl=None, seq_kv: bool = False) -> torch.Tensor:
+                 *, attn_impl=None, seq_kv: bool = False,
+                 data_shards: int = 16) -> torch.Tensor:
     """One transformer layer of a decode step: x (B,1,D), its K/V ring
-    written in place into ck/cv (B,KH,C,dh).  Returns x after the
-    layer."""
+    written in place into ck/cv (B,KH,C,dh).  Returns x after the layer.
+    In a sharded step the layer's weights are gathered here
+    (``act_sharding.gathered``)."""
+    blk = acts.gathered(blk)
     xin = rms_norm(x, blk.ln1, cfg.norm_eps)
     att, _, _ = decode_attention_block(blk.attn, cfg, xin, ck, cv, lengths,
                                        attn_impl=attn_impl, seq_kv=seq_kv)
     h = x + att
-    return h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps))
+    return h + ffn(blk, cfg, rms_norm(h, blk.ln2, cfg.norm_eps),
+                   data_shards=data_shards)
 
 
 def lm_decode_paged(model: DenseLM, cfg: ModelConfig, pool: Cache,

@@ -6,9 +6,12 @@ of the six families (dense, moe, ssm, hybrid, vlm, audio) resolves to a
 
   init(generator) -> params (an ``nn.Module`` on the generator's device)
   loss(params, batch, *, remat, data_shards) -> (loss, metrics)
-  prefill(params, batch, cache_len, window) -> (logits, cache)
-  decode(params, cache, tokens, lengths, window) -> (logits, cache)
-    (dense, moe, vlm, hybrid: ``seq_kv=`` for a sequence-sharded cache)
+  prefill(params, batch, cache_len, window, data_shards) -> (logits, cache)
+  decode(params, cache, tokens, lengths, window, data_shards)
+    -> (logits, cache)
+    (dense, moe, vlm, hybrid, audio: ``seq_kv=`` for a sequence-sharded
+    cache; ``data_shards`` the MoE groups, 16 by default as in the JAX
+    package, unused by the families without experts)
   empty_cache(batch, cache_len, dtype, device) -> cache dict
   batch_shapes(mode, batch, seq) -> {name: BatchSpec(shape, dtype)}
 
@@ -92,18 +95,21 @@ def _kv_cache(cfg: ModelConfig):
 
 
 def _dense_bundle(cfg: ModelConfig) -> ModelBundle:
-    def prefill(params, batch, cache_len=None, window=None):
+    def prefill(params, batch, cache_len=None, window=None,
+                data_shards=16):
         # n_valid/moe_cap: the capacity-stable bucketed-MoE scalars the
         # engine puts in the batch; absent for exact-length or dense
         return lm.lm_prefill(params, cfg, batch["tokens"], cache_len,
                              window=window, n_valid=batch.get("n_valid"),
-                             moe_cap=batch.get("moe_cap"))
+                             moe_cap=batch.get("moe_cap"),
+                             data_shards=data_shards)
 
-    def decode(params, cache, tokens, lengths, window=None, seq_kv=False):
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False,
+               data_shards=16):
         # the dense decode attends over the whole valid cache: the
         # window is not applied, as in the JAX package
         return lm.lm_decode(params, cfg, cache, tokens, lengths,
-                            seq_kv=seq_kv)
+                            seq_kv=seq_kv, data_shards=data_shards)
 
     return ModelBundle(cfg=cfg, init=lambda gen: lm.init_lm(gen, cfg),
                        prefill=prefill, decode=decode,
@@ -114,11 +120,12 @@ def _dense_bundle(cfg: ModelConfig) -> ModelBundle:
 
 
 def _ssm_bundle(cfg: ModelConfig) -> ModelBundle:
-    def prefill(params, batch, cache_len=None, window=None, ssd_impl=None):
+    def prefill(params, batch, cache_len=None, window=None, ssd_impl=None,
+                data_shards=16):
         return ssm.ssm_prefill(params, cfg, batch["tokens"], cache_len,
                                ssd_impl=ssd_impl)
 
-    def decode(params, cache, tokens, lengths, window=None):
+    def decode(params, cache, tokens, lengths, window=None, data_shards=16):
         return ssm.ssm_decode(params, cfg, cache, tokens, lengths)
 
     def empty_cache(batch, cache_len, dtype, device):
@@ -133,11 +140,13 @@ def _ssm_bundle(cfg: ModelConfig) -> ModelBundle:
 
 
 def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
-    def prefill(params, batch, cache_len=None, window=None, ssd_impl=None):
+    def prefill(params, batch, cache_len=None, window=None, ssd_impl=None,
+                data_shards=16):
         return hybrid.hybrid_prefill(params, cfg, batch["tokens"], cache_len,
                                      window=window, ssd_impl=ssd_impl)
 
-    def decode(params, cache, tokens, lengths, window=None, seq_kv=False):
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False,
+               data_shards=16):
         # the shared block's decode attends over the whole valid cache,
         # as in the JAX package
         return hybrid.hybrid_decode(params, cfg, cache, tokens, lengths,
@@ -157,12 +166,15 @@ def _hybrid_bundle(cfg: ModelConfig) -> ModelBundle:
 
 
 def _vlm_bundle(cfg: ModelConfig) -> ModelBundle:
-    def prefill(params, batch, cache_len=None, window=None):
-        return vlm.vlm_prefill(params, cfg, batch, cache_len, window=window)
+    def prefill(params, batch, cache_len=None, window=None,
+                data_shards=16):
+        return vlm.vlm_prefill(params, cfg, batch, cache_len, window=window,
+                               data_shards=data_shards)
 
-    def decode(params, cache, tokens, lengths, window=None, seq_kv=False):
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False,
+               data_shards=16):
         return vlm.vlm_decode(params, cfg, cache, tokens, lengths,
-                              seq_kv=seq_kv)
+                              seq_kv=seq_kv, data_shards=data_shards)
 
     p, dv = cfg.n_vision_tokens, cfg.d_vision
 
@@ -181,12 +193,15 @@ def _vlm_bundle(cfg: ModelConfig) -> ModelBundle:
 
 
 def _audio_bundle(cfg: ModelConfig) -> ModelBundle:
-    def prefill(params, batch, cache_len=None, window=None):
+    def prefill(params, batch, cache_len=None, window=None,
+                data_shards=16):
         return encdec.encdec_prefill(params, cfg, batch, cache_len,
                                      window=window)
 
-    def decode(params, cache, tokens, lengths, window=None):
-        return encdec.encdec_decode(params, cfg, cache, tokens, lengths)
+    def decode(params, cache, tokens, lengths, window=None, seq_kv=False,
+               data_shards=16):
+        return encdec.encdec_decode(params, cfg, cache, tokens, lengths,
+                                    seq_kv=seq_kv)
 
     def empty_cache(batch, cache_len, dtype, device):
         return encdec.encdec_empty_cache(cfg, batch, cache_len, dtype,

@@ -354,7 +354,10 @@ def mamba_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor, *,
 def mamba_decode_block(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor,
                        conv: torch.Tensor, state: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token layer.  h (B,1,D).  Returns (h out, conv, state)."""
+    """One-token layer.  h (B,1,D).  Returns (h out, conv, state).  In a
+    sharded step the layer's weights are gathered here
+    (``act_sharding.gathered``)."""
+    blk = acts.gathered(blk)
     z, xbc, dt = _in_proj(blk, cfg, h)
     xbc, conv = _conv_step(conv, xbc[:, 0], blk.conv_w, blk.conv_b)
     xs, bm, cm, dtf, a = _ssd_inputs(blk, cfg, xbc[:, None], dt)
@@ -410,13 +413,15 @@ def ssm_prefill(model: SSMLM, cfg: ModelConfig, tokens: torch.Tensor,
                 cache_len: Optional[int] = None, *,
                 ssd_impl=None) -> Tuple[torch.Tensor, Cache]:
     """tokens (B,S) -> (last-token logits (B,V_pad), cache {conv, state}).
-    ``cache_len`` is not used: the recurrent cache does not grow."""
+    ``cache_len`` is not used: the recurrent cache does not grow.  In a
+    sharded step each layer's weights are gathered as it starts
+    (``act_sharding.gathered``)."""
     x = embed_tokens(model, cfg, tokens)
     lo, hi = state_heads(model, cfg)
     cache = ssm_empty_cache(cfg, x.shape[0], x.dtype, x.device, hi - lo)
     for i, blk in enumerate(model.layers):
         x, cache["conv"][i], cache["state"][i] = mamba_block(
-            blk, cfg, x, ssd_impl=ssd_impl)
+            acts.gathered(blk), cfg, x, ssd_impl=ssd_impl)
     return lm_logits(model, cfg, x[:, -1:])[:, 0], cache
 
 

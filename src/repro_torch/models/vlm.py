@@ -28,24 +28,30 @@ from .common import ModelConfig
 def vlm_prefill(model: lm.DenseLM, cfg: ModelConfig,
                 batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None, *,
-                window: Optional[int] = None
+                window: Optional[int] = None, data_shards: int = 16
                 ) -> Tuple[torch.Tensor, lm.Cache]:
     """batch: ``vision`` (B,P,d_vision) + ``tokens`` (B,S).  The cache
-    covers the vision prefix and the prompt."""
-    xv = batch["vision"].to(cfg.torch_dtype()) @ model.projector
+    covers the vision prefix and the prompt.  In a sharded step the
+    projector's FSDP-sharded d_model dimension is gathered first."""
+    xv = (batch["vision"].to(cfg.torch_dtype())
+          @ acts.gathered(model).projector)
     return lm.lm_prefill(model, cfg, batch["tokens"], cache_len,
                          window=window, prefix_len=cfg.n_vision_tokens,
                          prefix_embed=xv,
-                         embed_scale=math.sqrt(cfg.d_model))
+                         embed_scale=math.sqrt(cfg.d_model),
+                         data_shards=data_shards)
 
 
 def vlm_decode(model: lm.DenseLM, cfg: ModelConfig, cache: lm.Cache,
                tokens: torch.Tensor, lengths: torch.Tensor, *,
-               seq_kv: bool = False) -> Tuple[torch.Tensor, lm.Cache]:
+               seq_kv: bool = False, data_shards: int = 16
+               ) -> Tuple[torch.Tensor, lm.Cache]:
     """One decode step; ``lengths`` are absolute positions counting the
-    vision prefix (``seq_kv`` as in ``lm.lm_decode``)."""
+    vision prefix (``seq_kv`` and ``data_shards`` as in
+    ``lm.lm_decode``)."""
     return lm.lm_decode(model, cfg, cache, tokens, lengths,
-                        embed_scale=math.sqrt(cfg.d_model), seq_kv=seq_kv)
+                        embed_scale=math.sqrt(cfg.d_model), seq_kv=seq_kv,
+                        data_shards=data_shards)
 
 
 def vlm_loss(model: lm.DenseLM, cfg: ModelConfig,

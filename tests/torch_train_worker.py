@@ -14,9 +14,14 @@ do not divide over ``model``: K/V split by sequence, the loss and
 gradients against the single-device port's, the merges counted, and the
 gradients with the queries' copy-in dropped), ``launch``
 (``launch/train.py --mesh`` on this world), ``ep`` (``moe_block_ep``
-against ``moe_block(data_shards=1)``) and ``ckpt_memory`` (the host
+against ``moe_block(data_shards=1)``), ``ckpt_memory`` (the host
 memory a rank adds while a sharded state is saved and restored onto
-the world).  The single-device references run
+the world), ``comm_shapes`` (each raw ``Comm`` collective's result
+shapes), ``tally`` (a sharded train step's collectives tallied as the
+dry run's ``DryComm`` tallies them) and ``fsdp_serve`` (prefill and
+greedy decode on FSDP-sharded weights, or a decode on a cache split by
+rows, against one device's tokens and logits).
+The single-device references run
 in the rank's own process on the same weights.  The rank joins a gloo
 world (one torch thread, collectives time out) and appends each case's
 numbers to ``SPEC.RANK.out`` as it finishes; a case that raises writes
@@ -51,7 +56,8 @@ from repro_torch.core import capture_count  # noqa: E402
 from repro_torch.data import make_batches  # noqa: E402
 from repro_torch.distributed import act_sharding as acts  # noqa: E402
 from repro_torch.distributed import collectives as C  # noqa: E402
-from repro_torch.distributed.sharding import (shard_batch,  # noqa: E402
+from repro_torch.distributed.sharding import (cache_sharding,  # noqa: E402
+                                              shard_batch,
                                               shard_local, shard_params)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -83,8 +89,40 @@ def _counted(owner, name):
 _counted(moe_ep, "moe_block_ep")
 _counted(C, "combine")
 for _name in ("all_to_all", "all_gather", "gather_blocks", "reduce_scatter",
-              "all_reduce"):
+              "all_reduce", "merge"):
     _counted(C.Comm, _name)
+
+# a ``tally`` case's collectives as the dry run counts them
+# (``collectives.DryComm``): each outermost raw call on an axis of more
+# than one rank, its result's bytes under the JAX analysis's kind —
+# ``gather_blocks`` one all-gather, whatever gloo's route underneath
+TALLY = {}
+_DEPTH = threading.local()
+_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+          "gather_blocks": "all-gather", "reduce_scatter": "reduce-scatter",
+          "all_to_all": "all-to-all"}
+
+
+def _tallied(name):
+    fn = getattr(C.Comm, name)
+
+    def wrapped(self, *a, **k):
+        depth = getattr(_DEPTH, "n", 0)
+        _DEPTH.n = depth + 1
+        try:
+            out = fn(self, *a, **k)
+        finally:
+            _DEPTH.n = depth
+        if TALLY and depth == 0 and self.size > 1:
+            kind = _KINDS[name]
+            TALLY["bytes"][kind] += out.numel() * out.element_size()
+            TALLY["counts"][kind] += 1
+        return out
+    setattr(C.Comm, name, wrapped)
+
+
+for _name in _KINDS:
+    _tallied(_name)
 
 
 def _t(batch):
@@ -231,6 +269,17 @@ def train_case(case, mesh, rank, ckpt_root):
     return out
 
 
+def _draw_biases(model):
+    """Whisper's init zeroes its biases; draw them, so that a bias taken
+    wrongly on a rank shows."""
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            leaf = n.rsplit(".", 1)[-1]
+            if leaf in ("bq", "bv", "bo", "bi") or leaf.endswith("_b"):
+                p.normal_(0, 0.1, generator=gen)
+
+
 def split_case(case, mesh, rank):
     """A variant of a reduced architecture whose heads do not divide over
     ``model`` (``case["replace"]``), from the port's seed-0 init: whether
@@ -245,14 +294,7 @@ def split_case(case, mesh, rank):
     kw = dict(remat=True, data_shards=mesh.size // mesh.shape["model"])
     full = bundle.init(torch.Generator().manual_seed(0))
     if cfg.family == "audio":
-        # Whisper's init zeroes its biases; draw them, so that a bias
-        # taken wrongly on a rank shows
-        gen = torch.Generator().manual_seed(1)
-        with torch.no_grad():
-            for n, p in full.named_parameters():
-                leaf = n.rsplit(".", 1)[-1]
-                if leaf in ("bq", "bv", "bo", "bi") or leaf.endswith("_b"):
-                    p.normal_(0, 0.1, generator=gen)
+        _draw_biases(full)
     local = shard_params(full, mesh, fsdp=True)
     specs = local.specs
     batch = make_batches(cfg, 4, 32, 1, seed=0)[0]
@@ -482,6 +524,101 @@ def collectives_case(case, mesh, rank):
     return out
 
 
+def comm_shapes_case(case, mesh, rank):
+    """Each raw collective of the ``model`` axis's ``Comm`` on the inputs
+    ``case["calls"]`` names: (method, args) -> its result's shapes and
+    dtypes."""
+    comm = mesh.comm("model")
+    out = {}
+    for key, (method, shapes, extra) in case["calls"].items():
+        args = [torch.ones(sh) for sh in shapes]
+        got = getattr(comm, method)(*args, *extra)
+        got = got if isinstance(got, tuple) else (got,)
+        out[key] = [(tuple(t.shape), str(t.dtype)) for t in got]
+    return out
+
+
+def tally_case(case, mesh, rank):
+    """A reduced architecture's sharded train step (the dry run's: remat,
+    ``data_shards`` the data axes' size, lr 1e-4) on this world, its
+    collectives tallied as ``DryComm`` tallies them (``TALLY``)."""
+    cfg = _cfg(case)
+    bundle = get_model(cfg)
+    dsz = mesh.size // mesh.shape["model"]
+    full = bundle.init(torch.Generator().manual_seed(0))
+    state = init_train_state(shard_params(full, mesh, fsdp=True))
+    step = make_train_step(bundle.loss, lr=1e-4, remat=True,
+                           data_shards=dsz, mesh=mesh)
+    TALLY.update(C.new_tally())
+    try:
+        step(state, case["batch"])
+        return {"tally": {k: dict(v) for k, v in TALLY.items()}}
+    finally:
+        TALLY.clear()
+
+
+def fsdp_serve_case(case, mesh, rank):
+    """A reduced architecture's prefill and greedy decode steps on this
+    rank's rows, its weights FSDP-sharded over the data axes
+    (``shard_params(..., fsdp=True)``, each layer's gathered as it
+    starts) inside the dry run's context, against one device's steps on
+    the whole weights and the same rows.  ``case["batch"]`` holds the
+    prompts and any vision or audio input.  With ``seq_kv`` the prefill
+    is one device's, and the decode runs on this rank's rows of its
+    cache (``cache_sharding``: the policy's ``sequence`` mode) with
+    ``seq_kv=True``."""
+    cfg = _cfg(case)
+    bundle = get_model(cfg)
+    full = bundle.init(torch.Generator().manual_seed(0))
+    if cfg.family == "audio":
+        _draw_biases(full)
+    local = shard_params(full, mesh, fsdp=True)
+    batch = _t(shard_batch(case["batch"], mesh))
+    batch["tokens"] = batch["tokens"].to(torch.int32)
+    b, s = batch["tokens"].shape
+    start = cfg.n_vision_tokens + s
+    cl = case.get("cache_len", start + case["new"])
+    seq_kv = case.get("seq_kv", False)
+    rows = {}                           # cache leaf -> (whole, this rank's)
+    sharded = lambda: acts.activation_sharding(mesh, batch_divisible=True)
+
+    def greedy(model, ctx, on_rows=False):
+        out, steps = [], []
+        with torch.no_grad():
+            with (contextlib.nullcontext() if on_rows else ctx()):
+                logits, cache = bundle.prefill(
+                    full if on_rows else model, batch, cache_len=cl)
+            if on_rows:
+                shard = cache_sharding(cfg, mesh, cache, b)
+                local_cache = {k: shard[k].local(v) for k, v in cache.items()}
+                rows.update({k: (cache[k].shape[3], local_cache[k].shape[3])
+                             for k in ("k", "cross_k")})
+                cache = local_cache
+            kw = {"seq_kv": True} if on_rows else {}
+            with ctx():
+                for i in range(case["new"]):
+                    nxt = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+                    out.append(nxt)
+                    lengths = torch.full((b,), start + i, dtype=torch.int32)
+                    logits, cache = bundle.decode(model, cache, nxt[:, None],
+                                                  lengths, **kw)
+                    steps.append(logits[:, :cfg.vocab].clone())
+        return torch.stack(out, 1).tolist(), torch.stack(steps)
+
+    want, ref = greedy(full, contextlib.nullcontext)
+    CALLS.clear()
+    got, logits = greedy(local, sharded, on_rows=seq_kv)
+    return {"tokens": got, "want": want,
+            "logit_top": float(logits.abs().max()),
+            # each decode step's logits against one device's, relative to
+            # the largest (comparable while the tokens agree)
+            "logit_err": float((logits - ref).abs().max()
+                               / ref.abs().max()),
+            "gathers": CALLS.get("all_gather", 0)
+            + CALLS.get("gather_blocks", 0),
+            "merges": CALLS.get("merge", 0), "cache_rows": rows}
+
+
 def main(spec_path, rank):
     spec = pickle.loads(Path(spec_path).read_bytes())
     out_path = Path(f"{spec_path}.{rank}.out")
@@ -497,7 +634,10 @@ def main(spec_path, rank):
              "split": lambda c, m: split_case(c, m, rank),
              "launch": lambda c, m: launch_case(c, m, rank),
              "ckpt_memory": lambda c, m: ckpt_memory_case(c, m, rank,
-                                                          spec["ckpt"])}
+                                                          spec["ckpt"]),
+             "comm_shapes": lambda c, m: comm_shapes_case(c, m, rank),
+             "tally": lambda c, m: tally_case(c, m, rank),
+             "fsdp_serve": lambda c, m: fsdp_serve_case(c, m, rank)}
     for case in spec["cases"]:
         try:
             mesh = make_mesh(case["mesh"])
