@@ -395,14 +395,24 @@ Phases — any failure raises and the script exits non-zero:
      (b) ``chip_smoke.py --dry-real OUT``, a process of its own (a clean
      card, expandable segments): the same rank's step run for real on
      the card on a ``dry_mesh`` of (16, 16), eagerly, for Yi-6B
-     train_4k with 4 of its 32 layers and Yi-6B decode_32k at full
-     depth, seeded N(0, 0.02) weights: the arguments' bytes and the peak
+     train_4k and decode_32k at full depth (train_4k ran 4 of its 32
+     layers before the loss took a rank's vocabulary block; the earlier
+     figures are printed beside the new), seeded N(0, 0.02) weights:
+     the arguments' bytes and the peak
      above them over the first call against the dry run's at the same
      depth, and the median of 3 steps after it against the dry run's
      max(compute, memory).  The phase fails if the dry run's arguments
      + outputs + temporaries lie more than 10% below the card's measured
      peak; arguments + ``peak_bytes`` (its own peak, outputs included)
      are printed beside it.
+  29. ``repro_torch.models.attention`` (``attention_module``), the twin of
+     the JAX package's one-layer attention, at Yi-6B's full width in
+     bfloat16 (d 4,096, 32/4 heads of 128): a 256-token causal prefill
+     and a windowed one (64) with ``backend="cuda"`` on K2, and a decode
+     step over rings of 2,048 rows at lengths 1/37/1,500/2,048 (the last
+     wrapping to slot 0) on K3, as a main path (K2 2, K3 1, traced =
+     counted), against ``backend="reference"`` on the card: within the
+     phase-2 bfloat16 bar of the largest entry, the rings bit-equal.
   Each of phases 15-28 logs its seconds and its peak device memory
   (15-18 also their replayed and eager decode step medians).
   Phase 2 also holds K1 at (16, 64, 32), its rows path at phase 14's M,
@@ -456,6 +466,8 @@ COLD_BYTES = 150e6
 
 
 T0 = time.perf_counter()
+# processes that run beside the phases (phase 28 (a)'s), stopped at exit
+BACKGROUND = []
 
 
 def log(*args) -> None:
@@ -463,7 +475,12 @@ def log(*args) -> None:
 
 
 def phase(msg: str) -> None:
-    log(f"{msg}  [{time.perf_counter() - T0:.0f} s]")
+    """A phase's heading on stdout, and its number and start on stderr, so
+    that a run stopped at its time limit shows where it was."""
+    at = time.perf_counter() - T0
+    log(f"{msg}  [{at:.0f} s]")
+    print(f"chip_smoke.py: {msg.split(':')[0]} started at {at:.0f} s",
+          file=sys.stderr, flush=True)
 
 
 def time_ms(torch, fn, calls: int = 20, reps: int = 10):
@@ -1614,13 +1631,12 @@ def profile_invokes(torch, rows, cards) -> None:
         feeds = requests[0]
         for key, ctx in (("", contextlib.nullcontext()),
                          ("eager_", disable_capture())):
-            with ctx, profile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA]) as prof:
+            with ctx, profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
                     for pos, x in enumerate(feeds):
                         card.set_input(pos, x)
                     card.invoke()
-            events = sorted((e for e in prof.key_averages()
+            events = sorted((e for e in trace_totals(prof)
                              if e.device_type == DeviceType.CUDA),
                             key=lambda e: -e.self_device_time_total)
             device_ms = sum(e.self_device_time_total for e in events) / 3e3
@@ -2263,13 +2279,12 @@ def profile_decode(torch, np, eng, row, n_steps: int = 8) -> None:
     eng.step()                                  # admission + first step
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
     eng.run()
-    events = sorted((e for e in prof.key_averages()
+    events = sorted((e for e in trace_totals(prof)
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / n_steps / 1e3
@@ -2584,6 +2599,39 @@ def trace_launches(prof):
     return trace_records(prof)[0]
 
 
+@dataclasses.dataclass
+class TraceTotal:
+    """The records of one name in a trace, summed: the fields of a
+    ``key_averages()`` entry that the phases read (µs)."""
+    key: str
+    device_type: object
+    count: int = 0
+    self_device_time_total: float = 0.0
+    cpu_time_total: float = 0.0
+
+
+def trace_totals(prof):
+    """Each record name's count and summed duration in a torch.profiler
+    trace, from its raw records: what the phases read of
+    ``key_averages()``, without the event object it builds for each of
+    the trace's records (seconds a trace of eager decode steps)."""
+    from torch.autograd import DeviceType
+
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        kind = e.device_type()
+        t = totals.get((e.name(), kind))
+        if t is None:
+            t = totals[e.name(), kind] = TraceTotal(e.name(), kind)
+        t.count += 1
+        us = e.duration_ns() / 1e3
+        if kind == DeviceType.CUDA:
+            t.self_device_time_total += us
+        else:
+            t.cpu_time_total += us
+    return list(totals.values())
+
+
 # The trace keeps only the device records whose timestamps fall inside its
 # window on the host clock, and the records at its edges can come back with
 # timestamps hundreds of ms off, so those are dropped (on the H100 machine:
@@ -2593,8 +2641,11 @@ def trace_launches(prof):
 # path starts; TRACE_TRAIL_S of trailing markers, then TRACE_MARGIN_S idle,
 # close the window.  The lead-in's last TRACE_SETTLED markers and every
 # trailing one must be in the trace, so a run the window did not cover is
-# named as such.
-TRACE_LEAD_S, TRACE_TRAIL_S, TRACE_TICK_S = 1.5, 0.25, 0.01
+# named as such.  The most a trace has dropped is 47 lead-in markers, its
+# first ~0.5 s (NVIDIA H100 80GB HBM3, 41 traced main paths of one run):
+# a lead-in of 1 s keeps about 40 beyond the 10 needed, and the script's
+# ~40 traces take 20 s less than with 1.5 s
+TRACE_LEAD_S, TRACE_TRAIL_S, TRACE_TICK_S = 1.0, 0.25, 0.01
 TRACE_MARGIN_S = 0.25
 TRACE_SETTLED = 10
 
@@ -2616,12 +2667,9 @@ def trace_device_us(prof):
     the device but the markers, the µs by record name)."""
     from torch.autograd import DeviceType
 
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if (e.device_type() == DeviceType.CUDA and LEAD_MARKER not in name
-                and TRAIL_MARKER not in name):
-            by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e3
+    by_name = {t.key: t.self_device_time_total for t in trace_totals(prof)
+               if t.device_type == DeviceType.CUDA
+               and LEAD_MARKER not in t.key and TRAIL_MARKER not in t.key}
     return sum(by_name.values()), by_name
 
 
@@ -3019,12 +3067,11 @@ def profile_prefill(torch, np, eng, row, prompt) -> None:
             eng._run_prefill(prompt[:-1])
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 eng._run_prefill(prompt[:-1])
                 torch.cuda.synchronize()
             k8_calls = trace_launches(prof)["ssd_scan"]
-        events = sorted((e for e in prof.key_averages()
+        events = sorted((e for e in trace_totals(prof)
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: -e.self_device_time_total)
         device = sum(e.self_device_time_total for e in events) / 1e3
@@ -3060,8 +3107,7 @@ def profile_chunked_prefill(torch, eng, row, prompt) -> None:
     req = Request(uid=30_000, tokens=prompt, max_new_tokens=1)
     eng.submit(req)
     eng.queue.remove(req)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng._start_chunked(req, 0)
         chunks = 1
@@ -3071,7 +3117,7 @@ def profile_chunked_prefill(torch, eng, row, prompt) -> None:
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
     eng.run()
-    device = sum(e.self_device_time_total for e in prof.key_averages()
+    device = sum(e.self_device_time_total for e in trace_totals(prof)
                  if e.device_type == DeviceType.CUDA) / 1e3
     row["chunked_prefill_profile"] = {"tokens": len(prompt) - 1,
                                       "chunks": chunks, "host_ms": host,
@@ -5429,6 +5475,10 @@ MESH_MODELS = [
 ]
 # a rank of (b): the whole of its run, and a collective's wait
 MESH_RANKS_S, MESH_COLLECTIVE_S = 600, 300
+# (b)'s decode step a rank before ``in_proj``'s product was split over the
+# ranks (each computed all of it), printed beside its own: (run, backend)
+# -> ms (measured on two NVIDIA H100 80GB HBM3 at 700 W)
+MESH_BEFORE = {(f"{SSM_ARCH} one-shot", "nccl"): 7.91}
 
 
 def mesh_bundle(arch, layers):
@@ -5512,7 +5562,7 @@ def mesh_collectives(torch, np, eng, n_steps: int = 4):
         torch.cuda.synchronize()
     eng.run()
     device, host, keys = 0.0, 0.0, set()
-    for e in prof.key_averages():
+    for e in trace_totals(prof):
         key = e.key.lower()
         if e.device_type == DeviceType.CUDA and "nccl" in key:
             device += e.self_device_time_total
@@ -5759,6 +5809,9 @@ def mesh_two_ranks(torch, np, dev):
                             for x in row["ranks"]) + " GiB a rank"
                 + (f"; SSD heads a rank {row['ranks'][0]['ssd_heads']}"
                    if "ssd_heads" in row["ranks"][0] else "")
+                + (f"; before the split in_proj: "
+                   f"{MESH_BEFORE[key, backend]:.2f} ms a rank"
+                   if (key, backend) in MESH_BEFORE else "")
                 + f"; KV rows split: {row['ranks'][0]['seq_kv']}")
     return rows, launches
 
@@ -5811,7 +5864,8 @@ TRAIN_MESH_PARITY = [
     (AUDIO_ARCH, AUDIO_TRAIN_LAYERS, TRAIN_MESH_SHAPES, 448),
     (AUDIO_ARCH, dict(AUDIO_TRAIN_LAYERS, **AUDIO_SPLIT_HEADS), [(1, 2)],
      448)]
-TRAIN_MESH_BATCH, TRAIN_MESH_STEPS = 2, 3
+# two steps: the second starts from the first's update
+TRAIN_MESH_BATCH, TRAIN_MESH_STEPS = 2, 2
 # a small constant lr: the ranks run free from the same seeded weights,
 # and Adam's first steps move an element whose gradient is within
 # rounding of 0 by up to 2 lr, which must not move the next gradients
@@ -5830,6 +5884,10 @@ TRAIN_MESH_PERF = [
 TRAIN_MESH_FULL = [(LM_ARCH, {}, TRAIN_BATCH, TRAIN_SEQ, [(4, 1)]),
                    (AUDIO_ARCH, {}, 4, 448, [(2, 2)])]
 TRAIN_MESH_PERF_STEPS, TRAIN_MESH_FULL_STEPS = 10, 5
+# (b)'s Yi-6B before the vocabulary-parallel loss and the split wk/wv
+# products, printed beside its own: mesh -> (ms a step, peak GB a rank)
+# (measured on two NVIDIA H100 80GB HBM3 at 700 W)
+TRAIN_MESH_BEFORE = {(2, 1): (449.71, 15.79), (1, 2): (449.03, 19.58)}
 TRAIN_MESH_TRACED = 2
 # a rank's whole run, and a collective's wait
 TRAIN_MESH_RANKS_S, TRAIN_MESH_COLLECTIVE_S = 900, 300
@@ -5908,9 +5966,11 @@ def parity_model(torch, dev, rank, arch, fields, shapes, seq, merges):
     against the single device's.  The step's context must split K/V by
     sequence exactly where the heads do not divide over ``model``, and
     then merge (``merges[0]``, the calls counted); elsewhere nothing
-    merges.  On Yi-6B's first mesh the world's checkpoint, written whole
-    by rank 0, is restored on every rank's card and its slices held
-    bit-equal to the rank's state.  Returns rank 0's rows."""
+    merges.  On Whisper's first mesh (FSDP over two ranks) the world's
+    checkpoint, written whole by rank 0, is restored on every rank's card
+    and its slices held bit-equal to the rank's state: a state of 1.9 GB
+    where Yi-6B's is 10.6 GB, whose write and read took 21-44 s of the
+    phase.  Returns rank 0's rows."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
@@ -6015,7 +6075,7 @@ def parity_model(torch, dev, rank, arch, fields, shapes, seq, merges):
         if bad:
             raise AssertionError(f"(a) {row['model']}: steps off one "
                                  f"device's: {bad}")
-        if (arch, shape) == (LM_ARCH, TRAIN_MESH_SHAPES[0]):
+        if (arch, shape) == (AUDIO_ARCH, TRAIN_MESH_SHAPES[0]):
             row["checkpoint"] = world_checkpoint(
                 torch, dev, rank, state, save_checkpoint, restore_checkpoint)
         if rank == 0:
@@ -6174,11 +6234,12 @@ def train_perf_rank(torch, np, dev, rank, arch, fields, rows_a_step, seq,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for batch in batches[-TRAIN_MESH_TRACED:]:
                 run(batch)
-        nccl_records = [e for e in prof.key_averages()
+        totals = trace_totals(prof)
+        nccl_records = [e for e in totals
                         if e.device_type == DeviceType.CUDA
                         and "nccl" in e.key.lower()]
         nccl = sum(e.self_device_time_total for e in nccl_records)
-        device = sum(e.self_device_time_total for e in prof.key_averages()
+        device = sum(e.self_device_time_total for e in totals
                      if e.device_type == DeviceType.CUDA)
         if dict(_build.launches) != before:
             raise AssertionError("the sharded step launched kernels")
@@ -6322,7 +6383,12 @@ def mesh_training(torch, np, dev, phase25_losses=None):
                 + (" (phase 25's first steps: " + " ".join(
                     f"{x:.3f}" for x in phase25_losses[:len(losses)]) + ")"
                    if phase25_losses and arch == LM_ARCH else "")
-                + f"; captures {per[0]['captures']}")
+                + f"; captures {per[0]['captures']}"
+                + ("; before the vocabulary-parallel loss: {:.2f} ms a "
+                   "step, peak {:.2f} GB a rank".format(
+                       *TRAIN_MESH_BEFORE[shape])
+                   if arch == LM_ARCH and shape in TRAIN_MESH_BEFORE
+                   else ""))
     if cards >= 4:
         ranks = train_mesh_world(torch, np, 4, "nccl", "full")
         for i in range(len(TRAIN_MESH_FULL)):
@@ -6356,14 +6422,26 @@ def mesh_training(torch, np, dev, phase25_losses=None):
 # jax), (b) one rank's step of two of them run for real on the card
 DRY_MESH_SHAPES = ["decode_32k"]
 DRY_TRAIN_ARCHS = ["yi-6b", "deepseek-moe-16b"]
-# (arch, shape, layers or None for full depth) run for real in (b)
-DRY_REAL = [("yi-6b", "train_4k", 4), ("yi-6b", "decode_32k", None)]
+# (arch, shape, layers or None for full depth) run for real in (b):
+# both at full depth since the loss runs on a rank's vocabulary block
+# (the dry run: Yi-6B train_4k 12.97 GB a rank; with the whole
+# vocabulary's loss it was 73.37 GB, 68.35 of them temporaries at any
+# depth, so (b) ran 4 of its 32 layers)
+DRY_REAL = [("yi-6b", "train_4k", None), ("yi-6b", "decode_32k", None)]
+# (b)'s figures before the vocabulary-parallel loss, printed beside its
+# own: label -> (layers, the dry run's arguments + outputs + temporaries
+# GB, the measured ms a step), NVIDIA H100 80GB HBM3 at 700 W
+DRY_REAL_BEFORE = {("yi-6b", "train_4k"): (4, 68.413, 531.98),
+                   ("yi-6b", "decode_32k"): (32, 1.206, 69.69)}
 DRY_REAL_STEPS = 3
 # the dry run's argument + output + temporary bytes may lie at most this
 # far below the card's measured peak (an upper bound is what proves a
 # fit)
 DRY_MEMORY_SLACK = 0.10
 DRY_REAL_S = 420
+# the longest phase 28 waits for (a)'s process, which ends 20-40 s after
+# its start before phase 2
+DRY_MESH_S = 600
 
 
 def dry_fit(memory) -> int:
@@ -6384,25 +6462,72 @@ def dry_line(res) -> str:
             f"traced in {res['trace_s']:.2f} s")
 
 
-def dry_runs(torch, np, dev):
-    """Phase 28: (a) the dry run (``repro_torch.launch.dryrun.run_one``)
-    of every architecture at decode_32k and of Yi-6B and DeepSeek-MoE-16B
-    at train_4k on the (16, 16) production mesh, on this machine (no
-    jax; meta tensors, the card unused); (b) two of them as one rank's
-    step run for real on the card (``chip_smoke.py --dry-real OUT`` in a
-    process of its own, a clean card): the measured peak memory and step
-    time against the dry run's.  Returns (rows, the phase's summary)."""
+def dry_mesh_main(out_path) -> int:
+    """Phase 28 (a) in a process of its own (``chip_smoke.py --dry-mesh
+    OUT``, no card visible), started before phase 2 so that it runs on
+    the CPU beside the card's phases: the dry run
+    (``repro_torch.launch.dryrun.run_one``) of every architecture at
+    decode_32k and of Yi-6B and DeepSeek-MoE-16B at train_4k on the
+    (16, 16) production mesh.  Writes the results to OUT as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import list_archs
     from repro_torch.launch import dryrun
 
-    t_phase = time.perf_counter()
-    rows = []
+    t0 = time.perf_counter()
     combos = [(a, s) for s in DRY_MESH_SHAPES for a in list_archs()]
     combos += [(a, "train_4k") for a in DRY_TRAIN_ARCHS]
-    for arch, shape in combos:
-        res = dryrun.run_one(arch, shape, False, verbose=False)
-        log(f"  (a) {arch} {shape} 16x16: {dry_line(res)}")
-        rows.append(dict(res, model=f"dry run {arch} {shape} 16x16"))
+    results = [dryrun.run_one(arch, shape, False, verbose=False)
+               for arch, shape in combos]
+    Path(out_path).write_text(json.dumps(
+        {"results": results, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def start_dry_mesh():
+    """Phase 28 (a)'s process (``dry_mesh_main``), its output to a log
+    under ``build/dry28/``; returns (the process, its JSON's path)."""
+    out = ROOT / "build" / "dry28" / "mesh.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    with open(out.with_suffix(".log"), "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dry-mesh",
+             str(out)], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=f, stderr=subprocess.STDOUT)
+    BACKGROUND.append(proc)
+    return proc, out
+
+
+def dry_runs(torch, np, dev, dry_mesh_run):
+    """Phase 28: (a) the dry runs of ``dry_mesh_main``, from the process
+    ``dry_mesh_run`` (``start_dry_mesh``'s) that ran them on this
+    machine's CPU (no jax; meta tensors, the card unused); (b) two of
+    them as one rank's step run for real on the card (``chip_smoke.py
+    --dry-real OUT`` in a process of its own, a clean card): the
+    measured peak memory and step time against the dry run's.  Returns
+    (rows, the phase's summary)."""
+    t_phase = time.perf_counter()
+    rows = []
+    proc, mesh_out = dry_mesh_run
+    try:
+        proc.wait(timeout=DRY_MESH_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or not mesh_out.exists():
+        raise AssertionError(
+            f"phase 28 (a) exited {proc.returncode}:\n"
+            + mesh_out.with_suffix(".log").read_text()[-4000:])
+    mesh = json.loads(mesh_out.read_text())
+    for res in mesh["results"]:
+        log(f"  (a) {res['arch']} {res['shape']} 16x16: {dry_line(res)}")
+        rows.append(dict(res, model=f"dry run {res['arch']} {res['shape']} "
+                                    f"16x16"))
+    log(f"  (a) {len(mesh['results'])} dry runs in "
+        f"{mesh['seconds']:.1f} s, in a process of their own on the CPU "
+        f"beside phases 2-27; waited {time.perf_counter() - t_phase:.1f} "
+        f"s for them here")
     # (b)'s process needs most of the card: this one keeps what it holds
     gc.collect()
     torch.cuda.empty_cache()
@@ -6442,7 +6567,10 @@ def dry_runs(torch, np, dev):
             f"{dry['argument_bytes'] / 1e9:.3f} GB; dry / measured: "
             f"arguments + outputs + temporaries "
             f"{r['dry_over_measured']:.3f}, arguments + peak "
-            f"{r['dry_peak_over_measured']:.3f}")
+            f"{r['dry_peak_over_measured']:.3f}"
+            + ("; before the vocabulary-parallel loss: {} layers, {} GB, "
+               "{} ms a step".format(*DRY_REAL_BEFORE[r["arch"], r["shape"]])
+               if (r["arch"], r["shape"]) in DRY_REAL_BEFORE else ""))
         if fit < (1 - DRY_MEMORY_SLACK) * peak:
             raise AssertionError(
                 f"phase 28 (b) {r['label']}: the dry run's arguments + "
@@ -6573,6 +6701,89 @@ def dry_real_main(out_path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 29: models/attention.py on the kernels
+# ---------------------------------------------------------------------------
+
+# Yi-6B's attention at full width (d 4,096, 32/4 heads of 128), bf16: a
+# causal prefill of ATTN_ROWS x ATTN_PREFILL tokens, the same windowed,
+# and one decode step of ATTN_LENGTHS over rings of ATTN_RING rows (the
+# last at the ring's end: its new row wraps to slot 0)
+ATTN_ROWS, ATTN_PREFILL, ATTN_WINDOW = 2, 256, 64
+ATTN_RING, ATTN_LENGTHS = 2048, [1, 37, 1500, 2048]
+
+
+def attention_module(torch, np, dev):
+    """Phase 29: ``repro_torch.models.attention`` with ``backend="cuda"``
+    — causal and windowed prefill on K2, a ring decode on K3 — against
+    ``backend="reference"`` on the same card and inputs, as a main path
+    (the kernel runs traced, each wrapper's count equal to the trace's
+    and to one launch a call).  Outputs within the phase-2 bfloat16 bar
+    (``BF16_ATOL``) of their largest entry (the bar of the attention
+    itself, carried through ``wo``'s 4,096-term sums); the decode's
+    caches bit-equal (the one-hot ring write is the same on both).
+    Returns (the row, launches by kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    bf16 = torch.bfloat16
+    p = attention.init_attention(torch.Generator(dev).manual_seed(0), cfg,
+                                 bf16)
+    g = torch.Generator(dev).manual_seed(29)
+    b = len(ATTN_LENGTHS)
+    x = torch.randn(ATTN_ROWS, ATTN_PREFILL, cfg.d_model, generator=g,
+                    device=dev).to(bf16)
+    xd = torch.randn(b, 1, cfg.d_model, generator=g, device=dev).to(bf16)
+    cache = {k: torch.randn(b, cfg.n_kv_heads, ATTN_RING, cfg.dh,
+                            generator=g, device=dev).to(bf16)
+             for k in ("k", "v")}
+    lengths = torch.tensor(ATTN_LENGTHS, dtype=torch.int32, device=dev)
+    runs = {
+        "causal prefill": lambda be: attention.attention_prefill(
+            p, cfg, x, backend=be),
+        f"prefill, window {ATTN_WINDOW}": lambda be:
+            attention.attention_prefill(p, cfg, x, window=ATTN_WINDOW,
+                                        backend=be),
+        "ring decode": lambda be: attention.attention_decode(
+            p, cfg, xd, cache, lengths, backend=be)}
+    want_launches = {"flash_attention": 2, "decode_attention": 1}
+    with torch.no_grad():
+        want = {k: f("reference") for k, f in runs.items()}
+        with main_path(torch, "models/attention.py, backend='cuda' "
+                       "(phase 29)") as traced:
+            got = {k: f("cuda") for k, f in runs.items()}
+    launches = {k: n for k, n in traced.items() if n}
+    if launches != want_launches:
+        raise AssertionError(f"phase 29 launched {launches}, expected "
+                             f"{want_launches}")
+    errs = {}
+    for k in runs:
+        g_out, w_out = got[k], want[k]
+        if k == "ring decode":
+            (g_out, g_cache), (w_out, w_cache) = g_out, w_out
+            for part in ("k", "v"):
+                if not torch.equal(g_cache[part], w_cache[part]):
+                    raise AssertionError(f"phase 29 {k}: the {part} caches "
+                                         f"differ")
+        top = w_out.float().abs().max().item()
+        err = (g_out.float() - w_out.float()).abs().max().item()
+        errs[k] = err / top
+        if not (torch.isfinite(g_out).all() and err <= BF16_ATOL * top):
+            raise AssertionError(f"phase 29 {k}: max abs err {err} > "
+                                 f"{BF16_ATOL} x the largest entry {top}")
+    row = {"model": f"{LM_ARCH} attention layer (models/attention.py), "
+                    f"bf16, backend cuda vs reference",
+           "relative_err": errs, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log("  phase 29: " + "; ".join(f"{k} err {e:.3g} of the largest entry"
+                                   for k, e in errs.items())
+        + f" (bar {BF16_ATOL:.4g}); decode caches bit-equal; "
+        f"{row['seconds']:.1f} s")
+    return row, launches
+
+
 def serving_layers(torch, np, dev, served):
     """Phases 19-24 on Yi-6B at full width in bfloat16, its weights drawn
     again from phase 7's seed (``served`` are phase 7's tokens).  Returns
@@ -6656,6 +6867,8 @@ def main() -> int:
         return mesh_rank_main(sys.argv[1:])
     if "--dry-real" in sys.argv:
         return dry_real_main(sys.argv[sys.argv.index("--dry-real") + 1])
+    if "--dry-mesh" in sys.argv:
+        return dry_mesh_main(sys.argv[sys.argv.index("--dry-mesh") + 1])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -6681,6 +6894,7 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(_build.KERNELS)})")
+    dry_mesh_run = start_dry_mesh()
     for name, report in _build.BUILD_LOGS.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -6926,9 +7140,17 @@ def main() -> int:
     phase("phase 28: the multi-pod dry run — (a) every architecture at "
           "decode_32k and Yi-6B and DeepSeek-MoE-16B at train_4k on the "
           "(16, 16) mesh, (b) two of them as one rank's step on the card")
-    dry_rows, dry_summary = dry_runs(torch, np, dev)
+    dry_rows, dry_summary = dry_runs(torch, np, dev, dry_mesh_run)
     model_rows.extend(dry_rows)
     summaries.append(dry_summary)
+    phase("phase 29: models/attention.py — causal and windowed prefill on "
+          "K2 and a ring decode on K3 against the reference backend "
+          "(main path)")
+    attn_row, attn_launches = attention_module(torch, np, dev)
+    model_rows.append(attn_row)
+    for kname, n in attn_launches.items():
+        layer_runs.setdefault(kname, {})[
+            "phase 29 models/attention.py"] = n
 
     def entry(name, source, replaces, rows):
         path = rows[0]                       # the main path's shape
@@ -7022,4 +7244,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for bg in BACKGROUND:
+            if bg.poll() is None:
+                bg.kill()
+                bg.wait()
+    sys.exit(rc)

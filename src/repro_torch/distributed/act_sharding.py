@@ -147,7 +147,7 @@ def shard_act(x, *trailing):
 def shard_logits(x):
     """(B, S, V) logits with V on ``model``: the vocab-parallel head's
     output is this rank's vocabulary block already, so ``x`` itself
-    (``lm.lm_logits`` gathers the blocks for the loss)."""
+    (the loss runs on the blocks, ``lm.masked_ce``)."""
     return x
 
 

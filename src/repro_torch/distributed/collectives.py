@@ -9,7 +9,8 @@ plain local tensors.
   * ``all_reduce`` — the sum over ranks (row-parallel projections, the
     masked embedding lookup, the MoE combine), in place;
   * ``all_gather`` — this rank's slice of a dimension to the whole one
-    (the column-parallel head's logits, the queries of every head);
+    (the column-parallel head's logits in serving, the queries of every
+    head, the blocks of a product split over the ranks);
   * ``reduce_scatter`` — the sum over ranks, each keeping its slice;
   * ``all_to_all`` — each rank's slices of one dimension sent to their
     ranks and concatenated along another (the expert-parallel dispatch);
@@ -44,14 +45,23 @@ raw ``Comm`` calls, so serving runs exactly as before); each is an
                                       *f*)
   all_gather     slices -> whole      this rank's slice (the whole tensor
                                       is consumed alike on every rank:
-                                      the vocab-parallel head's logits)
+                                      the sequence-parallel layers'
+                                      output before the head, a split
+                                      product's column blocks whose
+                                      consumers take the copy-in —
+                                      Mamba-2's ``in_proj``)
   gather_local   slices -> whole      reduce_scatter (the whole tensor
                                       feeds rank-local work: the FSDP
                                       weight gather, the sequence-
                                       parallel gather before the
-                                      projections)
+                                      projections, a split product's
+                                      column blocks feeding a rank's
+                                      heads — ``wk``/``wv`` kept whole)
   reduce_scatter partial -> slices    all_gather
-  split          whole -> slice       all_gather
+  split          whole -> slice       all_gather (a whole weight's column
+                                      block in a split product,
+                                      ``models.lm.split_matmul``: the
+                                      whole weight's gradient)
   all_to_all     dim a -> dim b       all_to_all dim b -> dim a
   combine        partials, lse ->     this rank's share, no collective:
                  merged               a_r g to its partial, a_r <g,
@@ -60,10 +70,12 @@ raw ``Comm`` calls, so serving runs exactly as before); each is an
                                       alike on every rank)
   ============== ==================== ===================================
 
-On the ``model`` axis every rank computes the same loss, so a reduce-
-scatter is *not* the transpose of the logits' all_gather (it would give
-m times the gradient); on the data axes the ranks see different rows,
-so the FSDP gather's transpose is the reduce-scatter (``gather_local``).
+On the ``model`` axis every rank computes the same loss (the
+vocab-parallel cross-entropy's sums are ``all_reduce``s,
+``models.common.vocab_parallel_cross_entropy``), so a reduce-scatter is
+*not* the transpose of a gather consumed alike (it would give m times
+the gradient); on the data axes the ranks see different rows, so the
+FSDP gather's transpose is the reduce-scatter (``gather_local``).
 An axis of one rank needs no collective in training: each function
 returns its input there.
 """

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclass(frozen=True)
@@ -193,7 +194,46 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logz = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
     iota = torch.arange(logits.shape[-1], device=logits.device)
     gold = torch.where(iota == labels[..., None], logits, 0.0).sum(dim=-1)
-    nll = logz - gold
+    return _masked_mean(logz - gold, mask)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor],
+                                 comm) -> torch.Tensor:
+    """``cross_entropy_loss`` of the logits over the whole padded
+    vocabulary, from this rank's block of it: ``logits`` (B,S,V/m) are
+    the columns [r·V/m, (r+1)·V/m) of ``comm``'s rank r (the vocab-
+    parallel head's output), ``labels`` (B,S) index the whole padded
+    vocabulary.  The JAX function's steps with three (B,S) all-reduces
+    over ``comm`` in place of GSPMD's: the max of the blocks' maxima
+    (detached, the raw ``Comm.all_reduce`` outside autograd, as JAX's
+    ``stop_gradient``), the sum of exp(block - max) and the gold logit,
+    which only the rank whose block holds the label contributes (the
+    other ranks' where-sums are 0).  Both sums go through the
+    differentiable ``collectives.all_reduce``, so every rank computes the
+    same loss and its block's gradient is that block of the whole
+    logits' gradient.  Masking and the data axes' sums are
+    ``cross_entropy_loss``'s."""
+    # imported here: distributed.sharding imports this module
+    from repro_torch.distributed import collectives
+    logits = logits.float()
+    m = comm.all_reduce(logits.detach().amax(dim=-1, keepdim=True),
+                        dist.ReduceOp.MAX)
+    sumexp = collectives.all_reduce(comm,
+                                    torch.exp(logits - m).sum(dim=-1))
+    logz = m[..., 0] + torch.log(sumexp)
+    n = logits.shape[-1]
+    iota = comm.rank * n + torch.arange(n, device=logits.device)
+    gold = collectives.all_reduce(comm, torch.where(
+        iota == labels[..., None], logits, 0.0).sum(dim=-1))
+    return _masked_mean(logz - gold, mask)
+
+
+def _masked_mean(nll: torch.Tensor,
+                 mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of ``nll`` (B,S) over the ``mask``-weighted positions (at
+    least 1); over every data rank's rows inside a training context whose
+    data axes hold more than one rank."""
     # imported here: distributed.sharding imports this module
     from repro_torch.distributed import act_sharding, collectives
     ctx = act_sharding.current()

@@ -362,16 +362,24 @@ def _embed_dec(model: EncDecLM, tokens: torch.Tensor,
                           acts.gathered(model).dec_pos))
 
 
-def _logits(model: EncDecLM, x: torch.Tensor) -> torch.Tensor:
-    """The tied head's (padded) vocabulary logits; on a mesh each rank's
-    block, gathered in vocabulary order (as ``lm.lm_logits``)."""
+def _head_logits(model: EncDecLM, x: torch.Tensor):
+    """The tied head's (padded) vocabulary logits and the axis they are
+    split over, as ``lm.head_logits``: on a mesh this rank's block and
+    the ``model`` axis's ``Comm``, else the whole logits and None."""
     model = acts.gathered(model)
     h = _ln(x, model, "final")
     tp = getattr(model, "tp", None)
     if tp is None or not tp.split:
-        return torch.einsum("bsd,vd->bsv", h, model.embed)
-    return C.all_gather(tp.comm, torch.einsum(
-        "bsd,vd->bsv", C.copy_in(tp.comm, h), model.embed), -1)
+        return torch.einsum("bsd,vd->bsv", h, model.embed), None
+    return torch.einsum("bsd,vd->bsv", C.copy_in(tp.comm, h),
+                        model.embed), tp.comm
+
+
+def _logits(model: EncDecLM, x: torch.Tensor) -> torch.Tensor:
+    """The tied head's (padded) vocabulary logits; on a mesh each rank's
+    block, gathered in vocabulary order (as ``lm.lm_logits``)."""
+    logits, comm = _head_logits(model, x)
+    return logits if comm is None else C.all_gather(comm, logits, -1)
 
 
 def encdec_prefill(model: EncDecLM, cfg: ModelConfig,
@@ -477,5 +485,6 @@ def encdec_loss(model: EncDecLM, cfg: ModelConfig,
     x = _embed_dec(model, tokens,
                    torch.arange(tokens.shape[1], device=tokens.device)[None])
     h = _decoder_fwd(model, cfg, x, enc, remat=remat)
-    loss = lm.masked_ce(_logits(model, h), batch["labels"])
+    logits, comm = _head_logits(model, h)
+    loss = lm.masked_ce(logits, batch["labels"], comm)
     return loss, {"ce_loss": loss}

@@ -200,5 +200,6 @@ def hybrid_loss(model: HybridLM, cfg: ModelConfig,
     """batch: tokens, labels (B,S).  Returns (loss, {"ce_loss"})."""
     x = lm.embed_tokens(model, cfg, batch["tokens"])
     h = hybrid_backbone(model, cfg, x, remat=remat)
-    loss = lm.masked_ce(lm.lm_logits(model, cfg, h), batch["labels"])
+    logits, comm = lm.head_logits(model, cfg, h)
+    loss = lm.masked_ce(logits, batch["labels"], comm)
     return loss, {"ce_loss": loss}

@@ -44,7 +44,8 @@ would insert a collective — the masked embedding lookup and the
 row-parallel ``wo`` / MLP ``wo`` / MoE combine end in an ``all_reduce``,
 the column-parallel head's logits are ``all_gather``ed.  Attention in
 ``heads`` mode runs on the rank's query heads (and, where ``wk``/``wv``
-stay whole, every KV head); with the cache's rows split over the ranks
+stay whole, every KV head, their products split over the ranks and
+gathered, ``split_matmul``); with the cache's rows split over the ranks
 (``seq_kv``, the policy's ``sequence`` mode), each rank attends over
 its rows with their log-sum-exp, the partials merge flash-decoding
 style, and only the rank that holds a new row writes it.
@@ -67,8 +68,11 @@ region, so a recomputed layer gathers again), tensor-parallel regions
 are entered through the copy-in and left through the all_reduce, or,
 under sequence parallelism, through an all-gather and a reduce-scatter
 of the positions (``act_sharding.enter``/``leave``); the embedding and
-the head are vocab-parallel; a replicated weight that feeds a rank's
-own heads (``wk``/``wv`` kept whole, the q/k norms) takes the copy-in.
+the head are vocab-parallel, and the loss runs on the head's blocks
+(``masked_ce``: three (B,S) all-reduces, no rank holding the whole
+vocabulary's logits); a replicated weight that feeds a rank's own heads
+(the q/k norms) takes the copy-in, and ``wk``/``wv`` kept whole are
+split column-wise, each rank's block's gradient gathered.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 
 from .common import (ModelConfig, apply_rope, cross_entropy_loss, dense_init,
-                     rms_norm, rope_cos_sin)
+                     rms_norm, rope_cos_sin, vocab_parallel_cross_entropy)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -362,25 +366,58 @@ def load_jax_tree(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
 # attention — query-chunked causal/windowed (prefill)
 # ---------------------------------------------------------------------------
 
+def split_matmul(comm: C.Comm, x: torch.Tensor, w: torch.Tensor, *,
+                 local: bool) -> torch.Tensor:
+    """x (N,K) @ w (K,W) where every rank of ``comm`` holds the weight
+    whole, split as GSPMD splits it (ROADMAP queue 3): this rank
+    multiplies by its block of W/m output columns and the blocks are
+    all-gathered over the axis, so a rank does 1/m of the product.  The
+    whole weight's gradient is its column blocks' gradients gathered
+    (``collectives.split``: an all-gather of (K, W/m) blocks, half the
+    bytes of a copy-in's all-reduce of the whole (K, W) on every rank).
+
+    ``local``: the product feeds this rank's own work (``wk``/``wv``
+    feeding its query heads) and ``x`` took the copy-in where the region
+    began (``act_sharding.enter``), so the gather's gradient is the
+    ranks' gradients summed, its block kept (``gather_local``); else the
+    product is consumed alike on every rank (Mamba-2's ``in_proj``, whose
+    consumers take the copy-in), so the gather's gradient is this rank's
+    block and ``x`` takes the copy-in here, each rank's product giving
+    only its columns' share of x's gradient.  Where W does not divide
+    over the axis, or it has one rank, the product is whole on every
+    rank, as before (a ``local`` weight then takes the copy-in); no
+    configuration of the repository on (16, 16), (2, 16, 16) or,
+    reduced, on (2, 4) is such a case."""
+    m = comm.size
+    if m == 1 or w.shape[1] % m:
+        return x @ (C.copy_in(comm, w) if local else w)
+    if not local:
+        x = C.copy_in(comm, x)
+    gather = C.gather_local if local else C.all_gather
+    return gather(comm, x @ C.split(comm, w, 1), -1)
+
+
 def _proj_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor):
     """x (B,S,D) -> q (B,S,H,dh), k/v (B,S,KH,dh) with qk_norm + RoPE.
-    With the query heads split over ``model``, the whole ``wk``/``wv``
-    (KV heads not split) and the q/k norms feed this rank's heads: they
+    With the query heads split over ``model`` and the KV heads not, the
+    whole ``wk``/``wv`` products are split over the ranks and gathered
+    (``split_matmul``), and the q/k norms feed this rank's heads: they
     take the copy-in (a no-op without a gradient)."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
-    wk, wv = p.wk, p.wv
     norms = (p.q_norm, p.k_norm) if cfg.qk_norm else ()
     tp = getattr(p, "tp", None)
-    if tp is not None and tp.split:
-        if not tp.kv_split:
-            wk, wv = C.copy_in(tp.comm, wk, wv)
-        if norms:
-            norms = C.copy_in(tp.comm, *norms)
+    split = tp is not None and tp.split
+    if split and norms:
+        norms = C.copy_in(tp.comm, *norms)
     q = (flat @ p.wq.reshape(d, -1)).view(b, s, *p.wq.shape[1:])
-    k = (flat @ wk.reshape(d, -1)).view(b, s, *wk.shape[1:])
-    v = (flat @ wv.reshape(d, -1)).view(b, s, *wv.shape[1:])
+    if split and not tp.kv_split:
+        k, v = (split_matmul(tp.comm, flat, w.reshape(d, -1), local=True)
+                .view(b, s, *w.shape[1:]) for w in (p.wk, p.wv))
+    else:
+        k = (flat @ p.wk.reshape(d, -1)).view(b, s, *p.wk.shape[1:])
+        v = (flat @ p.wv.reshape(d, -1)).view(b, s, *p.wv.shape[1:])
     if cfg.qk_norm:
         q = rms_norm(q, norms[0], cfg.norm_eps)
         k = rms_norm(k, norms[1], cfg.norm_eps)
@@ -967,21 +1004,29 @@ def scale_embed(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
     return x * float(torch.tensor(scale, dtype=x.dtype))
 
 
-def lm_logits(model: DenseLM, cfg: ModelConfig,
-              h: torch.Tensor) -> torch.Tensor:
-    """The (padded) vocabulary's logits of h; a column-parallel head's
-    blocks are gathered from the ranks in vocabulary order, so the
-    argmax's first maximum is the single device's.  In training every
-    rank computes the loss from the whole logits: the hidden state takes
-    the copy-in into this rank's vocabulary block, and the gather's
-    gradient is this rank's block."""
+def head_logits(model: DenseLM, cfg: ModelConfig, h: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[C.Comm]]:
+    """The head's logits of h and the axis they are split over: where
+    the head is vocab-parallel, this rank's block of the padded
+    vocabulary and the ``model`` axis's ``Comm`` (the hidden state takes
+    the copy-in into the block); else the whole logits and None."""
     model = acts.gathered(model)
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
     head = model.embed.t() if cfg.tie_embeddings else model.lm_head
     tp = getattr(model, "tp", None)
     if tp is None or not tp.split:
-        return h @ head
-    return C.all_gather(tp.comm, C.copy_in(tp.comm, h) @ head, -1)
+        return h @ head, None
+    return C.copy_in(tp.comm, h) @ head, tp.comm
+
+
+def lm_logits(model: DenseLM, cfg: ModelConfig,
+              h: torch.Tensor) -> torch.Tensor:
+    """The (padded) vocabulary's logits of h; a column-parallel head's
+    blocks are gathered from the ranks in vocabulary order, so the
+    argmax's first maximum is the single device's (serving; the loss
+    keeps the blocks, ``masked_ce``)."""
+    logits, comm = head_logits(model, cfg, h)
+    return logits if comm is None else C.all_gather(comm, logits, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -1358,11 +1403,19 @@ def lm_backbone(model: DenseLM, cfg: ModelConfig, x: torch.Tensor, *,
     return acts.unshard_seq(x), aux_total
 
 
-def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+              comm: Optional[C.Comm] = None) -> torch.Tensor:
     """The families' loss: cross-entropy over the positions whose label
-    is >= 0 (label -1 masks a pad or the position after an EOS)."""
+    is >= 0 (label -1 masks a pad or the position after an EOS).
+    ``logits`` and ``comm`` as ``head_logits`` gives them: with ``comm``
+    of more than one rank, this rank's vocabulary block, and the loss is
+    the vocab-parallel one (``vocab_parallel_cross_entropy``), so no
+    rank holds the whole vocabulary's logits."""
     mask = (labels >= 0).float()
-    return cross_entropy_loss(logits, torch.clamp(labels, min=0), mask)
+    labels = torch.clamp(labels, min=0)
+    if comm is None or comm.size == 1:
+        return cross_entropy_loss(logits, labels, mask)
+    return vocab_parallel_cross_entropy(logits, labels, mask, comm)
 
 
 def lm_loss(model: DenseLM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -1373,7 +1426,8 @@ def lm_loss(model: DenseLM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = embed_tokens(model, cfg, batch["tokens"])
     h, aux = lm_backbone(model, cfg, x, remat=remat,
                          data_shards=data_shards)
-    loss = masked_ce(lm_logits(model, cfg, h), batch["labels"])
+    logits, comm = head_logits(model, cfg, h)
+    loss = masked_ce(logits, batch["labels"], comm)
     metrics = {"ce_loss": loss, "aux_loss": aux}
     if cfg.n_experts:
         loss = loss + 0.01 * aux

@@ -19,16 +19,18 @@ dim and scans.  The steps are plain functions on tensors:
   * ``ssm_loss`` — the training loss through ``ssm_backbone``, always on
     the plain ``ssd_chunked`` (K8 has no backward).
 
-On a mesh (``distributed.sharding.shard_params``) every rank computes
-the whole ``in_proj`` and causal conv (their weights stay whole), runs
+On a mesh (``distributed.sharding.shard_params``) ``in_proj``'s weight
+stays whole on every rank, but its product is split over the ranks and
+gathered (``lm.split_matmul``, as GSPMD splits it); every rank computes
+the whole causal conv (its weights stay whole), runs
 the scan on its block of the SSD heads (the state's ``gh`` axis split),
 and the gated norm, which reduces over all of ``d_inner``, sums its
 squares over the ranks before the scale; ``out_proj`` is row-parallel.
 In training those collectives are differentiable
 (``distributed.collectives``): the whole tensors that feed a rank's own
 heads or channels (the conv output, dt, z, and the per-head ``dt_bias``,
-``A_log`` and ``D``) take the copy-in, so ``in_proj``, the conv and
-everything before them get the gradient of every head, and the
+``A_log`` and ``D``) take the copy-in, so ``in_proj``'s product, the
+conv and everything before them get the gradient of every head, and the
 layer's FSDP-sharded weights are gathered as it starts
 (``act_sharding.gathered``).
 
@@ -57,8 +59,8 @@ from repro_torch.distributed import act_sharding as acts
 from repro_torch.distributed import collectives as C
 
 from .common import ModelConfig, dense_init, rms_norm
-from .lm import (NEG_INF, _param, checkpointed, embed_tokens, lm_logits,
-                 masked_ce, padded_vocab)
+from .lm import (NEG_INF, _param, checkpointed, embed_tokens, head_logits,
+                 lm_logits, masked_ce, padded_vocab, split_matmul)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -259,11 +261,17 @@ def _conv_step(conv_cache: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
 
 
 def _in_proj(blk: MambaBlock, cfg: ModelConfig, h: torch.Tensor):
-    """ln → in_proj → (z, xBC, dt) for h (B,S,D)."""
+    """ln → in_proj → (z, xBC, dt) for h (B,S,D).  On a mesh whose
+    ``model`` axis has more than one rank the packed product, whose
+    weight every rank holds whole, is split over the ranks and gathered
+    (``lm.split_matmul``: z, xBC and dt are consumed alike on every rank,
+    their consumers taking the copy-in)."""
     b, s, d = h.shape
-    xin = rms_norm(h, blk.ln, cfg.norm_eps)
-    zxbcdt = (xin.reshape(b * s, d) @ blk.in_proj).view(b, s, -1)
-    return _split_proj(cfg, zxbcdt)
+    xin = rms_norm(h, blk.ln, cfg.norm_eps).reshape(b * s, d)
+    tp = getattr(blk, "tp", None)
+    zxbcdt = (xin @ blk.in_proj if tp is None else
+              split_matmul(tp.comm, xin, blk.in_proj, local=False))
+    return _split_proj(cfg, zxbcdt.view(b, s, -1))
 
 
 def state_heads(blk: nn.Module, cfg: ModelConfig) -> Tuple[int, int]:
@@ -481,5 +489,6 @@ def ssm_loss(model: SSMLM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``data_shards`` is not used (no MoE), as in the JAX package."""
     x = embed_tokens(model, cfg, batch["tokens"])
     h = ssm_backbone(model, cfg, x, remat=remat)
-    loss = masked_ce(lm_logits(model, cfg, h), batch["labels"])
+    logits, comm = head_logits(model, cfg, h)
+    loss = masked_ce(logits, batch["labels"], comm)
     return loss, {"ce_loss": loss}

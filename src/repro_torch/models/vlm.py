@@ -69,5 +69,6 @@ def vlm_loss(model: lm.DenseLM, cfg: ModelConfig,
     xv = batch["vision"].to(xt.dtype) @ acts.gathered(model).projector
     h, _ = lm.lm_backbone(model, cfg, torch.cat([xv, xt], dim=1),
                           prefix_len=p, remat=remat, data_shards=data_shards)
-    loss = lm.masked_ce(lm.lm_logits(model, cfg, h[:, p:]), batch["labels"])
+    logits, comm = lm.head_logits(model, cfg, h[:, p:])
+    loss = lm.masked_ce(logits, batch["labels"], comm)
     return loss, {"ce_loss": loss}

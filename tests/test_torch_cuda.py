@@ -1691,3 +1691,68 @@ def test_kernel_wrapper_refuses_a_differentiated_cuda_input(cuda):
         out = ops.decode_attention(q, kc, kc, lengths)
     torch.cuda.synchronize()
     assert K3.launches == before + 1 and out.shape == (2, 8, 64)
+
+
+# ---------------------------------------------------------------------------
+# models/attention.py: backend="cuda" (K2, K3) against "reference"
+# ---------------------------------------------------------------------------
+
+ATTN_ARCHS = ["yi-6b", "phi3-mini-3.8b", "qwen3-32b"]
+
+
+def _attention_layer(cuda, arch):
+    from repro_torch.models import attention
+
+    cfg = get_config(arch, reduced=True)
+    return cfg, attention.init_attention(
+        torch.Generator(cuda).manual_seed(0), cfg)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_prefill_cuda_backend_equals_reference(cuda, arch,
+                                                         window):
+    """Causal (and windowed) self-attention prefill on K2, float32, one
+    launch, against the reference backend on the card within 1e-5 of
+    the largest entry; a ``prefix_len`` prefill on the kernel raises."""
+    from repro_torch.models import attention
+
+    cfg, p = _attention_layer(cuda, arch)
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator(
+        cuda).manual_seed(1), device=cuda)
+    want = attention.attention_prefill(p, cfg, x, window=window)
+    before = K2.launches
+    got = attention.attention_prefill(p, cfg, x, window=window,
+                                      backend="cuda")
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+    with pytest.raises(ValueError, match="prefix_len"):
+        attention.attention_prefill(p, cfg, x, prefix_len=4, backend="cuda")
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_attention_decode_cuda_backend_equals_reference(cuda, arch):
+    """One decode step on K3 through a ring of 16 that wraps (lengths
+    0, 5, 15, 19), float32: the output within 1e-5 of the reference
+    backend's largest entry, the caches bit-equal (the same one-hot
+    blend), one launch."""
+    from repro_torch.models import attention
+
+    cfg, p = _attention_layer(cuda, arch)
+    g = torch.Generator(cuda).manual_seed(2)
+    cache = {k: torch.randn(4, cfg.n_kv_heads, 16, cfg.dh, generator=g,
+                            device=cuda) for k in ("k", "v")}
+    x = torch.randn(4, 1, cfg.d_model, generator=g, device=cuda)
+    lengths = torch.tensor([0, 5, 15, 19], dtype=torch.int32, device=cuda)
+    want, wc = attention.attention_decode(p, cfg, x, cache, lengths)
+    before = K3.launches
+    got, gc_ = attention.attention_decode(p, cfg, x, cache, lengths,
+                                          backend="cuda")
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+    for k in ("k", "v"):
+        assert torch.equal(gc_[k], wc[k])

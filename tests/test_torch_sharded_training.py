@@ -32,6 +32,10 @@ configurations, float32.
     3 heads, with and without sequence parallelism, with a vision
     prefix): the merges ran, and the loss and gradients equal one
     device's; the queries' copy-in dropped gives a wrong gradient;
+  * the vocabulary-parallel loss on each rank's block against the whole
+    logits' loss, and the products of weights kept whole over ``model``
+    split over the ranks (``lm.split_matmul``) against one device's, on
+    ``(1, 2)``, ``(2, 2)`` and ``(1, 4)``;
   * ``launch/train.py --arch whisper-large-v3 --mesh D,M`` on each world
     against the same command on one device; ``ServingEngine(mesh=)``
     still refuses Whisper, and ``shard_params`` a ``model`` axis the
@@ -114,6 +118,20 @@ SPLITS = {
 # the case whose gradients are taken again with the queries' copy-in
 # dropped
 DROP_Q_COPY_IN = ("yi-6b", (1, 2))
+# the vocabulary-parallel loss and the split whole-weight products, on
+# (1, m) and (2, 2): world size -> meshes
+PART_MESHES = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
+PART_IDS = [f"{d}x{m}" for w in PART_MESHES for d, m in PART_MESHES[w]]
+# seeded logits (B, S, V) over a padded vocabulary of V columns, the last
+# V - VOCAB_CE_REAL of them padding; the loss and its gradient bars
+VOCAB_CE_SHAPE, VOCAB_CE_REAL, VOCAB_CE_TOL = (4, 6, 64), 50, 1e-6
+# the products whose weights stay whole over model: an attention whose
+# one KV head divides no model axis (with the q/k norms), and Mamba-2's
+# packed in_proj; each against one device's within SPLIT_TOL of its
+# largest entry
+SPLIT_PRODUCTS = {"yi-6b": {"n_kv_heads": 1, "qk_norm": True},
+                  "mamba2-780m": {}}
+SPLIT_TOL = 1e-5
 # launch/train.py on each world, against the same command on one device
 LAUNCH_ARGV = ["--arch", "whisper-large-v3", "--device", "cpu", "--steps",
                "3", "--batch", "4", "--seq", "32"]
@@ -156,6 +174,20 @@ def _ep_input():
         0, 1, (EP_BATCH, EP_SEQ, get_config("deepseek-moe-16b",
                                             reduced=True).d_model)
     ).astype(np.float32)
+
+
+def _vocab_ce_input():
+    """Seeded logits and labels: a label in every rank's block of 2 and
+    4, labels in the padded columns, masked (-1) positions, and label 0
+    (where a masked label is clamped)."""
+    rng = np.random.default_rng(21)
+    b, s, v = VOCAB_CE_SHAPE
+    logits = rng.normal(0, 3, (b, s, v)).astype(np.float32)
+    labels = rng.integers(0, VOCAB_CE_REAL, (b, s)).astype(np.int64)
+    labels[0, :4] = [1, v // 4 + 3, v // 2 + 5, 3 * v // 4 + 7]
+    labels[1, :3] = [VOCAB_CE_REAL, v - 1, 0]
+    labels[2, :2] = -1
+    return logits, labels
 
 
 def run_groups(path: Path, groups):
@@ -224,6 +256,14 @@ def _cases(models, world):
             cases.append({"name": f"split {arch} {mesh}", "kind": "split",
                           "mesh": mesh, "arch": arch, "replace": heads,
                           "drop_q_copy_in": (arch, mesh) == DROP_Q_COPY_IN})
+    logits, labels = _vocab_ce_input()
+    for mesh in PART_MESHES[world]:
+        cases.append({"name": f"vocab ce {mesh}", "kind": "vocab_ce",
+                      "mesh": mesh, "logits": logits, "labels": labels})
+        for arch, fields in SPLIT_PRODUCTS.items():
+            cases.append({"name": f"split products {arch} {mesh}",
+                          "kind": "split_products", "mesh": mesh,
+                          "arch": arch, "replace": fields})
     for mesh in MESHES[world]:
         cases.append({"name": f"launch {mesh}", "kind": "launch",
                       "mesh": mesh, "argv": LAUNCH_ARGV + [
@@ -455,6 +495,49 @@ def test_kv_sequence_split_matches_one_device(request, arch, mesh):
         assert got["combines"] >= 2, (label, got["combines"])
         assert got["loss_rel"] <= LOSS_RTOL, (label, got["loss_rel"])
         assert got["grad"] <= GRAD_TOL, (label, got["grad"])
+
+
+PARTS = [(w, mesh) for w in PART_MESHES for mesh in PART_MESHES[w]]
+
+
+@pytest.mark.parametrize("world,mesh", PARTS, ids=PART_IDS)
+def test_vocab_parallel_loss_equals_the_whole_vocabularys(request, world,
+                                                         mesh):
+    """The loss on each rank's vocabulary block (three (B,S) all-reduces
+    over ``model``, none of them a gather) equals ``cross_entropy_loss``
+    on the whole seeded logits within ``VOCAB_CE_TOL`` relative, and each
+    rank's block of the gradient the whole logits' block within
+    ``VOCAB_CE_TOL`` of its largest entry — with labels in every rank's
+    block, in the padded columns and masked, and the rows split over the
+    data axis on (2, 2)."""
+    for r, res in enumerate(_ranks(request, mesh)):
+        got = res[f"vocab ce {mesh}"]
+        label = (mesh, r)
+        assert got["loss_rel"] <= VOCAB_CE_TOL, (label, got["loss_rel"])
+        assert got["grad"] <= VOCAB_CE_TOL, (label, got["grad"])
+        assert got["calls"]["all_gather"] == 0, (label, got["calls"])
+        # the max, the sum of exp and the gold logit (and, on (2, 2), the
+        # numerator and count over the data axis)
+        assert got["calls"]["all_reduce"] == 3 + 2 * (mesh[0] > 1), label
+
+
+SPLIT_CASES = [(arch, mesh) for _, mesh in PARTS for arch in SPLIT_PRODUCTS]
+
+
+@pytest.mark.parametrize("arch,mesh", SPLIT_CASES,
+                         ids=[f"{a}-{d}x{m}" for a, (d, m) in SPLIT_CASES])
+def test_split_products_equal_one_devices(request, arch, mesh):
+    """The products whose weights every rank holds whole — ``wk``/``wv``
+    where the query heads split and the one KV head does not, Mamba-2's
+    packed ``in_proj`` — split over ``model`` and gathered: the products,
+    the input's gradient and this rank's whole weight's gradient equal
+    one device's within ``SPLIT_TOL`` of their largest entries."""
+    for r, res in enumerate(_ranks(request, mesh)):
+        got = res[f"split products {arch} {mesh}"]
+        label = (arch, mesh, r)
+        assert got["whole_weight"] and got["gathers"] > 0, (label, got)
+        for key in ("products", "grad_x", "grad_w"):
+            assert got[key] <= SPLIT_TOL, (label, key, got[key])
 
 
 def test_heads_that_divide_take_no_split(two_ranks, four_ranks):

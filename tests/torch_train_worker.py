@@ -18,7 +18,10 @@ against ``moe_block(data_shards=1)``), ``ckpt_memory`` (the host
 memory a rank adds while a sharded state is saved and restored onto
 the world), ``comm_shapes`` (each raw ``Comm`` collective's result
 shapes), ``tally`` (a sharded train step's collectives tallied as the
-dry run's ``DryComm`` tallies them) and ``fsdp_serve`` (prefill and
+dry run's ``DryComm`` tallies them), ``vocab_ce`` (the vocabulary-
+parallel loss of seeded logits against the whole logits' loss),
+``split_products`` (the whole-weight products split over ``model``
+and their gradients against one device's) and ``fsdp_serve`` (prefill and
 greedy decode on FSDP-sharded weights, or a decode on a cache split by
 rows, against one device's tokens and logits).
 The single-device references run
@@ -62,7 +65,7 @@ from repro_torch.distributed.sharding import (cache_sharding,  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import get_model, lm, params_from_jax  # noqa: E402
-from repro_torch.models import moe_ep  # noqa: E402
+from repro_torch.models import moe_ep, ssm  # noqa: E402
 from repro_torch.models.registry import empty_model  # noqa: E402
 from repro_torch.training import (clip_by_global_norm,  # noqa: E402
                                   init_train_state, make_train_step)
@@ -524,6 +527,108 @@ def collectives_case(case, mesh, rank):
     return out
 
 
+def vocab_ce_case(case, mesh, rank):
+    """The vocabulary-parallel loss (``lm.masked_ce`` on this rank's rows
+    and vocabulary block, the ``model`` axis's ``Comm``, inside a
+    context that sums over the data axes) against ``cross_entropy_loss``
+    on the whole seeded logits on one device: the loss's relative error
+    and the block's gradient against that block of the whole logits'
+    gradient, over the gradient's largest entry; the collectives the
+    loss made, by kind."""
+    logits = torch.from_numpy(case["logits"])
+    labels = torch.from_numpy(case["labels"])
+    want_x = logits.clone().requires_grad_(True)
+    want = lm.masked_ce(want_x, labels)
+    grad, = torch.autograd.grad(want, want_x)
+    comm = mesh.comm("model")
+    spec = (mesh.data_axes, None, "model")
+    x = shard_local(logits, spec, mesh).requires_grad_(True)
+    mine = shard_local(labels, (mesh.data_axes, None), mesh)
+    CALLS.clear()
+    with acts.activation_sharding(mesh, batch_divisible=True):
+        got = lm.masked_ce(x, mine, comm)
+        g, = torch.autograd.grad(got, x)
+    return {"loss_rel": abs(float(got) - float(want)) / abs(float(want)),
+            "grad": _leaf_err(g, grad, mesh, spec),
+            "calls": {k: CALLS.get(k, 0) for k in ("all_reduce",
+                                                    "all_gather")}}
+
+
+def split_products_case(case, mesh, rank):
+    """The products whose weights stay whole over ``model``, split over
+    the ranks (``lm.split_matmul``), against one device's on the same
+    seeded weights and input: a reduced attention whose KV heads do not
+    divide over ``model`` (``_proj_qkv`` entered through the copy-in, a
+    loss over this rank's query heads and their KV heads, so the ranks'
+    losses sum to one device's) and a reduced Mamba-2 block's packed
+    ``in_proj`` (z, xBC and dt consumed alike, one loss on every rank).
+    Returns each product's error over its largest entry and each input
+    and weight gradient's (this rank's slice of the weight)."""
+    cfg = _cfg(case)
+    full = get_model(cfg).init(torch.Generator().manual_seed(0))
+    local = shard_params(full, mesh, fsdp=False)
+    gen = torch.Generator().manual_seed(5)
+    comm = mesh.comm("model")
+    m, r = comm.size, comm.rank
+    out = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+
+    if cfg.family == "ssm":
+        name = "layers.0.in_proj"
+        x = torch.randn(2, 16, cfg.d_model, generator=gen)
+        outs = [torch.randn(2, 16, w, generator=gen)
+                for w in (cfg.d_inner, cfg.d_inner + 2 * cfg.ssm_groups
+                          * cfg.ssm_state, cfg.ssm_heads)]
+
+        def run(blk, x):
+            got = ssm._in_proj(blk, cfg, x)
+            return got, sum((a * c).sum() for a, c in zip(got, outs))
+        blocks = (full.layers[0], local.layers[0])
+    else:
+        name = "layers.0.attn.wk"
+        x = torch.randn(2, 16, cfg.d_model, generator=gen)
+        h, g = cfg.n_heads, cfg.n_heads // cfg.n_kv_heads
+        cs = [torch.randn(2, 16, h, cfg.dh, generator=gen)
+              for _ in range(3)]
+        pos = torch.arange(16)
+
+        def run(attn, x, heads=range(h)):
+            heads = torch.tensor(list(heads))
+            q, k, v = lm._proj_qkv(attn, cfg, acts.enter(x, getattr(
+                attn, "tp", None)), pos)
+            if q.shape[2] == h:
+                q = q.index_select(2, heads)
+            loss = sum((a * c.index_select(2, heads)).sum() for a, c in
+                       zip((q, *(t.index_select(2, heads // g)
+                                 for t in (k, v))), cs))
+            return (k, v), loss
+        blocks = (full.layers[0].attn, local.layers[0].attn)
+    whole, mine = blocks
+    params = dict(full.named_parameters())
+    w_full, w_mine = params[name], dict(local.named_parameters())[name]
+    for w in (w_full, w_mine):
+        w.requires_grad_(True)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    want, loss0 = run(whole, xs[0])
+    gx0, gw0 = torch.autograd.grad(loss0, [xs[0], w_full])
+    CALLS.clear()
+    if cfg.family == "ssm":
+        got, loss1 = run(mine, xs[1])
+    else:
+        per = h // m
+        got, loss1 = run(mine, xs[1], range(r * per, (r + 1) * per))
+    gx1, gw1 = torch.autograd.grad(loss1, [xs[1], w_mine])
+    out["products"] = max(rel(a, b) for a, b in zip(got, want))
+    out["grad_x"] = rel(gx1, gx0)
+    out["grad_w"] = _leaf_err(gw1, gw0, mesh, local.specs[name])
+    out["whole_weight"] = tuple(w_mine.shape) == tuple(w_full.shape)
+    out["gathers"] = CALLS.get("all_gather", 0) + CALLS.get(
+        "gather_blocks", 0)
+    return out
+
+
 def comm_shapes_case(case, mesh, rank):
     """Each raw collective of the ``model`` axis's ``Comm`` on the inputs
     ``case["calls"]`` names: (method, args) -> its result's shapes and
@@ -637,6 +742,9 @@ def main(spec_path, rank):
                                                           spec["ckpt"]),
              "comm_shapes": lambda c, m: comm_shapes_case(c, m, rank),
              "tally": lambda c, m: tally_case(c, m, rank),
+             "vocab_ce": lambda c, m: vocab_ce_case(c, m, rank),
+             "split_products": lambda c, m: split_products_case(c, m,
+                                                                rank),
              "fsdp_serve": lambda c, m: fsdp_serve_case(c, m, rank)}
     for case in spec["cases"]:
         try:
